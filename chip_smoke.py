@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch port serves DiT-image on one NVIDIA GPU.
+"""Quickest proof that the PyTorch port serves DiT-image and Mamba2 on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -10,15 +11,23 @@ Phases, one line each (any failure raises and exits non-zero):
    any engine starts (a first-use build inside a rank thread would
    outlast GFC's collective timeout).
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the serving path's full-width DIT_IMAGE shapes, fp32 and bf16, with
-   kernel, plain-version and one-PyTorch-call times from CUDA events.
+   its path's full-width shapes (DIT_IMAGE for K1-K3, the mamba2-1.3b
+   prefill for K4), fp32 and bf16, with kernel, plain-version and
+   one-PyTorch-call times from CUDA events.
 4. serve: ``ServingEngine(DIT_IMAGE, SP-4, cache_interval=2)`` at full
    width serves two 512 px and one 1024 px request; every request must
-   finish with finite pixels, through all three kernels, with both §11
-   refresh and hit steps.
+   finish with finite pixels, through K1-K3, with both §11 refresh and
+   hit steps.
 5. sp: one 512 px request at SP1 and SP4 (cache_interval=1) agree.
 6. cpu: on DIT_IMAGE.reduced() the card (kernels) and the CPU (plain
    versions) give the same pixels.
+7. lm: mamba2-1.3b at full width (48 layers, d_model 2048, seeded random
+   weights with Mamba2's published A/dt ranges) prefills 4 prompts of
+   2048 tokens in bf16 and decodes 32 tokens greedily through the
+   serve-loop steps: finite logits, K4 once per layer per prefill; then
+   in fp32 prefill + decode reproduce the teacher-forced forward.
+8. lm-cpu: on mamba2-1.3b.reduced() the card (K4) and the CPU (the
+   sequential plain version) give the same logits.
 
 The line before the last is the ``kernels`` JSON summary; the last line
 is ``{"ok": true, "device": {...}}``.  Exits 2 without CUDA.
@@ -26,6 +35,7 @@ is ``{"ok": true, "device": {...}}``.  Exits 2 without CUDA.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -39,17 +49,28 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.dit_models import DIT_IMAGE  # noqa: E402
 from repro_torch.core.scheduler import Decision, Policy  # noqa: E402
 from repro_torch.core.trajectory import ExecutionLayout, Request  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
+from repro_torch.serving import serve_loop  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12           # CUDA cores; the kernels use no TF32
 BUDGET = {torch.float32: 1e-5, torch.bfloat16: 3e-2}   # DESIGN.md §12
+# K4 vs the sequential recurrence: two summation orders over 2048 steps,
+# the JAX package's own kernel vs sequential bound (tests/test_kernels.py)
+SSD_BUDGET = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 PIXEL_BUDGET = 1e-4                # rel-L2 on decoded pixels
+MAMBA = get_config("mamba2-1.3b")
+LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 32
+LOGIT_BUDGET = 1e-3                # of the largest |logit|, fp32 decode
+LM_CPU_BUDGET = 1e-4               # rel-L2 on logits, card vs CPU
+DIT_KERNELS = ("fused_adaln", "attention", "splice_attention")
 SOURCES = {
     "fused_adaln": ("src/repro_torch/csrc/adaln.cu",
                     "src/repro/kernels/adaln.py:66"),
@@ -57,6 +78,7 @@ SOURCES = {
                   "src/repro/kernels/flash_attention.py:82"),
     "splice_attention": ("src/repro_torch/csrc/attention.cu",
                          "src/repro/kernels/splice.py:78"),
+    "ssd": ("src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd.py:65"),
 }
 
 
@@ -157,16 +179,24 @@ def _rand(shape, dtype, gen, scale=1.0):
     return (scale * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
 
 
-def _check(label, kernel, plain, dtype, results, timing=None):
+def _check(label, kernel, plain, dtype, results, timing=None, budget=BUDGET):
+    """Kernel against plain version: max abs error over max |plain|, per
+    output (a kernel may return a tuple), within ``budget[dtype]``."""
     out_k, out_p = kernel(), plain()
     torch.cuda.synchronize()
-    diff = (out_k.float() - out_p.float()).abs().max().item()
-    rel = diff / max(out_p.float().abs().max().item(), 1e-30)
-    ok = math.isfinite(rel) and rel <= BUDGET[dtype]
+    if not isinstance(out_k, tuple):
+        out_k, out_p = (out_k,), (out_p,)
+    diff = rel = 0.0
+    for k_, p_ in zip(out_k, out_p):
+        d = (k_.float() - p_.float()).abs().max().item()
+        diff = max(diff, d)
+        rel = max(rel, d / max(p_.float().abs().max().item(), 1e-30))
+    ok = math.isfinite(rel) and rel <= budget[dtype]
     line = (f"  {label} {str(dtype)[6:]}: max rel err {rel:.2e} "
-            f"(budget {BUDGET[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
+            f"(budget {budget[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
     if timing is not None:
-        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain, timing.get("plain_iters", 20))
         lib = timing.get("library")
         lib_ms = time_ms(lib) if lib is not None else None
         b_ms, b_by = bound_ms(timing["bytes"], timing["flops"])
@@ -181,7 +211,7 @@ def _check(label, kernel, plain, dtype, results, timing=None):
     print(line, flush=True)
     if not ok:
         raise AssertionError(f"{label}: kernel disagrees with its plain "
-                             f"version ({rel:.2e} > {BUDGET[dtype]:.0e})")
+                             f"version ({rel:.2e} > {budget[dtype]:.0e})")
 
 
 def phase_kernels() -> dict:
@@ -277,7 +307,71 @@ def phase_kernels() -> dict:
                    lambda o=offset: ref.splice_attention_ref(
                        q, ks_, vs_, kf, vf, offset=o),
                    dtype, results, timing)
+        _check_ssd(dtype, results)
     return results
+
+
+def ssd_inputs(b, l, h, p, n, dtype, gen):
+    """K4's inputs on the card, dt and A in Mamba2's published ranges.
+    At the JAX init (A = -1, dt near 0.7) exp(cum) underflows within one
+    128-row chunk, the carried-state term is exactly zero and a check
+    proves nothing about the state carry."""
+    dt, A = ssm.sample_dt_a((b, l, h), h, gen)
+    x = _rand((b, l, h, p), dtype, gen)
+    B, C = (_rand((b, l, n), dtype, gen) for _ in range(2))
+    return x, dt, A, B, C
+
+
+def ssd_flops(b, l, h, p, n, c) -> int:
+    """Operations the SSD function needs, two per multiply-add: per
+    (batch, chunk) of r rows the causal C·Bᵀ once (B and C have one
+    group), r(r+1)/2 · n; per head the causal scores·xb, r(r+1)/2 · p,
+    C·state, r·p·n (none in the first chunk, whose state is zero), and
+    the state update, r·p·n."""
+    total = 0
+    for k, l0 in enumerate(range(0, l, c)):
+        r = min(c, l - l0)
+        tri = r * (r + 1) // 2
+        total += tri * n + h * (tri * p + (2 if k else 1) * r * p * n)
+    return 2 * b * total
+
+
+def _check_ssd(dtype, results) -> None:
+    """K4 at the full-width mamba2-1.3b prefill (b=4, l=2048, h=64, p=64,
+    n=128, chunk=128); in fp32 also a ragged l (the forward's 2080) and
+    the reduced model's (16, 16, 16) with a ragged l."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    _, heads, _ = ssm.ssm_dims(MAMBA)
+    s = MAMBA.ssm
+    es = torch.finfo(dtype).bits // 8
+    cases = [(LM_BATCH, LM_PROMPT, heads, s.head_dim, s.state_dim, s.chunk)]
+    if dtype == torch.float32:
+        cases += [(LM_BATCH, LM_PROMPT + LM_DECODE, heads, s.head_dim,
+                   s.state_dim, s.chunk), (2, 40, 16, 16, 16, 16)]
+    for i, (b, l, h, p, n, c) in enumerate(cases):
+        x, dt, A, B, C = ssd_inputs(b, l, h, p, n, dtype, gen)
+        timing = None
+        if i == 0 and dtype == torch.float32:
+            timing = {
+                "bytes": (2 * x.numel() + 2 * B.numel()) * es
+                + (dt.numel() + h + b * h * p * n) * 4,
+                "flops": ssd_flops(b, l, h, p, n, c),
+                "plain_iters": 3, "summary": "ssd"}
+        _check(f"ssd b={b} l={l} h={h} (p, n, chunk)={(p, n, c)}",
+               lambda a=(x, dt, A, B, C), c=c: ops.ssd(*a, chunk=c),
+               lambda a=(x, dt, A, B, C): ref.ssd_ref(*a),
+               dtype, results, timing, SSD_BUDGET)
+    if dtype == torch.float32:
+        blocks, smem = ops.ssd_occupancy(s.head_dim, s.state_dim, s.chunk)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        grid = LM_BATCH * heads
+        waves = -(-grid // (blocks * sms))
+        results["ssd"]["occupancy"] = {"blocks_per_sm": blocks,
+                                       "smem_bytes": smem, "sms": sms,
+                                       "grid": grid, "waves": waves}
+        print(f"  ssd occupancy: {grid} blocks of 256 threads, {blocks} "
+              f"resident per SM ({smem / 1024:.1f} KB shared memory "
+              f"each), {sms} SMs: {waves} wave(s)", flush=True)
 
 
 def _serve(cfg, policy, reqs, *, cache_interval, device="cuda", setup=None,
@@ -327,7 +421,7 @@ def phase_serve() -> dict:
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     run = _serve(DIT_IMAGE, FixedSP(4), reqs, cache_interval=2)
-    counts = dict(ops.launches)
+    counts = {k: ops.launches[k] for k in DIT_KERNELS}
     del run["engine"]
     for r in reqs:
         px = run["pixels"][r.id]
@@ -388,17 +482,138 @@ def phase_cpu() -> None:
         raise AssertionError(f"CUDA vs CPU rel-L2 {err:.2e}")
 
 
+def _lm_run(model, cfg, prompt, steps, dtype, feed=None):
+    """Prefill ``prompt`` and decode ``steps`` tokens through the
+    serve-loop steps: greedily, or teacher-forced on ``feed``'s columns.
+    Returns the logits (b, 1 + steps, vocab), the tokens fed to decode
+    (b, steps) and the prefill and decode wall times."""
+    prefill = serve_loop.make_prefill_step(cfg, dtype=dtype)
+    step = serve_loop.make_serve_step(cfg, dtype=dtype)
+    b, s = prompt.shape
+    cache = ssm.init_cache(cfg, b, dtype=dtype, device=prompt.device)
+    sync = torch.cuda.synchronize if prompt.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    lg, cache = prefill(model, prompt, cache)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    logits, fed = [lg[:, 0]], []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        tok = (lg[:, -1].argmax(-1, keepdim=True) if feed is None
+               else feed[:, i:i + 1])
+        fed.append(tok)
+        pos = torch.full((b,), s + i, device=prompt.device)
+        lg, cache = step(model, tok, cache, pos)
+        logits.append(lg[:, 0])
+    sync()
+    t_decode = time.perf_counter() - t0
+    return (torch.stack(logits, 1), torch.cat(fed, 1), t_prefill,
+            t_decode)
+
+
+def phase_lm(smi: str) -> dict:
+    """The Mamba2 serving path at full width through K4; returns the
+    launch counts of its bf16 prefill + decode."""
+    cfg = MAMBA
+    held = torch.cuda.memory_allocated() / 2**30      # left by earlier phases
+    model = ssm.Mamba2(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    ssm.init_published_a_dt(model)
+    weights = torch.cuda.memory_allocated() / 2**30 - held
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    _lm_run(model, cfg, prompt, 1, torch.bfloat16)     # warm-up, uncounted
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    logits, fed, t_prefill, t_decode = _lm_run(model, cfg, prompt,
+                                               LM_DECODE, torch.bfloat16)
+    counts = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not torch.isfinite(logits).all() or logits.shape != (
+            LM_BATCH, LM_DECODE + 1, cfg.vocab_size):
+        raise AssertionError(f"lm: logits {tuple(logits.shape)} not all "
+                             f"finite")
+    if counts["ssd"] != cfg.num_layers or any(counts[k] for k in DIT_KERNELS):
+        raise AssertionError(f"lm: launches {counts}, expected ssd = "
+                             f"{cfg.num_layers} (one per layer, prefill)")
+    d_inner, heads, _ = ssm.ssm_dims(cfg)
+    print(f"lm: mamba2-1.3b full width ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {heads} SSD heads), bf16, batch {LM_BATCH}: "
+          f"prefill {LM_PROMPT} tokens {LM_BATCH * LM_PROMPT / t_prefill:.0f}"
+          f" tokens/s ({t_prefill * 1e3:.1f} ms); decode {LM_DECODE} tokens "
+          f"{t_decode / LM_DECODE * 1e3:.2f} ms/token (one step of "
+          f"{LM_BATCH} sequences); peak mem {peak:.2f} GiB ({held:.2f} "
+          f"held before the phase, {weights:.2f} of weights); launches "
+          f"{counts}; on {smi}", flush=True)
+
+    # fp32: prefill + decode (teacher-forced on the bf16 run's tokens)
+    # against the forward over the same 2080 tokens
+    before = ops.launches["ssd"]
+    got, _, _, _ = _lm_run(model, cfg, prompt, LM_DECODE, torch.float32,
+                           feed=fed)
+    with torch.inference_mode():
+        full, _ = ssm.forward(model, torch.cat([prompt, fed], 1), cfg,
+                              dtype=torch.float32)
+    want = full[:, LM_PROMPT - 1:]
+    del full
+    launched = ops.launches["ssd"] - before
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"lm: fp32 prefill + {LM_DECODE} decode steps vs the "
+          f"teacher-forced forward ({LM_PROMPT + LM_DECODE} tokens, K4 at "
+          f"l={LM_PROMPT} and at the ragged l={LM_PROMPT + LM_DECODE}, "
+          f"{launched} launches): max |diff| / max |logit| {err:.2e} "
+          f"(budget {LOGIT_BUDGET:.0e})", flush=True)
+    if not err <= LOGIT_BUDGET or launched != 2 * cfg.num_layers:
+        raise AssertionError(f"lm: decode vs forward {err:.2e}, "
+                             f"{launched} K4 launches")
+    del model, got, want
+    torch.cuda.empty_cache()
+    return {"ssd": counts["ssd"]}
+
+
+def phase_lm_cpu() -> None:
+    """mamba2-1.3b.reduced() with the same weights on the card (K4) and
+    on the CPU (plain versions): forward, prefill and decode logits."""
+    cfg = MAMBA.reduced()
+    cpu = ssm.Mamba2(cfg, device="cpu")
+    ssm.init_published_a_dt(cpu)
+    card = ssm.Mamba2(cfg)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(2))
+    out = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        dev = next(model.parameters()).device
+        t = toks.to(dev)
+        with torch.inference_mode():
+            full, _ = ssm.forward(model, t, cfg, dtype=torch.float32)
+        steps, _, _, _ = _lm_run(model, cfg, t[:, :32], 8, torch.float32,
+                                 feed=t[:, 32:])
+        out[name] = [full.cpu(), steps.cpu()]
+    err = max(rel_l2(a, b) for a, b in zip(out["card"], out["cpu"]))
+    print(f"lm-cpu: mamba2-1.3b.reduced() forward (40 tokens) and prefill "
+          f"32 + decode 8, card (K4) vs CPU (plain): logit rel-L2 "
+          f"{err:.2e} (budget {LM_CPU_BUDGET:.0e})", flush=True)
+    if not err <= LM_CPU_BUDGET:
+        raise AssertionError(f"lm-cpu: card vs CPU rel-L2 {err:.2e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
               "needs a CUDA device", file=sys.stderr)
         return 2
-    phase_device()
+    smi = phase_device()
     phase_build()
     results = phase_kernels()
     counts = phase_serve()
     phase_sp()
     phase_cpu()
+    gc.collect()                   # the DiT engines' reference cycles
+    torch.cuda.empty_cache()
+    counts.update(phase_lm(smi))
+    phase_lm_cpu()
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the serving path's time goes on one NVIDIA GPU.
 
-    python3 serve_profile.py
+    python3 serve_profile.py          # DiT-image serving
+    python3 serve_profile.py --lm     # mamba2-1.3b prefill and decode
 
 Serves the requests of chip_smoke.py's serve phase (DIT_IMAGE at full
 width, SP-4 on four rank threads, cache_interval=2, steps=4: two 512 px
@@ -13,12 +14,19 @@ card's busy time (the sum of its kernel and copy times: every rank shares
 one stream, so they do not overlap) and idle share, and the busy time by
 category: the port's kernels, matrix products, host<->device copies and
 the rest, with the largest kernels of each.
+
+With ``--lm`` it profiles chip_smoke.py's lm phase instead: mamba2-1.3b
+at full width (seeded, livened weights), bf16, batch 4: one prefill of
+2048 tokens and, separately, 8 greedy decode steps, each after a warm-up
+run of the same work.
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import contextlib
 import sys
+import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -26,25 +34,95 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke as smoke
 from repro_torch.configs.dit_models import DIT_IMAGE
 from repro_torch.kernels import build
+from repro_torch.models import ssm
+from repro_torch.serving import serve_loop
 
 
 def category(name: str) -> str:
     low = name.lower()
     if "gfdit" in low:
-        return "port kernels (adaLN, attention, splice)"
+        return "port kernels (csrc/)"
     if "memcpy" in low or "memset" in low:
         return "host<->device copies"
-    if "gemm" in low or "cutlass" in low or "sm90_xmma" in low:
+    if any(k in low for k in ("gemm", "gemv", "cutlass", "sm90_xmma",
+                              "nvjet")):
         return "matrix products (cuBLAS)"
     return "other (elementwise, reductions, ...)"
 
 
+def report(prof, wall: float) -> None:
+    """Device busy time and idle share over ``wall``, by category."""
+    by_cat = collections.defaultdict(float)
+    top = collections.defaultdict(list)
+    for avg in prof.key_averages():
+        us = avg.self_device_time_total
+        if us <= 0:
+            continue
+        cat = category(avg.key)
+        by_cat[cat] += us
+        top[cat].append((us, avg.count, avg.key))
+    busy = sum(by_cat.values()) / 1e6
+    print(f"device busy {busy:.4f} s of {wall:.4f} s wall: idle share "
+          f"{1 - busy / wall:.3f}")
+    for cat, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
+        print(f"  {cat}: {us / 1e6:.4f} s ({us / 1e6 / wall:.3f} of wall)")
+        for k_us, count, name in sorted(top[cat], reverse=True)[:3]:
+            print(f"      {k_us / 1e6:.4f} s  {count:6d} x  {name[:90]}")
+
+
+def profile_lm(decode_steps: int = 8) -> None:
+    cfg = smoke.MAMBA
+    model = ssm.Mamba2(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    ssm.init_published_a_dt(model)
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (smoke.LM_BATCH, smoke.LM_PROMPT),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    prefill = serve_loop.make_prefill_step(cfg)
+    step = serve_loop.make_serve_step(cfg)
+
+    def run_prefill():
+        return prefill(model, prompt, ssm.init_cache(cfg, smoke.LM_BATCH))
+
+    def run_decode(cache, tok):
+        for i in range(decode_steps):
+            pos = torch.full((smoke.LM_BATCH,), smoke.LM_PROMPT + i,
+                             device="cuda")
+            lg, cache = step(model, tok, cache, pos)
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+        return cache, tok
+
+    for label in ("prefill", f"{decode_steps} decode steps"):
+        for run in ("warm-up", "profiled"):
+            lg, cache = run_prefill()          # the cache decode starts from
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            with prof if run == "profiled" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                if label == "prefill":
+                    run_prefill()
+                else:
+                    run_decode(cache, tok)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            print(f"lm {label} ({run}): wall {wall:.4f} s", flush=True)
+        report(prof, wall)
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--lm", action="store_true",
+                        help="profile the mamba2-1.3b prefill and decode")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("serve_profile: needs a CUDA device", file=sys.stderr)
         return 2
     smoke.phase_device()
     build.load()
+    if args.lm:
+        profile_lm()
+        return 0
     prof = profile(activities=[ProfilerActivity.CUDA])
     for run in ("warm-up", "profiled"):
         reqs = smoke.serve_requests()
@@ -57,23 +135,7 @@ def main() -> int:
         lat = {rid: round(t, 3) for rid, t in res["latency"].items()}
         print(f"{run}: {len(lat)} of {len(reqs)} done, wall {wall:.3f} s, "
               f"latency {lat}", flush=True)
-
-    by_cat = collections.defaultdict(float)
-    top = collections.defaultdict(list)
-    for avg in prof.key_averages():
-        us = avg.self_device_time_total
-        if us <= 0:
-            continue
-        cat = category(avg.key)
-        by_cat[cat] += us
-        top[cat].append((us, avg.count, avg.key))
-    busy = sum(by_cat.values()) / 1e6
-    print(f"device busy {busy:.3f} s of {wall:.3f} s wall: idle share "
-          f"{1 - busy / wall:.3f}")
-    for cat, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
-        print(f"  {cat}: {us / 1e6:.3f} s ({us / 1e6 / wall:.3f} of wall)")
-        for k_us, count, name in sorted(top[cat], reverse=True)[:3]:
-            print(f"      {k_us / 1e6:.3f} s  {count:6d} x  {name[:90]}")
+    report(prof, wall)
     return 0
 
 

@@ -24,16 +24,15 @@ from repro_torch.diffusion.adapters import FieldView, field_view
 
 def np_dtype(name: str) -> np.dtype:
     """Resolve a FieldSpec dtype name to a numpy dtype.  ``bfloat16`` is
-    not a native numpy type; it comes from ml_dtypes (a jax dependency,
-    already in the environment)."""
-    try:
-        return np.dtype(name)
-    except TypeError:
-        try:
-            import ml_dtypes
-            return np.dtype(getattr(ml_dtypes, name))
-        except (ImportError, AttributeError):
-            return np.dtype(np.float32)
+    not a native numpy type, and the port does not migrate it: every DiT
+    field is float32.  Moving a bfloat16 field as float32 would silently
+    change its values' type, so it raises until the slice that first
+    moves one."""
+    if name == "bfloat16":
+        raise NotImplementedError(
+            "migrating a bfloat16 field is a later slice of the port "
+            "(the DiT serving path moves float32 fields only)")
+    return np.dtype(name)
 
 
 @dataclass(frozen=True)

@@ -31,6 +31,7 @@ _lib = None
 build_info: dict = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # x, shift, scale, gate, residual, out, rows, n, d, ln, dtype, device,
     # stream
@@ -41,6 +42,11 @@ _SIGNATURES = {
     # q, k_stale, v_stale, k_fresh, v_fresh, out, B, Sq, Sk, L, H, KV, D,
     # offset, sm_scale, dtype, device, stream
     "gfdit_splice_attention": [_P] * 6 + [_I] * 8 + [_F, _I, _I, _P],
+    # x, dt, A, B, C, y, state, batch, L, H, P, N, chunk, dtype, device,
+    # stream
+    "gfdit_ssd": [_P] * 7 + [_I] * 8 + [_P],
+    # P, N, chunk, dtype, device -> blocks per SM, shared memory bytes
+    "gfdit_ssd_occupancy": [_I] * 5 + [_IP, _IP],
 }
 
 

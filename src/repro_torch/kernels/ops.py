@@ -12,6 +12,7 @@ run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 import threading
@@ -25,11 +26,15 @@ from repro_torch.kernels import build, ref
 HEAD_DIMS = (16, 32, 64, 128, 256)
 #: widest row the adaLN kernel holds in registers (256 threads x 16)
 MAX_ADALN_DIM = 4096
+#: (head_dim p, state n, chunk) the SSD kernel is instantiated for
+SSD_SHAPES = ((64, 128, 128), (16, 16, 16), (16, 16, 32), (32, 16, 64),
+              (64, 32, 128))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _count_lock = threading.Lock()
 #: kernel launches per wrapper since the last :func:`reset_launches`
-launches = {"fused_adaln": 0, "attention": 0, "splice_attention": 0}
+launches = {"fused_adaln": 0, "attention": 0, "splice_attention": 0,
+            "ssd": 0}
 
 
 def reset_launches() -> None:
@@ -191,3 +196,52 @@ def fused_adaln(x, shift=None, scale=None, gate=None, residual=None, *,
             ptr(gate), ptr(residual), out.data_ptr(), b * n, n, d, int(ln),
             dtype, x.device.index, _stream(x))
     return out
+
+
+def ssd(x, dt, A, B, C, *, chunk: int = 128):
+    """Mamba2 SSD chunked scan.  x: (b, l, h, p); dt: (b, l, h) and
+    A: (h,) fp32; B/C: (b, l, n) of x's dtype (fp32 or bf16).
+
+    Returns (y (b, l, h, p) in x's dtype, final_state (b, h, p, n) fp32).
+    The kernel masks a ragged last chunk, so ``l`` need not be a multiple
+    of ``chunk``; the CPU version is the sequential recurrence."""
+    if not _on_card(x, dt, A, B, C):
+        return ref.ssd_ref(x, dt, A, B, C, chunk=chunk)
+    name = "ssd"
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    _check(name, "x", x, (b, l, h, p), x)
+    _check(name, "B", B, (b, l, n), x)
+    _check(name, "C", C, (b, l, n), x)
+    _check(name, "dt", dt, (b, l, h), A)
+    _check(name, "A", A, (h,), A)
+    if A.dtype != torch.float32:
+        raise ValueError(f"{name}: dt and A must be float32, got {A.dtype}")
+    if (p, n, chunk) not in SSD_SHAPES or b * l * h == 0:
+        raise ValueError(f"{name}: unsupported (p, n, chunk)={(p, n, chunk)} "
+                         f"with b={b}, l={l}, h={h}; the kernel takes "
+                         f"{SSD_SHAPES}")
+    dtype = _dtype_code(name, x)
+    y = torch.empty_like(x)
+    state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    lib = build.load()
+    _launch(name, lib.gfdit_ssd, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            B.data_ptr(), C.data_ptr(), y.data_ptr(), state.data_ptr(), b, l,
+            h, p, n, chunk, dtype, x.device.index, _stream(x))
+    return y, state
+
+
+def ssd_occupancy(p: int, n: int, chunk: int, dtype=torch.float32,
+                  device: int = 0) -> tuple[int, int]:
+    """(resident blocks per SM, dynamic shared-memory bytes) of the SSD
+    kernel at ``(p, n, chunk)``, from the CUDA occupancy calculator."""
+    if (p, n, chunk) not in SSD_SHAPES:
+        raise ValueError(f"ssd: unsupported (p, n, chunk)={(p, n, chunk)}")
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    lib = build.load()
+    err = lib.gfdit_ssd_occupancy(p, n, chunk, _DTYPES[dtype], device,
+                                  ctypes.byref(blocks), ctypes.byref(smem))
+    if err != 0:
+        msg = lib.gfdit_error_string(err).decode()
+        raise RuntimeError(f"ssd_occupancy: {msg} ({err})")
+    return blocks.value, smem.value

@@ -60,3 +60,27 @@ def splice_attention_ref(q, k_stale, v_stale, k_fresh, v_fresh, *,
     k[:, offset:offset + n] = k_fresh.to(k.dtype)
     v[:, offset:offset + n] = v_fresh.to(v.dtype)
     return attention_ref(q, k, v, causal=causal)
+
+
+def ssd_ref(x, dt, A, B, C, *, chunk: int = 0):
+    """Sequential (non-chunked) SSD recurrence, in fp32.
+
+    x: (b, l, h, p); dt: (b, l, h); A: (h,); B/C: (b, l, n).
+    Returns (y (b, l, h, p) in x's dtype, final_state (b, h, p, n) fp32).
+    ``chunk`` is accepted for the kernel's signature and ignored: the
+    recurrence has no chunks, so any ``l`` is taken.
+    """
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    out_dtype = x.dtype
+    x, dt, A, B, C = (t.float() for t in (x, dt, A, B, C))
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(l):
+        dA = torch.exp(dt[:, t] * A[None])                          # (b,h)
+        dBx = torch.einsum("bn,bhp->bhpn", B[:, t],
+                           x[:, t] * dt[:, t, :, None])
+        state = state * dA[..., None, None] + dBx
+        ys.append(torch.einsum("bn,bhpn->bhp", C[:, t], state))
+    y = torch.stack(ys, dim=1) if ys else x.new_zeros((b, 0, h, p))
+    return y.to(out_dtype), state

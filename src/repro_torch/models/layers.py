@@ -1,5 +1,5 @@
-"""Shared model building blocks: the serving path's subset of
-``repro/models/layers.py`` in PyTorch.
+"""Shared model building blocks: the subset of ``repro/models/layers.py``
+that the DiT serving path and the Mamba2 LM path use, in PyTorch.
 
 Parameters are ``nn.Module`` attributes named after the JAX tree keys and
 kept in the JAX einsum layouts (``wq`` is (d, H, hd), ``wo`` is
@@ -44,6 +44,10 @@ def pones(shape, device) -> nn.Parameter:
 # ---------------------------------------------------------------------------
 # Normalization and rotary embeddings
 # ---------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, device) -> nn.Parameter:
+    return pones((d,), device)
+
 
 def rmsnorm(w, x, eps: float = 1e-6):
     dt = x.dtype
@@ -160,3 +164,11 @@ def embed(p: Embedding, tokens, cfg: ModelConfig, dtype):
     if cfg.tie_embeddings:
         out = out * (cfg.d_model ** 0.5)
     return out
+
+
+def unembed(p: Embedding, x, cfg: ModelConfig):
+    """fp32 logits: the weight is cast to x's dtype and the product is
+    accumulated and returned in fp32, as JAX's ``preferred_element_type``
+    does (a bf16 x bf16 product is exact in fp32)."""
+    w = p.unembed if hasattr(p, "unembed") else p.tok.T
+    return x.float() @ w.to(x.dtype).float()

@@ -7,20 +7,26 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.dit_models import DIT_IMAGE  # noqa: E402
+from repro_torch.core import migration  # noqa: E402
 from repro_torch.core.policies import make_policy  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
 from repro_torch.serving import engine as torch_engine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-# an import of jax, or of the JAX package itself (not repro_torch)
+# an import of jax or ml_dtypes (a JAX dependency), or of the JAX package
+# itself (not repro_torch)
 FORBIDDEN = re.compile(
-    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\s|,|\.|$)"
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+ml_dtypes\b"
+    r"|from\s+ml_dtypes\b|import\s+repro(\s|,|\.|$)"
     r"|from\s+repro(\.|\s+import\b))", re.M)
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -63,6 +69,9 @@ def test_no_source_imports_jax_or_the_jax_package(path):
     ("import repro_torch.core", False),
     ("from repro_torch.kernels import ops", False),
     ("import jaxlib_like_name_but_not", False),
+    ("import ml_dtypes", True), ("        import ml_dtypes", True),
+    ("from ml_dtypes import bfloat16", True),
+    ("import ml_dtypes_like_name_but_not", False),
 ])
 def test_forbidden_import_pattern(line, forbidden):
     assert bool(FORBIDDEN.search(line)) == forbidden
@@ -73,6 +82,24 @@ def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         torch_engine.ServingEngine(DIT_IMAGE.reduced(),
                                    make_policy("edf", 2), 2)
+
+
+def test_mamba2_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("mamba2-1.3b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ssm.Mamba2(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ssm.init_cache(cfg, 1)
+    assert ssm.init_cache(cfg, 1, device="cpu")["blocks"]["state"].is_cpu
+
+
+def test_migration_refuses_a_bfloat16_field():
+    """No silent float32: a bfloat16 field waits for the slice that
+    moves one."""
+    with pytest.raises(NotImplementedError, match="later slice"):
+        migration.np_dtype("bfloat16")
+    assert migration.np_dtype("float32") == np.float32
 
 
 @pytest.mark.parametrize("kwargs", [dict(telemetry=object()),
@@ -93,7 +120,7 @@ class _CudaLooking(torch.Tensor):
 
 
 @pytest.mark.parametrize("wrapper", ["attention", "splice_attention",
-                                     "fused_adaln"])
+                                     "fused_adaln", "ssd"])
 def test_cuda_tensor_without_kernels_raises(monkeypatch, tmp_path, wrapper):
     """With no kernel library and no nvcc, a CUDA tensor raises instead
     of being computed by the plain version."""
@@ -112,6 +139,8 @@ def test_cuda_tensor_without_kernels_raises(monkeypatch, tmp_path, wrapper):
             t(1, 4, 2, 32), t(1, 8, 2, 32), t(1, 8, 2, 32), t(1, 4, 2, 32),
             t(1, 4, 2, 32), offset=4),
         "fused_adaln": lambda: ops.fused_adaln(t(1, 8, 64)),
+        "ssd": lambda: ops.ssd(t(1, 32, 2, 16), t(1, 32, 2), t(2),
+                               t(1, 32, 16), t(1, 32, 16), chunk=16),
     }
     before = dict(ops.launches)
     with pytest.raises(RuntimeError, match="nvcc"):

@@ -4,16 +4,22 @@ These need a CUDA device and nvcc (the kernels have no CPU mode) and skip
 elsewhere; the JAX side is not imported, so they run on a machine without
 JAX:  ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Tolerance: max abs error over max abs reference, <= 1e-5 in fp32 and
-<= 3e-2 in bf16 (DESIGN.md §12).
+<= 3e-2 in bf16 (DESIGN.md §12); the SSD scan against its sequential
+plain version <= 1e-4 in fp32 (two summation orders over the sequence,
+the JAX package's own kernel vs sequential bound in
+``tests/test_kernels.py``).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
 
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 ATTN_CASES = [
     # (b, sq, sk, h, kv, d, causal)
     (1, 37, 77, 4, 4, 32, False),      # odd N against Lt=77 (cross)
@@ -45,12 +51,12 @@ def _card(rng, shape, dtype, device, scale=1.0):
     return torch.from_numpy(a).to(device, getattr(torch, dtype))
 
 
-def _close(got, want, dtype):
+def _close(got, want, dtype, tol=TOL):
     torch.cuda.synchronize()
     got, want = got.double(), want.double()
     assert got.shape == want.shape
     err = ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
-    assert err <= TOL[dtype], (err, TOL[dtype])
+    assert err <= tol[dtype], (err, tol[dtype])
 
 
 @pytest.mark.cuda
@@ -115,3 +121,66 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="float16"):
         h = q.half()
         ops.attention(h, h, h)
+
+
+def _ssd_inputs(rng, b, l, h, p, n, dtype, device):
+    """dt and A in Mamba2's published ranges (``ssm.sample_dt_a``), so the
+    state carried across chunks does not underflow to zero."""
+    gen = torch.Generator(device=device).manual_seed(int(rng.integers(2**31)))
+    dt, A = ssm.sample_dt_a((b, l, h), h, gen)
+    x = _card(rng, (b, l, h, p), dtype, device)
+    B, C = (_card(rng, (b, l, n), dtype, device) for _ in range(2))
+    return x, dt, A, B, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p,n,chunk", ops.SSD_SHAPES)
+@pytest.mark.parametrize("ragged", [False, True])
+def test_cuda_ssd_kernel(cuda_device, p, n, chunk, dtype, ragged):
+    rng = np.random.default_rng(p + n + chunk)
+    b, h = 2, 3
+    l = 3 * chunk + (chunk // 2 + 1 if ragged else 0)
+    x, dt, A, B, C = _ssd_inputs(rng, b, l, h, p, n, dtype, cuda_device)
+    before = ops.launches["ssd"]
+    y, st = ops.ssd(x, dt, A, B, C, chunk=chunk)
+    assert ops.launches["ssd"] == before + 1
+    assert y.dtype == x.dtype and st.dtype == torch.float32
+    yr, sr = ref.ssd_ref(x, dt, A, B, C)
+    _close(y, yr, dtype, SSD_TOL)
+    _close(st, sr, dtype, SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    rng = np.random.default_rng(0)
+    x, dt, A, B, C = _ssd_inputs(rng, 1, 32, 2, 16, 16, "float32",
+                                 cuda_device)
+    with pytest.raises(ValueError, match="unsupported"):
+        ops.ssd(x, dt, A, B, C, chunk=8)
+    with pytest.raises(ValueError, match="float32"):
+        ops.ssd(x, dt.double(), A, B, C, chunk=16)
+    with pytest.raises(ValueError, match="B is"):
+        ops.ssd(x, dt, A, B.bfloat16(), C, chunk=16)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba2_reduced_matches_the_cpu(cuda_device):
+    """mamba2-1.3b.reduced() with the same livened weights: the card (K4)
+    against the CPU (the sequential plain version), fp32 logits."""
+    cfg = get_config("mamba2-1.3b").reduced()
+    cpu = ssm.Mamba2(cfg, device="cpu")
+    ssm.init_published_a_dt(cpu, seed=3)
+    rng = np.random.default_rng(3)
+    card = ssm.Mamba2(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
+    before = ops.launches["ssd"]
+    with torch.inference_mode():
+        want, _ = ssm.forward(cpu, toks, cfg, dtype=torch.float32)
+        got, _ = ssm.forward(card, toks.to(cuda_device), cfg,
+                             dtype=torch.float32)
+    assert ops.launches["ssd"] == before + cfg.num_layers
+    err = (torch.linalg.vector_norm(got.cpu().double() - want.double())
+           / torch.linalg.vector_norm(want.double())).item()
+    assert err <= 1e-4, err
