@@ -29,11 +29,25 @@ Phases, one line each (any failure raises and exits non-zero):
 8. lm-cpu: on mamba2-1.3b.reduced() the card (K4) and the CPU (the
    sequential plain version) give the same logits.
 
+Kernel times (phase 3): ``ms`` is device time, from CUDA-event timing of
+replays of a CUDA graph that holds ``iters`` calls, so it leaves out the
+host cost of each launch; ``call_ms`` is the same calls made eagerly from
+Python between two events, what a Python caller pays per call; ``host_us``
+is the host's cost of one wrapper call (many calls, no synchronise).  The
+library call is timed both ways too.
+
 The line before the last is the ``kernels`` JSON summary; the last line
 is ``{"ok": true, "device": {...}}``.  Exits 2 without CUDA.
+
+    python3 chip_smoke.py --kernels-only [--src DIR] [--json FILE]
+
+runs phases 1-3 only, importing ``repro_torch`` from ``DIR`` (default:
+``src`` beside this script; another checkout's ``src`` times that tree's
+kernels with this script's timing) and writing every timed case to FILE.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import gc
 import json
@@ -47,7 +61,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+def _src_dir() -> Path:
+    """``--src DIR`` if given (read before the imports below), else the
+    ``src`` beside this script."""
+    if "--src" in sys.argv[1:-1]:
+        return Path(sys.argv[sys.argv.index("--src") + 1]).resolve()
+    return Path(__file__).resolve().parent / "src"
+
+
+sys.path.insert(0, str(_src_dir()))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.dit_models import DIT_IMAGE  # noqa: E402
@@ -105,9 +128,11 @@ def rel_l2(a, b) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
-def time_ms(fn, iters: int = 20) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events,
-    after warm-up; inputs stay warm in L2 as on the serving path)."""
+def call_ms(fn, iters: int = 20) -> float:
+    """Mean time of ``iters`` eager Python calls of ``fn`` between two
+    CUDA events, after warm-up: the device time, or the host's cost of
+    enqueueing the calls where that is longer (inputs stay warm in L2, as
+    on the serving path)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -119,6 +144,56 @@ def time_ms(fn, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, replays: int = 10) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls are captured in
+    one CUDA graph (after a warm-up on a side stream) and ``replays``
+    back-to-back replays are timed with CUDA events, so no per-call host
+    work is counted.  Fails unless a replay rewrites the captured output
+    (a launch that escaped the capture would leave it as it was)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            out = fn()
+    out = out[0] if isinstance(out, tuple) else out
+    graph.replay()
+    torch.cuda.synchronize()
+    want = out.clone()
+    out.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        raise AssertionError("a graph replay did not rewrite its output")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * iters)
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call of ``fn`` over ``calls`` calls with no
+    synchronise between them (the device runs behind; keep calls x device
+    time short enough that the launch queue never fills)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -160,19 +235,51 @@ def phase_device() -> str:
     return smi
 
 
+# the DiT path's instantiations (fp32, d_model 1536, head dim 64), by
+# their mangled-name prefixes
+WATCHED = {"attn_kernel<float, 64>": "_ZN5gfdit11attn_kernelIfLi64E",
+           "adaln_kernel<float, float4 x 12>":
+               "_ZN5gfdit12adaln_kernelIfLi4ELi12E"}
+
+
+def ptxas_report(log: str) -> dict:
+    """Per compiled kernel (mangled name): registers, spill bytes (stores
+    + loads) and stack frame bytes, from ``nvcc -Xptxas -v``."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+            out[fn] = {"registers": None, "spill_bytes": 0, "stack": 0}
+        elif fn and "bytes stack frame" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split()
+                    if w.isdigit()]
+            out[fn]["stack"], out[fn]["spill_bytes"] = nums[0], nums[1] + nums[2]
+        elif fn and "Used" in ln and "registers" in ln:
+            out[fn]["registers"] = int(ln.split("Used")[1].split()[0])
+    return out
+
+
 def phase_build() -> None:
     """Build and load the kernels; ptxas's full report (registers, shared
-    memory, spills) is written beside the library as a ``.log`` file."""
+    memory, spills) is written beside the library as a ``.log`` file.
+    Prints every kernel that spills and the DiT path's instantiations."""
     t0 = time.perf_counter()
     build.load()
     seconds = time.perf_counter() - t0
-    log = build.build_info.get("ptxas", "")
-    spills = [ln.strip() for ln in log.splitlines()
-              if "spill" in ln and not ln.strip().startswith("0 bytes")
-              and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    report = ptxas_report(build.build_info.get("ptxas", ""))
+    spills = sorted(f for f, r in report.items() if r["spill_bytes"])
     print(f"build: {seconds:.1f} s ({build.build_info.get('seconds', 0):.1f} s"
-          f" nvcc), {len(spills)} ptxas lines with spills (report in "
+          f" nvcc), {len(report)} kernels, {len(spills)} spill (report in "
           f"{build.BUILD_DIR}/libgfdit-*.log)", flush=True)
+    for f in spills:
+        print(f"  spills: {f} {report[f]}", flush=True)
+    for label, prefix in WATCHED.items():
+        hits = [r for f, r in report.items() if f.startswith(prefix)]
+        if hits:
+            regs = sorted({r["registers"] for r in hits})
+            spill = max(r["spill_bytes"] for r in hits)
+            print(f"  {label}: {len(hits)} instantiation(s), registers "
+                  f"{regs}, spill bytes {spill}", flush=True)
 
 
 def _rand(shape, dtype, gen, scale=1.0):
@@ -195,19 +302,28 @@ def _check(label, kernel, plain, dtype, results, timing=None, budget=BUDGET):
     line = (f"  {label} {str(dtype)[6:]}: max rel err {rel:.2e} "
             f"(budget {budget[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
     if timing is not None:
-        ms = time_ms(kernel)
-        plain_ms = time_ms(plain, timing.get("plain_iters", 20))
+        ms, cms = device_ms(kernel), call_ms(kernel)
+        hus = host_us(kernel, timing.get("host_calls", 1000))
+        plain_ms = call_ms(plain, timing.get("plain_iters", 20))
         lib = timing.get("library")
-        lib_ms = time_ms(lib) if lib is not None else None
+        lib_ms = device_ms(lib) if lib is not None else None
+        lib_cms = call_ms(lib) if lib is not None else None
         b_ms, b_by = bound_ms(timing["bytes"], timing["flops"])
-        line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                 f"library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
-                 f", bound {b_ms:.4f} ms ({b_by})")
+
+        def fmt(t):
+            return "-" if t is None else f"{t:.4f} ms"
+        line += (f"; kernel {ms:.4f} ms device, {cms:.4f} ms a call, "
+                 f"{hus:.1f} us host; plain {plain_ms:.4f} ms; library "
+                 f"{fmt(lib_ms)} device, {fmt(lib_cms)} a call; bound "
+                 f"{b_ms:.4f} ms ({b_by})")
+        entry = {"max_abs_err": diff, "ms": ms, "call_ms": cms,
+                 "host_us": hus, "plain_ms": plain_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": lib_ms,
+                 "library_call_ms": lib_cms, "case": label,
+                 "dtype": str(dtype)[6:]}
+        results.setdefault("timed", []).append(entry)
         if timing.get("summary"):
-            results[timing["summary"]] = {
-                "max_abs_err": diff, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                "case": label}
+            results[timing["summary"]] = entry
     print(line, flush=True)
     if not ok:
         raise AssertionError(f"{label}: kernel disagrees with its plain "
@@ -238,7 +354,7 @@ def phase_kernels() -> dict:
             }
             for vname, kw in variants.items():
                 timing = None
-                if n == 1024:
+                if n == 1024 or vname == "mod_norm":
                     rows = 2 + ("residual" in kw)       # x, out, residual
                     mod_rows = len({"shift", "scale", "gate"} & set(kw))
                     timing = {"bytes": (rows * n + mod_rows) * d_model * es,
@@ -250,7 +366,7 @@ def phase_kernels() -> dict:
                         timing["library"] = (
                             lambda x=x, w=w, b=b: F.layer_norm(
                                 x, (d_model,), w, b, eps=1e-6))
-                        if fp32:
+                        if fp32 and n == 1024:
                             timing["summary"] = "fused_adaln"
                 _check(f"adaln {vname} N={n} D={d_model}",
                        lambda x=x, kw=kw: ops.fused_adaln(x, **kw),
@@ -266,21 +382,33 @@ def phase_kernels() -> dict:
             ("causal", (1, 1024, heads, hd), (1, 1024, heads, hd), True),
             ("gqa H=24 KV=6", (1, 1000, heads, hd), (1, 1000, 6, hd), False),
         ]
+        if fp32 and hasattr(ops, "attention_occupancy"):
+            blocks, smem = ops.attention_occupancy(hd)
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            bq = 64 if hd <= 128 else 32
+            grid = -(-1024 // bq) * heads
+            print(f"  attention occupancy d={hd}: {grid} blocks of 128 "
+                  f"threads at Sq=1024, {blocks} resident per SM "
+                  f"({smem / 1024:.1f} KB shared memory each), {sms} SMs: "
+                  f"{grid / (blocks * sms):.2f} waves", flush=True)
+            results["attention_occupancy"] = {
+                "blocks_per_sm": blocks, "smem_bytes": smem, "sms": sms,
+                "grid": grid}
         for label, qs, ks, causal in cases:
             q, k, v = (_rand(s, dtype, gen) for s in (qs, ks, ks))
             b, sq, h, d = qs
             sk = ks[1]
             pairs = sq * (sq + 1) // 2 if causal else sq * sk
             timing = None
-            if label == "self":
+            if label in ("self", "cross Lt=77", "text-encoder d=256"):
                 timing = {
                     "bytes": (2 * q.numel() + k.numel() + v.numel()) * es,
-                    "flops": 4 * b * h * d * pairs,
+                    "flops": 4 * b * h * d * pairs, "host_calls": 200,
                     "library": lambda q=q, k=k, v=v:
                         F.scaled_dot_product_attention(
                             q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2))}
-                if fp32:
+                if fp32 and label == "self":
                     timing["summary"] = "attention"
             _check(f"attention {label} q{qs} kv{ks}",
                    lambda q=q, k=k, v=v, c=causal: ops.attention(
@@ -298,7 +426,8 @@ def phase_kernels() -> dict:
             if offset == 2048:
                 timing = {"bytes": (2 * q.numel() + ks_.numel()
                                     + vs_.numel()) * es,
-                          "flops": 4 * heads * hd * 1024 * 4096}
+                          "flops": 4 * heads * hd * 1024 * 4096,
+                          "host_calls": 200}
                 if fp32:
                     timing["summary"] = "splice_attention"
             _check(f"splice offset={offset} q(1,1024) stale(1,4096)",
@@ -356,7 +485,7 @@ def _check_ssd(dtype, results) -> None:
                 "bytes": (2 * x.numel() + 2 * B.numel()) * es
                 + (dt.numel() + h + b * h * p * n) * 4,
                 "flops": ssd_flops(b, l, h, p, n, c),
-                "plain_iters": 3, "summary": "ssd"}
+                "plain_iters": 3, "host_calls": 200, "summary": "ssd"}
         _check(f"ssd b={b} l={l} h={h} (p, n, chunk)={(p, n, c)}",
                lambda a=(x, dt, A, B, C), c=c: ops.ssd(*a, chunk=c),
                lambda a=(x, dt, A, B, C): ref.ssd_ref(*a),
@@ -600,6 +729,13 @@ def phase_lm_cpu() -> None:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="run the device, build and kernels phases only")
+    parser.add_argument("--src", help="import repro_torch from this src "
+                        "directory (default: the one beside this script)")
+    parser.add_argument("--json", help="write every timed kernel case here")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
               "needs a CUDA device", file=sys.stderr)
@@ -607,6 +743,13 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     results = phase_kernels()
+    if args.json:
+        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json).write_text(json.dumps(
+            {"card": smi, "src": str(_src_dir()),
+             "timed": results["timed"]}, indent=1))
+    if args.kernels_only:
+        return 0
     counts = phase_serve()
     phase_sp()
     phase_cpu()
@@ -620,9 +763,11 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "call_ms": r["call_ms"], "host_us": r["host_us"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        "library_call_ms": r["library_call_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,30 +12,57 @@
 // the ragged q and k edges are masked inside the kernel, so no caller pads.
 //
 // Bound on the card: operations.  Per (query, key) pair the kernel does 2d
-// flops for QK^T and 2d for PV in fp32 on the CUDA cores (67 TFLOP/s on an
-// H100 SXM), while K/V tiles are reused by all 64 queries of a block, so
-// bytes are far from the limit at the DiT's shapes.
+// flops for QK^T and 2d for PV, all in fp32 on the CUDA cores: 67 TFLOP/s
+// on an H100 SXM, four warp-wide FMAs an SM a clock.  The tensor cores are
+// not used: the DiT path runs fp32 with TF32 off and holds each kernel to
+// its plain version within 1e-5 (DESIGN.md §12), and TF32 keeps ~1e-3.
+// An SM serves one 128-byte shared-memory wavefront a clock, so the two
+// products reach the FMA rate only if each wavefront feeds >= 4 FMAs.
 //
-// Design (simple and right first): one 256-thread block per
-// (batch*head, 64-query tile).  The scaled Q tile and each 64-key K/V tile
-// are staged in shared memory as fp32; a 16x16 thread grid computes the
-// 64x64 score tile (4x4 a thread), masks it, and runs the online softmax
-// with the running max, denominator and the (64 x d) accumulator held in
-// registers (rows ty+16i, columns tx+16j, so the 16 threads of one row sit
-// in one half-warp and reduce by shuffles).  Shared rows are padded by one
-// float so that neither the QK^T nor the PV loop has bank conflicts.  The
-// key axis is walked as up to three segments, each read from ONE source
-// tensor: plain attention has one; the splice has stale [0, offset), fresh
-// [offset, offset+L) and stale [offset+L, Sk), so no per-row select is
-// needed.  No tensor cores yet: that is the next step for speed.
+// Design: one 128-thread block (4 warps) per (batch*head, BQ-query tile);
+// BQ = 64 (32 at d=256).  Keys come in tiles of 32.
+//   * Register blocking.  Lane (rg = lane/8, kg = lane%8) of warp w owns
+//     A = 4 query rows (w*16 + 4a + rg) and 4 keys (kg + 8t) of the score
+//     tile, and the same rows times d/8 columns of the output.  Q, K and V
+//     sit in shared memory row-major with a 16-byte pad, so a lane reads 4
+//     consecutive d-values of a row as one 16-byte load (8 bytes in bf16),
+//     the 4 query rows of one load instruction are broadcast over the 8
+//     key lanes, and the 8 key rows of one load fall in distinct banks.
+//     QK^T: per 4 d-values, 8 loads of one wavefront each feed 64 FMAs,
+//     8 FMAs a wavefront.  PV: per key, one P load (4 rows) and d/32 V
+//     loads of one wavefront each feed 4*d/8 FMAs, 10.7 a wavefront at
+//     d=64.  (A 4x4 micro-tile read by scalar loads, one row of Q and K
+//     a load, feeds 2 in both: 16 FMAs per 8 loads.)
+//   * A warp's 16 rows see all 32 keys of a tile, so the softmax's row
+//     max is a 3-step shuffle among the 8 key lanes, the row sum is kept
+//     per lane and reduced once at the end, and P goes to a per-warp
+//     shared buffer (written as one 16-byte store per key, read back as
+//     one 16-byte load) behind a __syncwarp, not a block barrier.
+//   * K/V tiles arrive by 16-byte cp.async.cg into two stages: tile j+1
+//     is in flight while tile j is computed, with one block barrier per
+//     tile.  Rows past a segment's end are zero-filled by the copy and
+//     their scores masked to -1e30 (fp32 score space); interior tiles skip
+//     the mask.  bf16 is staged raw and converted on each shared read.
+//   * exp2f with log2(e) folded into sm_scale (the MUFU ex2).
+//   * Shared memory (fp32, d=64): Q 17.0 KB, two K/V stages 34.0 KB, P
+//     8 KB, 59 KB a block: 3 blocks (12 warps) an SM, so the DiT's 384
+//     blocks at Sq=1024 x 24 heads fit one wave on 132 SMs.  d=128 takes
+//     2 blocks an SM; d=256 halves BQ and takes 1.
+// The key axis is walked as up to three segments, each read from ONE
+// source tensor: plain attention has one; the splice has stale
+// [0, offset), fresh [offset, offset+L) and stale [offset+L, Sk), so no
+// per-row select is needed, and the stage pipeline runs across segments.
+#include <cstring>
+
 #include "common.cuh"
 
 namespace gfdit {
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kAttnThreads = 256;
+constexpr int kAttnWarps = 4;
+constexpr int kAttnThreads = 32 * kAttnWarps;
+constexpr int kBK = 32;            // keys per tile
 constexpr float kNegInf = -1e30f;  // fill in fp32 score space only
+constexpr float kLog2e = 1.4426950408889634f;
 
 // A run of key positions [begin, end) read from one K/V source tensor of
 // shape (B, src_len, KV, D); key `begin` lives at source row `src_row0`.
@@ -55,167 +82,343 @@ struct Segs {
   int n;
 };
 
-template <int D>
-constexpr size_t attn_smem_bytes() {
-  return sizeof(float) *
-         (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1));
+// Picks a segment without a dynamic index into the kernel's parameters
+// (which would copy them to local memory).
+template <typename T>
+__device__ __forceinline__ Seg<T> seg_at(const Segs<T>& segs, int i) {
+  return i == 0 ? segs.s[0] : (i == 1 ? segs.s[1] : segs.s[2]);
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kAttnThreads)
-    attn_kernel(const T* __restrict__ q, T* __restrict__ out, Segs<T> segs,
-                int Sq, int H, int KV, float sm_scale, int causal) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                  // kBQ x (D + 1)
-  float* Ks = Qs + kBQ * (D + 1);    // kBK x (D + 1)
-  float* Vs = Ks + kBK * (D + 1);    // kBK x D
-  float* Ps = Vs + kBK * D;          // kBQ x (kBK + 1)
-  constexpr int DC = D / 16;         // accumulator columns a thread owns
+struct AttnShape {
+  static constexpr int A = D <= 128 ? 4 : 2;     // query rows a lane owns
+  static constexpr int BQ = kAttnWarps * 4 * A;  // query rows a block owns
+  static constexpr int VW = D >= 32 ? 4 : 2;     // output columns a vector
+  static constexpr int NVC = D / (8 * VW);       // column vectors a lane
+  static constexpr int EPC = 16 / sizeof(T);     // elements a 16-byte copy
+  static constexpr int CPR = D / EPC;            // copies a row
+  static constexpr int PITCH = D + EPC;          // shared row, 16-byte pad
+  static constexpr int MIN_BLOCKS = D <= 64 ? 3 : (D == 128 ? 2 : 1);
+  static constexpr size_t kSmem =
+      sizeof(T) * PITCH * (BQ + 4 * kBK) +
+      sizeof(float) * kAttnWarps * kBK * 4 * A;
+};
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool fill) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int bytes = fill ? 16 : 0;  // 0: zero-fill, read nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// 4 (or 2) consecutive elements of a shared row as floats
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  __nv_bfloat162 lo, hi;
+  memcpy(&lo, &u.x, sizeof(lo));
+  memcpy(&hi, &u.y, sizeof(hi));
+  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+template <int VW, typename T>
+__device__ __forceinline__ void load_vec(const T* p, float* v) {
+  if constexpr (VW == 4) {
+    const float4 f = ld4(p);
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  } else {
+    const float2 f = ld2(p);
+    v[0] = f.x; v[1] = f.y;
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  if constexpr (VW == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ unsigned bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  unsigned bits;
+  memcpy(&bits, &h, sizeof(bits));
+  return bits;
+}
+template <int VW>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
+  if constexpr (VW == 4)
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]));
+  else
+    *reinterpret_cast<unsigned*>(p) = bf16x2_bits(v[0], v[1]);
+}
+
+// Where the tile walk stands: segment `si`, first key `k0`.
+struct Cursor {
+  int si;
+  int k0;
+};
+
+template <typename T>
+__device__ __forceinline__ int seg_stop(const Seg<T>& sg, int causal,
+                                        int qlimit) {
+  // causal block skip: keys past this tile's last query are never visited
+  return causal ? min(sg.end, qlimit) : sg.end;
+}
+
+// The first tile at or after segment `si` whose range is not empty.
+template <typename T>
+__device__ __forceinline__ Cursor first_tile(const Segs<T>& segs, int si,
+                                             int causal, int qlimit) {
+  for (; si < segs.n; ++si) {
+    const Seg<T> sg = seg_at(segs, si);
+    if (sg.begin < seg_stop(sg, causal, qlimit)) return {si, sg.begin};
+  }
+  return {segs.n, 0};
+}
+
+template <typename T>
+__device__ __forceinline__ Cursor next_tile(const Segs<T>& segs, Cursor c,
+                                            int causal, int qlimit) {
+  const Seg<T> sg = seg_at(segs, c.si);
+  if (c.k0 + kBK < seg_stop(sg, causal, qlimit)) return {c.si, c.k0 + kBK};
+  return first_tile(segs, c.si + 1, causal, qlimit);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kAttnThreads,
+                                  AttnShape<T, D>::MIN_BLOCKS)
+    attn_kernel(const T* __restrict__ q, T* __restrict__ out, Segs<T> segs,
+                int Sq, int H, int KV, float scale_log2, int causal) {
+  using S = AttnShape<T, D>;
+  constexpr int A = S::A, BQ = S::BQ, VW = S::VW, NVC = S::NVC;
+  constexpr int EPC = S::EPC, CPR = S::CPR, PITCH = S::PITCH;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);          // BQ x PITCH
+  T* KVs = Qs + BQ * PITCH;                        // 2 stages x (K, V)
+  float* Ps = reinterpret_cast<float*>(KVs + 4 * kBK * PITCH);
+
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int rg = lane >> 3, kg = lane & 7;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int kvh = h / (H / KV);      // GQA: q head -> kv head
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.x * BQ;
+  const int qlimit = q0 + BQ;
+  const int wrow = w * 4 * A;        // the warp's first row in the tile
+  float* Pw = Ps + w * kBK * 4 * A;  // the warp's P: kBK x 4A, row-permuted
 
-  for (int i = tid; i < kBQ * D; i += kAttnThreads) {
-    const int r = i / D, c = i % D, qi = q0 + r;
-    float val = 0.f;
-    if (qi < Sq) val = to_float(q[(((long long)b * Sq + qi) * H + h) * D + c]);
-    Qs[r * (D + 1) + c] = val * sm_scale;
+  for (int c = tid; c < BQ * CPR; c += kAttnThreads) {
+    const int r = c / CPR, col = c % CPR, qi = q0 + r;
+    const T* src =
+        q + (((long long)b * Sq + min(qi, Sq - 1)) * H + h) * D + col * EPC;
+    cp_async16(Qs + r * PITCH + col * EPC, src, qi < Sq);
   }
 
-  float m[4], l[4], acc[4][DC];
+  auto load_tile = [&](Cursor cur, int stage) {
+    const Seg<T> sg = seg_at(segs, cur.si);
+    T* Kd = KVs + 2 * stage * kBK * PITCH;
+    T* Vd = Kd + kBK * PITCH;
+    for (int c = tid; c < kBK * CPR; c += kAttnThreads) {
+      const int r = c / CPR, col = c % CPR, key = cur.k0 + r;
+      const bool ok = key < sg.end;
+      const long long src =
+          (((long long)b * sg.src_len + sg.src_row0 +
+            (ok ? key - sg.begin : 0)) * KV + kvh) * D + col * EPC;
+      cp_async16(Kd + r * PITCH + col * EPC, sg.k + src, ok);
+      cp_async16(Vd + r * PITCH + col * EPC, sg.v + src, ok);
+    }
+  };
+
+  float m[A], l[A], acc[A][NVC * VW];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+  for (int a = 0; a < A; ++a) {
+    m[a] = kNegInf;
+    l[a] = 0.f;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < NVC * VW; ++c) acc[a][c] = 0.f;
   }
 
-  for (int si = 0; si < segs.n; ++si) {
-    const Seg<T> sg = segs.s[si];
-    // causal block skip: keys past this tile's last query are never visited
-    const int stop = causal ? min(sg.end, q0 + kBQ) : sg.end;
-    for (int k0 = sg.begin; k0 < stop; k0 += kBK) {
-      __syncthreads();  // Q staged / the previous tile's readers are done
-      for (int i = tid; i < kBK * D; i += kAttnThreads) {
-        const int r = i / D, c = i % D, key = k0 + r;
-        float kval = 0.f, vval = 0.f;
-        if (key < sg.end) {
-          const long long src =
-              (((long long)b * sg.src_len + sg.src_row0 + (key - sg.begin)) *
-                   KV + kvh) * D + c;
-          kval = to_float(sg.k[src]);
-          vval = to_float(sg.v[src]);
-        }
-        Ks[r * (D + 1) + c] = kval;
-        Vs[r * D + c] = vval;
-      }
-      __syncthreads();
+  Cursor cur = first_tile(segs, 0, causal, qlimit);
+  if (cur.si < segs.n) load_tile(cur, 0);
+  cp_async_commit();                 // Q and the first tile
+  int stage = 0;
+  while (cur.si < segs.n) {
+    const Cursor nxt = next_tile(segs, cur, causal, qlimit);
+    cp_async_wait_all();
+    __syncthreads();  // this tile landed; the other stage's readers are done
+    if (nxt.si < segs.n) load_tile(nxt, stage ^ 1);
+    cp_async_commit();
 
-      float s[4][4];
+    const T* Kt = KVs + 2 * stage * kBK * PITCH;
+    const T* Vt = Kt + kBK * PITCH;
+    float s[A][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int a = 0; a < A; ++a)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-      for (int kk = 0; kk < D; ++kk) {
-        float a[4], bk[4];
+      for (int t = 0; t < 4; ++t) s[a][t] = 0.f;
+#pragma unroll(D <= 64 ? D / 4 : 4)
+    for (int kk = 0; kk < D; kk += 4) {
+      float4 qa[A], kb[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * (D + 1) + kk];
+      for (int a = 0; a < A; ++a)
+        qa[a] = ld4(Qs + (wrow + 4 * a + rg) * PITCH + kk);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) bk[j] = Ks[(tx + 16 * j) * (D + 1) + kk];
+      for (int t = 0; t < 4; ++t) kb[t] = ld4(Kt + (kg + 8 * t) * PITCH + kk);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int a = 0; a < A; ++a)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-      }
-
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = q0 + ty + 16 * i;
-        float mx = kNegInf;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int key = k0 + tx + 16 * j;
-          if (key >= sg.end || (causal && key > qi)) s[i][j] = kNegInf;
-          mx = fmaxf(mx, s[i][j]);
+        for (int t = 0; t < 4; ++t) {
+          float v = s[a][t];
+          v = fmaf(qa[a].x, kb[t].x, v);
+          v = fmaf(qa[a].y, kb[t].y, v);
+          v = fmaf(qa[a].z, kb[t].z, v);
+          v = fmaf(qa[a].w, kb[t].w, v);
+          s[a][t] = v;
         }
-        for (int o = 8; o > 0; o >>= 1)  // the 16 lanes of this row
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        const float m_new = fmaxf(m[i], mx);
-        const float alpha = expf(m[i] - m_new);
-        float rs = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float p = expf(s[i][j] - m_new);
-          Ps[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = p;
-          rs += p;
-        }
-        for (int o = 8; o > 0; o >>= 1)
-          rs += __shfl_xor_sync(0xffffffffu, rs, o);
-        l[i] = l[i] * alpha + rs;
-        m[i] = m_new;
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-      }
-      __syncthreads();
+    }
 
-#pragma unroll 4
-      for (int kk = 0; kk < kBK; ++kk) {
-        float vv[DC];
+    const Seg<T> sg = seg_at(segs, cur.si);
+    const bool ragged = cur.k0 + kBK > sg.end;
+    const bool diagonal = causal && cur.k0 + kBK - 1 > q0 + wrow;
+    if (ragged || diagonal) {        // warp-uniform
 #pragma unroll
-        for (int c = 0; c < DC; ++c) vv[c] = Vs[kk * D + tx + 16 * c];
+      for (int a = 0; a < A; ++a) {
+        const int qi = q0 + wrow + 4 * a + rg;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = Ps[(ty + 16 * i) * (kBK + 1) + kk];
-#pragma unroll
-          for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+        for (int t = 0; t < 4; ++t) {
+          const int key = cur.k0 + kg + 8 * t;
+          if (key >= sg.end || (causal && key > qi)) s[a][t] = kNegInf;
         }
       }
     }
+
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      float mx = fmaxf(fmaxf(s[a][0], s[a][1]), fmaxf(s[a][2], s[a][3]));
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)  // the 8 key lanes of this row
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[a], mx);
+      const float alpha = exp2f((m[a] - m_new) * scale_log2);
+      const float mc = m_new * scale_log2;
+      float rs = 0.f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        s[a][t] = exp2f(fmaf(s[a][t], scale_log2, -mc));
+        rs += s[a][t];
+      }
+      l[a] = l[a] * alpha + rs;      // this lane's keys; reduced at the end
+      m[a] = m_new;
+#pragma unroll
+      for (int c = 0; c < NVC * VW; ++c) acc[a][c] *= alpha;
+    }
+    // P[key][rg*A + a]: a lane's A rows of one key are one store
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      float pv[A];
+#pragma unroll
+      for (int a = 0; a < A; ++a) pv[a] = s[a][t];
+      store_vec<A>(Pw + (kg + 8 * t) * 4 * A + rg * A, pv);
+    }
+    __syncwarp();
+
+#pragma unroll(D <= 128 ? kBK : 8)
+    for (int j = 0; j < kBK; ++j) {
+      float pa[A];
+      load_vec<A>(Pw + j * 4 * A + rg * A, pa);
+#pragma unroll
+      for (int u = 0; u < NVC; ++u) {
+        float vv[VW];
+        load_vec<VW>(Vt + j * PITCH + (u * 8 + kg) * VW, vv);
+#pragma unroll
+        for (int a = 0; a < A; ++a)
+#pragma unroll
+          for (int e = 0; e < VW; ++e)
+            acc[a][u * VW + e] = fmaf(pa[a], vv[e], acc[a][u * VW + e]);
+      }
+    }
+    cur = nxt;
+    stage ^= 1;
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
+  for (int a = 0; a < A; ++a) {
+    float lsum = l[a];
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1)
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, o);
+    const int qi = q0 + wrow + 4 * a + rg;
     if (qi >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+    const float inv = 1.f / fmaxf(lsum, 1e-30f);
     T* o = out + (((long long)b * Sq + qi) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) o[tx + 16 * c] = from_float<T>(acc[i][c] / denom);
+    for (int u = 0; u < NVC; ++u) {
+      float v[VW];
+#pragma unroll
+      for (int e = 0; e < VW; ++e) v[e] = acc[a][u * VW + e] * inv;
+      store_vec<VW>(o + (u * 8 + kg) * VW, v);
+    }
   }
 }
 
 template <typename T, int D>
 cudaError_t launch_attn(const void* q, void* out, const Segs<T>& segs, int B,
                         int Sq, int H, int KV, float sm_scale, int causal,
-                        cudaStream_t stream) {
-  constexpr size_t smem = attn_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+                        int device, cudaStream_t stream) {
+  using S = AttnShape<T, D>;
+  const cudaError_t err = allow_smem_once<attn_kernel<T, D>>(S::kSmem, device);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
-  attn_kernel<T, D><<<grid, kAttnThreads, smem, stream>>>(
+  const dim3 grid((Sq + S::BQ - 1) / S::BQ, B * H);
+  attn_kernel<T, D><<<grid, kAttnThreads, S::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<T*>(out), segs, Sq, H, KV,
-      sm_scale, causal);
+      sm_scale * kLog2e, causal);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t occupancy_attn(int device, int* blocks, int* smem) {
+  const cudaError_t err =
+      allow_smem_once<attn_kernel<T, D>>(AttnShape<T, D>::kSmem, device);
+  if (err != cudaSuccess) return err;
+  *smem = static_cast<int>(AttnShape<T, D>::kSmem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, attn_kernel<T, D>, kAttnThreads, AttnShape<T, D>::kSmem);
 }
 
 template <typename T>
 cudaError_t dispatch_attn(const void* q, void* out, const Segs<T>& segs, int B,
                           int Sq, int H, int KV, int D, float sm_scale,
-                          int causal, cudaStream_t stream) {
+                          int causal, int device, cudaStream_t stream) {
+#define GFDIT_ATTN(DIM)                                                    \
+  case DIM:                                                                \
+    return launch_attn<T, DIM>(q, out, segs, B, Sq, H, KV, sm_scale,       \
+                               causal, device, stream);
   switch (D) {
-    case 16: return launch_attn<T, 16>(q, out, segs, B, Sq, H, KV, sm_scale, causal, stream);
-    case 32: return launch_attn<T, 32>(q, out, segs, B, Sq, H, KV, sm_scale, causal, stream);
-    case 64: return launch_attn<T, 64>(q, out, segs, B, Sq, H, KV, sm_scale, causal, stream);
-    case 128: return launch_attn<T, 128>(q, out, segs, B, Sq, H, KV, sm_scale, causal, stream);
-    case 256: return launch_attn<T, 256>(q, out, segs, B, Sq, H, KV, sm_scale, causal, stream);
+    GFDIT_ATTN(16)
+    GFDIT_ATTN(32)
+    GFDIT_ATTN(64)
+    GFDIT_ATTN(128)
+    GFDIT_ATTN(256)
     default: return cudaErrorInvalidValue;
   }
+#undef GFDIT_ATTN
 }
 
 template <typename T>
@@ -240,27 +443,34 @@ Segs<T> splice_segs(const void* ks, const void* vs, const void* kf,
   return segs;
 }
 
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
+}
+
 }  // namespace gfdit
 
-// q/out: (B, Sq, H, D); k/v: (B, Sk, KV, D); all contiguous, one dtype.
+// q/out: (B, Sq, H, D); k/v: (B, Sk, KV, D); all contiguous, one dtype,
+// 16-byte aligned (cp.async copies 16 bytes).
 extern "C" int gfdit_attention(const void* q, const void* k, const void* v,
                                void* out, int B, int Sq, int Sk, int H, int KV,
                                int D, int causal, float sm_scale, int dtype,
                                int device, void* stream) {
   using namespace gfdit;
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
-      (causal && Sq != Sk))
+      (causal && Sq != Sk) || !aligned16(q) || !aligned16(k) ||
+      !aligned16(v) || !aligned16(out))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
     return dispatch_attn<float>(q, out, plain_segs<float>(k, v, Sk), B, Sq, H,
-                                KV, D, sm_scale, causal, s);
+                                KV, D, sm_scale, causal, device, s);
   if (dtype == kBFloat16)
     return dispatch_attn<__nv_bfloat16>(q, out,
                                         plain_segs<__nv_bfloat16>(k, v, Sk), B,
-                                        Sq, H, KV, D, sm_scale, causal, s);
+                                        Sq, H, KV, D, sm_scale, causal, device,
+                                        s);
   return cudaErrorInvalidValue;
 }
 
@@ -274,21 +484,46 @@ extern "C" int gfdit_splice_attention(const void* q, const void* k_stale,
                                       int dtype, int device, void* stream) {
   using namespace gfdit;
   if (B <= 0 || Sq <= 0 || KV <= 0 || H % KV != 0 || L <= 0 || offset < 0 ||
-      offset + L > Sk)
+      offset + L > Sk || !aligned16(q) || !aligned16(k_stale) ||
+      !aligned16(v_stale) || !aligned16(k_fresh) || !aligned16(v_fresh) ||
+      !aligned16(out))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
     return dispatch_attn<float>(
         q, out, splice_segs<float>(k_stale, v_stale, k_fresh, v_fresh, Sk, L, offset),
-        B, Sq, H, KV, D, sm_scale, 0, s);
+        B, Sq, H, KV, D, sm_scale, 0, device, s);
   if (dtype == kBFloat16)
     return dispatch_attn<__nv_bfloat16>(
         q, out,
         splice_segs<__nv_bfloat16>(k_stale, v_stale, k_fresh, v_fresh, Sk, L, offset),
-        B, Sq, H, KV, D, sm_scale, 0, s);
+        B, Sq, H, KV, D, sm_scale, 0, device, s);
   return cudaErrorInvalidValue;
+}
+
+// Resident blocks per SM and dynamic shared bytes of the attention kernel
+// at head dim D, from the CUDA occupancy calculator.
+extern "C" int gfdit_attention_occupancy(int D, int dtype, int device,
+                                         int* blocks, int* smem) {
+  using namespace gfdit;
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return err;
+#define GFDIT_OCC(DIM)                                                      \
+  case DIM:                                                                 \
+    return dtype == kFloat32                                                \
+               ? occupancy_attn<float, DIM>(device, blocks, smem)           \
+               : occupancy_attn<__nv_bfloat16, DIM>(device, blocks, smem);
+  switch (D) {
+    GFDIT_OCC(16)
+    GFDIT_OCC(32)
+    GFDIT_OCC(64)
+    GFDIT_OCC(128)
+    GFDIT_OCC(256)
+    default: return cudaErrorInvalidValue;
+  }
+#undef GFDIT_OCC
 }
 
 extern "C" const char* gfdit_error_string(int err) {

@@ -9,7 +9,35 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace gfdit {
+
+constexpr int kMaxDevices = 64;
+
+// Makes `device` current; only a query when it already is (the wrappers
+// are called thousands of times a request).
+inline cudaError_t use_device(int device) {
+  int current = -1;
+  if (cudaGetDevice(&current) == cudaSuccess && current == device)
+    return cudaSuccess;
+  return cudaSetDevice(device);
+}
+
+// Raises Kernel's dynamic shared-memory limit to `bytes` once per device,
+// so launches do not pay for the call and none is made while a CUDA graph
+// is being captured.  `device` must be current.
+template <auto Kernel>
+cudaError_t allow_smem_once(size_t bytes, int device) {
+  static std::atomic<bool> done[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[device].load(std::memory_order_acquire)) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err == cudaSuccess) done[device].store(true, std::memory_order_release);
+  return err;
+}
 
 // dtype codes shared with repro_torch/kernels/ops.py
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };

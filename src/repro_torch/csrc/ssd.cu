@@ -283,11 +283,10 @@ __global__ void __launch_bounds__(kSsdThreads)
 template <typename T, int P, int N, int CH>
 cudaError_t launch_ssd(const void* x, const void* dt, const void* A,
                        const void* B, const void* C, void* y, void* state,
-                       int batch, int L, int H, cudaStream_t stream) {
+                       int batch, int L, int H, int device,
+                       cudaStream_t stream) {
   constexpr size_t smem = SsdSmem<P, N, CH>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_kernel<T, P, N, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t err = allow_smem_once<ssd_kernel<T, P, N, CH>>(smem, device);
   if (err != cudaSuccess) return err;
   ssd_kernel<T, P, N, CH><<<batch * H, kSsdThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt),
@@ -310,21 +309,20 @@ template <typename T>
 cudaError_t dispatch_ssd(const void* x, const void* dt, const void* A,
                          const void* B, const void* C, void* y, void* state,
                          int batch, int L, int H, int P, int N, int chunk,
-                         cudaStream_t s) {
+                         int device, cudaStream_t s) {
 #define GFDIT_SSD_CASE(p, n, c) \
   if (P == p && N == n && chunk == c) \
-    return launch_ssd<T, p, n, c>(x, dt, A, B, C, y, state, batch, L, H, s);
+    return launch_ssd<T, p, n, c>(x, dt, A, B, C, y, state, batch, L, H, \
+                                  device, s);
   GFDIT_SSD_SHAPES(GFDIT_SSD_CASE)
 #undef GFDIT_SSD_CASE
   return cudaErrorInvalidValue;
 }
 
 template <typename T, int P, int N, int CH>
-cudaError_t occupancy_ssd(int* blocks_per_sm, int* smem_bytes) {
+cudaError_t occupancy_ssd(int device, int* blocks_per_sm, int* smem_bytes) {
   constexpr size_t smem = SsdSmem<P, N, CH>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_kernel<T, P, N, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t err = allow_smem_once<ssd_kernel<T, P, N, CH>>(smem, device);
   if (err != cudaSuccess) return err;
   *smem_bytes = static_cast<int>(smem);
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -332,11 +330,11 @@ cudaError_t occupancy_ssd(int* blocks_per_sm, int* smem_bytes) {
 }
 
 template <typename T>
-cudaError_t dispatch_occupancy(int P, int N, int chunk, int* blocks_per_sm,
-                               int* smem_bytes) {
+cudaError_t dispatch_occupancy(int P, int N, int chunk, int device,
+                               int* blocks_per_sm, int* smem_bytes) {
 #define GFDIT_SSD_CASE(p, n, c) \
   if (P == p && N == n && chunk == c) \
-    return occupancy_ssd<T, p, n, c>(blocks_per_sm, smem_bytes);
+    return occupancy_ssd<T, p, n, c>(device, blocks_per_sm, smem_bytes);
   GFDIT_SSD_SHAPES(GFDIT_SSD_CASE)
 #undef GFDIT_SSD_CASE
   return cudaErrorInvalidValue;
@@ -352,15 +350,15 @@ extern "C" int gfdit_ssd(const void* x, const void* dt, const void* A,
                          int dtype, int device, void* stream) {
   using namespace gfdit;
   if (batch <= 0 || L <= 0 || H <= 0) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
     return dispatch_ssd<float>(x, dt, A, B, C, y, state, batch, L, H, P, N,
-                               chunk, s);
+                               chunk, device, s);
   if (dtype == kBFloat16)
     return dispatch_ssd<__nv_bfloat16>(x, dt, A, B, C, y, state, batch, L, H,
-                                       P, N, chunk, s);
+                                       P, N, chunk, device, s);
   return cudaErrorInvalidValue;
 }
 
@@ -370,12 +368,13 @@ extern "C" int gfdit_ssd_occupancy(int P, int N, int chunk, int dtype,
                                    int device, int* blocks_per_sm,
                                    int* smem_bytes) {
   using namespace gfdit;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   if (dtype == kFloat32)
-    return dispatch_occupancy<float>(P, N, chunk, blocks_per_sm, smem_bytes);
+    return dispatch_occupancy<float>(P, N, chunk, device, blocks_per_sm,
+                                    smem_bytes);
   if (dtype == kBFloat16)
-    return dispatch_occupancy<__nv_bfloat16>(P, N, chunk, blocks_per_sm,
-                                             smem_bytes);
+    return dispatch_occupancy<__nv_bfloat16>(P, N, chunk, device,
+                                             blocks_per_sm, smem_bytes);
   return cudaErrorInvalidValue;
 }

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "gfdit_ssd": [_P] * 7 + [_I] * 8 + [_P],
     # P, N, chunk, dtype, device -> blocks per SM, shared memory bytes
     "gfdit_ssd_occupancy": [_I] * 5 + [_IP, _IP],
+    # D, dtype, device -> blocks per SM, shared memory bytes
+    "gfdit_attention_occupancy": [_I] * 3 + [_IP, _IP],
 }
 
 

@@ -9,6 +9,14 @@ nothing is padded: the kernels mask ragged sequence edges themselves.
 
 Each launch adds one to :data:`launches` under the wrapper's name, so a
 run can show that its path went through the kernels.
+
+The DiT path calls these wrappers thousands of times a request, on rank
+threads that share one GIL, and K1's kernel runs for a few microseconds,
+so the host's cost per call is kept low: the C entry points are looked
+up once and kept in :data:`_fns`; the stream is the raw current-stream
+handle (no ``torch.cuda.Stream`` object is built); and all the checks of
+one call run in one pass over its operands (shape, dtype, device index
+and contiguity, each raising ``ValueError`` as before).
 """
 from __future__ import annotations
 
@@ -24,7 +32,7 @@ from repro_torch.kernels import build, ref
 
 #: head dims the attention kernels are instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 256)
-#: widest row the adaLN kernel holds in registers (256 threads x 16)
+#: widest row the adaLN kernel holds in registers (one warp, 128 a lane)
 MAX_ADALN_DIM = 4096
 #: (head_dim p, state n, chunk) the SSD kernel is instantiated for
 SSD_SHAPES = ((64, 128, 128), (16, 16, 16), (16, 16, 32), (32, 16, 64),
@@ -35,17 +43,14 @@ _count_lock = threading.Lock()
 #: kernel launches per wrapper since the last :func:`reset_launches`
 launches = {"fused_adaln": 0, "attention": 0, "splice_attention": 0,
             "ssd": 0}
+#: the library's C entry points by name, bound on first use
+_fns: dict = {}
 
 
 def reset_launches() -> None:
     with _count_lock:
         for name in launches:
             launches[name] = 0
-
-
-def _count(name: str) -> None:
-    with _count_lock:        # rank threads launch concurrently
-        launches[name] += 1
 
 
 @dataclasses.dataclass
@@ -71,56 +76,78 @@ def _on_card(*tensors) -> bool:
                      f"CUDA, got {[str(t.device) for t in tensors]}")
 
 
-def _check(name: str, what: str, t, shape, like) -> None:
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: {what} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if t.dtype != like.dtype or t.device != like.device:
-        raise ValueError(f"{name}: {what} is {t.dtype} on {t.device}, "
-                         f"expected {like.dtype} on {like.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: {what} must be contiguous")
-
-
-def _dtype_code(name: str, t) -> int:
-    if t.dtype not in _DTYPES:
-        raise ValueError(f"{name}: dtype {t.dtype} not supported "
+def _check(name: str, like, *specs) -> int:
+    """One pass over ``(what, tensor, shape)``: each tensor has its shape,
+    ``like``'s dtype and device, and is contiguous.  Returns the kernel's
+    dtype code."""
+    dtype, dev = like.dtype, like.get_device()
+    for what, t, shape in specs:
+        if t.shape != shape:
+            raise ValueError(f"{name}: {what} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if t.dtype != dtype or t.get_device() != dev:
+            raise ValueError(f"{name}: {what} is {t.dtype} on {t.device}, "
+                             f"expected {dtype} on {like.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    code = _DTYPES.get(dtype)
+    if code is None:
+        raise ValueError(f"{name}: dtype {dtype} not supported "
                          f"(float32 or bfloat16)")
-    return _DTYPES[t.dtype]
+    return code
+
+
+def _fn(name: str):
+    """The C entry point ``name``; the first call builds the library."""
+    if build._lib is None:   # not loaded yet (or unloaded): bind anew
+        _fns.clear()
+    fn = _fns.get(name)
+    if fn is None:
+        fn = _fns[name] = getattr(build.load(), name)
+    return fn
 
 
 def _launch(name: str, fn, *args) -> None:
     err = fn(*args)
     if err != 0:
-        msg = build.load().gfdit_error_string(err).decode()
+        msg = _fn("gfdit_error_string")(err).decode()
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({err})")
-    _count(name)
+    with _count_lock:        # rank threads launch concurrently
+        launches[name] += 1
 
 
-def _stream(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _stream(device: int) -> int:
+    return torch._C._cuda_getCurrentRawStream(device)
+
+
+def _aligned(name: str, **ptrs) -> None:
+    for what, ptr in ptrs.items():
+        if ptr % 16:
+            raise ValueError(f"{name}: {what} must be 16-byte aligned (the "
+                             f"kernel copies 16-byte chunks)")
 
 
 def attention(q, k, v, *, causal: bool = False):
     """Flash attention.  q: (B, Sq, H, d); k/v: (B, Sk, KV, d) with
-    H % KV == 0; causal needs Sq == Sk.  Returns (B, Sq, H, d)."""
-    if not _on_card(q, k, v):
+    H % KV == 0; causal needs Sq == Sk.  Every operand 16-byte aligned.
+    Returns (B, Sq, H, d)."""
+    if not (q.is_cuda or _on_card(q, k, v)):
         return ref.attention_ref(q, k, v, causal=causal)
     name = "attention"
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    _check(name, "q", q, (b, sq, h, d), q)
-    _check(name, "k", k, (b, sk, kv, d), q)
-    _check(name, "v", v, (b, sk, kv, d), q)
+    dtype = _check(name, q, ("q", q, (b, sq, h, d)), ("k", k, (b, sk, kv, d)),
+                   ("v", v, (b, sk, kv, d)))
     if d not in HEAD_DIMS or h % kv or (causal and sq != sk):
         raise ValueError(f"{name}: unsupported head_dim={d}, H={h}, KV={kv}, "
                          f"causal={causal} with Sq={sq}, Sk={sk}")
-    dtype = _dtype_code(name, q)
+    fn = _fn("gfdit_attention")
     out = torch.empty_like(q)
-    lib = build.load()
-    _launch(name, lib.gfdit_attention, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), b, sq, sk, h, kv, d, int(causal),
-            1.0 / math.sqrt(d), dtype, q.device.index, _stream(q))
+    pq, pk, pv = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    _aligned(name, q=pq, k=pk, v=pv)
+    dev = q.get_device()
+    _launch(name, fn, pq, pk, pv, out.data_ptr(), b, sq, sk, h, kv, d,
+            int(causal), 1.0 / math.sqrt(d), dtype, dev, _stream(dev))
     return out
 
 
@@ -130,29 +157,31 @@ def splice_attention(q, k_stale, v_stale, k_fresh, v_fresh, *, offset: int):
     The kernel reads keys [0, offset) and [offset+L, Sk) from the stale
     snapshot and [offset, offset+L) from the fresh shard; the spliced
     tensor never exists.  The CPU version materializes it."""
-    if not _on_card(q, k_stale, v_stale, k_fresh, v_fresh):
+    if not (q.is_cuda or _on_card(q, k_stale, v_stale, k_fresh, v_fresh)):
         return ref.splice_attention_ref(q, k_stale, v_stale, k_fresh,
                                         v_fresh, offset=offset)
     name = "splice_attention"
     b, sq, h, d = q.shape
     sk, kv = k_stale.shape[1], k_stale.shape[2]
     n = k_fresh.shape[1]
-    _check(name, "q", q, (b, sq, h, d), q)
-    _check(name, "k_stale", k_stale, (b, sk, kv, d), q)
-    _check(name, "v_stale", v_stale, (b, sk, kv, d), q)
-    _check(name, "k_fresh", k_fresh, (b, n, kv, d), q)
-    _check(name, "v_fresh", v_fresh, (b, n, kv, d), q)
+    dtype = _check(name, q, ("q", q, (b, sq, h, d)),
+                   ("k_stale", k_stale, (b, sk, kv, d)),
+                   ("v_stale", v_stale, (b, sk, kv, d)),
+                   ("k_fresh", k_fresh, (b, n, kv, d)),
+                   ("v_fresh", v_fresh, (b, n, kv, d)))
     offset = int(offset)
     if d not in HEAD_DIMS or h % kv or n == 0 or not 0 <= offset <= sk - n:
         raise ValueError(f"{name}: unsupported head_dim={d}, H={h}, KV={kv}, "
                          f"offset={offset}, L={n}, Sk={sk}")
-    dtype = _dtype_code(name, q)
+    fn = _fn("gfdit_splice_attention")
     out = torch.empty_like(q)
-    lib = build.load()
-    _launch(name, lib.gfdit_splice_attention, q.data_ptr(),
-            k_stale.data_ptr(), v_stale.data_ptr(), k_fresh.data_ptr(),
-            v_fresh.data_ptr(), out.data_ptr(), b, sq, sk, n, h, kv, d,
-            offset, 1.0 / math.sqrt(d), dtype, q.device.index, _stream(q))
+    ptrs = dict(q=q.data_ptr(), k_stale=k_stale.data_ptr(),
+                v_stale=v_stale.data_ptr(), k_fresh=k_fresh.data_ptr(),
+                v_fresh=v_fresh.data_ptr())
+    _aligned(name, **ptrs)
+    dev = q.get_device()
+    _launch(name, fn, *ptrs.values(), out.data_ptr(), b, sq, sk, n, h, kv,
+            d, offset, 1.0 / math.sqrt(d), dtype, dev, _stream(dev))
     return out
 
 
@@ -173,28 +202,28 @@ def fused_adaln(x, shift=None, scale=None, gate=None, residual=None, *,
         raise ValueError("fused_adaln: gate and residual go together")
     if not (ln or shift is not None or gate is not None):
         raise ValueError("fused_adaln: identity fusion requested")
-    operands = [t for t in (x, shift, scale, gate, residual) if t is not None]
-    if not _on_card(*operands):
+    if not x.is_cuda and not _on_card(
+            *(t for t in (x, shift, scale, gate, residual) if t is not None)):
         return ref.adaln_ref(x, shift, scale, gate, residual, ln=ln)
     name = "fused_adaln"
     b, n, d = x.shape
-    _check(name, "x", x, (b, n, d), x)
-    for what, t, shape in (("shift", shift, (b, d)), ("scale", scale, (b, d)),
-                           ("gate", gate, (b, d)),
-                           ("residual", residual, (b, n, d))):
-        if t is not None:
-            _check(name, what, t, shape, x)
+    specs = [("x", x, (b, n, d))]
+    if shift is not None:
+        specs += [("shift", shift, (b, d)), ("scale", scale, (b, d))]
+    if gate is not None:
+        specs += [("gate", gate, (b, d)), ("residual", residual, (b, n, d))]
+    dtype = _check(name, x, *specs)
     if not 0 < d <= MAX_ADALN_DIM or b * n == 0:
         raise ValueError(f"{name}: unsupported shape {tuple(x.shape)}")
-    dtype = _dtype_code(name, x)
+    fn = _fn("gfdit_adaln")
     out = torch.empty_like(x)
-    lib = build.load()
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-    _launch(name, lib.gfdit_adaln, x.data_ptr(), ptr(shift), ptr(scale),
-            ptr(gate), ptr(residual), out.data_ptr(), b * n, n, d, int(ln),
-            dtype, x.device.index, _stream(x))
+    dev = x.get_device()
+    _launch(name, fn, x.data_ptr(),
+            None if shift is None else shift.data_ptr(),
+            None if scale is None else scale.data_ptr(),
+            None if gate is None else gate.data_ptr(),
+            None if residual is None else residual.data_ptr(),
+            out.data_ptr(), b * n, n, d, int(ln), dtype, dev, _stream(dev))
     return out
 
 
@@ -205,30 +234,48 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
     Returns (y (b, l, h, p) in x's dtype, final_state (b, h, p, n) fp32).
     The kernel masks a ragged last chunk, so ``l`` need not be a multiple
     of ``chunk``; the CPU version is the sequential recurrence."""
-    if not _on_card(x, dt, A, B, C):
+    if not (x.is_cuda or _on_card(x, dt, A, B, C)):
         return ref.ssd_ref(x, dt, A, B, C, chunk=chunk)
     name = "ssd"
     b, l, h, p = x.shape
     n = B.shape[-1]
-    _check(name, "x", x, (b, l, h, p), x)
-    _check(name, "B", B, (b, l, n), x)
-    _check(name, "C", C, (b, l, n), x)
-    _check(name, "dt", dt, (b, l, h), A)
-    _check(name, "A", A, (h,), A)
+    dtype = _check(name, x, ("x", x, (b, l, h, p)), ("B", B, (b, l, n)),
+                   ("C", C, (b, l, n)))
+    _check(name, A, ("dt", dt, (b, l, h)), ("A", A, (h,)))
     if A.dtype != torch.float32:
         raise ValueError(f"{name}: dt and A must be float32, got {A.dtype}")
     if (p, n, chunk) not in SSD_SHAPES or b * l * h == 0:
         raise ValueError(f"{name}: unsupported (p, n, chunk)={(p, n, chunk)} "
                          f"with b={b}, l={l}, h={h}; the kernel takes "
                          f"{SSD_SHAPES}")
-    dtype = _dtype_code(name, x)
+    fn = _fn("gfdit_ssd")
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    lib = build.load()
-    _launch(name, lib.gfdit_ssd, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+    dev = x.get_device()
+    _launch(name, fn, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
             B.data_ptr(), C.data_ptr(), y.data_ptr(), state.data_ptr(), b, l,
-            h, p, n, chunk, dtype, x.device.index, _stream(x))
+            h, p, n, chunk, dtype, dev, _stream(dev))
     return y, state
+
+
+def _occupancy(name: str, fn, *args) -> tuple[int, int]:
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    err = fn(*args, ctypes.byref(blocks), ctypes.byref(smem))
+    if err != 0:
+        msg = _fn("gfdit_error_string")(err).decode()
+        raise RuntimeError(f"{name}: {msg} ({err})")
+    return blocks.value, smem.value
+
+
+def attention_occupancy(head_dim: int, dtype=torch.float32,
+                        device: int = 0) -> tuple[int, int]:
+    """(resident blocks per SM, dynamic shared-memory bytes) of the
+    attention kernel at ``head_dim``, from the CUDA occupancy calculator."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"attention: unsupported head_dim={head_dim}")
+    return _occupancy("attention_occupancy",
+                      _fn("gfdit_attention_occupancy"), head_dim,
+                      _DTYPES[dtype], device)
 
 
 def ssd_occupancy(p: int, n: int, chunk: int, dtype=torch.float32,
@@ -237,11 +284,5 @@ def ssd_occupancy(p: int, n: int, chunk: int, dtype=torch.float32,
     kernel at ``(p, n, chunk)``, from the CUDA occupancy calculator."""
     if (p, n, chunk) not in SSD_SHAPES:
         raise ValueError(f"ssd: unsupported (p, n, chunk)={(p, n, chunk)}")
-    blocks, smem = ctypes.c_int(), ctypes.c_int()
-    lib = build.load()
-    err = lib.gfdit_ssd_occupancy(p, n, chunk, _DTYPES[dtype], device,
-                                  ctypes.byref(blocks), ctypes.byref(smem))
-    if err != 0:
-        msg = lib.gfdit_error_string(err).decode()
-        raise RuntimeError(f"ssd_occupancy: {msg} ({err})")
-    return blocks.value, smem.value
+    return _occupancy("ssd_occupancy", _fn("gfdit_ssd_occupancy"), p, n,
+                      chunk, _DTYPES[dtype], device)

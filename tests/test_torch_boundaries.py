@@ -1,6 +1,7 @@
 """The port's boundaries: it stands alone from the JAX package, runs on
 the card unless asked for the CPU, and never computes a CUDA tensor
 some other way when its kernels are missing."""
+import importlib.util
 import os
 import re
 import subprocess
@@ -156,3 +157,24 @@ def test_chip_smoke_refuses_without_cuda():
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_reads_registers_and_spills_from_ptxas():
+    """chip_smoke.py's build phase names every kernel that spills."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN5gfdit1aE' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN5gfdit1aE",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 156 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN5gfdit1bE' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN5gfdit1bE",
+        "    16 bytes stack frame, 20 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 0 barriers",
+    ])
+    assert smoke.ptxas_report(log) == {
+        "_ZN5gfdit1aE": {"registers": 156, "spill_bytes": 0, "stack": 0},
+        "_ZN5gfdit1bE": {"registers": 128, "spill_bytes": 24, "stack": 16}}

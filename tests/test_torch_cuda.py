@@ -29,6 +29,13 @@ ATTN_CASES = [
     (1, 19, 19, 4, 4, 16, False),      # the reduced text encoder's
     (1, 200, 300, 24, 24, 64, False),  # several q and k tiles, ragged
     (1, 130, 130, 4, 4, 64, True),     # causal block skip over 3 tiles
+    # ragged q against the 64-query tile, ragged k against the 32-key tile
+    (1, 130, 77, 24, 24, 64, False),
+    (1, 200, 77, 24, 24, 64, False),
+    (1, 130, 300, 24, 24, 64, False),
+    (1, 160, 160, 4, 2, 64, True),     # causal GQA over 3 query tiles
+    (1, 70, 100, 2, 2, 256, False),    # d=256's 32-query tile, 3 tiles
+    (1, 130, 50, 2, 1, 128, False),    # d=128, one KV head
 ]
 ADALN_VARIANTS = {
     "mod_norm": ("shift", "scale"),
@@ -77,13 +84,16 @@ def test_cuda_attention_kernel(cuda_device, b, sq, sk, h, kv, d, causal,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("offset", [0, 40, 80])       # first, middle, last
-def test_cuda_splice_kernel(cuda_device, offset, dtype):
+@pytest.mark.parametrize("offset,sk,n", [
+    (0, 120, 40), (40, 120, 40), (80, 120, 40),   # first, middle, last
+    (77, 300, 100),       # segment edges inside 32-key tiles
+])
+def test_cuda_splice_kernel(cuda_device, offset, sk, n, dtype):
     rng = np.random.default_rng(offset)
-    q = _card(rng, (1, 40, 4, 64), dtype, cuda_device)
-    ks, vs = (_card(rng, (1, 120, 2, 64), dtype, cuda_device)
+    q = _card(rng, (1, n, 4, 64), dtype, cuda_device)
+    ks, vs = (_card(rng, (1, sk, 2, 64), dtype, cuda_device)
               for _ in range(2))
-    kf, vf = (_card(rng, (1, 40, 2, 64), dtype, cuda_device)
+    kf, vf = (_card(rng, (1, n, 2, 64), dtype, cuda_device)
               for _ in range(2))
     before = ops.launches["splice_attention"]
     got = ops.splice_attention(q, ks, vs, kf, vf, offset=offset)
@@ -95,11 +105,19 @@ def test_cuda_splice_kernel(cuda_device, offset, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("variant", sorted(ADALN_VARIANTS))
-def test_cuda_adaln_kernel(cuda_device, variant, dtype):
+@pytest.mark.parametrize("d", [1536, 100, 4096])  # DiT; scalar path; widest
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_adaln_kernel(cuda_device, variant, dtype, d, aligned):
     rng = np.random.default_rng(1)
-    b, n, d = 2, 130, 1536
+    b, n = 2, 130
     t = {"x": _card(rng, (b, n, d), dtype, cuda_device),
          "residual": _card(rng, (b, n, d), dtype, cuda_device)}
+    if not aligned:      # contiguous, one element past a 16-byte boundary
+        x = torch.empty(b * n * d + 1, dtype=t["x"].dtype,
+                        device=cuda_device)[1:].view(b, n, d)
+        x.copy_(t["x"])
+        assert x.is_contiguous() and x.data_ptr() % 16
+        t["x"] = x
     for name in ("shift", "scale", "gate"):
         t[name] = _card(rng, (b, d), dtype, cuda_device, 0.2)
     kw = {name: t[name] for name in ADALN_VARIANTS[variant]}
@@ -121,6 +139,17 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="float16"):
         h = q.half()
         ops.attention(h, h, h)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_rejects_misaligned_operands(cuda_device):
+    """The attention kernel copies 16-byte chunks with cp.async: a
+    contiguous operand that starts off a 16-byte boundary is refused."""
+    q = torch.zeros(1, 8, 2, 64, device=cuda_device)
+    k = torch.zeros(1 * 8 * 2 * 64 + 1, device=cuda_device)[1:].view(q.shape)
+    assert k.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.attention(q, k, q)
 
 
 def _ssd_inputs(rng, b, l, h, p, n, dtype, device):

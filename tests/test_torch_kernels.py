@@ -152,3 +152,30 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     q = torch.zeros(1, 4, 2, 32, device="meta")
     with pytest.raises(ValueError, match="CPU or all on CUDA"):
         ops.attention(q, q, q)
+
+
+@pytest.mark.parametrize("fault,msg", [
+    ("shape", "y has shape"),
+    ("dtype", "y is torch.float64"),
+    ("contiguous", "y must be contiguous"),
+    ("unsupported", "float16 not supported"),
+])
+def test_operand_check_refuses_each_fault(fault, msg):
+    """The wrappers' one-pass operand check, which the card's path runs
+    before every launch."""
+    like = torch.zeros(2, 4, 8, dtype=torch.float16 if fault == "unsupported"
+                       else torch.float32)
+    y = {"shape": torch.zeros(2, 4, 9),
+         "dtype": torch.zeros(2, 4, 8, dtype=torch.float64),
+         "contiguous": torch.zeros(2, 8, 4).transpose(1, 2),
+         "unsupported": like}[fault]
+    with pytest.raises(ValueError, match=msg):
+        ops._check("k", like, ("x", like, (2, 4, 8)), ("y", y, (2, 4, 8)))
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0),
+                                        (torch.bfloat16, 1)])
+def test_operand_check_returns_the_kernel_dtype_code(dtype, code):
+    x = torch.zeros(2, 4, 8, dtype=dtype)
+    assert ops._check("k", x, ("x", x, (2, 4, 8)),
+                      ("s", x[:, 0].contiguous(), (2, 8))) == code
