@@ -12,8 +12,9 @@ Phases, one line each (any failure raises and exits non-zero):
    outlast GFC's collective timeout).
 3. kernels: each kernel against its plain PyTorch version on the card at
    its path's full-width shapes (DIT_IMAGE for K1-K3, the mamba2-1.3b
-   prefill for K4), fp32 and bf16, with kernel, plain-version and
-   one-PyTorch-call times from CUDA events.
+   prefill for K4, timed at batch 4 and 1), fp32 and bf16, with kernel,
+   plain-version and one-PyTorch-call times from CUDA events; K4's device
+   time by stage kernel (``torch.profiler``) and each stage's occupancy.
 4. serve: ``ServingEngine(DIT_IMAGE, SP-4, cache_interval=2)`` at full
    width serves two 512 px and one 1024 px request; every request must
    finish with finite pixels, through K1-K3, with both §11 refresh and
@@ -52,6 +53,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -280,6 +282,13 @@ def phase_build() -> None:
             spill = max(r["spill_bytes"] for r in hits)
             print(f"  {label}: {len(hits)} instantiation(s), registers "
                   f"{regs}, spill bytes {spill}", flush=True)
+    for f in sorted(report):      # K4 at (p, n, chunk) = (64, 128, 128)
+        m = re.match(r"_ZN5gfdit(\d+)", f)
+        name = f[m.end():m.end() + int(m[1])] if m else f
+        if name.startswith("ssd") and "Li128ELi128E" in f and (
+                "Li64ELi128E" in f or name == "ssd_cb"):
+            print(f"  {name}<{'bf16' if 'bfloat' in f else 'fp32'}, (64,) "
+                  f"128, 128>: {report[f]}", flush=True)
 
 
 def _rand(shape, dtype, gen, scale=1.0):
@@ -465,42 +474,78 @@ def ssd_flops(b, l, h, p, n, c) -> int:
     return 2 * b * total
 
 
+def ssd_stage_ms(fn, b: int, calls: int = 10) -> dict:
+    """Device ms a call of each K4 kernel (by name) over ``calls`` calls
+    under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for avg in prof.key_averages():
+        m = re.search(r"gfdit::(\w+)", avg.key)
+        if m and "ssd" in m[1] and avg.self_device_time_total > 0:
+            out[m[1]] = out.get(m[1], 0.0) + avg.self_device_time_total
+    out = {k: v / calls / 1e3 for k, v in out.items()}
+    print(f"  ssd b={b} device ms a call by kernel: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out.items()), flush=True)
+    return out
+
+
 def _check_ssd(dtype, results) -> None:
     """K4 at the full-width mamba2-1.3b prefill (b=4, l=2048, h=64, p=64,
-    n=128, chunk=128); in fp32 also a ragged l (the forward's 2080) and
-    the reduced model's (16, 16, 16) with a ragged l."""
+    n=128, chunk=128), timed in fp32; in fp32 also at batch 1 (timed), a
+    ragged l (the forward's 2080) and the reduced model's (16, 16, 16)
+    with a ragged l; then the occupancy of each stage kernel."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     _, heads, _ = ssm.ssm_dims(MAMBA)
     s = MAMBA.ssm
     es = torch.finfo(dtype).bits // 8
-    cases = [(LM_BATCH, LM_PROMPT, heads, s.head_dim, s.state_dim, s.chunk)]
+    full = (heads, s.head_dim, s.state_dim, s.chunk)
+    cases = [(LM_BATCH, LM_PROMPT) + full]
     if dtype == torch.float32:
-        cases += [(LM_BATCH, LM_PROMPT + LM_DECODE, heads, s.head_dim,
-                   s.state_dim, s.chunk), (2, 40, 16, 16, 16, 16)]
+        cases += [(1, LM_PROMPT) + full, (LM_BATCH, LM_PROMPT + LM_DECODE)
+                  + full, (2, 40, 16, 16, 16, 16)]
     for i, (b, l, h, p, n, c) in enumerate(cases):
         x, dt, A, B, C = ssd_inputs(b, l, h, p, n, dtype, gen)
         timing = None
-        if i == 0 and dtype == torch.float32:
+        if i < 2 and dtype == torch.float32:
             timing = {
                 "bytes": (2 * x.numel() + 2 * B.numel()) * es
                 + (dt.numel() + h + b * h * p * n) * 4,
                 "flops": ssd_flops(b, l, h, p, n, c),
-                "plain_iters": 3, "host_calls": 200, "summary": "ssd"}
+                "plain_iters": 3, "host_calls": 200}
+            if i == 0:
+                timing["summary"] = "ssd"
         _check(f"ssd b={b} l={l} h={h} (p, n, chunk)={(p, n, c)}",
                lambda a=(x, dt, A, B, C), c=c: ops.ssd(*a, chunk=c),
                lambda a=(x, dt, A, B, C): ref.ssd_ref(*a),
                dtype, results, timing, SSD_BUDGET)
+        if timing is not None:
+            results.setdefault("ssd_stages", {})[f"b={b}"] = ssd_stage_ms(
+                lambda a=(x, dt, A, B, C), c=c: ops.ssd(*a, chunk=c), b)
     if dtype == torch.float32:
-        blocks, smem = ops.ssd_occupancy(s.head_dim, s.state_dim, s.chunk)
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        grid = LM_BATCH * heads
-        waves = -(-grid // (blocks * sms))
-        results["ssd"]["occupancy"] = {"blocks_per_sm": blocks,
-                                       "smem_bytes": smem, "sms": sms,
-                                       "grid": grid, "waves": waves}
-        print(f"  ssd occupancy: {grid} blocks of 256 threads, {blocks} "
-              f"resident per SM ({smem / 1024:.1f} KB shared memory "
-              f"each), {sms} SMs: {waves} wave(s)", flush=True)
+        occ = {}
+        for b in (LM_BATCH, 1):
+            if hasattr(ops, "SSD_STAGES"):     # the chunk-parallel stages
+                stages = ops.ssd_occupancy(b, LM_PROMPT, *full)
+            else:                              # one kernel per (b, h)
+                blocks, smem = ops.ssd_occupancy(*full[1:])
+                stages = {"ssd_kernel": (blocks, smem, b * heads)}
+            for name, (blocks, smem, grid) in stages.items():
+                waves = grid / (blocks * sms)
+                occ[f"b={b} {name}"] = {
+                    "blocks_per_sm": blocks, "smem_bytes": smem, "sms": sms,
+                    "grid": grid, "waves": waves}
+                print(f"  ssd occupancy b={b} {name}: {grid} blocks of 256 "
+                      f"threads, {blocks} resident per SM ({smem / 1024:.1f}"
+                      f" KB shared memory each), {sms} SMs: {waves:.2f} "
+                      f"waves", flush=True)
+        results["ssd_occupancy"] = occ
 
 
 def _serve(cfg, policy, reqs, *, cache_interval, device="cuda", setup=None,

@@ -66,7 +66,7 @@ def report(prof, wall: float) -> None:
           f"{1 - busy / wall:.3f}")
     for cat, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"  {cat}: {us / 1e6:.4f} s ({us / 1e6 / wall:.3f} of wall)")
-        for k_us, count, name in sorted(top[cat], reverse=True)[:3]:
+        for k_us, count, name in sorted(top[cat], reverse=True)[:5]:
             print(f"      {k_us / 1e6:.4f} s  {count:6d} x  {name[:90]}")
 
 

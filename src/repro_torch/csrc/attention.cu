@@ -52,8 +52,6 @@
 // source tensor: plain attention has one; the splice has stale
 // [0, offset), fresh [offset, offset+L) and stale [offset+L, Sk), so no
 // per-row select is needed, and the stage pipeline runs across segments.
-#include <cstring>
-
 #include "common.cuh"
 
 namespace gfdit {
@@ -103,72 +101,6 @@ struct AttnShape {
       sizeof(T) * PITCH * (BQ + 4 * kBK) +
       sizeof(float) * kAttnWarps * kBK * 4 * A;
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool fill) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int bytes = fill ? 16 : 0;  // 0: zero-fill, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// 4 (or 2) consecutive elements of a shared row as floats
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 lo, hi;
-  memcpy(&lo, &u.x, sizeof(lo));
-  memcpy(&hi, &u.y, sizeof(hi));
-  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-template <int VW, typename T>
-__device__ __forceinline__ void load_vec(const T* p, float* v) {
-  if constexpr (VW == 4) {
-    const float4 f = ld4(p);
-    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
-  } else {
-    const float2 f = ld2(p);
-    v[0] = f.x; v[1] = f.y;
-  }
-}
-
-template <int VW>
-__device__ __forceinline__ void store_vec(float* p, const float* v) {
-  if constexpr (VW == 4)
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  else
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-}
-__device__ __forceinline__ unsigned bf16x2_bits(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  unsigned bits;
-  memcpy(&bits, &h, sizeof(bits));
-  return bits;
-}
-template <int VW>
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
-  if constexpr (VW == 4)
-    *reinterpret_cast<uint2*>(p) =
-        make_uint2(bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]));
-  else
-    *reinterpret_cast<unsigned*>(p) = bf16x2_bits(v[0], v[1]);
-}
 
 // Where the tile walk stands: segment `si`, first key `k0`.
 struct Cursor {

@@ -10,6 +10,7 @@
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <cstring>
 
 namespace gfdit {
 
@@ -56,6 +57,89 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to()
+}
+
+// 16-byte asynchronous copy global -> shared (cp.async.cg, L2 only);
+// fill = false zero-fills the 16 bytes and reads nothing.  Both
+// addresses must be 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool fill) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int bytes = fill ? 16 : 0;  // 0: zero-fill, read nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// 4 (or 2) consecutive elements of a shared row as floats
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  __nv_bfloat162 lo, hi;
+  memcpy(&lo, &u.x, sizeof(lo));
+  memcpy(&hi, &u.y, sizeof(hi));
+  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// VW = 1, 2, 4 or 8 consecutive elements as floats, in one load (two
+// for 8); p aligned to the load's width
+template <int VW, typename T>
+__device__ __forceinline__ void load_vec(const T* p, float* v) {
+  static_assert(VW == 1 || VW == 2 || VW == 4 || VW == 8, "load_vec");
+  if constexpr (VW == 8) {
+    load_vec<4>(p, v);
+    load_vec<4>(p + 4, v + 4);
+  } else if constexpr (VW == 4) {
+    const float4 f = ld4(p);
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  } else if constexpr (VW == 2) {
+    const float2 f = ld2(p);
+    v[0] = f.x; v[1] = f.y;
+  } else {
+    v[0] = to_float(*p);
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  static_assert(VW == 1 || VW == 2 || VW == 4, "store_vec");
+  if constexpr (VW == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (VW == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else
+    *p = v[0];
+}
+__device__ __forceinline__ unsigned bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  unsigned bits;
+  memcpy(&bits, &h, sizeof(bits));
+  return bits;
+}
+template <int VW>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
+  static_assert(VW == 1 || VW == 2 || VW == 4, "store_vec");
+  if constexpr (VW == 4)
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]));
+  else if constexpr (VW == 2)
+    *reinterpret_cast<unsigned*>(p) = bf16x2_bits(v[0], v[1]);
+  else
+    *p = __float2bfloat16(v[0]);
 }
 
 }  // namespace gfdit

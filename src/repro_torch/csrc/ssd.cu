@@ -1,298 +1,485 @@
-// Mamba2 SSD (state-space dual) chunked scan.
+// Mamba2 SSD (state-space dual) chunked scan, chunk-parallel.
 //
-// Replaces the TPU kernel src/repro/kernels/ssd.py::ssd_scan (_ssd_kernel):
-// for every (batch, head), walk the sequence in chunks of `chunk` rows,
-// carrying the (p x n) fp32 state.  Within a chunk, with cum the in-chunk
-// cumulative sum of dt*A and xb = x*dt,
+// Replaces the TPU kernel src/repro/kernels/ssd.py::ssd_scan (_ssd_kernel),
+// which walks each (batch, head)'s chunks in order carrying the (p x n)
+// state.  Within a chunk of c rows, with cum the in-chunk cumulative sum
+// of dt*A and xb = x*dt,
 //   y_i   = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) xb_j
-//         + exp(cum_i) (C_i . state)
-//   state = exp(cum_last) state + sum_j exp(cum_last - cum_j) xb_j (x) B_j
-// and the final state is returned.  B and C have one group: they are read
-// from the shared (b, l, n) arrays by every head's block, never copied per
-// head as the TPU wrapper's jnp.repeat does.  A ragged last chunk is masked
-// here (rows past l load dt = x = B = C = 0, which leaves the state as it
-// is, and are not written), so callers need not pad.
+//         + exp(cum_i) (C_i . S_in)
+//   S_out = exp(cum_last) S_in + sum_j exp(cum_last - cum_j) xb_j (x) B_j
+// and the last S_out is the final state.  Only the S_in hand-off is
+// sequential across chunks, so one call runs four stage kernels in turn
+// on the caller's stream (the decomposition of the JAX package's jnp
+// ssd_chunked and of Mamba2's "minimal SSD", arXiv:2405.21060 sec. 6):
+//   1. ssd_chunk_state, a block per (batch, chunk, head): cum (to scratch)
+//      and the chunk-local state S_c = sum_j exp(cum_last - cum_j) xb_j
+//      (x) B_j, stored transposed (n x p) in a chunk-state scratch;
+//   2. ssd_state_pass, a block per (batch, head, n-row tile): walks the
+//      chunks in order, S_in[0] = 0, S_in[c+1] = exp(cum_last_c) S_in[c]
+//      + S_c, overwriting the scratch with each chunk's S_in; writes the
+//      final state (p x n);
+//   3. ssd_cb, a block per (batch, chunk, tile of the causal triangle):
+//      C B^T once for all heads (B and C have one group), stored
+//      transposed (j, i), and C^T of the chunk;
+//   4. ssd_chunk_scan, a block per (batch, chunk, head, 64-row tile): y.
+// B and C are read from the shared (b, l, n) arrays, never copied per
+// head.  A ragged last chunk is masked here: rows past l load dt = x = B
+// = C = 0, which leaves cum and the state as they are, and are not
+// written, so callers need not pad.
 //
-// Bound on the card: operations.  What the function needs, per (batch,
-// chunk) of c rows: the causal C B^T once (B and C have one group),
-// c(c+1)/2 n multiply-adds; and per head the causal scores . xb,
-// c(c+1)/2 p, C . state, c p n (none in the first chunk, whose state is
-// zero), and the state update, c p n.  At the full-width mamba2-1.3b
-// prefill (b=4, l=2048, h=64, p=64, n=128, c=128) that is 21.1 GFLOP,
-// 0.315 ms at the 67 TFLOP/s fp32 CUDA-core rate of an H100 SXM, against
-// ~287 MB of x, y, dt, B, C and the state (0.086 ms at 3.35 TB/s).
-// This kernel does more.  Per (chunk, head) it computes the C B^T and
-// scores . xb of each row tile's blocks left of its last row (2.62 and
-// 1.31 MFLOP at that shape), C . state (2.10) and the state update
-// (2.10): 8.13 MFLOP, 33.3 GFLOP in all, 1.58x the need.  C B^T, the same
-// for every head, is recomputed per head: 32% of the kernel's operations,
-// where once per (batch, chunk) it would be under 1%.  Sharing it across heads,
-// tensor cores (wgmma) and TMA loads are for a later redesign.
+// Bound on the card: operations.  The function needs, per (batch, chunk)
+// of c rows, the causal C B^T once, c(c+1)/2 n multiply-adds, and per
+// head the causal scores . xb, c(c+1)/2 p, C . state, c p n (none in the
+// first chunk), and the state update, c p n: 21.1 GFLOP at the
+// full-width mamba2-1.3b prefill (b=4, l=2048, h=64, p=64, n=128,
+// c=128; chip_smoke.ssd_flops), 0.315 ms at the 67 TFLOP/s fp32
+// CUDA-core rate of an H100 SXM, against ~287 MB of x, y, dt, B, C and
+// the state (0.086 ms at 3.35 TB/s).  These kernels do 23.3 GFLOP, 1.10x
+// the need: stage 1 8.59 (the state update), stage 4 8.05 (C . S_in) and
+// 6.44 (scores . xb over whole 32-row key tiles up to each 64-row tile's
+// end, not the exact triangle), stage 3 0.20.  The single-kernel design
+// before did 33.3, recomputing C B^T for every head.
+// Scratch (one allocation by the wrapper, none here), at that shape:
+// chunk states b*nc*h*n*p fp32, 134.2 MB; cum b*nc*h*c, 2.1 MB; C B^T and C^T
+// b*nc*c*c and b*nc*n*c, 4.2 MB each: 144.7 MB, which stays in HBM (the
+// chunk states) and L2 (the rest).  The state traffic (stage 1 writes,
+// stage 2 reads and writes, stage 4 reads: 0.54 GB) is ~0.16 ms at the
+// DRAM rate.
 //
-// Design (simple and right first): one 256-thread block (a 16 x 16 thread
-// grid) per (batch, head), looping over its chunks in order; blocks of
-// different (b, h) run in parallel (at b=4 that is 256 blocks on 132 SMs,
-// one block an SM for shared memory; at b=1 only 64 SMs are busy).  Per
-// chunk, xb (c x p), B (c x n), the state (p x n) and the cumulative decay
-// live in shared memory as fp32; the chunk's rows are taken R = 32 at a
-// time, staging those rows of C and their (R x c) score tile, which keeps
-// the block at 163 KB at (64, 128, 128) where staging the whole chunk
-// would take 256 KB.  Each thread owns rows ty + 16i and columns tx + 16j
-// of every product it computes.  The in-chunk cumulative sum is a
-// warp-shuffle scan plus the warps' totals.  The decay is masked to -1e30
-// BEFORE the exp: the upper triangle's cum_i - cum_j is positive and its
-// exp can overflow fp32 (inf * 0 = NaN).  Score columns wholly above the
-// diagonal of a row tile are skipped.  Shared rows of width n and c are
-// padded by one float against bank conflicts.
+// Design: fp32 arithmetic on the CUDA cores, as the TPU kernel's; the
+// tensor cores wait, because TF32 keeps ~1e-3 against K4's 1e-4 budget
+// on the fp32 path, so fp32 accuracy there needs split-TF32 (three TF32
+// products per fp32 one) on mma.sync or wgmma fragments, a later step.
+// Every stage is a 256-thread block, a 16 x 16 thread grid (ty, tx).
+// Stages 1 and 4 are register-blocked outer products: a thread owns TM
+// contiguous rows (ty*TM..) and TN contiguous columns (tx*TN..) of its
+// output tile, and per step of the contraction reads its rows' TM values
+// and its columns' TN values from one shared row each as vector loads
+// (float4; 8 bytes in bf16): in a warp the 16 tx lanes read 256
+// consecutive bytes (two wavefronts) and the 2 ty values are two
+// addresses, so at (64, 128, 128) stage 1 issues 32 FMAs a thread per 3
+// loads and 4 wavefronts, stage 4 16 per 2 loads and 3 wavefronts.  Both
+// contraction operands of each product are laid out with the contracted
+// index as the row, which is why the chunk states are kept n x p and
+// stage 3 writes C B^T as (j, i) and C^T.  K-tiles of 32 rows come by
+// 16-byte cp.async into two shared stages: tile t+1 is in flight while
+// tile t is computed, one block barrier a tile (stage 4 adds one for the
+// decay).  Stage 1 scales xb by its decay weight as it reads it; stage 4
+// turns each C B^T tile into the decay-weighted score tile in place,
+// masking the decay to -1e30 BEFORE the exp (the upper triangle's
+// cum_i - cum_j is positive and its exp can overflow fp32: inf * 0 =
+// NaN), skips key tiles wholly past its last row and, in the first chunk,
+// the C . S_in term.  Stage 3 is a dot-product tile (16-byte reads along
+// n, rows padded by 4 floats, so the 16 column lanes hit distinct banks).
+// Shared memory at (64, 128, 128) fp32: stage 1 49.0 KB, stage 3 66.0 KB,
+// stage 4 33.0 KB, stage 2 4.1 KB (static).  Launch bounds hold stage 1
+// to 3 blocks an SM (80 registers) and stage 4 to 4 (64 registers, which
+// spills 8 bytes in fp32: faster than 3 blocks at 80 with no spill).
 #include "common.cuh"
 
 namespace gfdit {
 
-constexpr int kSsdThreads = 256;
-constexpr int kSsdRows = 32;
+constexpr int kSsdThreads = 256;  // a 16 x 16 thread grid in every stage
 constexpr float kSsdMask = -1e30f;
 
-// Shared-memory layout, in floats.
-template <int P, int N, int CH>
-struct SsdSmem {
-  static constexpr int R = CH < kSsdRows ? CH : kSsdRows;
-  static constexpr int xs = 0;                       // CH x P: x * dt
-  static constexpr int bs = xs + CH * P;             // CH x (N + 1): B
-  static constexpr int st = bs + CH * (N + 1);       // P x (N + 1): state
-  static constexpr int cs = st + P * (N + 1);        // R x (N + 1): C rows
-  static constexpr int ss = cs + R * (N + 1);        // R x (CH + 1): scores
-  static constexpr int dts = ss + R * (CH + 1);      // CH: dt
-  static constexpr int cum = dts + CH;               // CH: cumsum(dt * A)
-  static constexpr int ecum = cum + CH;              // CH: exp(cum)
-  static constexpr int wdec = ecum + CH;             // CH: exp(cum_last - cum)
-  static constexpr int wsum = wdec + CH;             // warp totals of the scan
-  static constexpr int total = wsum + 4;
-  static constexpr size_t bytes = total * sizeof(float);
+template <typename T, int P, int N, int CH>
+struct SsdShape {
+  static_assert(P % 16 == 0 && N % 16 == 0 && CH % 16 == 0 && P <= 64 &&
+                    N <= 128 && CH <= 128,
+                "ssd: p, n and chunk must be multiples of 16, p at most 64, "
+                "n and chunk at most 128");
+  static constexpr int KT = CH < 32 ? CH : 32;  // rows of a K-tile
+  static constexpr int KA = KT < N ? KT : N;    // ... of a C^T / S_in tile
+  static constexpr int RT = CH < 64 ? CH : 64;  // rows of a y or CB tile
+  static constexpr int NRT = CH / RT;
+  static constexpr int EPC = 16 / sizeof(T);    // elements a 16-byte copy
+  // stage 2: n-rows of the state a block walks (4 floats a thread)
+  static constexpr int R2 = N < 4 * kSsdThreads / P ? N : 4 * kSsdThreads / P;
+  // dynamic shared memory, bytes
+  static constexpr size_t kStateSmem =
+      sizeof(float) * (2 * CH + 4) + sizeof(T) * 2 * KT * (N + P);
+  static constexpr size_t kCbSmem = sizeof(float) * 2 * RT * (N + 4);
+  static constexpr size_t kScanSmem =
+      sizeof(float) * (2 * CH + 2 * KT * (RT + P));
 };
 
+// Stage 1: cum and the chunk-local state, transposed (n x p).
 template <typename T, int P, int N, int CH>
-__global__ void __launch_bounds__(kSsdThreads)
-    ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ A, const T* __restrict__ Bm,
-               const T* __restrict__ Cm, T* __restrict__ y,
-               float* __restrict__ state_out, int L, int H) {
-  static_assert(P % 16 == 0 && N % 16 == 0 && CH % 16 == 0 && CH <= 128,
-                "ssd_kernel: p, n and chunk must be multiples of 16, chunk "
-                "at most 128");
-  using S = SsdSmem<P, N, CH>;
-  constexpr int R = S::R;
-  extern __shared__ float smem[];
-  float* xs = smem + S::xs;
-  float* bs = smem + S::bs;
-  float* st = smem + S::st;
-  float* cs = smem + S::cs;
-  float* ss = smem + S::ss;
-  float* dts = smem + S::dts;
-  float* cum = smem + S::cum;
-  float* ecum = smem + S::ecum;
-  float* wdec = smem + S::wdec;
-  float* wsum = smem + S::wsum;
+__global__ void __launch_bounds__(kSsdThreads, 3)
+    ssd_chunk_state(const T* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ A, const T* __restrict__ Bm,
+                    float* __restrict__ cum_out, float* __restrict__ states,
+                    int L, int H, int nc) {
+  using S = SsdShape<T, P, N, CH>;
+  constexpr int KT = S::KT, EPC = S::EPC, NT = CH / KT;
+  constexpr int TM = N / 16, TN = P / 16;  // n-rows, p-columns a thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* coef = reinterpret_cast<float*>(smem_raw);  // dt_j exp(last - cum_j)
+  float* cum = coef + CH;
+  float* wsum = cum + CH;                              // warp totals
+  T* Bs = reinterpret_cast<T*>(wsum + 4);              // 2 x KT x N
+  T* Xs = Bs + 2 * KT * N;                             // 2 x KT x P
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const float a = A[h];
+  const int h = blockIdx.x % H, bc = blockIdx.x / H;
+  const int c = bc % nc, b = bc / nc, l0 = c * CH;
 
-  for (int i = tid; i < P * (N + 1); i += kSsdThreads) st[i] = 0.f;
-
-  const int nchunks = (L + CH - 1) / CH;
-  for (int ci = 0; ci < nchunks; ++ci) {
-    const int l0 = ci * CH;
-    __syncthreads();  // the previous chunk's readers are done
-
-    // dt and the warp-level inclusive scan of dt * A; B's rows
-    constexpr int kScanThreads = (CH + 31) / 32 * 32;
-    if (tid < kScanThreads) {
-      const int l = l0 + tid;
-      const float d = (tid < CH && l < L) ? dt[((long long)b * L + l) * H + h]
-                                          : 0.f;
-      float v = d * a;
-      const int lane = tid & 31;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, v, o);
-        if (lane >= o) v += u;
-      }
-      if (tid < CH) {
-        dts[tid] = d;
-        cum[tid] = v;
-      }
-      if (lane == 31) wsum[tid >> 5] = v;
+  auto load_tile = [&](int t, int stage) {
+    T* bd = Bs + stage * KT * N;
+    T* xd = Xs + stage * KT * P;
+    for (int i = tid; i < KT * (N / EPC); i += kSsdThreads) {
+      const int r = i / (N / EPC), col = i % (N / EPC), l = l0 + t * KT + r;
+      const bool ok = l < L;
+      cp_async16(bd + r * N + col * EPC,
+                 Bm + ((long long)b * L + (ok ? l : 0)) * N + col * EPC, ok);
     }
-    for (int i = tid; i < CH * N; i += kSsdThreads) {
-      const int j = i / N, k = i % N, l = l0 + j;
-      bs[j * (N + 1) + k] =
-          l < L ? to_float(Bm[((long long)b * L + l) * N + k]) : 0.f;
+    for (int i = tid; i < KT * (P / EPC); i += kSsdThreads) {
+      const int r = i / (P / EPC), col = i % (P / EPC), l = l0 + t * KT + r;
+      const bool ok = l < L;
+      cp_async16(xd + r * P + col * EPC,
+                 x + (((long long)b * L + (ok ? l : 0)) * H + h) * P +
+                     col * EPC,
+                 ok);
     }
-    __syncthreads();
+  };
+  load_tile(0, 0);
+  cp_async_commit();
 
-    // the warps' offsets; xb = x * dt
-    if (tid < CH) {
-      float off = 0.f;
-      for (int w = 0; w < (tid >> 5); ++w) off += wsum[w];
-      cum[tid] += off;
+  // the in-chunk inclusive scan of dt * A: warp shuffles, then the warps'
+  // offsets
+  constexpr int kScan = (CH + 31) / 32 * 32;
+  float d = 0.f;
+  if (tid < kScan) {
+    const int l = l0 + tid;
+    d = (tid < CH && l < L) ? dt[((long long)b * L + l) * H + h] : 0.f;
+    float v = d * A[h];
+    const int lane = tid & 31;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
     }
-    for (int i = tid; i < CH * P; i += kSsdThreads) {
-      const int j = i / P, pp = i % P, l = l0 + j;
-      const float xv =
-          l < L ? to_float(x[(((long long)b * L + l) * H + h) * P + pp]) : 0.f;
-      xs[i] = xv * dts[j];
-    }
-    __syncthreads();
-    if (tid < CH) {
-      ecum[tid] = expf(cum[tid]);
-      wdec[tid] = expf(cum[CH - 1] - cum[tid]);
-    }
-
-    for (int r0 = 0; r0 < CH; r0 += R) {
-      for (int i = tid; i < R * N; i += kSsdThreads) {
-        const int r = i / N, k = i % N, l = l0 + r0 + r;
-        cs[r * (N + 1) + k] =
-            l < L ? to_float(Cm[((long long)b * L + l) * N + k]) : 0.f;
-      }
-      __syncthreads();  // C rows staged (and ecum / wdec written)
-
-      // scores (R x CH) = C_rows B^T, times the masked decay
-      {
-        constexpr int MI = R / 16, MJ = CH / 16;
-        float acc[MI][MJ];
-#pragma unroll
-        for (int i = 0; i < MI; ++i)
-#pragma unroll
-          for (int j = 0; j < MJ; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-        for (int k = 0; k < N; ++k) {
-          float cv[MI], bv[MJ];
-#pragma unroll
-          for (int i = 0; i < MI; ++i) cv[i] = cs[(ty + 16 * i) * (N + 1) + k];
-#pragma unroll
-          for (int j = 0; j < MJ; ++j) {
-            // columns >= 16j; all above the tile's last row when 16j >= r0+R
-            if (16 * j < r0 + R) {
-              bv[j] = bs[(tx + 16 * j) * (N + 1) + k];
-#pragma unroll
-              for (int i = 0; i < MI; ++i)
-                acc[i][j] = fmaf(cv[i], bv[j], acc[i][j]);
-            }
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          const int row = r0 + ty + 16 * i;
-          const float crow = cum[row];
-#pragma unroll
-          for (int j = 0; j < MJ; ++j) {
-            const int col = tx + 16 * j;
-            const float seg = col <= row ? crow - cum[col] : kSsdMask;
-            ss[(ty + 16 * i) * (CH + 1) + col] = acc[i][j] * expf(seg);
-          }
-        }
-      }
-      __syncthreads();
-
-      // y rows: scores . xb + exp(cum_i) * (C_i . state)
-      {
-        constexpr int MI = R / 16, MP = P / 16;
-        float yi[MI][MP], yo[MI][MP];
-#pragma unroll
-        for (int i = 0; i < MI; ++i)
-#pragma unroll
-          for (int q = 0; q < MP; ++q) yi[i][q] = yo[i][q] = 0.f;
-        const int jmax = r0 + R;  // scores past the tile's last row are 0
-#pragma unroll 4
-        for (int j = 0; j < jmax; ++j) {
-          float sv[MI], xv[MP];
-#pragma unroll
-          for (int i = 0; i < MI; ++i) sv[i] = ss[(ty + 16 * i) * (CH + 1) + j];
-#pragma unroll
-          for (int q = 0; q < MP; ++q) xv[q] = xs[j * P + tx + 16 * q];
-#pragma unroll
-          for (int i = 0; i < MI; ++i)
-#pragma unroll
-            for (int q = 0; q < MP; ++q) yi[i][q] = fmaf(sv[i], xv[q], yi[i][q]);
-        }
-#pragma unroll 4
-        for (int k = 0; k < N; ++k) {
-          float cv[MI], sv[MP];
-#pragma unroll
-          for (int i = 0; i < MI; ++i) cv[i] = cs[(ty + 16 * i) * (N + 1) + k];
-#pragma unroll
-          for (int q = 0; q < MP; ++q) sv[q] = st[(tx + 16 * q) * (N + 1) + k];
-#pragma unroll
-          for (int i = 0; i < MI; ++i)
-#pragma unroll
-            for (int q = 0; q < MP; ++q) yo[i][q] = fmaf(cv[i], sv[q], yo[i][q]);
-        }
-#pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          const int row = r0 + ty + 16 * i, l = l0 + row;
-          if (l >= L) continue;
-          const float e = ecum[row];
-          T* out = y + (((long long)b * L + l) * H + h) * P;
-#pragma unroll
-          for (int q = 0; q < MP; ++q)
-            out[tx + 16 * q] = from_float<T>(fmaf(e, yo[i][q], yi[i][q]));
-        }
-      }
-      __syncthreads();  // cs / ss are restaged by the next row tile
-    }
-
-    // state = exp(cum_last) * state + sum_j exp(cum_last - cum_j) xb_j B_j;
-    // each thread rewrites only the entries it owns, and every reader of
-    // the old state passed the barrier above
-    {
-      constexpr int MP = P / 16, MN = N / 16;
-      float acc[MP][MN];
-#pragma unroll
-      for (int q = 0; q < MP; ++q)
-#pragma unroll
-        for (int m = 0; m < MN; ++m) acc[q][m] = 0.f;
-#pragma unroll 4
-      for (int j = 0; j < CH; ++j) {
-        const float w = wdec[j];
-        float xv[MP], bv[MN];
-#pragma unroll
-        for (int q = 0; q < MP; ++q) xv[q] = xs[j * P + ty + 16 * q] * w;
-#pragma unroll
-        for (int m = 0; m < MN; ++m) bv[m] = bs[j * (N + 1) + tx + 16 * m];
-#pragma unroll
-        for (int q = 0; q < MP; ++q)
-#pragma unroll
-          for (int m = 0; m < MN; ++m) acc[q][m] = fmaf(xv[q], bv[m], acc[q][m]);
-      }
-      const float dec = ecum[CH - 1];
-#pragma unroll
-      for (int q = 0; q < MP; ++q)
-#pragma unroll
-        for (int m = 0; m < MN; ++m) {
-          float* e = st + (ty + 16 * q) * (N + 1) + tx + 16 * m;
-          *e = fmaf(*e, dec, acc[q][m]);
-        }
-    }
+    if (tid < CH) cum[tid] = v;
+    if (lane == 31) wsum[tid >> 5] = v;
   }
   __syncthreads();
-  float* out = state_out + ((long long)b * H + h) * P * N;
-  for (int i = tid; i < P * N; i += kSsdThreads)
-    out[i] = st[(i / N) * (N + 1) + i % N];
+  if (tid < CH) {
+    float off = 0.f;
+    for (int w = 0; w < (tid >> 5); ++w) off += wsum[w];
+    cum[tid] += off;
+  }
+  __syncthreads();
+  if (tid < CH) {
+    coef[tid] = d * expf(cum[CH - 1] - cum[tid]);
+    cum_out[((long long)bc * H + h) * CH + tid] = cum[tid];
+  }
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int e = 0; e < TN; ++e) acc[i][e] = 0.f;
+  for (int t = 0; t < NT; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed (and coef written); stage t^1 is free
+    if (t + 1 < NT) load_tile(t + 1, (t + 1) & 1);
+    cp_async_commit();
+    const T* bt = Bs + (t & 1) * KT * N + ty * TM;
+    const T* xt = Xs + (t & 1) * KT * P + tx * TN;
+    const float* ct = coef + t * KT;
+#pragma unroll 4
+    for (int j = 0; j < KT; ++j) {
+      float bv[TM], xv[TN];
+      load_vec<TM>(bt + j * N, bv);
+      load_vec<TN>(xt + j * P, xv);
+      const float w = ct[j];
+#pragma unroll
+      for (int e = 0; e < TN; ++e) xv[e] *= w;
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int e = 0; e < TN; ++e) acc[i][e] = fmaf(bv[i], xv[e], acc[i][e]);
+    }
+  }
+  float* out = states + ((long long)bc * H + h) * N * P;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) store_vec<TN>(out + (ty * TM + i) * P + tx * TN,
+                                             acc[i]);
 }
 
+// Stage 2: the pass of states across chunks, in place; the final state.
+template <int P, int N, int CH>
+__global__ void __launch_bounds__(kSsdThreads)
+    ssd_state_pass(const float* __restrict__ cum, float* __restrict__ states,
+                   float* __restrict__ state_out, int H, int nc) {
+  constexpr int R2 = SsdShape<float, P, N, CH>::R2;
+  __shared__ float tile[R2][P + 1];
+  const int tid = threadIdx.x, bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * R2, e = 4 * tid;
+  if (e < R2 * P) {
+    const long long stride = (long long)H * N * P;  // one chunk
+    float* s_c = states + ((long long)b * nc * H + h) * N * P + k0 * P + e;
+    const float* last = cum + ((long long)b * nc * H + h) * CH + CH - 1;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 v = *reinterpret_cast<const float4*>(s_c);
+    for (int c = 0; c < nc; ++c) {
+      const float4 next = c + 1 < nc
+          ? *reinterpret_cast<const float4*>(s_c + (c + 1) * stride)
+          : make_float4(0.f, 0.f, 0.f, 0.f);
+      // S_in of chunk 0 is zero and never read: stage 4 skips C . S_in
+      if (c > 0) *reinterpret_cast<float4*>(s_c + c * stride) = s;
+      const float dec = expf(last[(long long)c * H * CH]);
+      s = make_float4(fmaf(dec, s.x, v.x), fmaf(dec, s.y, v.y),
+                      fmaf(dec, s.z, v.z), fmaf(dec, s.w, v.w));
+      v = next;
+    }
+    float* tr = &tile[e / P][e % P];
+    tr[0] = s.x; tr[1] = s.y; tr[2] = s.z; tr[3] = s.w;
+  }
+  __syncthreads();
+  // (n x p) -> (p x n): runs of R2 consecutive floats of state_out
+  float* out = state_out + (long long)bh * P * N + k0;
+  for (int i = tid; i < R2 * P; i += kSsdThreads)
+    out[(i / R2) * N + i % R2] = tile[i % R2][i / R2];
+}
+
+// Stage 3: per (batch, chunk), the (j, i) tile of C B^T (zero for j > i),
+// and, from the blocks of the first key-row tile, C^T (n x c).
+template <typename T, int N, int CH>
+__global__ void __launch_bounds__(kSsdThreads)
+    ssd_cb(const T* __restrict__ Bm, const T* __restrict__ Cm,
+           float* __restrict__ cbt, float* __restrict__ ct, int L, int nc) {
+  using S = SsdShape<T, 16, N, CH>;  // p does not enter this stage
+  constexpr int RT = S::RT, NRT = S::NRT, PITCH = N + 4, MR = RT / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Bs = reinterpret_cast<float*>(smem_raw);  // RT x PITCH: B_j rows
+  float* Cs = Bs + RT * PITCH;                     // RT x PITCH: C_i rows
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int bc = blockIdx.x / (NRT * NRT), tile = blockIdx.x % (NRT * NRT);
+  const int tj = tile / NRT, ti = tile % NRT;
+  if (tj > ti) return;  // wholly above the diagonal: never read
+  const int b = bc / nc, l0 = (bc % nc) * CH;
+  for (int i = tid; i < RT * N; i += kSsdThreads) {
+    const int r = i / N, k = i % N;
+    const int lj = l0 + tj * RT + r, li = l0 + ti * RT + r;
+    Bs[r * PITCH + k] =
+        lj < L ? to_float(Bm[((long long)b * L + lj) * N + k]) : 0.f;
+    Cs[r * PITCH + k] =
+        li < L ? to_float(Cm[((long long)b * L + li) * N + k]) : 0.f;
+  }
+  __syncthreads();
+  if (tj == 0) {  // C^T rows k, columns i of this tile (coalesced writes)
+    float* out = ct + (long long)bc * N * CH + ti * RT;
+    for (int i = tid; i < RT * N; i += kSsdThreads)
+      out[(i / RT) * CH + i % RT] = Cs[(i % RT) * PITCH + i / RT];
+  }
+  // rows j = ty + 16a, columns i = tx + 16e
+  float acc[MR][MR];
+#pragma unroll
+  for (int a = 0; a < MR; ++a)
+#pragma unroll
+    for (int e = 0; e < MR; ++e) acc[a][e] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < N; k += 4) {
+    float4 bv[MR], cv[MR];
+#pragma unroll
+    for (int a = 0; a < MR; ++a) bv[a] = ld4(Bs + (ty + 16 * a) * PITCH + k);
+#pragma unroll
+    for (int e = 0; e < MR; ++e) cv[e] = ld4(Cs + (tx + 16 * e) * PITCH + k);
+#pragma unroll
+    for (int a = 0; a < MR; ++a)
+#pragma unroll
+      for (int e = 0; e < MR; ++e) {
+        float v = acc[a][e];
+        v = fmaf(bv[a].x, cv[e].x, v);
+        v = fmaf(bv[a].y, cv[e].y, v);
+        v = fmaf(bv[a].z, cv[e].z, v);
+        v = fmaf(bv[a].w, cv[e].w, v);
+        acc[a][e] = v;
+      }
+  }
+  float* out = cbt + (long long)bc * CH * CH;
+#pragma unroll
+  for (int a = 0; a < MR; ++a) {
+    const int j = tj * RT + ty + 16 * a;
+#pragma unroll
+    for (int e = 0; e < MR; ++e) {
+      const int i = ti * RT + tx + 16 * e;
+      out[j * CH + i] = j <= i ? acc[a][e] : 0.f;
+    }
+  }
+}
+
+// Stage 4: y for one 64-row tile of a (batch, chunk, head).
+template <typename T, int P, int N, int CH>
+__global__ void __launch_bounds__(kSsdThreads, 4)
+    ssd_chunk_scan(const T* __restrict__ x, const float* __restrict__ dt,
+                   const float* __restrict__ cum_in,
+                   const float* __restrict__ states,
+                   const float* __restrict__ cbt, const float* __restrict__ ct,
+                   T* __restrict__ y, int L, int H, int nc) {
+  using S = SsdShape<T, P, N, CH>;
+  constexpr int KT = S::KT, KA = S::KA, RT = S::RT, NRT = S::NRT;
+  constexpr int EPC = S::EPC, STAGE = KT * (RT + P);
+  constexpr int TM = RT / 16, TN = P / 16;  // rows, p-columns a thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* cum = reinterpret_cast<float*>(smem_raw);  // CH
+  float* dts = cum + CH;                            // CH
+  float* buf = dts + CH;  // 2 stages x (KT x RT scores, KT x P S_in or x)
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int rt = blockIdx.x % NRT, bch = blockIdx.x / NRT;
+  const int h = bch % H, bc = bch / H, c = bc % nc, b = bc / nc;
+  const int l0 = c * CH, i0 = rt * RT;
+  // tiles: C^T / S_in over n (none in the first chunk, whose S_in is 0),
+  // then C B^T / x over the key rows up to the tile's last row
+  const int NA = c > 0 ? N / KA : 0;
+  const int NT = NA + (i0 + RT) / KT;
+  const float* s_in = states + (long long)bch * N * P;
+
+  auto load_tile = [&](int t, int stage) {
+    float* md = buf + stage * STAGE;
+    float* vd = md + KT * RT;
+    if (t < NA) {
+      const int k0 = t * KA;
+      for (int i = tid; i < KA * RT / 4; i += kSsdThreads) {
+        const int r = i / (RT / 4), col = i % (RT / 4);
+        cp_async16(md + r * RT + col * 4,
+                   ct + ((long long)bc * N + k0 + r) * CH + i0 + col * 4,
+                   true);
+      }
+      for (int i = tid; i < KA * P / 4; i += kSsdThreads) {
+        const int r = i / (P / 4), col = i % (P / 4);
+        cp_async16(vd + r * P + col * 4, s_in + (k0 + r) * P + col * 4, true);
+      }
+    } else {
+      const int j0 = (t - NA) * KT;
+      for (int i = tid; i < KT * RT / 4; i += kSsdThreads) {
+        const int r = i / (RT / 4), col = i % (RT / 4);
+        cp_async16(md + r * RT + col * 4,
+                   cbt + ((long long)bc * CH + j0 + r) * CH + i0 + col * 4,
+                   true);
+      }
+      T* xd = reinterpret_cast<T*>(vd);
+      for (int i = tid; i < KT * (P / EPC); i += kSsdThreads) {
+        const int r = i / (P / EPC), col = i % (P / EPC), l = l0 + j0 + r;
+        const bool ok = l < L;
+        cp_async16(xd + r * P + col * EPC,
+                   x + (((long long)b * L + (ok ? l : 0)) * H + h) * P +
+                       col * EPC,
+                   ok);
+      }
+    }
+  };
+  load_tile(0, 0);
+  cp_async_commit();
+  for (int j = tid; j < CH; j += kSsdThreads) {
+    const int l = l0 + j;
+    cum[j] = cum_in[(long long)bch * CH + j];
+    dts[j] = l < L ? dt[((long long)b * L + l) * H + h] : 0.f;
+  }
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int e = 0; e < TN; ++e) acc[i][e] = 0.f;
+  for (int t = 0; t < NT; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed (cum, dts written); stage t^1 is free
+    if (t + 1 < NT) load_tile(t + 1, (t + 1) & 1);
+    cp_async_commit();
+    float* md = buf + (t & 1) * STAGE;
+    const float* vd = md + KT * RT;
+    if (t < NA) {  // C_i . S_in: rows k of C^T and of S_in^T
+#pragma unroll 4
+      for (int k = 0; k < KA; ++k) {
+        float cv[TM], sv[TN];
+        load_vec<TM>(md + k * RT + ty * TM, cv);
+        load_vec<TN>(vd + k * P + tx * TN, sv);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int e = 0; e < TN; ++e) acc[i][e] = fmaf(cv[i], sv[e], acc[i][e]);
+      }
+      continue;
+    }
+    if (t == NA && NA > 0) {  // the carried term times exp(cum_i)
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float e_i = expf(cum[i0 + ty * TM + i]);
+#pragma unroll
+        for (int e = 0; e < TN; ++e) acc[i][e] *= e_i;
+      }
+    }
+    // scores: (C B^T)_ji exp(cum_i - cum_j) dt_j, in place; the decay is
+    // masked before the exp
+    const int j0 = (t - NA) * KT;
+    for (int q = tid; q < KT * RT; q += kSsdThreads) {
+      const int j = j0 + q / RT, i = i0 + q % RT;
+      const float seg = j <= i ? cum[i] - cum[j] : kSsdMask;
+      md[q] *= expf(seg) * dts[j];
+    }
+    __syncthreads();
+    const T* xt = reinterpret_cast<const T*>(vd) + tx * TN;
+#pragma unroll 4
+    for (int j = 0; j < KT; ++j) {
+      float mv[TM], xv[TN];
+      load_vec<TM>(md + j * RT + ty * TM, mv);
+      load_vec<TN>(xt + j * P, xv);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int e = 0; e < TN; ++e) acc[i][e] = fmaf(mv[i], xv[e], acc[i][e]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int l = l0 + i0 + ty * TM + i;
+    if (l < L)
+      store_vec<TN>(y + (((long long)b * L + l) * H + h) * P + tx * TN,
+                    acc[i]);
+  }
+}
+
+// The four stages, in order, on `stream`; the error of the first launch
+// that fails, else cudaGetLastError() after the last.
 template <typename T, int P, int N, int CH>
 cudaError_t launch_ssd(const void* x, const void* dt, const void* A,
                        const void* B, const void* C, void* y, void* state,
+                       void* cum, void* states, void* cbt, void* ct,
                        int batch, int L, int H, int device,
                        cudaStream_t stream) {
-  constexpr size_t smem = SsdSmem<P, N, CH>::bytes;
-  cudaError_t err = allow_smem_once<ssd_kernel<T, P, N, CH>>(smem, device);
-  if (err != cudaSuccess) return err;
-  ssd_kernel<T, P, N, CH><<<batch * H, kSsdThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const T*>(B),
-      static_cast<const T*>(C), static_cast<T*>(y),
-      static_cast<float*>(state), L, H);
+  using S = SsdShape<T, P, N, CH>;
+  cudaError_t err;
+  if ((err = allow_smem_once<ssd_chunk_state<T, P, N, CH>>(
+           S::kStateSmem, device)) != cudaSuccess ||
+      (err = allow_smem_once<ssd_cb<T, N, CH>>(S::kCbSmem, device)) !=
+          cudaSuccess ||
+      (err = allow_smem_once<ssd_chunk_scan<T, P, N, CH>>(
+           S::kScanSmem, device)) != cudaSuccess)
+    return err;
+  const int nc = (L + CH - 1) / CH;
+  const T *xp = static_cast<const T*>(x), *bp = static_cast<const T*>(B),
+          *cp = static_cast<const T*>(C);
+  const float* dtp = static_cast<const float*>(dt);
+  float *cump = static_cast<float*>(cum), *stp = static_cast<float*>(states),
+        *cbtp = static_cast<float*>(cbt), *ctp = static_cast<float*>(ct);
+  ssd_chunk_state<T, P, N, CH><<<batch * nc * H, kSsdThreads, S::kStateSmem,
+                                 stream>>>(
+      xp, dtp, static_cast<const float*>(A), bp, cump, stp, L, H, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_state_pass<P, N, CH><<<dim3(batch * H, N / S::R2), kSsdThreads, 0,
+                             stream>>>(cump, stp, static_cast<float*>(state),
+                                       H, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_cb<T, N, CH><<<batch * nc * S::NRT * S::NRT, kSsdThreads, S::kCbSmem,
+                     stream>>>(bp, cp, cbtp, ctp, L, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_chunk_scan<T, P, N, CH><<<batch * nc * H * S::NRT, kSsdThreads,
+                                S::kScanSmem, stream>>>(
+      xp, dtp, cump, stp, cbtp, ctp, static_cast<T*>(y), L, H, nc);
   return cudaGetLastError();
 }
 
@@ -308,33 +495,65 @@ cudaError_t launch_ssd(const void* x, const void* dt, const void* A,
 template <typename T>
 cudaError_t dispatch_ssd(const void* x, const void* dt, const void* A,
                          const void* B, const void* C, void* y, void* state,
+                         void* cum, void* states, void* cbt, void* ct,
                          int batch, int L, int H, int P, int N, int chunk,
                          int device, cudaStream_t s) {
 #define GFDIT_SSD_CASE(p, n, c) \
   if (P == p && N == n && chunk == c) \
-    return launch_ssd<T, p, n, c>(x, dt, A, B, C, y, state, batch, L, H, \
-                                  device, s);
+    return launch_ssd<T, p, n, c>(x, dt, A, B, C, y, state, cum, states, \
+                                  cbt, ct, batch, L, H, device, s);
   GFDIT_SSD_SHAPES(GFDIT_SSD_CASE)
 #undef GFDIT_SSD_CASE
   return cudaErrorInvalidValue;
 }
 
-template <typename T, int P, int N, int CH>
-cudaError_t occupancy_ssd(int device, int* blocks_per_sm, int* smem_bytes) {
-  constexpr size_t smem = SsdSmem<P, N, CH>::bytes;
-  cudaError_t err = allow_smem_once<ssd_kernel<T, P, N, CH>>(smem, device);
+template <auto Kernel>
+cudaError_t occupancy_of(size_t smem, int device, int* blocks_per_sm,
+                         int* smem_bytes) {
+  cudaError_t err = allow_smem_once<Kernel>(smem, device);
   if (err != cudaSuccess) return err;
   *smem_bytes = static_cast<int>(smem);
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, ssd_kernel<T, P, N, CH>, kSsdThreads, smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, Kernel,
+                                                       kSsdThreads, smem);
+}
+
+template <typename T, int P, int N, int CH>
+cudaError_t occupancy_ssd(int stage, int batch, int L, int H, int device,
+                          int* blocks_per_sm, int* smem_bytes, int* grid) {
+  using S = SsdShape<T, P, N, CH>;
+  const int nc = (L + CH - 1) / CH;
+  switch (stage) {
+    case 0:
+      *grid = batch * nc * H;
+      return occupancy_of<ssd_chunk_state<T, P, N, CH>>(
+          S::kStateSmem, device, blocks_per_sm, smem_bytes);
+    case 1:
+      *grid = batch * H * (N / S::R2);
+      *smem_bytes = static_cast<int>(sizeof(float) * S::R2 * (P + 1));
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks_per_sm, ssd_state_pass<P, N, CH>, kSsdThreads, 0);
+    case 2:  // the blocks above the diagonal return at once
+      *grid = batch * nc * S::NRT * S::NRT;
+      return occupancy_of<ssd_cb<T, N, CH>>(S::kCbSmem, device,
+                                            blocks_per_sm, smem_bytes);
+    case 3:
+      *grid = batch * nc * H * S::NRT;
+      return occupancy_of<ssd_chunk_scan<T, P, N, CH>>(
+          S::kScanSmem, device, blocks_per_sm, smem_bytes);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
-cudaError_t dispatch_occupancy(int P, int N, int chunk, int device,
-                               int* blocks_per_sm, int* smem_bytes) {
+cudaError_t dispatch_occupancy(int stage, int batch, int L, int H, int P,
+                               int N, int chunk, int device,
+                               int* blocks_per_sm, int* smem_bytes,
+                               int* grid) {
 #define GFDIT_SSD_CASE(p, n, c) \
   if (P == p && N == n && chunk == c) \
-    return occupancy_ssd<T, p, n, c>(device, blocks_per_sm, smem_bytes);
+    return occupancy_ssd<T, p, n, c>(stage, batch, L, H, device, \
+                                     blocks_per_sm, smem_bytes, grid);
   GFDIT_SSD_SHAPES(GFDIT_SSD_CASE)
 #undef GFDIT_SSD_CASE
   return cudaErrorInvalidValue;
@@ -344,37 +563,51 @@ cudaError_t dispatch_occupancy(int P, int N, int chunk, int device,
 
 // x/y: (batch, L, H, P) and B/C: (batch, L, N), all of one dtype; dt:
 // (batch, L, H) and A: (H,) fp32; state: (batch, H, P, N) fp32 output.
+// Scratch, fp32, nc = ceil(L / chunk): cum (batch, nc, H, chunk), states
+// (batch, nc, H, N, P), cbt (batch, nc, chunk, chunk), ct (batch, nc, N,
+// chunk).  x, B, C and every scratch buffer 16-byte aligned (cp.async).
 extern "C" int gfdit_ssd(const void* x, const void* dt, const void* A,
                          const void* B, const void* C, void* y, void* state,
+                         void* cum, void* states, void* cbt, void* ct,
                          int batch, int L, int H, int P, int N, int chunk,
                          int dtype, int device, void* stream) {
   using namespace gfdit;
   if (batch <= 0 || L <= 0 || H <= 0) return cudaErrorInvalidValue;
+  const void* copied[] = {x, B, C, y, cum, states, cbt, ct};
+  for (const void* p : copied)
+    if (reinterpret_cast<unsigned long long>(p) & 15)
+      return cudaErrorInvalidValue;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return dispatch_ssd<float>(x, dt, A, B, C, y, state, batch, L, H, P, N,
-                               chunk, device, s);
+    return dispatch_ssd<float>(x, dt, A, B, C, y, state, cum, states, cbt, ct,
+                               batch, L, H, P, N, chunk, device, s);
   if (dtype == kBFloat16)
-    return dispatch_ssd<__nv_bfloat16>(x, dt, A, B, C, y, state, batch, L, H,
-                                       P, N, chunk, device, s);
+    return dispatch_ssd<__nv_bfloat16>(x, dt, A, B, C, y, state, cum, states,
+                                       cbt, ct, batch, L, H, P, N, chunk,
+                                       device, s);
   return cudaErrorInvalidValue;
 }
 
-// Resident blocks per SM and dynamic shared memory of the (P, N, chunk)
-// instantiation: the occupancy a launch of gfdit_ssd gets.
-extern "C" int gfdit_ssd_occupancy(int P, int N, int chunk, int dtype,
-                                   int device, int* blocks_per_sm,
-                                   int* smem_bytes) {
+// Occupancy of one stage kernel of the (P, N, chunk) instantiation (0
+// ssd_chunk_state, 1 ssd_state_pass, 2 ssd_cb, 3 ssd_chunk_scan) at
+// (batch, L, H): resident 256-thread blocks per SM, shared-memory bytes a
+// block and the launch's grid.
+extern "C" int gfdit_ssd_occupancy(int stage, int batch, int L, int H, int P,
+                                   int N, int chunk, int dtype, int device,
+                                   int* blocks_per_sm, int* smem_bytes,
+                                   int* grid) {
   using namespace gfdit;
+  if (batch <= 0 || L <= 0 || H <= 0) return cudaErrorInvalidValue;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   if (dtype == kFloat32)
-    return dispatch_occupancy<float>(P, N, chunk, device, blocks_per_sm,
-                                    smem_bytes);
+    return dispatch_occupancy<float>(stage, batch, L, H, P, N, chunk, device,
+                                     blocks_per_sm, smem_bytes, grid);
   if (dtype == kBFloat16)
-    return dispatch_occupancy<__nv_bfloat16>(P, N, chunk, device,
-                                             blocks_per_sm, smem_bytes);
+    return dispatch_occupancy<__nv_bfloat16>(stage, batch, L, H, P, N, chunk,
+                                             device, blocks_per_sm,
+                                             smem_bytes, grid);
   return cudaErrorInvalidValue;
 }

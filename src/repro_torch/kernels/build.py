@@ -42,11 +42,12 @@ _SIGNATURES = {
     # q, k_stale, v_stale, k_fresh, v_fresh, out, B, Sq, Sk, L, H, KV, D,
     # offset, sm_scale, dtype, device, stream
     "gfdit_splice_attention": [_P] * 6 + [_I] * 8 + [_F, _I, _I, _P],
-    # x, dt, A, B, C, y, state, batch, L, H, P, N, chunk, dtype, device,
-    # stream
-    "gfdit_ssd": [_P] * 7 + [_I] * 8 + [_P],
-    # P, N, chunk, dtype, device -> blocks per SM, shared memory bytes
-    "gfdit_ssd_occupancy": [_I] * 5 + [_IP, _IP],
+    # x, dt, A, B, C, y, state, scratch cum, states, cbt, ct, batch, L, H,
+    # P, N, chunk, dtype, device, stream
+    "gfdit_ssd": [_P] * 11 + [_I] * 8 + [_P],
+    # stage, batch, L, H, P, N, chunk, dtype, device -> blocks per SM,
+    # shared memory bytes, grid
+    "gfdit_ssd_occupancy": [_I] * 9 + [_IP, _IP, _IP],
     # D, dtype, device -> blocks per SM, shared memory bytes
     "gfdit_attention_occupancy": [_I] * 3 + [_IP, _IP],
 }

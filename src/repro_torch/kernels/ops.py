@@ -37,6 +37,8 @@ MAX_ADALN_DIM = 4096
 #: (head_dim p, state n, chunk) the SSD kernel is instantiated for
 SSD_SHAPES = ((64, 128, 128), (16, 16, 16), (16, 16, 32), (32, 16, 64),
               (64, 32, 128))
+#: the stage kernels one SSD call launches, in order
+SSD_STAGES = ("ssd_chunk_state", "ssd_state_pass", "ssd_cb", "ssd_chunk_scan")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _count_lock = threading.Lock()
@@ -229,11 +231,15 @@ def fused_adaln(x, shift=None, scale=None, gate=None, residual=None, *,
 
 def ssd(x, dt, A, B, C, *, chunk: int = 128):
     """Mamba2 SSD chunked scan.  x: (b, l, h, p); dt: (b, l, h) and
-    A: (h,) fp32; B/C: (b, l, n) of x's dtype (fp32 or bf16).
+    A: (h,) fp32; B/C: (b, l, n) of x's dtype (fp32 or bf16); x, B and C
+    16-byte aligned.
 
     Returns (y (b, l, h, p) in x's dtype, final_state (b, h, p, n) fp32).
-    The kernel masks a ragged last chunk, so ``l`` need not be a multiple
-    of ``chunk``; the CPU version is the sequential recurrence."""
+    The kernels mask a ragged last chunk, so ``l`` need not be a multiple
+    of ``chunk``; the CPU version is the sequential recurrence.  On the
+    card one call runs the four stage kernels of ``csrc/ssd.cu``
+    (:data:`SSD_STAGES`) and counts one launch; their scratch is
+    allocated here (``ref.ssd_chunked_ref`` computes the same stages)."""
     if not (x.is_cuda or _on_card(x, dt, A, B, C)):
         return ref.ssd_ref(x, dt, A, B, C, chunk=chunk)
     name = "ssd"
@@ -248,19 +254,32 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
         raise ValueError(f"{name}: unsupported (p, n, chunk)={(p, n, chunk)} "
                          f"with b={b}, l={l}, h={h}; the kernel takes "
                          f"{SSD_SHAPES}")
+    ptrs = dict(x=x.data_ptr(), B=B.data_ptr(), C=C.data_ptr())
+    _aligned(name, **ptrs)
     fn = _fn("gfdit_ssd")
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    # scratch, fp32, one allocation: cum (b, nc, h, chunk), chunk states
+    # (b, nc, h, n, p), C B^T (b, nc, chunk, chunk), C^T (b, nc, n, chunk);
+    # every size a multiple of 16 floats, so each part is 16-byte aligned
+    bnc = b * -(-l // chunk)
+    sizes = (bnc * h * chunk, bnc * h * n * p, bnc * chunk * chunk,
+             bnc * n * chunk)
+    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    parts, at = [], scratch.data_ptr()
+    for size in sizes:
+        parts.append(at)
+        at += 4 * size
     dev = x.get_device()
-    _launch(name, fn, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-            B.data_ptr(), C.data_ptr(), y.data_ptr(), state.data_ptr(), b, l,
-            h, p, n, chunk, dtype, dev, _stream(dev))
+    _launch(name, fn, ptrs["x"], dt.data_ptr(), A.data_ptr(), ptrs["B"],
+            ptrs["C"], y.data_ptr(), state.data_ptr(), *parts, b, l, h, p, n,
+            chunk, dtype, dev, _stream(dev))
     return y, state
 
 
-def _occupancy(name: str, fn, *args) -> tuple[int, int]:
+def _occupancy(name: str, fn, *args, extra=()) -> tuple[int, int]:
     blocks, smem = ctypes.c_int(), ctypes.c_int()
-    err = fn(*args, ctypes.byref(blocks), ctypes.byref(smem))
+    err = fn(*args, ctypes.byref(blocks), ctypes.byref(smem), *extra)
     if err != 0:
         msg = _fn("gfdit_error_string")(err).decode()
         raise RuntimeError(f"{name}: {msg} ({err})")
@@ -278,11 +297,20 @@ def attention_occupancy(head_dim: int, dtype=torch.float32,
                       _DTYPES[dtype], device)
 
 
-def ssd_occupancy(p: int, n: int, chunk: int, dtype=torch.float32,
-                  device: int = 0) -> tuple[int, int]:
-    """(resident blocks per SM, dynamic shared-memory bytes) of the SSD
-    kernel at ``(p, n, chunk)``, from the CUDA occupancy calculator."""
+def ssd_occupancy(b: int, l: int, h: int, p: int, n: int, chunk: int,
+                  dtype=torch.float32, device: int = 0) -> dict:
+    """Per stage kernel of one :func:`ssd` call at ``(b, l, h, p, n,
+    chunk)``: ``{name: (resident blocks per SM, shared-memory bytes a
+    block, grid)}``, from the CUDA occupancy calculator; every block has
+    256 threads."""
     if (p, n, chunk) not in SSD_SHAPES:
         raise ValueError(f"ssd: unsupported (p, n, chunk)={(p, n, chunk)}")
-    return _occupancy("ssd_occupancy", _fn("gfdit_ssd_occupancy"), p, n,
-                      chunk, _DTYPES[dtype], device)
+    fn = _fn("gfdit_ssd_occupancy")
+    out = {}
+    for stage, name in enumerate(SSD_STAGES):
+        grid = ctypes.c_int()
+        blocks, smem = _occupancy("ssd_occupancy", fn, stage, b, l, h, p,
+                                  n, chunk, _DTYPES[dtype], device,
+                                  extra=(ctypes.byref(grid),))
+        out[name] = (blocks, smem, grid.value)
+    return out

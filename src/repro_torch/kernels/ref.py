@@ -84,3 +84,59 @@ def ssd_ref(x, dt, A, B, C, *, chunk: int = 0):
         ys.append(torch.einsum("bn,bhpn->bhp", C[:, t], state))
     y = torch.stack(ys, dim=1) if ys else x.new_zeros((b, 0, h, p))
     return y.to(out_dtype), state
+
+
+def ssd_chunked_ref(x, dt, A, B, C, *, chunk: int):
+    """The chunk-parallel SSD of ``csrc/ssd.cu``, stage by stage, in fp32.
+
+    Same operands and results as :func:`ssd_ref`.  The sequence is cut
+    into ``nc`` chunks of ``chunk`` rows, the last zero-filled past ``l``
+    as the kernel's masked loads do (dt = x = B = C = 0 leaves ``cum``
+    and the state as they are), and the stage kernels' steps run in turn:
+      1. ssd_chunk_state: ``cum``, the in-chunk cumulative sum of dt*A,
+         and the chunk-local state
+         S_c = sum_j exp(cum_last - cum_j) (x_j dt_j) (x) B_j;
+      2. ssd_state_pass: S_in[0] = 0, S_in[c+1] = exp(cum_last_c) S_in[c]
+         + S_c, the last of which is the final state;
+      3. ssd_cb: C B^T once per (batch, chunk), shared by every head;
+      4. ssd_chunk_scan: y_i = sum_{j<=i} CB_ij exp(cum_i - cum_j) dt_j x_j
+         + exp(cum_i) (C_i . S_in), the decay masked to -1e30 before the
+         exp.
+    Nothing on the serving path calls this: it documents the kernel's
+    algorithm and is a test oracle for it.
+    """
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    out_dtype = x.dtype
+    nc = -(-l // chunk)
+    pad = nc * chunk - l
+    x, dt, A, B, C = (t.float() for t in (x, dt, A, B, C))
+    if pad:
+        x, dt, B, C = (torch.cat([t, t.new_zeros((b, pad) + t.shape[2:])], 1)
+                       for t in (x, dt, B, C))
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, h).transpose(2, 3)        # (b, nc, h, c)
+    Bc, Cc = B.reshape(b, nc, chunk, n), C.reshape(b, nc, chunk, n)
+
+    # 1. cum and the chunk-local states
+    cum = torch.cumsum(dtc * A[:, None], dim=-1)              # (b, nc, h, c)
+    w = torch.exp(cum[..., -1:] - cum) * dtc
+    states = torch.einsum("bchj,bcjhp,bcjn->bchpn", w, xc, Bc)
+    # 2. the pass of states across chunks
+    s_in = torch.empty_like(states)
+    state = states.new_zeros((b, h, p, n))
+    for k in range(nc):
+        s_in[:, k] = state
+        state = torch.exp(cum[:, k, :, -1])[..., None, None] * state \
+            + states[:, k]
+    # 3. C B^T once per (batch, chunk)
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    # 4. the chunk scan
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=x.device).tril()
+    seg = cum[..., :, None] - cum[..., None, :]               # (b,nc,h,i,j)
+    decay = torch.exp(torch.where(causal, seg, torch.full_like(seg, -1e30)))
+    y = torch.einsum("bcij,bchij,bchj,bcjhp->bcihp", cb, decay, dtc, xc)
+    y = y + torch.einsum("bcin,bchi,bchpn->bcihp", Cc, torch.exp(cum), s_in)
+    y = y.reshape(b, nc * chunk, h, p)[:, :l]
+    return y.to(out_dtype), state

@@ -181,6 +181,78 @@ def test_cuda_ssd_kernel(cuda_device, p, n, chunk, dtype, ragged):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,l,h,p,n,chunk", [
+    (1, 300, 4, 64, 128, 128),    # batch 1, full width, ragged
+    (2, 50, 3, 64, 128, 128),     # l < chunk: one partial chunk
+    (2, 10, 3, 16, 16, 32),       # ... of a narrow shape
+    (2, 128, 3, 64, 128, 128),    # l equal to one chunk
+    (2, 1000, 4, 16, 16, 16),     # many chunks at the reduced shape
+])
+def test_cuda_ssd_stage_edges(cuda_device, b, l, h, p, n, chunk, dtype):
+    """The chunk-parallel stages at the edges of their grids: one block
+    row, one partial or one whole chunk, 63 chunks in the state pass."""
+    rng = np.random.default_rng(b * l + p)
+    x, dt, A, B, C = _ssd_inputs(rng, b, l, h, p, n, dtype, cuda_device)
+    before = ops.launches["ssd"]
+    y, st = ops.ssd(x, dt, A, B, C, chunk=chunk)
+    assert ops.launches["ssd"] == before + 1
+    assert y.shape == x.shape and st.shape == (b, h, p, n)
+    yr, sr = ref.ssd_ref(x, dt, A, B, C)
+    _close(y, yr, dtype, SSD_TOL)
+    _close(st, sr, dtype, SSD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,n,chunk", [(64, 128, 128), (16, 16, 16)])
+def test_cuda_ssd_carried_state_dominates(cuda_device, p, n, chunk):
+    """x is zero past the first chunk and the decay slow (dt = 1e-3), so
+    every later y is the carried state's term alone: a fault in the
+    state pass or in C . S_in shows in full."""
+    rng = np.random.default_rng(7)
+    b, h, l = 2, 3, 5 * chunk + 3
+    x, dt, A, B, C = _ssd_inputs(rng, b, l, h, p, n, "float32", cuda_device)
+    x[:, chunk:] = 0
+    dt.fill_(1e-3)
+    y, st = ops.ssd(x, dt, A, B, C, chunk=chunk)
+    yr, sr = ref.ssd_ref(x, dt, A, B, C)
+    assert yr[:, chunk:].abs().max() > 0.1 * yr[:, :chunk].abs().max()
+    _close(y, yr, "float32", SSD_TOL)
+    _close(st, sr, "float32", SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_counts_one_launch_per_call(cuda_device):
+    """One ``ops.ssd`` call runs four stage kernels and counts one
+    launch; no other counter moves."""
+    rng = np.random.default_rng(1)
+    x, dt, A, B, C = _ssd_inputs(rng, 1, 40, 2, 16, 16, "float32",
+                                 cuda_device)
+    before = dict(ops.launches)
+    for _ in range(3):
+        ops.ssd(x, dt, A, B, C, chunk=16)
+    torch.cuda.synchronize()
+    after = dict(ops.launches)
+    assert after["ssd"] == before["ssd"] + 3
+    assert {k: v for k, v in after.items() if k != "ssd"} == \
+        {k: v for k, v in before.items() if k != "ssd"}
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_rejects_misaligned_operands(cuda_device):
+    """The stage kernels copy 16-byte chunks with cp.async: a contiguous
+    x that starts off a 16-byte boundary is refused."""
+    rng = np.random.default_rng(2)
+    x, dt, A, B, C = _ssd_inputs(rng, 1, 32, 2, 16, 16, "float32",
+                                 cuda_device)
+    odd = torch.empty(x.numel() + 1, device=cuda_device)[1:].view(x.shape)
+    odd.copy_(x)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.ssd(odd, dt, A, B, C, chunk=16)
+
+
+@pytest.mark.cuda
 def test_cuda_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     rng = np.random.default_rng(0)
     x, dt, A, B, C = _ssd_inputs(rng, 1, 32, 2, 16, 16, "float32",
