@@ -22,12 +22,21 @@ Phases, one line each (any failure raises and exits non-zero):
 5. sp: one 512 px request at SP1 and SP4 (cache_interval=1) agree.
 6. cpu: on DIT_IMAGE.reduced() the card (kernels) and the CPU (plain
    versions) give the same pixels.
-7. lm: mamba2-1.3b at full width (48 layers, d_model 2048, seeded random
+7. scenarios: the six cross-backend demos of ``repro_torch.serving``
+   (elastic, packing, cache, topology, hybrid, failure) through their
+   ``run_demo`` at DIT_IMAGE's full width and depth, each held to its own
+   gates (wall vs sim ``trace_signature`` and telemetry identity, pixels
+   within 1e-4 rel-L2, the elastic preempt/requeue/Reallocate and bg's
+   pixels against SP-1, the failure demo's restore from its on-disk
+   snapshot); then ``serve_image_dit --emit-trace``.  With the garbage
+   collector off, every engine's ``shutdown()`` must leave no live
+   tensor on the card; K1-K3 must launch.
+8. lm: mamba2-1.3b at full width (48 layers, d_model 2048, seeded random
    weights with Mamba2's published A/dt ranges) prefills 4 prompts of
    2048 tokens in bf16 and decodes 32 tokens greedily through the
    serve-loop steps: finite logits, K4 once per layer per prefill; then
    in fp32 prefill + decode reproduce the teacher-forced forward.
-8. lm-cpu: on mamba2-1.3b.reduced() the card (K4) and the CPU (the
+9. lm-cpu: on mamba2-1.3b.reduced() the card (K4) and the CPU (the
    sequential plain version) give the same logits.
 
 Kernel times (phase 3): ``ms`` is device time, from CUDA-event timing of
@@ -202,21 +211,6 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
-
-
-def liven(pipeline, seed: int = 123):
-    """Give the adaLN-Zero gates and the zero output head small seeded
-    values (as repro/serving/cache_demo.py does), scaled by d_model^-1/2
-    so that the modulation has the size it has at the reduced width.
-    Otherwise the DiT outputs exactly zero and a run proves nothing."""
-    model = pipeline.dit
-    scale = 0.05 * math.sqrt(128 / pipeline.cfg.d_model)
-    gen = torch.Generator().manual_seed(seed)
-    params = [p for blk in model.blocks for p in (blk.ada_w, blk.ada_b)]
-    params += [model.final_ada_w, model.final_ada_b, model.final_out]
-    with torch.no_grad():
-        for p in params:
-            p.copy_(scale * torch.randn(p.shape, generator=gen))
 
 
 # ---------------------------------------------------------------------------
@@ -553,10 +547,11 @@ def _serve(cfg, policy, reqs, *, cache_interval, device="cuda", setup=None,
     """Serve ``reqs`` on a fresh four-rank engine with livened weights.
     ``setup(engine)`` runs before serving; the timed serve runs inside the
     context manager ``during()`` (serve_profile.py passes a profiler)."""
+    from repro_torch.serving.cache_demo import _liven
     eng = ServingEngine(cfg, policy, 4, cache_interval=cache_interval,
                         device=device)
     try:
-        liven(eng.pipeline)
+        _liven(eng.pipeline)
         if setup is not None:
             setup(eng)
         if device == "cuda":
@@ -639,13 +634,18 @@ def phase_sp() -> None:
 def phase_cpu() -> None:
     cfg = DIT_IMAGE.reduced()
     req = make_request("cpu-check", 128, steps=3)
-    cpu = _serve(cfg, FixedSP(2), [req], cache_interval=2, device="cpu")
+    names = ("dit", "text_encoder", "vae")
+    weights = {}
+
+    def keep_weights(eng):          # shutdown() releases the pipeline
+        weights.update({n: getattr(eng.pipeline, n).state_dict()
+                        for n in names})
+    cpu = _serve(cfg, FixedSP(2), [req], cache_interval=2, device="cpu",
+                 setup=keep_weights)
 
     def copy_weights(eng):
-        src = cpu["engine"].pipeline
-        for name in ("dit", "text_encoder", "vae"):
-            getattr(eng.pipeline, name).load_state_dict(
-                getattr(src, name).state_dict())
+        for n in names:
+            getattr(eng.pipeline, n).load_state_dict(weights[n])
     card = _serve(cfg, FixedSP(2), [req], cache_interval=2,
                   setup=copy_weights)
     err = rel_l2(card["pixels"][req.id], cpu["pixels"][req.id])
@@ -654,6 +654,213 @@ def phase_cpu() -> None:
           f"{PIXEL_BUDGET:.0e})", flush=True)
     if not err <= PIXEL_BUDGET:
         raise AssertionError(f"CUDA vs CPU rel-L2 {err:.2e}")
+
+
+def _settled_allocated() -> int:
+    """Bytes of live tensors once the card is idle.  cuBLAS keeps one
+    workspace per handle and stream inside the caching allocator; they
+    are freed first, so that only the program's own tensors count."""
+    torch.cuda.synchronize()
+    if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
+        torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def _scenario_gates(name, gates: dict) -> None:
+    bad = [k for k, ok in gates.items() if not ok]
+    if bad:
+        raise AssertionError(f"scenarios: {name} failed {bad}")
+
+
+def _rank_tracks(path) -> list:
+    trace = json.loads(Path(path).read_text())
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    return sorted(e["args"]["name"] for e in events
+                  if e.get("ph") == "M" and e.get("name") == "thread_name"
+                  and e["args"]["name"].startswith("rank"))
+
+
+def phase_scenarios(smi: str) -> dict:
+    """The port's six cross-backend demos on the card through their
+    ``run_demo``, every engine's DiT livened (the demos' own weights are
+    zero-gated, which would make every pixel check one of two zero
+    velocities), with the garbage collector off: all six at DIT_IMAGE's
+    full width and depth (no cut: the phase takes ~20 s on an H100),
+    then the serve_image_dit twin with ``--emit-trace``.  Every serve's
+    wall and the device memory left after every engine's ``shutdown()``
+    are recorded; returns K1-K3's launches over the phase."""
+    import tempfile
+    from unittest import mock
+
+    from repro_torch.serving import (cache_demo, elastic_demo, failure_demo,
+                                     hybrid_demo, packing_demo,
+                                     serve_image_dit, topology_demo)
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.training import checkpoint
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    base = _settled_allocated()
+    serves, held, restores = [], [], []
+    real_serve, real_shutdown = ServingEngine.serve, ServingEngine.shutdown
+    real_restore = checkpoint.CheckpointManager.restore
+
+    class Livened(engine_mod.TorchDiTPipeline):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            cache_demo._liven(self)
+
+    def serve(eng, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real_serve(eng, *args, **kw)
+        finally:
+            torch.cuda.synchronize()
+            serves.append((eng.cp.policy.name, time.perf_counter() - t0))
+
+    def shutdown(eng):
+        real_shutdown(eng)
+        held.append(_settled_allocated() - base)
+
+    def restore(mgr, template, step=None):
+        tree, meta = real_restore(mgr, template, step)
+        restores.append((mgr.dir.name, meta["step"]))
+        return tree, meta
+
+    def walls(start, stop=None):
+        return "/".join(f"{t:.2f}" for _, t in serves[start:stop])
+
+    ops.reset_launches()
+    gc.disable()
+    try:
+        with contextlib.ExitStack() as stack:
+            for obj, name, value in (
+                    (engine_mod, "TorchDiTPipeline", Livened),
+                    (ServingEngine, "serve", serve),
+                    (ServingEngine, "shutdown", shutdown),
+                    (checkpoint.CheckpointManager, "restore", restore)):
+                stack.enter_context(mock.patch.object(obj, name, value))
+            # -- elastic: preempt, requeue, Reallocate at full width ------
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = elastic_demo.run_demo(DIT_IMAGE, device="cuda")
+            n_cal = 6                       # calibrate: 3 cells x 2 passes
+            sp1 = elastic_demo.sp1_pixels(DIT_IMAGE, device="cuda")
+            t_el = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            evs = res["wall"]["events"]
+            bg = {len(e["ranks"]) for e in evs if e["ev"] == "dispatch"
+                  and e["kind"] == "denoise" and e["req"] == "bg"}
+            px = res["wall"]["pixels"]["bg"]
+            err = rel_l2(px, sp1) if px is not None else float("inf")
+            m = res["margins"]
+            print(f"scenarios: elastic DIT_IMAGE full width and depth "
+                  f"({DIT_IMAGE.num_layers} layers, d={DIT_IMAGE.d_model}): "
+                  f"trace_match {res['trace_match']}, telemetry_match "
+                  f"{res['telemetry_match']}, attempts {res['attempts']}; "
+                  f"margins arrival {m['arrival_margin_s']:.3f} s, decode/"
+                  f"denoise {m['decode_vs_denoise_ratio']:.3f}; bg degrees "
+                  f"{sorted(bg)}, pixels vs SP-1 rel-L2 {err:.2e}; serve "
+                  f"walls s: calibration {walls(0, n_cal)}, wall legs "
+                  f"{walls(n_cal, -1)}, SP-1 {walls(-1)}; elastic "
+                  f"{t_el:.1f} s; peak mem {peak:.2f} GiB; allocated after "
+                  f"each shutdown vs phase start, MiB: "
+                  + ", ".join(f"{h / 2**20:.1f}" for h in held), flush=True)
+            kinds = {e["ev"] for e in evs}
+            _scenario_gates("elastic", {
+                "trace_match": res["trace_match"],
+                "telemetry_match": res["telemetry_match"],
+                "preempt/requeued/reallocate in the wall leg":
+                    {"preempt", "requeued", "reallocate"} <= kinds,
+                "bg on 4 ranks and on 1": {1, 4} <= bg,
+                "bg pixels within the budget of SP-1": err <= PIXEL_BUDGET,
+                "slo arrives mid-step": m["arrival_margin_s"] > 0,
+                "slo decode before bg's denoise":
+                    m["decode_before_denoise"]})
+
+            # -- the other five, also at full width and depth ------------
+            cfg = DIT_IMAGE
+            for name, run, gates in (
+                ("packing", packing_demo.run_demo, lambda r: {
+                    "trace_match": r["trace_match"],
+                    "one full pack a step": all(
+                        len(r["packs"][leg]) == packing_demo.STEPS and all(
+                            e["batch"] == packing_demo.N_REQS
+                            for e in r["packs"][leg])
+                        for leg in ("wall", "sim"))}),
+                ("cache", cache_demo.run_demo, lambda r: {
+                    "trace_match": r["trace_match"],
+                    "modes": r["modes"] == [
+                        (0, "refresh"), (1, "hit"), (2, "hit+mig"),
+                        (3, "refresh"), (4, "hit"), (5, "hit")],
+                    "interval 1 vs exact": r["interval1_exact"],
+                    "stale reuse in (0, 5e-2]": 0 < r["rel_l2_err"] <= 5e-2,
+                    "migration_bitexact": r["migration_bitexact"]}),
+                ("topology", topology_demo.run_demo, lambda r: {
+                    "trace_match": r["trace_match"],
+                    "pixels_match": r["pixels_match"],
+                    "hierarchical GFC on the wall leg":
+                        r["wall"]["hierarchical_collectives"] > 0
+                        and r["flat"]["hierarchical_collectives"] == 0}),
+                ("hybrid", hybrid_demo.run_demo, lambda r: {
+                    "trace_match": r["trace_match"],
+                    "telemetry_match": r["telemetry_match"],
+                    "pixels_match": r["pixels_match"],
+                    "scalar_identical": r["scalar_identical"]}),
+                ("failure", failure_demo.run_demo, lambda r: {
+                    "trace_match": r["trace_match"],
+                    "telemetry_match": r["telemetry_match"],
+                    "pixels_match": r["pixels_match"],
+                    "resumed at step 2 from the step-1 snapshot":
+                        (r["snapshot_step"], r["resumed_step"]) == (1, 2),
+                    "restored from the on-disk snapshot":
+                        ("victim", 1) in restores}),
+            ):
+                first, n_held = len(serves), len(held)
+                t0 = time.perf_counter()
+                r = run(cfg, device="cuda")
+                extra = {k: r[k] for k in (
+                    "attempts", "pixels_rel_l2", "pixels_bitexact",
+                    "interval1_rel_l2", "interval1_bitexact", "rel_l2_err")
+                    if k in r}
+                print(f"scenarios: {name} ({cfg.num_layers} layers, d="
+                      f"{cfg.d_model}) {time.perf_counter() - t0:.1f} s: "
+                      f"{json.dumps(gates(r), default=str)} "
+                      f"{json.dumps(extra, default=str)}; serve walls s "
+                      f"{walls(first)}; allocated after each shutdown, MiB"
+                      f": " + ", ".join(f"{h / 2**20:.1f}"
+                                        for h in held[n_held:]),
+                      flush=True)
+                _scenario_gates(name, gates(r))
+
+            # -- the serve_image_dit twin with --emit-trace --------------
+            with tempfile.TemporaryDirectory(prefix="gfdit-trace-") as tmp:
+                trace = Path(tmp) / "trace.json"
+                t0 = time.perf_counter()
+                metrics = serve_image_dit.main(
+                    ["--emit-trace", str(trace), "--device", "cuda"])
+                tracks = _rank_tracks(trace)
+            print(f"scenarios: serve_image_dit --emit-trace "
+                  f"{time.perf_counter() - t0:.1f} s: completed "
+                  f"{metrics['completed']}, rank tracks {tracks}",
+                  flush=True)
+            _scenario_gates("serve_image_dit", {
+                "completed": metrics["completed"] == 6,
+                "one track a rank": tracks == [f"rank{r}" for r in range(4)]})
+    finally:
+        gc.enable()
+    counts = {k: ops.launches[k] for k in DIT_KERNELS}
+    seconds = time.perf_counter() - t_phase
+    print(f"scenarios: {seconds:.1f} s, {len(held)} engines; launches "
+          f"{counts}; largest allocation left after a shutdown "
+          f"{max(held) / 2**20:.2f} MiB (garbage collector off); on {smi}",
+          flush=True)
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"scenarios: a kernel never launched: {counts}")
+    if max(held) > 0:
+        raise AssertionError(f"scenarios: a dropped engine left "
+                             f"{max(held)} bytes on the card")
+    return counts
 
 
 def _lm_run(model, cfg, prompt, steps, dtype, feed=None):
@@ -798,7 +1005,8 @@ def main() -> int:
     counts = phase_serve()
     phase_sp()
     phase_cpu()
-    gc.collect()                   # the DiT engines' reference cycles
+    for name, n in phase_scenarios(smi).items():
+        counts[name] += n
     torch.cuda.empty_cache()
     counts.update(phase_lm(smi))
     phase_lm_cpu()

@@ -175,9 +175,15 @@ class SnapshotStore:
 
     # ------------------------------------------------------------------
     def _manager(self, rid: str):
-        raise NotImplementedError(
-            "on-disk denoise snapshots (CheckpointManager) come with a "
-            "later slice of the PyTorch port")
+        if rid not in self._mgr:
+            # lazy import: the checkpoint module pulls in torch, which the
+            # sim-only path must not pay for
+            from pathlib import Path
+
+            from repro_torch.training.checkpoint import CheckpointManager
+            self._mgr[rid] = CheckpointManager(
+                Path(self.directory) / rid, keep=self.keep)
+        return self._mgr[rid]
 
     def capture(self, task, graph: RequestGraph,
                 layout: ExecutionLayout) -> None:

@@ -41,13 +41,6 @@ class ServingEngine:
             raise RuntimeError("ServingEngine runs on CUDA and none is "
                                "available; pass device='cpu' to run the "
                                "plain PyTorch path")
-        if telemetry is not None:
-            raise NotImplementedError("telemetry comes with a later slice "
-                                      "of the PyTorch port")
-        if snapshot_dir is not None:
-            raise NotImplementedError(
-                "on-disk denoise snapshots (CheckpointManager) come with a "
-                "later slice of the PyTorch port")
         # `num_ranks` accepts a bare rank count or a ClusterTopology;
         # `cache_interval` enables the cross-step feature cache (§11)
         topo = as_topology(num_ranks)
@@ -55,6 +48,10 @@ class ServingEngine:
         self.topology = topo
         self.pipeline = TorchDiTPipeline(cfg, seed=seed, device=device)
         self.comm = GroupFreeComm(topo.num_ranks, topology=topo)
+        # telemetry plane (DESIGN.md §15): one instance observes the
+        # whole stack — control plane decisions/timelines, GFC
+        # registration latency, and the worker collective overlay
+        self.comm.telemetry = telemetry
         self.backend = ThreadBackend(self.pipeline, topo.num_ranks,
                                      comm=self.comm)
         self.cp = ControlPlane(topo, policy, cost or CostModel(),
@@ -62,7 +59,9 @@ class ServingEngine:
                                cache_interval=cache_interval,
                                injector=injector,
                                snapshot_interval=snapshot_interval,
-                               failure_recovery=failure_recovery)
+                               snapshot_dir=snapshot_dir,
+                               failure_recovery=failure_recovery,
+                               telemetry=telemetry)
 
     # ------------------------------------------------------------------
     def serve(self, requests: list[Request], *, time_scale: float = 1.0,
@@ -87,6 +86,10 @@ class ServingEngine:
         # early arrivals do not release late
         clock = WallClock()
         self.backend.t0 = clock.t0
+        if self.cp.telemetry is not None:
+            # anchor the wall overlay streams (recorded in absolute
+            # monotonic time from worker threads) to plane-relative time
+            self.cp.telemetry.t0 = clock.t0
         for r, g in graphs:
             self.cp.submit(r, g)
         EventLoop(self.cp, clock).run(until=timeout)
@@ -104,6 +107,11 @@ class ServingEngine:
                 timeout, len(unfinished), ", ".join(unfinished))
             for rid in unfinished:
                 self.cp._fail_request(rid, "serve-timeout")
+        if self.cp.telemetry is not None:
+            # end-of-run watermark: whatever the sinks still buffer is
+            # flushed out-of-process before the caller reads metrics
+            # (DESIGN.md §16); sinks stay attached for post-run exports
+            self.cp.telemetry.flush_sinks()
         m = self.cp.metrics()
         m["timed_out_requests"] = unfinished
         return m
@@ -118,4 +126,13 @@ class ServingEngine:
         return None
 
     def shutdown(self):
+        """Stop the rank threads and release the model.  The plane and
+        the backend refer to each other, so without this the pipeline
+        and its device memory would wait for a garbage collection;
+        ``result_pixels`` still reads the finished graphs."""
         self.backend.shutdown()
+        if self.cp.telemetry is not None:
+            self.cp.telemetry.close_sinks()
+        self.backend.plane = None
+        self.backend.adapter = None
+        self.pipeline = None

@@ -1,11 +1,14 @@
 """The port's boundaries: it stands alone from the JAX package, runs on
 the card unless asked for the CPU, and never computes a CUDA tensor
 some other way when its kernels are missing."""
+import gc
+import importlib
 import importlib.util
 import os
 import re
 import subprocess
 import sys
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -17,6 +20,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.dit_models import DIT_IMAGE  # noqa: E402
 from repro_torch.core import migration  # noqa: E402
 from repro_torch.core.policies import make_policy  # noqa: E402
+from repro_torch.core.telemetry import Telemetry  # noqa: E402
+from repro_torch.core.trajectory import Request  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.serving import engine as torch_engine  # noqa: E402
@@ -85,6 +90,17 @@ def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
                                    make_policy("edf", 2), 2)
 
 
+@pytest.mark.parametrize("demo", ["elastic", "packing", "cache",
+                                  "topology", "hybrid", "failure"])
+def test_demos_default_to_cuda_and_raise_without_it(monkeypatch, demo):
+    """Every demo's engines run on the card unless the CPU is asked for;
+    without CUDA the first engine raises, before any wall leg runs."""
+    mod = importlib.import_module(f"repro_torch.serving.{demo}_demo")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.run_demo(DIT_IMAGE.reduced())
+
+
 def test_mamba2_defaults_to_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("mamba2-1.3b").reduced()
@@ -103,13 +119,63 @@ def test_migration_refuses_a_bfloat16_field():
     assert migration.np_dtype("float32") == np.float32
 
 
-@pytest.mark.parametrize("kwargs", [dict(telemetry=object()),
-                                    dict(snapshot_dir="snapshots")])
-def test_engine_refuses_later_slices(kwargs):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        torch_engine.ServingEngine(DIT_IMAGE.reduced(),
-                                   make_policy("edf", 2), 2, device="cpu",
-                                   **kwargs)
+def _tiny_request(rid="r0", steps=2):
+    return Request(id=rid, model="dit-image", height=64, width=64,
+                   frames=1, steps=steps, arrival=0.0)
+
+
+def test_engine_serves_with_telemetry_and_records_decisions():
+    tel = Telemetry()
+    eng = torch_engine.ServingEngine(DIT_IMAGE.reduced(),
+                                     make_policy("edf", 2), 2,
+                                     device="cpu", telemetry=tel)
+    try:
+        assert eng.comm.telemetry is tel and eng.cp.telemetry is tel
+        m = eng.serve([_tiny_request()], timeout=60)
+    finally:
+        eng.shutdown()
+    assert m["completed"] == 1
+    actions = {d["action"] for d in tel.decisions}
+    assert "dispatch" in actions, actions
+    assert set(tel.rank_states) == {0, 1}
+    assert tel.summary()["makespan_s"] > 0
+
+
+def test_engine_writes_denoise_snapshots_to_disk(tmp_path):
+    eng = torch_engine.ServingEngine(DIT_IMAGE.reduced(),
+                                     make_policy("edf", 2), 2,
+                                     device="cpu", snapshot_interval=1,
+                                     snapshot_dir=tmp_path)
+    try:
+        m = eng.serve([_tiny_request("snap", steps=3)], timeout=60)
+    finally:
+        eng.shutdown()
+    assert m["completed"] == 1
+    steps = sorted(p.name for p in (tmp_path / "snap").glob("step_*"))
+    assert steps == ["step_1", "step_2"]          # keep-last-2
+    assert (tmp_path / "snap" / "LATEST").read_text() == "2"
+    assert (tmp_path / "snap" / "step_2" / "latent.npy").exists()
+
+
+def test_dropped_engine_frees_its_pipeline_without_gc():
+    """No reference cycle keeps the model (and on the card its device
+    memory) alive once the engine is shut down and dropped; the finished
+    pixels stay readable after shutdown."""
+    gc.disable()
+    try:
+        eng = torch_engine.ServingEngine(DIT_IMAGE.reduced(),
+                                         make_policy("edf", 2), 2,
+                                         device="cpu")
+        pipeline = weakref.ref(eng.pipeline)
+        dit = weakref.ref(eng.pipeline.dit)
+        req = _tiny_request()
+        eng.serve([req], timeout=60)
+        eng.shutdown()
+        assert eng.result_pixels(req).shape == (1, 64, 64, 3)
+        del eng
+        assert pipeline() is None and dit() is None
+    finally:
+        gc.enable()
 
 
 class _CudaLooking(torch.Tensor):

@@ -285,3 +285,40 @@ def test_cuda_mamba2_reduced_matches_the_cpu(cuda_device):
     err = (torch.linalg.vector_norm(got.cpu().double() - want.double())
            / torch.linalg.vector_norm(want.double())).item()
     assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+def test_cuda_elastic_demo_and_dropped_engines_free_the_card(cuda_device,
+                                                            monkeypatch):
+    """The elastic scenario on the card at DIT_IMAGE.reduced(): identical
+    wall and sim traces and telemetry (exact), and after every engine's
+    shutdown the card holds no more live tensors than before the demo
+    (cuBLAS's per-handle workspaces freed first), with the garbage
+    collector off."""
+    import gc
+
+    from repro_torch.configs.dit_models import DIT_IMAGE
+    from repro_torch.serving import elastic_demo
+    from repro_torch.serving.engine import ServingEngine
+
+    def settled():
+        torch.cuda.synchronize()
+        if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
+            torch._C._cuda_clearCublasWorkspaces()
+        return torch.cuda.memory_allocated()
+
+    held, real = [], ServingEngine.shutdown
+
+    def shutdown(eng):
+        real(eng)
+        held.append(settled() - base)
+    monkeypatch.setattr(ServingEngine, "shutdown", shutdown)
+    base = settled()
+    gc.disable()
+    try:
+        res = elastic_demo.run_demo(DIT_IMAGE.reduced(), device=cuda_device)
+    finally:
+        gc.enable()
+    assert res["trace_match"] and res["telemetry_match"]
+    assert res["wall"]["metrics"]["completed"] == 2
+    assert len(held) >= 7 and max(held) <= 0, held
