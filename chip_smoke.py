@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch port serves DiT-image and Mamba2 on one
-NVIDIA GPU.
+"""Quickest proof that the PyTorch port serves DiT-image, DiT-video and
+Mamba2 on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -12,7 +12,9 @@ Phases, one line each (any failure raises and exits non-zero):
    outlast GFC's collective timeout).
 3. kernels: each kernel against its plain PyTorch version on the card at
    its path's full-width shapes (DIT_IMAGE for K1-K3, the mamba2-1.3b
-   prefill for K4, timed at batch 4 and 1), fp32 and bf16, with kernel,
+   prefill for K4, timed at batch 4 and 1), fp32 and bf16, and K1-K3 at
+   DIT_VIDEO's shapes in fp32 (K1 at D=3072, K2 self over 20,280 keys
+   and cross at head dim 128, K3 at the video hit), with kernel,
    plain-version and one-PyTorch-call times from CUDA events; K4's device
    time by stage kernel (``torch.profiler``) and each stage's occupancy.
 4. serve: ``ServingEngine(DIT_IMAGE, SP-4, cache_interval=2)`` at full
@@ -31,12 +33,21 @@ Phases, one line each (any failure raises and exits non-zero):
    snapshot); then ``serve_image_dit --emit-trace``.  With the garbage
    collector off, every engine's ``shutdown()`` must leave no live
    tensor on the card; K1-K3 must launch.
-8. lm: mamba2-1.3b at full width (48 layers, d_model 2048, seeded random
+8. video: the paper's video class, DIT_VIDEO (30 layers, d_model 3072,
+   24 heads x 128, 7.39 B parameters) at full width and depth, one
+   engine live at a time: (a) a 480x832x49-frame request (20,280 tokens)
+   uncached at SP-4 and SP-1 on the same weights, pixels of (13, 480,
+   832, 3) within 1e-4 rel-L2, K1 and K2 launched; (b) 480x832x17 frames
+   (7,800 tokens) at SP-4 with cache_interval=2: a refresh step, then a
+   §11 hit through K3; (c) DIT_VIDEO.reduced() card vs CPU; the
+   positional embedding at 20,280 and 75,600 positions, card vs CPU.
+   Host and card memory are printed first.
+9. lm: mamba2-1.3b at full width (48 layers, d_model 2048, seeded random
    weights with Mamba2's published A/dt ranges) prefills 4 prompts of
    2048 tokens in bf16 and decodes 32 tokens greedily through the
    serve-loop steps: finite logits, K4 once per layer per prefill; then
    in fp32 prefill + decode reproduce the teacher-forced forward.
-9. lm-cpu: on mamba2-1.3b.reduced() the card (K4) and the CPU (the
+10. lm-cpu: on mamba2-1.3b.reduced() the card (K4) and the CPU (the
    sequential plain version) give the same logits.
 
 Kernel times (phase 3): ``ms`` is device time, from CUDA-event timing of
@@ -46,7 +57,8 @@ Python between two events, what a Python caller pays per call; ``host_us``
 is the host's cost of one wrapper call (many calls, no synchronise).  The
 library call is timed both ways too.
 
-The line before the last is the ``kernels`` JSON summary; the last line
+The line before the last is the ``kernels`` JSON summary (K1-K3 carry
+their DIT_VIDEO case and its launches under ``video``); the last line
 is ``{"ok": true, "device": {...}}``.  Exits 2 without CUDA.
 
     python3 chip_smoke.py --kernels-only [--src DIR] [--json FILE]
@@ -84,11 +96,11 @@ def _src_dir() -> Path:
 sys.path.insert(0, str(_src_dir()))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.dit_models import DIT_IMAGE  # noqa: E402
+from repro_torch.configs.dit_models import DIT_IMAGE, DIT_VIDEO  # noqa: E402
 from repro_torch.core.scheduler import Decision, Policy  # noqa: E402
 from repro_torch.core.trajectory import ExecutionLayout, Request  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.models import ssm  # noqa: E402
+from repro_torch.models import dit, ssm  # noqa: E402
 from repro_torch.serving import serve_loop  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
@@ -105,6 +117,10 @@ LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 32
 LOGIT_BUDGET = 1e-3                # of the largest |logit|, fp32 decode
 LM_CPU_BUDGET = 1e-4               # rel-L2 on logits, card vs CPU
 DIT_KERNELS = ("fused_adaln", "attention", "splice_attention")
+# the video phase: the paper's class S (480x832, 49 frames: 13 latent
+# frames, 20,280 tokens) and leg (b)'s 17 frames (5 latent frames, 7,800
+# tokens), both at 2 denoise steps
+VIDEO_S, VIDEO_HIT, VIDEO_STEPS = (480, 832, 49), (480, 832, 17), 2
 SOURCES = {
     "fused_adaln": ("src/repro_torch/csrc/adaln.cu",
                     "src/repro/kernels/adaln.py:66"),
@@ -231,11 +247,14 @@ def phase_device() -> str:
     return smi
 
 
-# the DiT path's instantiations (fp32, d_model 1536, head dim 64), by
-# their mangled-name prefixes
+# the DiT path's instantiations (fp32; DIT_IMAGE's d_model 1536 and head
+# dim 64, DIT_VIDEO's 3072 and 128), by their mangled-name prefixes
 WATCHED = {"attn_kernel<float, 64>": "_ZN5gfdit11attn_kernelIfLi64E",
+           "attn_kernel<float, 128>": "_ZN5gfdit11attn_kernelIfLi128E",
            "adaln_kernel<float, float4 x 12>":
-               "_ZN5gfdit12adaln_kernelIfLi4ELi12E"}
+               "_ZN5gfdit12adaln_kernelIfLi4ELi12E",
+           "adaln_kernel<float, float4 x 24>":
+               "_ZN5gfdit12adaln_kernelIfLi4ELi24E"}
 
 
 def ptxas_report(log: str) -> dict:
@@ -305,12 +324,15 @@ def _check(label, kernel, plain, dtype, results, timing=None, budget=BUDGET):
     line = (f"  {label} {str(dtype)[6:]}: max rel err {rel:.2e} "
             f"(budget {budget[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
     if timing is not None:
-        ms, cms = device_ms(kernel), call_ms(kernel)
+        # a kernel of tens of ms is timed over fewer calls
+        depth = dict(iters=timing.get("iters", 20),
+                     replays=timing.get("replays", 10))
+        ms, cms = device_ms(kernel, **depth), call_ms(kernel, depth["iters"])
         hus = host_us(kernel, timing.get("host_calls", 1000))
         plain_ms = call_ms(plain, timing.get("plain_iters", 20))
         lib = timing.get("library")
-        lib_ms = device_ms(lib) if lib is not None else None
-        lib_cms = call_ms(lib) if lib is not None else None
+        lib_ms = device_ms(lib, **depth) if lib is not None else None
+        lib_cms = call_ms(lib, depth["iters"]) if lib is not None else None
         b_ms, b_by = bound_ms(timing["bytes"], timing["flops"])
 
         def fmt(t):
@@ -440,7 +462,89 @@ def phase_kernels() -> dict:
                        q, ks_, vs_, kf, vf, offset=o),
                    dtype, results, timing)
         _check_ssd(dtype, results)
+    _check_video(results, gen)
     return results
+
+
+def _attn_timing(q, k, v, sq, sk, **extra) -> dict:
+    """Timing of an attention case: bytes and operations of the
+    function, and fp32 SDPA (heads first) as the library call."""
+    b, _, h, d = q.shape
+    return dict(bytes=(2 * q.numel() + k.numel() + v.numel()) * 4,
+                flops=4 * b * h * d * sq * sk,
+                library=lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
+                **extra)
+
+
+def _check_video(results, gen) -> None:
+    """K1-K3 at DIT_VIDEO's shapes, fp32: K1 at the SP-4 shard of the
+    class-S request (5,070 rows of 3072), K2 self over its 20,280 keys
+    and cross to 77 text tokens at head dim 128, K3 at leg (b)'s hit
+    (rank 2 of SP-4 over 7,800 keys, offset 3,900: off the 32-key tile).
+    A K2/K3 call here takes tens of ms, so each is timed over fewer
+    calls; the plain version's (5070 x 20280) score matrix per head fits
+    the card (9.9 GB over 24 heads), so it runs whole."""
+    dtype, d_model, heads, hd = (torch.float32, DIT_VIDEO.d_model,
+                                 DIT_VIDEO.num_heads, DIT_VIDEO.head_dim)
+    n_s = dit.token_count(DIT_VIDEO, *VIDEO_S)
+    n_hit = dit.token_count(DIT_VIDEO, *VIDEO_HIT)
+    shard, hit_shard = n_s // 4, n_hit // 4
+    x = _rand((1, shard, d_model), dtype, gen)
+    res = _rand((1, shard, d_model), dtype, gen)
+    sh, sc, g = (_rand((1, d_model), dtype, gen, 0.5) for _ in range(3))
+    for vname, kw in {
+            "mod_norm": dict(shift=sh, scale=sc), "ln": dict(),
+            "gated_residual": dict(gate=g, residual=res, ln=False),
+            "full": dict(shift=sh, scale=sc, gate=g, residual=res)}.items():
+        rows = 2 + ("residual" in kw)
+        mod_rows = len({"shift", "scale", "gate"} & set(kw))
+        timing = {"bytes": (rows * shard + mod_rows) * d_model * 4,
+                  "flops": {"mod_norm": 8, "ln": 6, "gated_residual": 2,
+                            "full": 10}[vname] * shard * d_model}
+        if vname == "mod_norm":
+            w, b = (1.0 + sc[0]).contiguous(), sh[0].contiguous()
+            timing["library"] = lambda w=w, b=b: F.layer_norm(
+                x, (d_model,), w, b, eps=1e-6)
+            timing["summary"] = "video fused_adaln"
+        _check(f"video adaln {vname} N={shard} D={d_model}",
+               lambda kw=kw: ops.fused_adaln(x, **kw),
+               lambda kw=kw: ref.adaln_ref(x, **kw), dtype, results, timing)
+    blocks, smem = ops.attention_occupancy(hd)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = -(-shard // 64) * heads
+    print(f"  attention occupancy d={hd}: {grid} blocks of 128 threads at "
+          f"Sq={shard}, {blocks} resident per SM ({smem / 1024:.1f} KB "
+          f"shared memory each), {sms} SMs: {grid / (blocks * sms):.2f} "
+          f"waves", flush=True)
+    results["video_attention_occupancy"] = {
+        "blocks_per_sm": blocks, "smem_bytes": smem, "sms": sms,
+        "grid": grid}
+    long = dict(iters=2, replays=3, host_calls=20, plain_iters=2)
+    q = _rand((1, shard, heads, hd), dtype, gen)
+    for label, sk, extra in (("self", n_s, dict(long, summary="video "
+                                                "attention")),
+                             ("cross Lt=77", 77, {"host_calls": 200})):
+        k, v = (_rand((1, sk, heads, hd), dtype, gen) for _ in range(2))
+        _check(f"video attention {label} q{tuple(q.shape)} kv(1, {sk}, "
+               f"{heads}, {hd})", lambda k=k, v=v: ops.attention(q, k, v),
+               lambda k=k, v=v: ref.attention_ref(q, k, v), dtype, results,
+               _attn_timing(q, k, v, shard, sk, **extra))
+        del k, v
+    del q
+    q = _rand((1, hit_shard, heads, hd), dtype, gen)
+    ks_, vs_ = (_rand((1, n_hit, heads, hd), dtype, gen) for _ in range(2))
+    kf, vf = (_rand((1, hit_shard, heads, hd), dtype, gen) for _ in range(2))
+    offset = 2 * hit_shard
+    timing = _attn_timing(q, ks_, vs_, hit_shard, n_hit, **long,
+                          summary="video splice_attention")
+    timing["library"] = None           # no single call splices
+    _check(f"video splice offset={offset} q(1, {hit_shard}) stale(1, "
+           f"{n_hit}) d={hd}",
+           lambda: ops.splice_attention(q, ks_, vs_, kf, vf, offset=offset),
+           lambda: ref.splice_attention_ref(q, ks_, vs_, kf, vf,
+                                            offset=offset),
+           dtype, results, timing)
 
 
 def ssd_inputs(b, l, h, p, n, dtype, gen):
@@ -579,6 +683,12 @@ def make_request(rid, res, steps=4):
                    frames=1, steps=steps, arrival=0.0)
 
 
+def video_request(rid, shape, steps=VIDEO_STEPS):
+    height, width, frames = shape
+    return Request(id=rid, model="dit-video", height=height, width=width,
+                   frames=frames, steps=steps, arrival=0.0)
+
+
 def serve_requests() -> list:
     """The serve phase's traffic: two 512 px and one 1024 px request."""
     return [make_request("img512-a", 512), make_request("img512-b", 512),
@@ -631,24 +741,37 @@ def phase_sp() -> None:
         raise AssertionError(f"SP1 vs SP4 rel-L2 {err:.2e}")
 
 
-def phase_cpu() -> None:
-    cfg = DIT_IMAGE.reduced()
-    req = make_request("cpu-check", 128, steps=3)
-    names = ("dit", "text_encoder", "vae")
-    weights = {}
+def _weight_hooks():
+    """``setup`` hooks for :func:`_serve`: ``keep`` holds on to an
+    engine's weights (``shutdown()`` releases its pipeline), ``copy``
+    loads them into the next engine and lets go of them."""
+    names, weights = ("dit", "text_encoder", "vae"), {}
 
-    def keep_weights(eng):          # shutdown() releases the pipeline
+    def keep(eng):
         weights.update({n: getattr(eng.pipeline, n).state_dict()
                         for n in names})
-    cpu = _serve(cfg, FixedSP(2), [req], cache_interval=2, device="cpu",
-                 setup=keep_weights)
 
-    def copy_weights(eng):
+    def copy(eng):
         for n in names:
             getattr(eng.pipeline, n).load_state_dict(weights[n])
-    card = _serve(cfg, FixedSP(2), [req], cache_interval=2,
-                  setup=copy_weights)
-    err = rel_l2(card["pixels"][req.id], cpu["pixels"][req.id])
+        weights.clear()
+    return keep, copy
+
+
+def card_vs_cpu(cfg, req) -> tuple[float, dict]:
+    """Pixel rel-L2 of ``req`` served at SP-2 with cache_interval=2 on
+    the card (kernels) against the CPU (plain versions), same weights;
+    and the card's run."""
+    keep, copy = _weight_hooks()
+    cpu = _serve(cfg, FixedSP(2), [req], cache_interval=2, device="cpu",
+                 setup=keep)
+    card = _serve(cfg, FixedSP(2), [req], cache_interval=2, setup=copy)
+    return rel_l2(card["pixels"][req.id], cpu["pixels"][req.id]), card
+
+
+def phase_cpu() -> None:
+    err, _ = card_vs_cpu(DIT_IMAGE.reduced(), make_request("cpu-check", 128,
+                                                          steps=3))
     print(f"cpu: DIT_IMAGE.reduced() 128 px SP-2 cache_interval=2, card "
           f"(kernels) vs CPU (plain): pixel rel-L2 {err:.2e} (budget "
           f"{PIXEL_BUDGET:.0e})", flush=True)
@@ -831,6 +954,14 @@ def phase_scenarios(smi: str) -> dict:
                       f": " + ", ".join(f"{h / 2**20:.1f}"
                                         for h in held[n_held:]),
                       flush=True)
+                if not all(gates(r).values()) and "recovery" in r:
+                    print(f"scenarios: {name} recovery events, wall "
+                          f"{r['recovery']}, sim {r['sim']['recovery']}; "
+                          f"t_fail {r['t_fail']:.4f} s; wall dispatches "
+                          + ", ".join(f"{e['kind'][:3]}{e.get('step')}@"
+                                      f"{e['t']:.4f}"
+                                      for e in r["wall"]["events"]
+                                      if e["ev"] == "dispatch"), flush=True)
                 _scenario_gates(name, gates(r))
 
             # -- the serve_image_dit twin with --emit-trace --------------
@@ -861,6 +992,164 @@ def phase_scenarios(smi: str) -> dict:
         raise AssertionError(f"scenarios: a dropped engine left "
                              f"{max(held)} bytes on the card")
     return counts
+
+
+def _stage_walls(run, rid) -> dict:
+    """Encode, denoise and decode wall seconds of request ``rid``, from
+    the plane's events: each stage ends where the next is dispatched."""
+    evs = run["engine"].cp.events
+    t = {}
+    for e in evs:
+        if e.get("req") == rid and e["ev"] == "dispatch":
+            key = "denoise" if e["kind"] == "denoise" else e["kind"]
+            t.setdefault(key, e["t"])
+        elif e.get("req") == rid and e["ev"] == "request_done":
+            t["done"] = e["t"]
+    return {"encode": t["denoise"] - t["encode"],
+            "denoise": t["decode"] - t["denoise"],
+            "decode": t["done"] - t["decode"]}
+
+
+def _host_memory() -> tuple[str, int]:
+    """``free -g``'s output and the host's available bytes."""
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    avail = next(int(ln.split()[1]) * 1024 for ln in
+                 Path("/proc/meminfo").read_text().splitlines()
+                 if ln.startswith("MemAvailable:"))
+    return free, avail
+
+
+def _video_serve(label, k, shape, *, cache_interval, setup=None) -> dict:
+    """One DIT_VIDEO request on a fresh four-rank engine at FixedSP(k),
+    with the launches of K1-K3 counted for this engine alone; checks
+    completion and finite pixels of (F_lat, H, W, 3) and prints the
+    latency, the stage walls and the peak memory."""
+    req = video_request(label, shape)
+    want = dit.latent_shape(DIT_VIDEO, *shape)[:1] + shape[:2] + (3,)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    run = _serve(DIT_VIDEO, FixedSP(k), [req], cache_interval=cache_interval,
+                 setup=setup)
+    run["counts"] = {name: ops.launches[name] for name in DIT_KERNELS}
+    run["peak"] = torch.cuda.max_memory_allocated() / 2**30
+    px = run["pixels"][req.id]
+    if run["metrics"]["completed"] != 1 or px is None or px.shape != want \
+            or not np.isfinite(px).all():
+        raise AssertionError(f"video {label}: completed "
+                             f"{run['metrics']['completed']}, pixels "
+                             f"{None if px is None else px.shape} (want "
+                             f"{want}, finite)")
+    walls = _stage_walls(run, req.id)
+    del run["engine"]
+    n = dit.token_count(DIT_VIDEO, *shape)
+    print(f"video: {label} {shape[0]}x{shape[1]}x{shape[2]}f ({n} tokens) "
+          f"SP-{k}, cache_interval={cache_interval}, {VIDEO_STEPS} steps: "
+          f"latency {run['latency'][req.id]:.2f} s, wall {run['wall']:.2f} "
+          f"s; encode {walls['encode']:.2f} s, denoise {walls['denoise']:.2f}"
+          f" s ({walls['denoise'] / VIDEO_STEPS:.2f} s a step), decode "
+          f"{walls['decode']:.2f} s; peak mem {run['peak']:.2f} GiB; cache "
+          f"{run['modes']}; launches {run['counts']}", flush=True)
+    return run
+
+
+def pos_embedding_drift(n: int, d: int, device="cuda") -> None:
+    """``dit.pos_embedding(n, d)`` on ``device`` against the CPU's, with
+    the frequencies computed on the host (as ``dit.pos_embedding`` does)
+    and, for comparison, on ``device``."""
+    want = dit.pos_embedding(n, d)
+    host = dit.pos_embedding(n, d, device).cpu()
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        d // 2, dtype=torch.float32, device=device) / (d // 2))
+    args = torch.arange(n, dtype=torch.float32, device=device)[:, None] \
+        * freqs[None]
+    on_dev = torch.cat([torch.cos(args), torch.sin(args)], -1).cpu()
+    del args
+    print(f"video: pos_embedding({n}, {d}) card vs CPU max abs: "
+          f"frequencies from the host {(host - want).abs().max():.3e}, "
+          f"from the card {(on_dev - want).abs().max():.3e}; rel-L2 "
+          f"{rel_l2(host, want):.3e} / {rel_l2(on_dev, want):.3e}",
+          flush=True)
+
+
+def phase_video(smi: str) -> dict:
+    """The paper's video class on the card: DIT_VIDEO at full width and
+    depth (30 layers, d_model 3072, 24 heads x 128, d_ff 12288, 7.39 B
+    parameters, 29.6 GB in fp32), one engine live at a time.
+    (a) class S (20,280 tokens) uncached at SP-4, then at SP-1 on the same
+        weights (copied by ``state_dict``): pixels within PIXEL_BUDGET;
+    (b) the §11 hit path at head dim 128: 17 frames (7,800 tokens) at
+        SP-4, ``cache_interval=2``: a refresh step, then a hit through K3;
+    (c) DIT_VIDEO.reduced() at 64x64x9 frames, SP-2, cache_interval=2,
+        on the card (kernels) and on the CPU (plain versions);
+    and the positional embedding at video positions, card vs CPU, with
+    the frequencies computed on the host (as ``dit.pos_embedding`` does)
+    and on the card.  Returns K1-K3's launches over the phase."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    free, avail = _host_memory()
+    dev_free, dev_total = torch.cuda.mem_get_info()
+    n_s, n_hit = (dit.token_count(DIT_VIDEO, *s) for s in (VIDEO_S, VIDEO_HIT))
+    snap = {n: 4 * DIT_VIDEO.num_layers * 2 * n * DIT_VIDEO.d_model * 4
+            for n in (n_s, n_hit)}
+    print(f"video: host available {avail / 1e9:.1f} GB; §11 snapshots of "
+          f"an SP-4 refresh take {snap[n_hit] / 1e9:.1f} GB at "
+          f"{n_hit} tokens, {snap[n_s] / 1e9:.1f} GB at {n_s}; card free "
+          f"{dev_free / 2**30:.2f} of {dev_total / 2**30:.2f} GiB; free -g:"
+          f"\n{free}", flush=True)
+    totals = dict.fromkeys(DIT_KERNELS, 0)
+
+    def add(run):
+        for name in DIT_KERNELS:
+            totals[name] += run["counts"][name]
+
+    # (a) class S at SP-4, then SP-1 on the same weights
+    px = {}
+    for k, setup in zip((4, 1), _weight_hooks()):
+        run = _video_serve("S", k, VIDEO_S, cache_interval=None, setup=setup)
+        add(run)
+        px[k] = run["pixels"]["S"]
+        if min(run["counts"][n] for n in ("fused_adaln", "attention")) <= 0:
+            raise AssertionError(f"video S SP-{k}: K1 or K2 never "
+                                 f"launched: {run['counts']}")
+        del run
+        torch.cuda.empty_cache()
+    err = rel_l2(px[4], px[1])
+    print(f"video: S SP-1 vs SP-4 pixel rel-L2 {err:.2e} (budget "
+          f"{PIXEL_BUDGET:.0e})", flush=True)
+    if not err <= PIXEL_BUDGET:
+        raise AssertionError(f"video S: SP-1 vs SP-4 rel-L2 {err:.2e}")
+    del px
+
+    # (b) the §11 hit at head dim 128
+    run = _video_serve("hit", 4, VIDEO_HIT, cache_interval=2)
+    add(run)
+    if run["modes"] != ["refresh", "hit"] or \
+            run["counts"]["splice_attention"] <= 0:
+        raise AssertionError(f"video hit: modes {run['modes']}, launches "
+                             f"{run['counts']}")
+    del run
+    torch.cuda.empty_cache()
+
+    # (c) card vs CPU on the reduced model
+    ops.reset_launches()
+    err, card = card_vs_cpu(DIT_VIDEO.reduced(),
+                            video_request("video-cpu-check", (64, 64, 9),
+                                          steps=3))
+    for name in DIT_KERNELS:
+        totals[name] += ops.launches[name]
+    print(f"video: DIT_VIDEO.reduced() 64x64x9f SP-2 cache_interval=2, "
+          f"modes {card['modes']}, card (kernels) vs CPU (plain): pixel "
+          f"rel-L2 {err:.2e} (budget {PIXEL_BUDGET:.0e})", flush=True)
+    if not err <= PIXEL_BUDGET:
+        raise AssertionError(f"video: CUDA vs CPU rel-L2 {err:.2e}")
+
+    # the positional embedding, card vs CPU, host or card frequencies
+    for n in (n_s, dit.token_count(DIT_VIDEO, 720, 1280, 81)):
+        pos_embedding_drift(n, DIT_VIDEO.d_model)
+    seconds = time.perf_counter() - t_phase
+    print(f"video: {seconds:.1f} s; launches {totals}; on {smi}", flush=True)
+    return totals
 
 
 def _lm_run(model, cfg, prompt, steps, dtype, feed=None):
@@ -1007,6 +1296,9 @@ def main() -> int:
     phase_cpu()
     for name, n in phase_scenarios(smi).items():
         counts[name] += n
+    video = phase_video(smi)
+    for name, n in video.items():
+        counts[name] += n
     torch.cuda.empty_cache()
     counts.update(phase_lm(smi))
     phase_lm_cpu()
@@ -1021,6 +1313,13 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "library_call_ms": r["library_call_ms"]})
+        v = results.get(f"video {name}")
+        if v is not None:           # the same kernel at DIT_VIDEO's shape
+            kernels[-1]["video"] = {
+                "case": v["case"], "launches": video[name],
+                **{k: v[k] for k in ("max_abs_err", "ms", "call_ms",
+                                     "host_us", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,6 +2,7 @@
 """Where the serving path's time goes on one NVIDIA GPU.
 
     python3 serve_profile.py          # DiT-image serving
+    python3 serve_profile.py --video  # DiT-video serving (class S, SP-4)
     python3 serve_profile.py --lm     # mamba2-1.3b prefill and decode
 
 Serves the requests of chip_smoke.py's serve phase (DIT_IMAGE at full
@@ -13,7 +14,13 @@ up (kernel build, cuBLAS handles, allocator); the second runs under
 card's busy time (the sum of its kernel and copy times: every rank shares
 one stream, so they do not overlap) and idle share, and the busy time by
 category: the port's kernels, matrix products, host<->device copies and
-the rest, with the largest kernels of each.
+the rest, with the largest kernels of each, and the bytes each kind of
+copy moved (from the exported trace).
+
+With ``--video`` it profiles leg (a) of chip_smoke.py's video phase:
+DIT_VIDEO at full width and depth (7.39 B parameters), one request of
+480x832, 49 frames (20,280 tokens), 2 steps, uncached, SP-4; the warm-up
+pass serves the same request with one step.
 
 With ``--lm`` it profiles chip_smoke.py's lm phase instead: mamba2-1.3b
 at full width (seeded, livened weights), bf16, batch 4: one prefill of
@@ -25,14 +32,17 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import json
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as smoke
-from repro_torch.configs.dit_models import DIT_IMAGE
+from repro_torch.configs.dit_models import DIT_IMAGE, DIT_VIDEO
 from repro_torch.kernels import build
 from repro_torch.models import ssm
 from repro_torch.serving import serve_loop
@@ -68,6 +78,46 @@ def report(prof, wall: float) -> None:
         print(f"  {cat}: {us / 1e6:.4f} s ({us / 1e6 / wall:.3f} of wall)")
         for k_us, count, name in sorted(top[cat], reverse=True)[:5]:
             print(f"      {k_us / 1e6:.4f} s  {count:6d} x  {name[:90]}")
+
+
+def copy_bytes(prof) -> None:
+    """Bytes moved by each kind of copy, summed from the exported trace
+    (each memcpy event carries its size), with the rate over its device
+    time."""
+    with tempfile.TemporaryDirectory(prefix="gfdit-prof-") as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    moved = collections.defaultdict(lambda: [0, 0.0, 0])
+    for e in events:
+        if e.get("cat") == "gpu_memcpy":
+            m = moved[e["name"]]
+            m[0] += int(e.get("args", {}).get("bytes", 0))
+            m[1] += float(e.get("dur", 0.0))
+            m[2] += 1
+    for name, (nbytes, us, count) in sorted(moved.items()):
+        print(f"  {name}: {count} copies, {nbytes / 1e9:.3f} GB in "
+              f"{us / 1e6:.4f} s ({nbytes / max(us, 1e-9) / 1e3:.2f} GB/s)")
+
+
+def serve_dit(cfg, requests, cache_interval, warmup=None) -> None:
+    """Serve ``requests()`` on a fresh SP-4 engine twice, the first
+    (``warmup()``'s requests if given) to warm up, the second under the
+    profiler; print the walls and the device split."""
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    for run in ("warm-up", "profiled"):
+        reqs = (warmup or requests)() if run == "warm-up" else requests()
+        res = smoke._serve(
+            cfg, smoke.FixedSP(4), reqs, cache_interval=cache_interval,
+            during=(lambda: prof) if run == "profiled"
+            else contextlib.nullcontext)
+        del res["engine"]
+        wall = res["wall"]
+        lat = {rid: round(t, 3) for rid, t in res["latency"].items()}
+        print(f"{run}: {len(lat)} of {len(reqs)} done, wall {wall:.3f} s, "
+              f"latency {lat}", flush=True)
+    report(prof, wall)
+    copy_bytes(prof)
 
 
 def profile_lm(decode_steps: int = 8) -> None:
@@ -114,6 +164,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--lm", action="store_true",
                         help="profile the mamba2-1.3b prefill and decode")
+    parser.add_argument("--video", action="store_true",
+                        help="profile DIT_VIDEO serving one class-S "
+                        "request at SP-4")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("serve_profile: needs a CUDA device", file=sys.stderr)
@@ -122,20 +175,13 @@ def main() -> int:
     build.load()
     if args.lm:
         profile_lm()
-        return 0
-    prof = profile(activities=[ProfilerActivity.CUDA])
-    for run in ("warm-up", "profiled"):
-        reqs = smoke.serve_requests()
-        res = smoke._serve(
-            DIT_IMAGE, smoke.FixedSP(4), reqs, cache_interval=2,
-            during=(lambda: prof) if run == "profiled"
-            else contextlib.nullcontext)
-        del res["engine"]
-        wall = res["wall"]
-        lat = {rid: round(t, 3) for rid, t in res["latency"].items()}
-        print(f"{run}: {len(lat)} of {len(reqs)} done, wall {wall:.3f} s, "
-              f"latency {lat}", flush=True)
-    report(prof, wall)
+    elif args.video:
+        serve_dit(DIT_VIDEO,
+                  lambda: [smoke.video_request("S", smoke.VIDEO_S)], None,
+                  warmup=lambda: [smoke.video_request("S", smoke.VIDEO_S,
+                                                      steps=1)])
+    else:
+        serve_dit(DIT_IMAGE, smoke.serve_requests, 2)
     return 0
 
 

@@ -38,15 +38,25 @@ def timestep_embedding(t, dim: int, max_period: float = 10000.0):
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
-def pos_embedding(n_tokens: int, dim: int, device=None):
-    """1D sincos position embedding over flattened latent tokens."""
-    pos = torch.arange(n_tokens, dtype=torch.float32, device=device)
-    half = dim // 2
-    freqs = torch.exp(-math.log(10000.0)
-                      * torch.arange(half, dtype=torch.float32,
-                                     device=device) / half)
+def _pos_freqs(half: int) -> torch.Tensor:
+    """``pos_embedding``'s frequencies, always computed on the host, so
+    the card and the CPU use bit-equal ones: two backends' ``exp``
+    differ by one ulp on some entries, and the phase ``pos * freq``
+    multiplies that by the position (up to 75,600 for a 720p video)."""
+    return torch.exp(-math.log(10000.0)
+                     * torch.arange(half, dtype=torch.float32) / half)
+
+
+def _sincos(n_tokens: int, freqs):
+    pos = torch.arange(n_tokens, dtype=torch.float32, device=freqs.device)
     args = pos[:, None] * freqs[None]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+def pos_embedding(n_tokens: int, dim: int, device=None):
+    """1D sincos position embedding over flattened latent tokens, with
+    the frequencies from the host (:func:`_pos_freqs`)."""
+    return _sincos(n_tokens, _pos_freqs(dim // 2).to(device))
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +113,11 @@ class DiT(nn.Module):
         self.final_ada_w = pzeros((d, 2 * d), device)
         self.final_ada_b = pzeros((2 * d,), device)
         self.final_out = pzeros((d, patch_in), device)
+        # on the device with the weights: copying them from pageable
+        # memory at every forward would wait for the stream that every
+        # rank thread shares
+        self.register_buffer("pos_freqs", _pos_freqs(d // 2).to(device),
+                             persistent=False)
 
 
 def patchify(latents, patch: int):
@@ -118,6 +133,23 @@ def unpatchify(tokens, shape, patch: int):
     x = tokens.reshape(b, f, h // patch, w // patch, patch, patch, c)
     x = x.permute(0, 1, 2, 4, 3, 5, 6)
     return x.reshape(b, f, h, w, c)
+
+
+def latent_shape(cfg: ModelConfig, height: int, width: int,
+                 frames: int = 0) -> tuple[int, int, int, int]:
+    """(F, H_lat, W_lat, C) for a pixel-space request (8x VAE downsample)."""
+    dc = cfg.dit
+    f = frames if frames else dc.latent_frames
+    # video VAE: 4x temporal downsample (Wan-style), 8x spatial
+    f_lat = max(1, (f + 3) // 4) if f > 1 else 1
+    return (f_lat, height // 8, width // 8, dc.in_channels)
+
+
+def token_count(cfg: ModelConfig, height: int, width: int,
+                frames: int = 0) -> int:
+    f, h, w, c = latent_shape(cfg, height, width, frames)
+    p = cfg.dit.patch_size
+    return f * (h // p) * (w // p)
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +171,7 @@ def forward_sp_tokens(model: DiT, tok_shard, t, txt_embeds, cfg: ModelConfig,
     (B, N_local, patch_dim).
     """
     x = tok_shard.to(dtype) @ model.x_embed.to(dtype)
-    pe = pos_embedding(n_total, cfg.d_model, x.device).to(dtype)
+    pe = _sincos(n_total, model.pos_freqs).to(dtype)
     x = x + pe[pos_offset:pos_offset + x.shape[1]][None]
 
     t_emb = timestep_embedding(t, 256)

@@ -36,6 +36,11 @@ ATTN_CASES = [
     (1, 160, 160, 4, 2, 64, True),     # causal GQA over 3 query tiles
     (1, 70, 100, 2, 2, 256, False),    # d=256's 32-query tile, 3 tiles
     (1, 130, 50, 2, 1, 128, False),    # d=128, one KV head
+    # DIT_VIDEO's head dim 128 over a few thousand keys, both edges
+    # ragged (1000 against the 64-query tile, 4100 against the 32-key
+    # tile), and its cross-attention to 77 text tokens
+    (1, 1000, 4100, 24, 24, 128, False),
+    (1, 1000, 77, 24, 24, 128, False),
 ]
 ADALN_VARIANTS = {
     "mod_norm": ("shift", "scale"),
@@ -104,8 +109,29 @@ def test_cuda_splice_kernel(cuda_device, offset, sk, n, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset,sk,n", [
+    (1037, 4100, 1000),   # the video hit: 24 heads x 128, ragged offset
+    (3900, 7800, 1950),   # rank 2 of SP-4 at 480x832x17 frames
+])
+def test_cuda_splice_kernel_head_dim_128(cuda_device, offset, sk, n, dtype):
+    rng = np.random.default_rng(offset)
+    q = _card(rng, (1, n, 24, 128), dtype, cuda_device)
+    ks, vs = (_card(rng, (1, sk, 24, 128), dtype, cuda_device)
+              for _ in range(2))
+    kf, vf = (_card(rng, (1, n, 24, 128), dtype, cuda_device)
+              for _ in range(2))
+    before = ops.launches["splice_attention"]
+    got = ops.splice_attention(q, ks, vs, kf, vf, offset=offset)
+    assert ops.launches["splice_attention"] == before + 1
+    _close(got, ref.splice_attention_ref(q, ks, vs, kf, vf, offset=offset),
+           dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("variant", sorted(ADALN_VARIANTS))
-@pytest.mark.parametrize("d", [1536, 100, 4096])  # DiT; scalar path; widest
+# DIT_IMAGE; scalar path; widest; DIT_VIDEO (NV=24 float4 a lane)
+@pytest.mark.parametrize("d", [1536, 100, 4096, 3072])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_cuda_adaln_kernel(cuda_device, variant, dtype, d, aligned):
     rng = np.random.default_rng(1)
@@ -322,3 +348,49 @@ def test_cuda_elastic_demo_and_dropped_engines_free_the_card(cuda_device,
     assert res["trace_match"] and res["telemetry_match"]
     assert res["wall"]["metrics"]["completed"] == 2
     assert len(held) >= 7 and max(held) <= 0, held
+
+
+@pytest.mark.cuda
+def test_cuda_reduced_video_request_is_served(cuda_device):
+    """DIT_VIDEO.reduced() serving a 64x64 request of 9 frames at SP-2
+    with §11 refresh and hit steps on the card: pixels of the latent
+    frame count (3, 64, 64, 3), finite, through K1-K3."""
+    from repro_torch.configs.dit_models import DIT_VIDEO
+    from repro_torch.core.scheduler import Decision, Policy
+    from repro_torch.core.trajectory import ExecutionLayout, Request
+    from repro_torch.models import dit
+    from repro_torch.serving.cache_demo import _liven
+    from repro_torch.serving.engine import ServingEngine
+
+    class SP2(Policy):
+        """Encode/decode on one rank, every denoise step on two."""
+        name = "sp2"
+
+        def schedule(self, view):
+            out, free = [], list(view.free_ranks)
+            for t, _, _ in sorted(view.ready, key=lambda x: x[0].id):
+                k = 2 if t.kind == "denoise" else 1
+                if len(free) < k:
+                    break
+                out.append(Decision(t.id, ExecutionLayout(tuple(free[:k]))))
+                free = free[k:]
+            return out
+
+    cfg = DIT_VIDEO.reduced()
+    eng = ServingEngine(cfg, SP2(), 4, cache_interval=2, device=cuda_device)
+    req = Request(id="vid", model="dit-video", height=64, width=64,
+                  frames=9, steps=2, arrival=0.0)
+    ops.reset_launches()
+    try:
+        _liven(eng.pipeline)
+        eng.serve([req], timeout=120)
+        px = eng.result_pixels(req)
+        modes = [e.get("cache") for e in eng.cp.events
+                 if e["ev"] == "dispatch" and e["kind"] == "denoise"]
+    finally:
+        eng.shutdown()
+    assert modes == ["refresh", "hit"]
+    assert px.shape == (dit.latent_shape(cfg, 64, 64, 9)[0], 64, 64, 3)
+    assert np.isfinite(px).all()
+    assert all(ops.launches[k] > 0 for k in
+               ("fused_adaln", "attention", "splice_attention"))

@@ -86,15 +86,18 @@ def _request(pkg, rid="r0", **kw):
                             frames=1, steps=3, arrival=0.0, **kw)
 
 
-def _serve_both(monkeypatch, policy, requests, cache_interval=None):
+def _serve_both(monkeypatch, policy, requests, cache_interval=None,
+                cfgs=None):
     """Serve ``requests(pkg)`` under ``policy(pkg)`` on both engines and
     hold the port to JAX; returns the port's denoise cache modes and the
-    batch size of each packed dispatch."""
-    jeng = JaxEngine(JAX_DIT_IMAGE.reduced(), policy(JAX), 4, seed=0,
+    batch size of each packed dispatch.  ``cfgs`` is the (JAX, port)
+    model configuration pair, DIT_IMAGE.reduced() by default."""
+    jcfg, tcfg = cfgs or (JAX_DIT_IMAGE.reduced(), DIT_IMAGE.reduced())
+    jeng = JaxEngine(jcfg, policy(JAX), 4, seed=0,
                      cache_interval=cache_interval)
     monkeypatch.setattr(torch_engine, "TorchDiTPipeline", JaxDraws)
     teng = torch_engine.ServingEngine(
-        DIT_IMAGE.reduced(), policy(PORT), 4, seed=0,
+        tcfg, policy(PORT), 4, seed=0,
         cache_interval=cache_interval, device="cpu")
     try:
         _liven(jeng.pipeline)
@@ -120,6 +123,7 @@ def _serve_both(monkeypatch, policy, requests, cache_interval=None):
     assert signatures[0] == signatures[1]
     for want, got in pixels:
         assert want is not None and got is not None
+        assert got.shape == want.shape, (got.shape, want.shape)
         assert np.abs(want).max() > 0
         err = np.linalg.norm(got - want) / np.linalg.norm(want)
         assert err <= PIXEL_BUDGET, err
