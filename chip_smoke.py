@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch port serves DiT-image, DiT-video and
-Mamba2 on one NVIDIA GPU.
+"""Quickest proof that the PyTorch port serves DiT-image, DiT-video,
+Mamba2 and Zamba2 on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -12,7 +12,10 @@ Phases, one line each (any failure raises and exits non-zero):
    outlast GFC's collective timeout).
 3. kernels: each kernel against its plain PyTorch version on the card at
    its path's full-width shapes (DIT_IMAGE for K1-K3, the mamba2-1.3b
-   prefill for K4, timed at batch 4 and 1), fp32 and bf16, and K1-K3 at
+   prefill for K4, timed at batch 4 and 1; zamba2-7b's forward for K2
+   causal at head dim 112 and its prefill for K4 at (p, n, chunk) =
+   (64, 64, 128); yi-6b's causal GQA forward for K2), fp32 and bf16, and
+   K1-K3 at
    DIT_VIDEO's shapes in fp32 (K1 at D=3072, K2 self over 20,280 keys
    and cross at head dim 128, K3 at the video hit), with kernel,
    plain-version and one-PyTorch-call times from CUDA events; K4's device
@@ -49,6 +52,18 @@ Phases, one line each (any failure raises and exits non-zero):
    in fp32 prefill + decode reproduce the teacher-forced forward.
 10. lm-cpu: on mamba2-1.3b.reduced() the card (K4) and the CPU (the
    sequential plain version) give the same logits.
+11. hybrid: zamba2-7b at full width and depth (81 Mamba2 layers, d_model
+   3584, 112 SSD heads, one shared attention block of 32 heads x 112
+   applied 13 times; seeded random weights, A/dt in Mamba2's published
+   ranges, 27.0 GB in fp32) prefills 4 prompts of 2048 tokens in bf16
+   and decodes 32 tokens greedily through the serve-loop steps: finite
+   logits, K4 81 times a prefill and never in a decode step, no DiT
+   kernel; then in fp32 prefill + 32 teacher-forced decode steps
+   reproduce ``hybrid.forward`` over the 2080 tokens (K2 causal 13
+   times at d=112, K4 81 times at the ragged l=2080).
+12. hybrid-cpu: zamba2-7b, yi-6b and gemma3-12b at ``.reduced()`` (the
+   SWA ring past its wrap): the card and the CPU give the same forward
+   and prefill + decode logits on the same weights.
 
 Kernel times (phase 3): ``ms`` is device time, from CUDA-event timing of
 replays of a CUDA graph that holds ``iters`` calls, so it leaves out the
@@ -100,7 +115,7 @@ from repro_torch.configs.dit_models import DIT_IMAGE, DIT_VIDEO  # noqa: E402
 from repro_torch.core.scheduler import Decision, Policy  # noqa: E402
 from repro_torch.core.trajectory import ExecutionLayout, Request  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.models import dit, ssm  # noqa: E402
+from repro_torch.models import dit, get_model, hybrid, ssm  # noqa: E402
 from repro_torch.serving import serve_loop  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
@@ -116,6 +131,8 @@ MAMBA = get_config("mamba2-1.3b")
 LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 32
 LOGIT_BUDGET = 1e-3                # of the largest |logit|, fp32 decode
 LM_CPU_BUDGET = 1e-4               # rel-L2 on logits, card vs CPU
+ZAMBA = get_config("zamba2-7b")
+YI = get_config("yi-6b")
 DIT_KERNELS = ("fused_adaln", "attention", "splice_attention")
 # the video phase: the paper's class S (480x832, 49 frames: 13 latent
 # frames, 20,280 tokens) and leg (b)'s 17 frames (5 latent frames, 7,800
@@ -250,6 +267,9 @@ def phase_device() -> str:
 # the DiT path's instantiations (fp32; DIT_IMAGE's d_model 1536 and head
 # dim 64, DIT_VIDEO's 3072 and 128), by their mangled-name prefixes
 WATCHED = {"attn_kernel<float, 64>": "_ZN5gfdit11attn_kernelIfLi64E",
+           "attn_kernel<float, 112>": "_ZN5gfdit11attn_kernelIfLi112E",
+           "attn_kernel<bf16, 112>":
+               "_ZN5gfdit11attn_kernelI13__nv_bfloat16Li112E",
            "attn_kernel<float, 128>": "_ZN5gfdit11attn_kernelIfLi128E",
            "adaln_kernel<float, float4 x 12>":
                "_ZN5gfdit12adaln_kernelIfLi4ELi12E",
@@ -295,13 +315,14 @@ def phase_build() -> None:
             spill = max(r["spill_bytes"] for r in hits)
             print(f"  {label}: {len(hits)} instantiation(s), registers "
                   f"{regs}, spill bytes {spill}", flush=True)
-    for f in sorted(report):      # K4 at (p, n, chunk) = (64, 128, 128)
+    for f in sorted(report):      # K4 at (64, 128, 128) and (64, 64, 128)
         m = re.match(r"_ZN5gfdit(\d+)", f)
         name = f[m.end():m.end() + int(m[1])] if m else f
-        if name.startswith("ssd") and "Li128ELi128E" in f and (
-                "Li64ELi128E" in f or name == "ssd_cb"):
-            print(f"  {name}<{'bf16' if 'bfloat' in f else 'fp32'}, (64,) "
-                  f"128, 128>: {report[f]}", flush=True)
+        for n in (128, 64):
+            if name.startswith("ssd") and f"Li{n}ELi128E" in f and (
+                    f"Li64ELi{n}ELi128E" in f or name == "ssd_cb"):
+                print(f"  {name}<{'bf16' if 'bfloat' in f else 'fp32'}, "
+                      f"(64,) {n}, 128>: {report[f]}", flush=True)
 
 
 def _rand(shape, dtype, gen, scale=1.0):
@@ -462,8 +483,57 @@ def phase_kernels() -> dict:
                        q, ks_, vs_, kf, vf, offset=o),
                    dtype, results, timing)
         _check_ssd(dtype, results)
+        _check_lm_attention(dtype, results, gen)
     _check_video(results, gen)
     return results
+
+
+def _check_lm_attention(dtype, results, gen) -> None:
+    """K2 causal at the decoder LMs' full-width forward shapes: zamba2-7b's
+    shared block (q = k = v (4, 2080, 32, 112), the hybrid phase's
+    forward) and yi-6b's causal GQA (1, 2048, 32 q / 4 kv heads, 128),
+    each with fp32 SDPA (``is_causal=True``) timed beside it; the plain
+    version's (2080 x 2080) score matrices fit the card whole."""
+    zb, zs = LM_BATCH, LM_PROMPT + LM_DECODE
+    cases = [("zamba2-7b", (zb, zs, ZAMBA.num_heads, ZAMBA.head_dim),
+              ZAMBA.num_kv_heads),
+             ("yi-6b", (1, LM_PROMPT, YI.num_heads, YI.head_dim),
+              YI.num_kv_heads)]
+    es = torch.finfo(dtype).bits // 8
+    for model, (b, sq, h, d), kv in cases:
+        if d not in ops.HEAD_DIMS:     # an older checkout (--src)
+            print(f"  attention {model}: head dim {d} not built", flush=True)
+            continue
+        q = _rand((b, sq, h, d), dtype, gen)
+        k, v = (_rand((b, sq, kv, d), dtype, gen) for _ in range(2))
+        timing = None
+        if dtype == torch.float32:
+            timing = {
+                "bytes": (2 * q.numel() + k.numel() + v.numel()) * es,
+                "flops": 4 * b * h * d * sq * (sq + 1) // 2,
+                "iters": 10, "replays": 5, "host_calls": 50,
+                "plain_iters": 3, "summary": f"{model} attention",
+                "library": lambda q=q, k=k, v=v, g=h != kv:
+                    F.scaled_dot_product_attention(
+                        q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), is_causal=True, enable_gqa=g)}
+        _check(f"attention {model} causal q{(b, sq, h, d)} kv{(b, sq, kv, d)}",
+               lambda q=q, k=k, v=v: ops.attention(q, k, v, causal=True),
+               lambda q=q, k=k, v=v: ref.attention_ref(q, k, v, causal=True),
+               dtype, results, timing)
+        del q, k, v
+    if dtype == torch.float32 and ZAMBA.head_dim in ops.HEAD_DIMS:
+        d = ZAMBA.head_dim
+        blocks, smem = ops.attention_occupancy(d)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        grid = -(-zs // 64) * zb * ZAMBA.num_heads
+        print(f"  attention occupancy d={d}: {grid} blocks of 128 threads "
+              f"at q(4, {zs}), {blocks} resident per SM ({smem / 1024:.1f} "
+              f"KB shared memory each), {sms} SMs: "
+              f"{grid / (blocks * sms):.2f} waves", flush=True)
+        results["zamba2_attention_occupancy"] = {
+            "blocks_per_sm": blocks, "smem_bytes": smem, "sms": sms,
+            "grid": grid}
 
 
 def _attn_timing(q, k, v, sq, sk, **extra) -> dict:
@@ -595,7 +665,9 @@ def ssd_stage_ms(fn, b: int, calls: int = 10) -> dict:
 
 def _check_ssd(dtype, results) -> None:
     """K4 at the full-width mamba2-1.3b prefill (b=4, l=2048, h=64, p=64,
-    n=128, chunk=128), timed in fp32; in fp32 also at batch 1 (timed), a
+    n=128, chunk=128), timed in fp32, and at zamba2-7b's (b=4, l=2048,
+    h=112, p=64, n=64, chunk=128), timed in fp32 and bf16 and held in
+    fp32 to the stage-wise twin too; in fp32 also at batch 1 (timed), a
     ragged l (the forward's 2080) and the reduced model's (16, 16, 16)
     with a ragged l; then the occupancy of each stage kernel."""
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -603,14 +675,20 @@ def _check_ssd(dtype, results) -> None:
     s = MAMBA.ssm
     es = torch.finfo(dtype).bits // 8
     full = (heads, s.head_dim, s.state_dim, s.chunk)
+    _, z_heads, _ = ssm.ssm_dims(ZAMBA)
+    zamba = (LM_BATCH, LM_PROMPT, z_heads, ZAMBA.ssm.head_dim,
+             ZAMBA.ssm.state_dim, ZAMBA.ssm.chunk)
     cases = [(LM_BATCH, LM_PROMPT) + full]
+    if zamba[3:] in ops.SSD_SHAPES:    # not in an older checkout (--src)
+        cases.append(zamba)
     if dtype == torch.float32:
         cases += [(1, LM_PROMPT) + full, (LM_BATCH, LM_PROMPT + LM_DECODE)
                   + full, (2, 40, 16, 16, 16, 16)]
-    for i, (b, l, h, p, n, c) in enumerate(cases):
+    for i, case in enumerate(cases):
+        b, l, h, p, n, c = case
         x, dt, A, B, C = ssd_inputs(b, l, h, p, n, dtype, gen)
         timing = None
-        if i < 2 and dtype == torch.float32:
+        if (l == LM_PROMPT and dtype == torch.float32) or case == zamba:
             timing = {
                 "bytes": (2 * x.numel() + 2 * B.numel()) * es
                 + (dt.numel() + h + b * h * p * n) * 4,
@@ -618,31 +696,44 @@ def _check_ssd(dtype, results) -> None:
                 "plain_iters": 3, "host_calls": 200}
             if i == 0:
                 timing["summary"] = "ssd"
+            elif case == zamba and dtype == torch.float32:
+                timing["summary"] = "zamba2-7b ssd"
+        args = (x, dt, A, B, C)
         _check(f"ssd b={b} l={l} h={h} (p, n, chunk)={(p, n, c)}",
-               lambda a=(x, dt, A, B, C), c=c: ops.ssd(*a, chunk=c),
-               lambda a=(x, dt, A, B, C): ref.ssd_ref(*a),
+               lambda a=args, c=c: ops.ssd(*a, chunk=c),
+               lambda a=args: ref.ssd_ref(*a),
                dtype, results, timing, SSD_BUDGET)
-        if timing is not None:
-            results.setdefault("ssd_stages", {})[f"b={b}"] = ssd_stage_ms(
-                lambda a=(x, dt, A, B, C), c=c: ops.ssd(*a, chunk=c), b)
+        if case == zamba and dtype == torch.float32:   # and stage-wise
+            _check(f"ssd b={b} l={l} h={h} (p, n, chunk)={(p, n, c)} vs "
+                   f"the stage-wise twin",
+                   lambda a=args, c=c: ops.ssd(*a, chunk=c),
+                   lambda a=args, c=c: ref.ssd_chunked_ref(*a, chunk=c),
+                   dtype, results, None, SSD_BUDGET)
+        if timing is not None and dtype == torch.float32:
+            key = f"b={b}" if case != zamba else f"zamba2 b={b}"
+            results.setdefault("ssd_stages", {})[key] = ssd_stage_ms(
+                lambda a=args, c=c: ops.ssd(*a, chunk=c), b)
     if dtype == torch.float32:
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         occ = {}
-        for b in (LM_BATCH, 1):
+        shapes = [("", LM_BATCH, full), ("", 1, full)]
+        if zamba in cases:
+            shapes.append(("zamba2 ", LM_BATCH, zamba[2:]))
+        for label, b, shape in shapes:
             if hasattr(ops, "SSD_STAGES"):     # the chunk-parallel stages
-                stages = ops.ssd_occupancy(b, LM_PROMPT, *full)
+                stages = ops.ssd_occupancy(b, LM_PROMPT, *shape)
             else:                              # one kernel per (b, h)
-                blocks, smem = ops.ssd_occupancy(*full[1:])
-                stages = {"ssd_kernel": (blocks, smem, b * heads)}
+                blocks, smem = ops.ssd_occupancy(*shape[1:])
+                stages = {"ssd_kernel": (blocks, smem, b * shape[0])}
             for name, (blocks, smem, grid) in stages.items():
                 waves = grid / (blocks * sms)
-                occ[f"b={b} {name}"] = {
+                occ[f"{label}b={b} {name}"] = {
                     "blocks_per_sm": blocks, "smem_bytes": smem, "sms": sms,
                     "grid": grid, "waves": waves}
-                print(f"  ssd occupancy b={b} {name}: {grid} blocks of 256 "
-                      f"threads, {blocks} resident per SM ({smem / 1024:.1f}"
-                      f" KB shared memory each), {sms} SMs: {waves:.2f} "
-                      f"waves", flush=True)
+                print(f"  ssd occupancy {label}b={b} {name}: {grid} blocks "
+                      f"of 256 threads, {blocks} resident per SM "
+                      f"({smem / 1024:.1f} KB shared memory each), {sms} "
+                      f"SMs: {waves:.2f} waves", flush=True)
         results["ssd_occupancy"] = occ
 
 
@@ -1152,21 +1243,25 @@ def phase_video(smi: str) -> dict:
     return totals
 
 
-def _lm_run(model, cfg, prompt, steps, dtype, feed=None):
+def _lm_run(model, cfg, prompt, steps, dtype, feed=None) -> dict:
     """Prefill ``prompt`` and decode ``steps`` tokens through the
-    serve-loop steps: greedily, or teacher-forced on ``feed``'s columns.
-    Returns the logits (b, 1 + steps, vocab), the tokens fed to decode
-    (b, steps) and the prefill and decode wall times."""
+    serve-loop steps, on a cache from the family's ``init_cache``:
+    greedily, or teacher-forced on ``feed``'s columns.  Returns the
+    logits (b, 1 + steps, vocab), the tokens fed to decode (b, steps),
+    the prefill and decode wall times and the kernel launches of each."""
     prefill = serve_loop.make_prefill_step(cfg, dtype=dtype)
     step = serve_loop.make_serve_step(cfg, dtype=dtype)
     b, s = prompt.shape
-    cache = ssm.init_cache(cfg, b, dtype=dtype, device=prompt.device)
+    cache = get_model(cfg).init_cache(cfg, b, s + steps, dtype=dtype,
+                                      device=prompt.device)
     sync = torch.cuda.synchronize if prompt.is_cuda else (lambda: None)
     sync()
+    before = dict(ops.launches)
     t0 = time.perf_counter()
     lg, cache = prefill(model, prompt, cache)
     sync()
     t_prefill = time.perf_counter() - t0
+    mid = dict(ops.launches)
     logits, fed = [lg[:, 0]], []
     t0 = time.perf_counter()
     for i in range(steps):
@@ -1178,8 +1273,10 @@ def _lm_run(model, cfg, prompt, steps, dtype, feed=None):
         logits.append(lg[:, 0])
     sync()
     t_decode = time.perf_counter() - t0
-    return (torch.stack(logits, 1), torch.cat(fed, 1), t_prefill,
-            t_decode)
+    return {"logits": torch.stack(logits, 1), "fed": torch.cat(fed, 1),
+            "t_prefill": t_prefill, "t_decode": t_decode,
+            "prefill_launches": {k: mid[k] - before[k] for k in mid},
+            "decode_launches": {k: ops.launches[k] - mid[k] for k in mid}}
 
 
 def phase_lm(smi: str) -> dict:
@@ -1196,8 +1293,9 @@ def phase_lm(smi: str) -> dict:
     _lm_run(model, cfg, prompt, 1, torch.bfloat16)     # warm-up, uncounted
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    logits, fed, t_prefill, t_decode = _lm_run(model, cfg, prompt,
-                                               LM_DECODE, torch.bfloat16)
+    run = _lm_run(model, cfg, prompt, LM_DECODE, torch.bfloat16)
+    logits, fed, t_prefill, t_decode = (run[k] for k in (
+        "logits", "fed", "t_prefill", "t_decode"))
     counts = dict(ops.launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not torch.isfinite(logits).all() or logits.shape != (
@@ -1220,8 +1318,8 @@ def phase_lm(smi: str) -> dict:
     # fp32: prefill + decode (teacher-forced on the bf16 run's tokens)
     # against the forward over the same 2080 tokens
     before = ops.launches["ssd"]
-    got, _, _, _ = _lm_run(model, cfg, prompt, LM_DECODE, torch.float32,
-                           feed=fed)
+    got = _lm_run(model, cfg, prompt, LM_DECODE, torch.float32,
+                  feed=fed)["logits"]
     with torch.inference_mode():
         full, _ = ssm.forward(model, torch.cat([prompt, fed], 1), cfg,
                               dtype=torch.float32)
@@ -1258,8 +1356,8 @@ def phase_lm_cpu() -> None:
         t = toks.to(dev)
         with torch.inference_mode():
             full, _ = ssm.forward(model, t, cfg, dtype=torch.float32)
-        steps, _, _, _ = _lm_run(model, cfg, t[:, :32], 8, torch.float32,
-                                 feed=t[:, 32:])
+        steps = _lm_run(model, cfg, t[:, :32], 8, torch.float32,
+                        feed=t[:, 32:])["logits"]
         out[name] = [full.cpu(), steps.cpu()]
     err = max(rel_l2(a, b) for a, b in zip(out["card"], out["cpu"]))
     print(f"lm-cpu: mamba2-1.3b.reduced() forward (40 tokens) and prefill "
@@ -1267,6 +1365,117 @@ def phase_lm_cpu() -> None:
           f"{err:.2e} (budget {LM_CPU_BUDGET:.0e})", flush=True)
     if not err <= LM_CPU_BUDGET:
         raise AssertionError(f"lm-cpu: card vs CPU rel-L2 {err:.2e}")
+
+
+def phase_hybrid(smi: str) -> dict:
+    """zamba2-7b at full width and depth through K4 (every Mamba2 layer of
+    a prefill) and K2 causal at head dim 112 (the shared block in the
+    forward); returns the launches of its bf16 prefill and of the fp32
+    forward."""
+    cfg = ZAMBA
+    t_phase = time.perf_counter()
+    k, n_groups, tail = hybrid._group_plan(cfg)
+    held = torch.cuda.memory_allocated() / 2**30      # left by earlier phases
+    model = hybrid.Hybrid(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    ssm.init_published_a_dt(model)
+    weights = torch.cuda.memory_allocated() / 2**30 - held
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    _lm_run(model, cfg, prompt, 1, torch.bfloat16)     # warm-up, uncounted
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    run = _lm_run(model, cfg, prompt, LM_DECODE, torch.bfloat16)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    logits, pre, dec = run["logits"], run["prefill_launches"], \
+        run["decode_launches"]
+    if {n: pre[n] + dec[n] for n in pre} != ops.launches:
+        raise AssertionError(f"hybrid: launches {ops.launches} outside the "
+                             f"prefill and decode steps")
+    if not torch.isfinite(logits).all() or logits.shape != (
+            LM_BATCH, LM_DECODE + 1, cfg.vocab_size):
+        raise AssertionError(f"hybrid: logits {tuple(logits.shape)} not all "
+                             f"finite")
+    if (pre["ssd"] != cfg.num_layers or dec["ssd"]
+            or any(pre[n] + dec[n] for n in DIT_KERNELS)):
+        raise AssertionError(f"hybrid: launches prefill {pre}, decode {dec}"
+                             f"; expected ssd = {cfg.num_layers} a prefill, "
+                             f"none in decode, no DiT kernel")
+    _, heads, _ = ssm.ssm_dims(cfg)
+    t_prefill, t_decode = run["t_prefill"], run["t_decode"]
+    print(f"hybrid: zamba2-7b full width ({cfg.num_layers} Mamba2 layers in "
+          f"{n_groups} groups of {k} + {tail}, d_model {cfg.d_model}, "
+          f"{heads} SSD heads; shared block {cfg.num_heads} x "
+          f"{cfg.head_dim} applied {n_groups} times; {n_params / 1e9:.2f} B "
+          f"parameters), bf16, batch {LM_BATCH}: prefill {LM_PROMPT} tokens "
+          f"{LM_BATCH * LM_PROMPT / t_prefill:.0f} tokens/s "
+          f"({t_prefill * 1e3:.1f} ms); decode {LM_DECODE} tokens "
+          f"{t_decode / LM_DECODE * 1e3:.2f} ms/step (one step of "
+          f"{LM_BATCH} sequences); peak mem {peak:.2f} GiB ({held:.2f} held "
+          f"before the phase, {weights:.2f} of fp32 weights); launches "
+          f"prefill {pre}, decode {dec}; on {smi}", flush=True)
+
+    # fp32: prefill + decode (teacher-forced on the bf16 run's tokens)
+    # against the forward over the same 2080 tokens
+    got = _lm_run(model, cfg, prompt, LM_DECODE, torch.float32,
+                  feed=run["fed"])["logits"]
+    ops.reset_launches()
+    with torch.inference_mode():
+        full, _ = hybrid.forward(model, torch.cat([prompt, run["fed"]], 1),
+                                 cfg, dtype=torch.float32)
+    fwd = dict(ops.launches)
+    want = full[:, LM_PROMPT - 1:]
+    del full
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"hybrid: fp32 prefill + {LM_DECODE} decode steps vs the "
+          f"teacher-forced forward ({LM_PROMPT + LM_DECODE} tokens: K2 causal"
+          f" at d={cfg.head_dim}, K4 at the ragged l="
+          f"{LM_PROMPT + LM_DECODE}; forward launches {fwd}): max |diff| / "
+          f"max |logit| {err:.2e} (budget {LOGIT_BUDGET:.0e})", flush=True)
+    if (not err <= LOGIT_BUDGET or fwd["attention"] != n_groups
+            or fwd["ssd"] != cfg.num_layers):
+        raise AssertionError(f"hybrid: decode vs forward {err:.2e}, "
+                             f"forward launches {fwd}")
+    del model, got, want
+    torch.cuda.empty_cache()
+    print(f"hybrid: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"prefill": pre, "forward": fwd}
+
+
+def phase_hybrid_cpu() -> None:
+    """zamba2-7b, yi-6b and gemma3-12b at ``.reduced()`` with the same
+    weights on the card (K2 at d=32, K4 at (16, 16, 16)) and on the CPU
+    (plain versions): forward over 80 tokens, and a 72-token prefill
+    (past gemma3's 64-key SWA ring) plus 8 decode steps."""
+    t_phase = time.perf_counter()
+    toks = torch.randint(0, 512, (2, 80),
+                         generator=torch.Generator().manual_seed(3))
+    errs = {}
+    for arch in ("zamba2-7b", "yi-6b", "gemma3-12b"):
+        cfg = get_config(arch).reduced()
+        family = get_model(cfg)
+        cpu = family.init(cfg, device="cpu")
+        ssm.init_published_a_dt(cpu)
+        card = family.init(cfg)
+        card.load_state_dict(cpu.state_dict())
+        out = {}
+        for name, model in (("cpu", cpu), ("card", card)):
+            t = toks.to(next(model.parameters()).device)
+            with torch.inference_mode():
+                full, _ = family.forward(model, t, cfg, dtype=torch.float32)
+            steps = _lm_run(model, cfg, t[:, :72], 8, torch.float32,
+                            feed=t[:, 72:])["logits"]
+            out[name] = [full.cpu(), steps.cpu()]
+        errs[arch] = max(rel_l2(a, b) for a, b in zip(out["card"],
+                                                        out["cpu"]))
+    print(f"hybrid-cpu: .reduced() forward (80 tokens) and prefill 72 + "
+          f"decode 8, card vs CPU, logit rel-L2: "
+          + ", ".join(f"{a} {e:.2e}" for a, e in errs.items())
+          + f" (budget {LM_CPU_BUDGET:.0e}); "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if not max(errs.values()) <= LM_CPU_BUDGET:
+        raise AssertionError(f"hybrid-cpu: card vs CPU rel-L2 {errs}")
 
 
 def main() -> int:
@@ -1302,6 +1511,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts.update(phase_lm(smi))
     phase_lm_cpu()
+    zamba = phase_hybrid(smi)
+    phase_hybrid_cpu()
+    lm_launches = {"zamba2-7b attention": zamba["forward"]["attention"],
+                   "zamba2-7b ssd": zamba["prefill"]["ssd"],
+                   "yi-6b attention": None}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]
@@ -1313,13 +1527,20 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "library_call_ms": r["library_call_ms"]})
-        v = results.get(f"video {name}")
-        if v is not None:           # the same kernel at DIT_VIDEO's shape
-            kernels[-1]["video"] = {
-                "case": v["case"], "launches": video[name],
-                **{k: v[k] for k in ("max_abs_err", "ms", "call_ms",
-                                     "host_us", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")}}
+        # the same kernel at DIT_VIDEO's shape and at the decoder LMs'
+        # (launches: a zamba2-7b forward's K2, a prefill's K4; yi-6b's
+        # full-width forward is timed only)
+        for key, label, launched in (
+                [("video", f"video {name}", video.get(name))]
+                + [(m, f"{m} {name}", lm_launches.get(f"{m} {name}"))
+                   for m in ("zamba2-7b", "yi-6b")]):
+            v = results.get(label)
+            if v is not None:
+                kernels[-1][key] = {
+                    "case": v["case"], "launches": launched,
+                    **{k: v[k] for k in ("max_abs_err", "ms", "call_ms",
+                                         "host_us", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

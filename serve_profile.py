@@ -4,6 +4,7 @@
     python3 serve_profile.py          # DiT-image serving
     python3 serve_profile.py --video  # DiT-video serving (class S, SP-4)
     python3 serve_profile.py --lm     # mamba2-1.3b prefill and decode
+    python3 serve_profile.py --hybrid # zamba2-7b prefill and decode
 
 Serves the requests of chip_smoke.py's serve phase (DIT_IMAGE at full
 width, SP-4 on four rank threads, cache_interval=2, steps=4: two 512 px
@@ -25,7 +26,8 @@ pass serves the same request with one step.
 With ``--lm`` it profiles chip_smoke.py's lm phase instead: mamba2-1.3b
 at full width (seeded, livened weights), bf16, batch 4: one prefill of
 2048 tokens and, separately, 8 greedy decode steps, each after a warm-up
-run of the same work.
+run of the same work.  ``--hybrid`` does the same for the hybrid phase's
+zamba2-7b (81 Mamba2 layers and 13 shared-attention applications).
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke as smoke
 from repro_torch.configs.dit_models import DIT_IMAGE, DIT_VIDEO
 from repro_torch.kernels import build
-from repro_torch.models import ssm
+from repro_torch.models import get_model, ssm
 from repro_torch.serving import serve_loop
 
 
@@ -120,9 +122,9 @@ def serve_dit(cfg, requests, cache_interval, warmup=None) -> None:
     copy_bytes(prof)
 
 
-def profile_lm(decode_steps: int = 8) -> None:
-    cfg = smoke.MAMBA
-    model = ssm.Mamba2(cfg, generator=torch.Generator(
+def profile_lm(cfg, decode_steps: int = 8) -> None:
+    family = get_model(cfg)
+    model = family.init(cfg, generator=torch.Generator(
         device="cuda").manual_seed(0))
     ssm.init_published_a_dt(model)
     prompt = torch.randint(0, cfg.vocab_size,
@@ -132,7 +134,8 @@ def profile_lm(decode_steps: int = 8) -> None:
     step = serve_loop.make_serve_step(cfg)
 
     def run_prefill():
-        return prefill(model, prompt, ssm.init_cache(cfg, smoke.LM_BATCH))
+        return prefill(model, prompt, family.init_cache(
+            cfg, smoke.LM_BATCH, smoke.LM_PROMPT + decode_steps))
 
     def run_decode(cache, tok):
         for i in range(decode_steps):
@@ -156,7 +159,8 @@ def profile_lm(decode_steps: int = 8) -> None:
                     run_decode(cache, tok)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            print(f"lm {label} ({run}): wall {wall:.4f} s", flush=True)
+            print(f"{cfg.name} {label} ({run}): wall {wall:.4f} s",
+                  flush=True)
         report(prof, wall)
 
 
@@ -164,6 +168,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--lm", action="store_true",
                         help="profile the mamba2-1.3b prefill and decode")
+    parser.add_argument("--hybrid", action="store_true",
+                        help="profile the zamba2-7b prefill and decode")
     parser.add_argument("--video", action="store_true",
                         help="profile DIT_VIDEO serving one class-S "
                         "request at SP-4")
@@ -173,8 +179,8 @@ def main() -> int:
         return 2
     smoke.phase_device()
     build.load()
-    if args.lm:
-        profile_lm()
+    if args.lm or args.hybrid:
+        profile_lm(smoke.MAMBA if args.lm else smoke.ZAMBA)
     elif args.video:
         serve_dit(DIT_VIDEO,
                   lambda: [smoke.video_request("S", smoke.VIDEO_S)], None,

@@ -1,17 +1,24 @@
 """Load a JAX parameter tree into the port's modules.
 
 The tree is the value tree of the JAX package's init (``split_params(
-...)[0]`` of ``dit.init`` / ``text_encoder.init`` / ``vae.init``) with
-numpy leaves.  Keys map to parameter names one to one (``attn.wq`` ->
-``attn.wq``); a leaf under ``"blocks"`` carries a leading layer axis and
-fills ``blocks.{i}.<rest>`` for every layer ``i``.  Layouts are the same
-in both packages, so no leaf is reshaped.
+...)[0]`` of ``dit.init``, ``text_encoder.init``, ``vae.init``,
+``ssm.init``, ``transformer.init`` or ``hybrid.init``) with numpy leaves.
+Keys map to parameter names one to one (``attn.wq`` -> ``attn.wq``).  A
+leaf under a stacked key carries leading layer axes and fills one
+parameter per index: under ``"blocks"`` one axis (``blocks.{i}.<rest>``,
+also the transformer's super-blocks, ``blocks.{i}.pos0.attn.wq``), under
+the hybrid's ``"mamba_groups"`` two (``mamba_groups.{g}.{j}.<rest>``).
+Layouts are the same in both packages, so no leaf is reshaped.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch import nn
+
+
+#: top-level keys whose leaves carry leading layer axes, and how many
+STACKED = {"blocks": 1, "mamba_groups": 2}
 
 
 def _flatten(tree, prefix: str = ""):
@@ -42,10 +49,11 @@ def load_jax_params(module: nn.Module, tree) -> None:
         filled.add(name)
 
     for name, arr in _flatten(tree):
-        if name.startswith("blocks."):
-            rest = name[len("blocks."):]
-            for i in range(arr.shape[0]):
-                assign(f"blocks.{i}.{rest}", arr[i])
+        top, _, rest = name.partition(".")
+        axes = STACKED.get(top, 0)
+        if axes:
+            for idx in np.ndindex(arr.shape[:axes]):
+                assign(".".join([top, *map(str, idx), rest]), arr[idx])
         else:
             assign(name, arr)
     missing = sorted(set(params) - filled)

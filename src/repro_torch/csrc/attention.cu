@@ -48,6 +48,14 @@
 //     8 KB, 59 KB a block: 3 blocks (12 warps) an SM, so the DiT's 384
 //     blocks at Sq=1024 x 24 heads fit one wave on 132 SMs.  d=128 takes
 //     2 blocks an SM; d=256 halves BQ and takes 1.
+//   * Head dim 112 (zamba2-7b's shared attention): 32 does not divide it,
+//     so a lane owns 7 pairs of output columns (VW = 2, one 8-byte V load
+//     per pair: 8 FMAs a load, half of d=128's 16) instead of padding the
+//     tile to 128 columns, whose masked 16 would cost 1/8 of the FMAs.
+//     QK^T still reads 4 d-values a load (112 = 28 x 4).  Rows of 116
+//     floats keep the 8 key rows of a load on distinct banks (29 16-byte
+//     units a row, odd).  Shared memory (fp32): Q 29.0 KB, two K/V stages
+//     58.0 KB, P 8 KB, 95.0 KB a block: 2 blocks an SM, as at d=128.
 // The key axis is walked as up to three segments, each read from ONE
 // source tensor: plain attention has one; the splice has stale
 // [0, offset), fresh [offset, offset+L) and stale [offset+L, Sk), so no
@@ -91,12 +99,16 @@ template <typename T, int D>
 struct AttnShape {
   static constexpr int A = D <= 128 ? 4 : 2;     // query rows a lane owns
   static constexpr int BQ = kAttnWarps * 4 * A;  // query rows a block owns
-  static constexpr int VW = D >= 32 ? 4 : 2;     // output columns a vector
+  // output columns a vector: 4, or 2 where 32 does not divide D (16 and
+  // 112: at D=112 a lane owns 7 pairs of columns, 14 in all)
+  static constexpr int VW = D % 32 == 0 ? 4 : 2;
   static constexpr int NVC = D / (8 * VW);       // column vectors a lane
+  static_assert(D % 16 == 0 && NVC * 8 * VW == D,
+                "attention: head dim must be a multiple of 16");
   static constexpr int EPC = 16 / sizeof(T);     // elements a 16-byte copy
   static constexpr int CPR = D / EPC;            // copies a row
   static constexpr int PITCH = D + EPC;          // shared row, 16-byte pad
-  static constexpr int MIN_BLOCKS = D <= 64 ? 3 : (D == 128 ? 2 : 1);
+  static constexpr int MIN_BLOCKS = D <= 64 ? 3 : (D <= 128 ? 2 : 1);
   static constexpr size_t kSmem =
       sizeof(T) * PITCH * (BQ + 4 * kBK) +
       sizeof(float) * kAttnWarps * kBK * 4 * A;
@@ -346,6 +358,7 @@ cudaError_t dispatch_attn(const void* q, void* out, const Segs<T>& segs, int B,
     GFDIT_ATTN(16)
     GFDIT_ATTN(32)
     GFDIT_ATTN(64)
+    GFDIT_ATTN(112)
     GFDIT_ATTN(128)
     GFDIT_ATTN(256)
     default: return cudaErrorInvalidValue;
@@ -451,6 +464,7 @@ extern "C" int gfdit_attention_occupancy(int D, int dtype, int device,
     GFDIT_OCC(16)
     GFDIT_OCC(32)
     GFDIT_OCC(64)
+    GFDIT_OCC(112)
     GFDIT_OCC(128)
     GFDIT_OCC(256)
     default: return cudaErrorInvalidValue;

@@ -490,7 +490,8 @@ cudaError_t launch_ssd(const void* x, const void* dt, const void* A,
   X(16, 16, 16)   /* mamba2-1.3b.reduced() */ \
   X(16, 16, 32)   /* the JAX package's kernel sweep */ \
   X(32, 16, 64) \
-  X(64, 32, 128)
+  X(64, 32, 128) \
+  X(64, 64, 128)  /* zamba2-7b at full width */
 
 template <typename T>
 cudaError_t dispatch_ssd(const void* x, const void* dt, const void* A,

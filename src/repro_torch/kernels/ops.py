@@ -31,12 +31,12 @@ import torch
 from repro_torch.kernels import build, ref
 
 #: head dims the attention kernels are instantiated for
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 #: widest row the adaLN kernel holds in registers (one warp, 128 a lane)
 MAX_ADALN_DIM = 4096
 #: (head_dim p, state n, chunk) the SSD kernel is instantiated for
 SSD_SHAPES = ((64, 128, 128), (16, 16, 16), (16, 16, 32), (32, 16, 64),
-              (64, 32, 128))
+              (64, 32, 128), (64, 64, 128))
 #: the stage kernels one SSD call launches, in order
 SSD_STAGES = ("ssd_chunk_state", "ssd_state_pass", "ssd_cb", "ssd_chunk_scan")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

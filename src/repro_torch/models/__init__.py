@@ -1,7 +1,9 @@
 """Model zoo: family dispatch for init / forward / prefill / decode.
 
-The port has the SSM family (Mamba2) so far; the DiT serving path uses
-its modules directly.  Every other family is a later slice."""
+The port has the ``ssm`` (Mamba2), ``hybrid`` (Zamba2), ``dense``
+(dense and local:global SWA) and ``vlm`` families; the DiT serving path
+uses its modules directly.  ``moe`` and ``encdec`` (and the DiT's
+``dit.forward``) are later slices."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -9,9 +11,11 @@ from repro_torch.configs.base import ModelConfig
 
 def get_model(cfg: ModelConfig):
     """Return the module implementing cfg.family."""
-    if cfg.family == "ssm":
-        from repro_torch.models import ssm
-        return ssm
-    raise NotImplementedError(
-        f"the {cfg.family!r} family is a later slice of the port (only "
-        f"'ssm' is ported)")
+    from repro_torch.models import hybrid, ssm, transformer, vlm
+    family = {"dense": transformer, "ssm": ssm, "hybrid": hybrid,
+              "vlm": vlm}.get(cfg.family)
+    if family is None:
+        raise NotImplementedError(
+            f"the {cfg.family!r} family is a later slice of the port (the "
+            f"next one: MoE, MLA, encdec; ported: dense, hybrid, ssm, vlm)")
+    return family

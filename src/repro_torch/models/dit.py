@@ -196,8 +196,9 @@ def forward_sp_tokens(model: DiT, tok_shard, t, txt_embeds, cfg: ModelConfig,
         x = _gated_residual(x, g_a, L.project_out(attn, ap.wo))
 
         h = _mod_norm(x)
-        x = x + L.attention_apply(blk.cross, h, cfg, causal=False, kv_x=txt,
+        ca, _ = L.attention_apply(blk.cross, h, cfg, causal=False, kv_x=txt,
                                   use_rope=False)
+        x = x + ca
 
         h = _mod_norm(x, sh_m, sc_m)
         x = _gated_residual(x, g_m, L.swiglu_apply(blk.mlp, h))

@@ -1,11 +1,21 @@
-"""Shared model building blocks: the subset of ``repro/models/layers.py``
-that the DiT serving path and the Mamba2 LM path use, in PyTorch.
+"""Shared model building blocks: the part of ``repro/models/layers.py``
+that the DiT serving path and the decoder LMs (dense, SWA, hybrid, SSM)
+use, in PyTorch.  MLA and MoE are a later slice.
 
 Parameters are ``nn.Module`` attributes named after the JAX tree keys and
 kept in the JAX einsum layouts (``wq`` is (d, H, hd), ``wo`` is
 (H, hd, d)), so :func:`repro_torch.convert.load_jax_params` copies a JAX
-tree in without reshaping.  Attention always goes through the kernel
-wrappers in :mod:`repro_torch.kernels.ops`.
+tree in without reshaping.  Full (uncached, unwindowed) attention always
+goes through the flash-attention kernel wrapper
+(:func:`repro_torch.kernels.ops.attention`); windowed and cached
+attention run :func:`sdpa`'s plain tensor ops, as the JAX package runs
+its jnp ``sdpa`` there.
+
+Attention caches are written in place: a cached call stores the new
+keys and values into ``cache["k"]``/``cache["v"]`` (index copies at
+device-side positions, no host sync) and returns a cache that holds the
+same tensors with ``len`` advanced.  The JAX package returns updated
+copies; in place, a decode step does not copy every layer's cache.
 """
 from __future__ import annotations
 
@@ -17,6 +27,18 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` or, by default, the card; without CUDA the caller must
+    ask for the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "the model on the CPU (the kernels' plain "
+                           "versions)")
+    return device
+
 
 # ---------------------------------------------------------------------------
 # Parameter creation (the JAX package's pspec / pzeros / pones)
@@ -39,6 +61,12 @@ def pzeros(shape, device) -> nn.Parameter:
 
 def pones(shape, device) -> nn.Parameter:
     return nn.Parameter(torch.ones(shape, device=device), requires_grad=False)
+
+
+def stacked(one: dict, lead: tuple) -> dict:
+    """Each leaf of ``one`` repeated along new leading axes ``lead`` (a
+    per-layer cache stacked in the JAX layout)."""
+    return {k: v.expand(lead + v.shape).clone() for k, v in one.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -101,10 +129,78 @@ class Attention(nn.Module):
         self.wo = pspec((h, hd, d), generator, device)
 
 
+def repeat_kv(k, n_rep: int):
+    """(B, S, KV, hd) -> (B, S, KV*n_rep, hd)."""
+    if n_rep == 1:
+        return k
+    b, s, kv, hd = k.shape
+    return k[:, :, :, None, :].expand(b, s, kv, n_rep, hd) \
+        .reshape(b, s, kv * n_rep, hd)
+
+
+def sdpa(q, k, v, *, causal: bool, window: int = 0, q_offset=0,
+         kv_len=None, bias=None):
+    """Scaled dot-product attention over (B, S, H, hd) tensors, as plain
+    tensor ops: scores in fp32, masked to -1e30 in fp32 score space,
+    softmax in fp32, probabilities cast to q's dtype before PV (as JAX's
+    ``sdpa`` does).
+
+    ``window``   > 0 -> sliding-window mask (keys within `window` of query).
+    ``q_offset``     -> absolute position of q[0] (an int or a 0-d tensor).
+    ``kv_len``       -> optional (B,) valid key lengths (decode caches).
+    """
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    n_rep = h // k.shape[2]
+    k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    scores = scores * (hd ** -0.5)
+    qpos = torch.arange(sq, device=q.device) + q_offset          # (sq,)
+    kpos = torch.arange(sk, device=q.device)                     # (sk,)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    scores.masked_fill_(~mask[None, None], -1e30)
+    if kv_len is not None:
+        valid = kpos[None, :] < kv_len[:, None]                  # (B, sk)
+        scores.masked_fill_(~valid[:, None, None], -1e30)
+    if bias is not None:
+        scores = scores + bias
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(q.dtype))
+
+
+def _full_attention(q, k, v, *, causal: bool):
+    """Full (uncached, unwindowed) attention: always the flash-attention
+    kernel (its plain version for CPU tensors).  The JAX package chooses
+    by ``cfg.use_pallas``; the port has one path."""
+    return ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                         causal=causal)
+
+
+def _cache_write(cache, rows, k, v):
+    """Store k/v (B, s, KV, hd) into the cache's rows ``rows`` (a device
+    index tensor, so no host sync), in place."""
+    cache["k"].index_copy_(1, rows, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, rows, v.to(cache["v"].dtype))
+
+
 def attention_apply(p: Attention, x, cfg: ModelConfig, *, causal=True,
-                    positions=None, kv_x=None, use_rope=True):
-    """Full self-attention within ``x``, or cross-attention to ``kv_x``
-    (no rope on the keys), through the flash-attention kernel."""
+                    window=0, positions=None, cache=None, kv_x=None,
+                    use_rope=True, sp_decode: bool = False):
+    """Returns (out, new_cache).
+
+    Training/prefill: ``cache=None`` -> attends within ``x``.
+    Decode: ``cache={"k","v","len"}`` -> store x's kv into the cache (in
+    place) and attend to it.  A cache of exactly ``window`` rows is the
+    SWA ring buffer: a prefill installs its last ``window`` keys at slots
+    ``pos % window``, a decode step writes one slot and attends to the
+    ``min(len + 1, window)`` valid ones.
+    Cross-attention: ``kv_x`` provides the key/value sequence (no cache;
+    the JAX package's precomputed cross-kv comes with the encdec slice).
+    """
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
@@ -113,13 +209,51 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *, causal=True,
         q = apply_rope(q, positions, cfg.rope_theta)
     if kv_x is not None:                              # cross attention
         k, v = project(kv_x, p.wk), project(kv_x, p.wv)
-        out = ops.attention(q, k, v, causal=False)
-    else:                                             # full self-attn
+        out = _full_attention(q, k, v, causal=False)
+        new_cache = None
+    elif cache is None:                               # full self-attn
         k, v = project(x, p.wk), project(x, p.wv)
         if use_rope:
             k = apply_rope(k, positions, cfg.rope_theta)
-        out = ops.attention(q, k, v, causal=causal)
-    return project_out(out, p.wo)
+        if window:                    # SWA keeps the masked plain path
+            out = sdpa(q, k, v, causal=causal, window=window)
+        else:
+            out = _full_attention(q, k, v, causal=causal)
+        new_cache = None
+    else:                                             # cached decode/prefill
+        k_new, v_new = project(x, p.wk), project(x, p.wv)
+        if use_rope:
+            k_new = apply_rope(k_new, positions, cfg.rope_theta)
+        cache_len = cache["len"]                      # (B,) int32
+        k_all, v_all = cache["k"], cache["v"]
+        rows = torch.arange(s, device=x.device)
+        if window and k_all.shape[1] == window:       # ring buffer (SWA)
+            if s > 1:
+                # windowed prefill: attend within the new sequence under the
+                # window mask, then install the last min(s, W) keys into the
+                # ring at slots (pos % W).  Assumes prefill starts at len=0.
+                out = sdpa(q, k_new, v_new, causal=True, window=window)
+                last = min(s, window)
+                _cache_write(cache, rows[s - last:] % window,
+                             k_new[:, s - last:], v_new[:, s - last:])
+            else:
+                _cache_write(cache, cache_len[0] % window + rows, k_new,
+                             v_new)
+                # ring decode: slots < min(len+1, W) valid; keys are stored
+                # pre-rotated at absolute positions so scores stay correct.
+                valid = torch.clamp(cache_len + s, max=window)
+                out = sdpa(q, k_all, v_all, causal=False, kv_len=valid)
+        elif sp_decode and s == 1 and not window:
+            raise NotImplementedError(
+                "sp_decode (flash decoding over a sequence-sharded cache) "
+                "needs a device mesh: the port of repro.sharding is a later "
+                "slice")
+        else:
+            _cache_write(cache, cache_len[0] + rows, k_new, v_new)
+            out = sdpa(q, k_all, v_all, causal=True, q_offset=cache_len[0],
+                       kv_len=cache_len + s, window=window)
+        new_cache = {"k": k_all, "v": v_all, "len": cache_len + s}
+    return project_out(out, p.wo), new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -24,20 +24,10 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.layers import pones, pspec, pzeros
+from repro_torch.models.layers import (pones, pspec, pzeros,
+                                       resolve_device)
 
 _INTRA_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` or, by default, the card; without CUDA the caller must
-    ask for the CPU."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "the model on the CPU (the kernels' plain "
-                           "versions)")
-    return device
 
 
 def ssm_dims(cfg: ModelConfig):
@@ -176,6 +166,12 @@ class Mamba2(nn.Module):
         self.ln_final = L.rmsnorm_init(cfg.d_model, device)
 
 
+def init(cfg: ModelConfig, *, generator=None, device=None) -> Mamba2:
+    """The family's model (``ssm.init``): seed-0 weights on the card
+    unless ``device`` or ``generator`` says otherwise."""
+    return Mamba2(cfg, generator=generator, device=device)
+
+
 def sample_dt_a(dt_shape, nheads: int, generator):
     """Mamba2's published ranges (state-spaces/mamba, ``mamba2.py``): dt
     log-uniform in [1e-3, 1e-1] and A = -U[1, 16], fp32 on the
@@ -189,15 +185,16 @@ def sample_dt_a(dt_shape, nheads: int, generator):
     return dt, A
 
 
-def init_published_a_dt(model: Mamba2, seed: int = 0) -> None:
-    """Redraw every block's ``dt_bias`` (through the inverse softplus) and
-    ``A_log`` in Mamba2's published ranges (:func:`sample_dt_a`).  The
-    JAX init (both zero) gives every head A = -1 and dt near 0.7, so the
-    state carried across a 128-token chunk underflows to zero and a run
-    proves nothing about the carry."""
+def init_published_a_dt(model: nn.Module, seed: int = 0) -> None:
+    """Redraw ``dt_bias`` (through the inverse softplus) and ``A_log`` of
+    every :class:`SSDBlock` in ``model`` (a Mamba2, a hybrid, ...), in
+    module order, in Mamba2's published ranges (:func:`sample_dt_a`).
+    The JAX init (both zero) gives every head A = -1 and dt near 0.7, so
+    the state carried across a 128-token chunk underflows to zero and a
+    run proves nothing about the carry."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for blk in model.blocks:
+        for blk in (m for m in model.modules() if isinstance(m, SSDBlock)):
             dt, A = sample_dt_a((blk.A_log.shape[0],), blk.A_log.shape[0], gen)
             blk.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
             blk.A_log.copy_(torch.log(-A))
@@ -205,9 +202,8 @@ def init_published_a_dt(model: Mamba2, seed: int = 0) -> None:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0,
                dtype=torch.bfloat16, device=None):
-    one = ssd_block_cache(cfg, batch, dtype, device)
-    return {"blocks": {k: v.expand((cfg.num_layers,) + v.shape).clone()
-                       for k, v in one.items()}}
+    return {"blocks": L.stacked(ssd_block_cache(cfg, batch, dtype, device),
+                                (cfg.num_layers,))}
 
 
 def _scan(model: Mamba2, caches, x, cfg: ModelConfig):

@@ -49,8 +49,9 @@ def encode(model: TextEncoder, tokens, cfg: ModelConfig,
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for blk in model.blocks:
         a = L.rmsnorm(blk.ln_attn, x, cfg.norm_eps)
-        x = x + L.attention_apply(blk.attn, a, cfg, causal=False,
-                                  positions=positions)
+        attn, _ = L.attention_apply(blk.attn, a, cfg, causal=False,
+                                    positions=positions)
+        x = x + attn
         m = L.rmsnorm(blk.ln_mlp, x, cfg.norm_eps)
         x = x + L.swiglu_apply(blk.mlp, m)
     return L.rmsnorm(model.ln_final, x, cfg.norm_eps)

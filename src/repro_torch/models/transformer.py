@@ -1,0 +1,257 @@
+"""Decoder-only LM for the dense and SWA (local:global) families, in
+PyTorch.
+
+Port of ``repro/models/transformer.py``.  The JAX package scans its
+layers (``jax.lax.scan``) over *super-blocks*, one parameter subtree per
+position of the local:global period; here the stack is a ``ModuleList``
+of super-blocks, each a ``ModuleDict`` of its ``pos{i}`` blocks, walked
+by a Python loop, so :func:`repro_torch.convert.load_jax_params` loads
+the JAX tree (``blocks`` stacked along a leading super-block axis) one
+to one.  The caches keep the JAX layout too: each leaf of
+``cache["blocks"]["pos{i}"]`` carries a leading super-block axis, and
+the K/V leaves are written in place (:mod:`repro_torch.models.layers`).
+
+The uncached forward's full attention goes through the flash-attention
+kernel (causal); windowed layers, prefill and decode run the plain
+``sdpa``, as the JAX model does.  MLA and MoE blocks, ``remat`` and the
+sharding constraints (``repro.sharding.ctx.constrain``, no effect
+without a mesh) are later slices.
+
+Entry points build on the card unless given ``device="cpu"``.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import MLA, SWA, ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.layers import resolve_device
+
+_NEXT_SLICE = "a later slice of the port (the next one: MoE, MLA, encdec)"
+
+
+def _refuse_unported(cfg: ModelConfig) -> None:
+    if cfg.attention == MLA:
+        raise NotImplementedError(f"MLA attention ({cfg.name}) is "
+                                  f"{_NEXT_SLICE}")
+    if cfg.moe is not None:
+        raise NotImplementedError(f"MoE blocks ({cfg.name}) are "
+                                  f"{_NEXT_SLICE}")
+
+
+# ---------------------------------------------------------------------------
+# Single transformer block
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    """``block_init``: pre-norm attention + SwiGLU MLP."""
+
+    def __init__(self, cfg: ModelConfig, *, moe: bool, generator, device):
+        super().__init__()
+        if moe:
+            raise NotImplementedError(f"MoE blocks are {_NEXT_SLICE}")
+        _refuse_unported(cfg)
+        self.ln_attn = L.rmsnorm_init(cfg.d_model, device)
+        self.ln_mlp = L.rmsnorm_init(cfg.d_model, device)
+        self.attn = L.Attention(cfg, generator=generator, device=device)
+        self.mlp = L.SwiGLU(cfg.d_model, cfg.d_ff, generator=generator,
+                            device=device)
+
+
+def block_apply(p: Block, x, cfg: ModelConfig, *, window: int, positions,
+                cache=None, sp_decode: bool = False):
+    """Returns (x, new_cache, aux_loss)."""
+    h = L.rmsnorm(p.ln_attn, x, cfg.norm_eps)
+    attn_out, new_cache = L.attention_apply(
+        p.attn, h, cfg, causal=True, window=window, positions=positions,
+        cache=cache, sp_decode=sp_decode)
+    x = x + attn_out
+    h = L.rmsnorm(p.ln_mlp, x, cfg.norm_eps)
+    aux = torch.zeros((), device=x.device)
+    return x + L.swiglu_apply(p.mlp, h), new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# Layer-stack plans: how blocks are grouped
+# ---------------------------------------------------------------------------
+
+def _stack_plan(cfg: ModelConfig) -> dict:
+    """Describes the stack:
+      {"period": p, "n_super": n, "windows": [w per position],
+       "moe": [bool per position], "prefix_dense": int}
+    """
+    if cfg.local_global != (0, 0):
+        lg_l, lg_g = cfg.local_global
+        period = lg_l + lg_g
+        assert cfg.num_layers % period == 0, "local:global must tile layers"
+        windows = [cfg.window] * lg_l + [0] * lg_g
+        return {"period": period, "n_super": cfg.num_layers // period,
+                "windows": windows, "moe": [False] * period,
+                "prefix_dense": 0}
+    window = cfg.window if cfg.attention == SWA else 0
+    if cfg.moe is not None:
+        nd = cfg.moe.num_dense_layers
+        return {"period": 1, "n_super": cfg.num_layers - nd,
+                "windows": [window], "moe": [True], "prefix_dense": nd}
+    return {"period": 1, "n_super": cfg.num_layers, "windows": [window],
+            "moe": [False], "prefix_dense": 0}
+
+
+class Transformer(nn.Module):
+    """``init``: embedding, ``dense_{i}`` prefix blocks, the super-block
+    stack and the final norm.  Weights are drawn from ``generator`` (one
+    on ``device``; seed 0 by default)."""
+
+    def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
+        super().__init__()
+        _refuse_unported(cfg)
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        plan = _stack_plan(cfg)
+        kw = dict(generator=generator, device=device)
+        self.embed = L.Embedding(cfg, **kw)
+        self.ln_final = L.rmsnorm_init(cfg.d_model, device)
+        for i in range(plan["prefix_dense"]):
+            setattr(self, f"dense_{i}", Block(cfg, moe=False, **kw))
+        self.blocks = nn.ModuleList(
+            nn.ModuleDict({f"pos{pos}": Block(cfg, moe=plan["moe"][pos], **kw)
+                           for pos in range(plan["period"])})
+            for _ in range(plan["n_super"]))
+
+
+def init(cfg: ModelConfig, *, generator=None, device=None) -> Transformer:
+    return Transformer(cfg, generator=generator, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Cache construction
+# ---------------------------------------------------------------------------
+
+def _block_cache(cfg: ModelConfig, batch: int, max_len: int, window: int,
+                 dtype, device=None):
+    _refuse_unported(cfg)
+    device = resolve_device(device)
+    size = min(window, max_len) if window else max_len
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, size, kv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, size, kv, hd), dtype=dtype, device=device),
+        "len": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None):
+    plan = _stack_plan(cfg)
+    caches: dict[str, Any] = {}
+    for i in range(plan["prefix_dense"]):
+        caches[f"dense_{i}"] = _block_cache(
+            cfg, batch, max_len, plan["windows"][0] if cfg.attention == SWA
+            else 0, dtype, device)
+    caches["blocks"] = {
+        f"pos{pos}": L.stacked(_block_cache(cfg, batch, max_len,
+                                          plan["windows"][pos], dtype,
+                                          device), (plan["n_super"],))
+        for pos in range(plan["period"])}
+    return caches
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+def _scan_blocks(model: Transformer, caches, x, cfg: ModelConfig, plan,
+                 positions, sp_decode: bool = False):
+    """Walk the super-block stack. Returns (x, new_caches, aux_sum)."""
+    aux = torch.zeros((), device=x.device)
+    lens = {f"pos{pos}": [] for pos in range(plan["period"])}
+    for i, sup in enumerate(model.blocks):
+        for pos in range(plan["period"]):
+            key = f"pos{pos}"
+            c = None if caches is None else \
+                {k: v[i] for k, v in caches["blocks"][key].items()}
+            x, nc, a = block_apply(sup[key], x, cfg,
+                                   window=plan["windows"][pos],
+                                   positions=positions, cache=c,
+                                   sp_decode=sp_decode)
+            aux = aux + a
+            if nc is not None:
+                lens[key].append(nc["len"])
+    if caches is None:
+        return x, None, aux
+    # k/v were written in place through the per-layer views
+    new = {key: {"k": caches["blocks"][key]["k"],
+                 "v": caches["blocks"][key]["v"],
+                 "len": torch.stack(lens[key])} for key in lens}
+    return x, new, aux
+
+
+def _embed(model: Transformer, tokens, cfg: ModelConfig, dtype,
+           extra_embeds):
+    x = L.embed(model.embed, tokens, cfg, dtype)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(dtype), x], dim=1)
+    return x
+
+
+def forward(model: Transformer, tokens, cfg: ModelConfig, *,
+            dtype=torch.bfloat16, extra_embeds=None):
+    """Teacher-forced logits (B, S, V) in fp32, and the aux loss.
+
+    ``extra_embeds``: optional (B, S_front, d) modality-frontend embeddings
+    prepended to the token embeddings (the VLM's patch stub).
+    """
+    plan = _stack_plan(cfg)
+    x = _embed(model, tokens, cfg, dtype, extra_embeds)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux_total = torch.zeros((), device=x.device)
+    for i in range(plan["prefix_dense"]):
+        x, _, a = block_apply(getattr(model, f"dense_{i}"), x, cfg,
+                              window=0, positions=positions)
+        aux_total = aux_total + a
+    x, _, aux = _scan_blocks(model, None, x, cfg, plan, positions)
+    x = L.rmsnorm(model.ln_final, x, cfg.norm_eps)
+    return L.unembed(model.embed, x, cfg), aux_total + aux
+
+
+def prefill(model: Transformer, tokens, cache, cfg: ModelConfig, *,
+            dtype=torch.bfloat16, extra_embeds=None):
+    """Run the full sequence, filling ``cache``. Returns (logits of the
+    last position (B, 1, V), cache)."""
+    plan = _stack_plan(cfg)
+    x = _embed(model, tokens, cfg, dtype, extra_embeds)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    new_caches: dict[str, Any] = {}
+    for i in range(plan["prefix_dense"]):
+        x, nc, _ = block_apply(getattr(model, f"dense_{i}"), x, cfg,
+                               window=0, positions=positions,
+                               cache=cache[f"dense_{i}"])
+        new_caches[f"dense_{i}"] = nc
+    x, new_caches["blocks"], _ = _scan_blocks(model, cache, x, cfg, plan,
+                                              positions)
+    x = L.rmsnorm(model.ln_final, x, cfg.norm_eps)
+    return L.unembed(model.embed, x[:, -1:], cfg), new_caches
+
+
+def decode_step(model: Transformer, tokens, cache, pos, cfg: ModelConfig, *,
+                dtype=torch.bfloat16, sp_decode: bool = False):
+    """One decode step. tokens (B, 1); pos (B,) absolute positions.
+
+    Returns (logits (B, 1, V), cache)."""
+    plan = _stack_plan(cfg)
+    x = L.embed(model.embed, tokens, cfg, dtype)
+    positions = pos[:, None]
+    new_caches: dict[str, Any] = {}
+    for i in range(plan["prefix_dense"]):
+        x, nc, _ = block_apply(getattr(model, f"dense_{i}"), x, cfg,
+                               window=0, positions=positions,
+                               cache=cache[f"dense_{i}"], sp_decode=sp_decode)
+        new_caches[f"dense_{i}"] = nc
+    x, new_caches["blocks"], _ = _scan_blocks(model, cache, x, cfg, plan,
+                                              positions, sp_decode=sp_decode)
+    x = L.rmsnorm(model.ln_final, x, cfg.norm_eps)
+    return L.unembed(model.embed, x, cfg), new_caches

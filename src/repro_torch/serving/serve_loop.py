@@ -1,12 +1,14 @@
 """serve_step / prefill_step factories per architecture.
 
 Port of ``repro/serving/serve_loop.py`` for the families the port has
-(``ssm``; the rest raise through :func:`repro_torch.models.get_model`).
-The steps take the model module where the JAX steps take ``params``, and
-run under ``torch.inference_mode()``.  ``dtype`` is the activation dtype
-(bf16, the JAX default).  The dry-run ``ShapeDtypeStruct`` spec
-functions (``input_specs``, ``cache_specs``) wait for the port of
-``launch/``.
+(``ssm``, ``hybrid``, ``dense``, ``vlm``; the rest raise through
+:func:`repro_torch.models.get_model`).  The steps take the model module
+where the JAX steps take ``params``, and run under
+``torch.inference_mode()``.  ``dtype`` is the activation dtype (bf16,
+the JAX default).  ``sp_decode`` (flash decoding over a sharded cache)
+raises in a decode step: it needs the port of ``sharding/``.  The
+dry-run ``ShapeDtypeStruct`` spec functions (``input_specs``,
+``cache_specs``) wait for the port of ``launch/``.
 """
 from __future__ import annotations
 
@@ -16,20 +18,28 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import get_model
 
 
-def make_serve_step(cfg: ModelConfig, *, dtype=torch.bfloat16):
+def make_serve_step(cfg: ModelConfig, *, dtype=torch.bfloat16,
+                    sp_decode: bool = False):
     model = get_model(cfg)
+    kw = {"sp_decode": sp_decode} if cfg.family in ("dense", "vlm") else {}
 
     def serve_step(module, tokens, cache, pos):
         with torch.inference_mode():
             return model.decode_step(module, tokens, cache, pos, cfg,
-                                     dtype=dtype)
+                                     dtype=dtype, **kw)
     return serve_step
 
 
 def make_prefill_step(cfg: ModelConfig, *, dtype=torch.bfloat16):
     model = get_model(cfg)
 
-    def prefill_step(module, tokens, cache):
-        with torch.inference_mode():
-            return model.prefill(module, tokens, cache, cfg, dtype=dtype)
+    if cfg.family == "vlm":
+        def prefill_step(module, tokens, patches, cache):
+            with torch.inference_mode():
+                return model.prefill(module, tokens, patches, cache, cfg,
+                                     dtype=dtype)
+    else:
+        def prefill_step(module, tokens, cache):
+            with torch.inference_mode():
+                return model.prefill(module, tokens, cache, cfg, dtype=dtype)
     return prefill_step

@@ -111,6 +111,45 @@ def test_mamba2_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert ssm.init_cache(cfg, 1, device="cpu")["blocks"]["state"].is_cpu
 
 
+@pytest.mark.parametrize("arch", ["zamba2-7b", "yi-6b", "gemma3-12b",
+                                  "paligemma-3b"])
+def test_lm_families_default_to_cuda_and_raise_without_it(monkeypatch,
+                                                          arch):
+    """The hybrid, dense and vlm models and caches are built on the card
+    unless the CPU is asked for."""
+    from repro_torch.models import get_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config(arch).reduced()
+    family = get_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        family.init(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        family.init_cache(cfg, 1, 8)
+    def leaves(tree):
+        for v in tree.values():
+            yield from leaves(v) if isinstance(v, dict) else (v,)
+    assert all(t.is_cpu for t in leaves(family.init_cache(cfg, 1, 8,
+                                                          device="cpu")))
+
+
+def test_hybrid_layer_on_a_cuda_tensor_without_kernels_raises(monkeypatch,
+                                                            tmp_path):
+    """A hybrid Mamba2 layer hands a CUDA tensor to K4, which raises
+    without its library: no plain or library fallback."""
+    from repro_torch.models import hybrid
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_nvcc", no_nvcc)
+    cfg = get_config("zamba2-7b").reduced()
+    x = torch.zeros((1, 8, cfg.d_model)).as_subclass(_CudaLooking)
+    model = hybrid.Hybrid(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ssm.ssd_block_apply(model.mamba_groups[0][0], x, cfg)
+
+
 def test_migration_refuses_a_bfloat16_field():
     """No silent float32: a bfloat16 field waits for the slice that
     moves one."""

@@ -41,6 +41,16 @@ ATTN_CASES = [
     # tile), and its cross-attention to 77 text tokens
     (1, 1000, 4100, 24, 24, 128, False),
     (1, 1000, 77, 24, 24, 128, False),
+    # zamba2-7b's shared block at head dim 112 (7 column pairs a lane):
+    # causal over several query tiles and ragged, under GQA, non-causal
+    # with both edges ragged, and its full-width heads at 520 tokens
+    (2, 130, 130, 4, 4, 112, True),
+    (1, 33, 33, 2, 2, 112, True),
+    (1, 160, 160, 4, 2, 112, True),
+    (1, 130, 77, 4, 4, 112, False),
+    (1, 520, 520, 32, 32, 112, True),
+    # yi-6b's causal GQA (32 q heads over 4 kv heads) at head dim 128
+    (1, 300, 300, 32, 4, 128, True),
 ]
 ADALN_VARIANTS = {
     "mod_norm": ("shift", "scale"),
@@ -99,6 +109,26 @@ def test_cuda_splice_kernel(cuda_device, offset, sk, n, dtype):
     ks, vs = (_card(rng, (1, sk, 2, 64), dtype, cuda_device)
               for _ in range(2))
     kf, vf = (_card(rng, (1, n, 2, 64), dtype, cuda_device)
+              for _ in range(2))
+    before = ops.launches["splice_attention"]
+    got = ops.splice_attention(q, ks, vs, kf, vf, offset=offset)
+    assert ops.launches["splice_attention"] == before + 1
+    _close(got, ref.splice_attention_ref(q, ks, vs, kf, vf, offset=offset),
+           dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset,sk,n", [
+    (0, 120, 40), (37, 300, 100), (200, 300, 100),
+])
+def test_cuda_splice_kernel_head_dim_112(cuda_device, offset, sk, n, dtype):
+    """K3 through the attention template at head dim 112 (GQA)."""
+    rng = np.random.default_rng(offset + 112)
+    q = _card(rng, (1, n, 4, 112), dtype, cuda_device)
+    ks, vs = (_card(rng, (1, sk, 2, 112), dtype, cuda_device)
+              for _ in range(2))
+    kf, vf = (_card(rng, (1, n, 2, 112), dtype, cuda_device)
               for _ in range(2))
     before = ops.launches["splice_attention"]
     got = ops.splice_attention(q, ks, vs, kf, vf, offset=offset)
@@ -214,6 +244,7 @@ def test_cuda_ssd_kernel(cuda_device, p, n, chunk, dtype, ragged):
     (2, 10, 3, 16, 16, 32),       # ... of a narrow shape
     (2, 128, 3, 64, 128, 128),    # l equal to one chunk
     (2, 1000, 4, 16, 16, 16),     # many chunks at the reduced shape
+    (1, 2080, 8, 64, 64, 128),    # zamba2-7b's shape at its ragged forward
 ])
 def test_cuda_ssd_stage_edges(cuda_device, b, l, h, p, n, chunk, dtype):
     """The chunk-parallel stages at the edges of their grids: one block
@@ -311,6 +342,49 @@ def test_cuda_mamba2_reduced_matches_the_cpu(cuda_device):
     err = (torch.linalg.vector_norm(got.cpu().double() - want.double())
            / torch.linalg.vector_norm(want.double())).item()
     assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+def test_cuda_hybrid_reduced_matches_the_cpu(cuda_device):
+    """zamba2-7b.reduced(num_layers=5) (two groups and a tail layer) with
+    the same livened weights: forward (K2 causal once per shared-block
+    application, K4 once per Mamba2 layer) and a 32-token prefill plus 8
+    decode steps through the serve-loop steps, the card against the CPU
+    (plain versions), fp32 logits within 1e-4 rel-L2."""
+    from repro_torch.models import hybrid
+    from repro_torch.serving import serve_loop
+    cfg = get_config("zamba2-7b").reduced(num_layers=5)
+    cpu = hybrid.Hybrid(cfg, device="cpu")
+    ssm.init_published_a_dt(cpu, seed=4)
+    card = hybrid.Hybrid(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(
+        np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 40)))
+    out = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        t = toks.to(next(model.parameters()).device)
+        before = dict(ops.launches)
+        with torch.inference_mode():
+            full, _ = hybrid.forward(model, t, cfg, dtype=torch.float32)
+        if name == "card":
+            assert ops.launches["attention"] == before["attention"] + 2
+            assert ops.launches["ssd"] == before["ssd"] + cfg.num_layers
+        prefill = serve_loop.make_prefill_step(cfg, dtype=torch.float32)
+        step = serve_loop.make_serve_step(cfg, dtype=torch.float32)
+        cache = hybrid.init_cache(cfg, 2, 40, dtype=torch.float32,
+                                  device=t.device)
+        lg, cache = prefill(model, t[:, :32], cache)
+        steps = [lg[:, 0]]
+        for i in range(32, 40):
+            lg, cache = step(model, t[:, i:i + 1], cache,
+                             torch.full((2,), i, device=t.device))
+            steps.append(lg[:, 0])
+        out[name] = [full.cpu().double(),
+                     torch.stack(steps, 1).cpu().double()]
+    for got, want in zip(out["card"], out["cpu"]):
+        err = (torch.linalg.vector_norm(got - want)
+               / torch.linalg.vector_norm(want)).item()
+        assert err <= 1e-4, err
 
 
 @pytest.mark.cuda

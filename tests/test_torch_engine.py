@@ -33,6 +33,7 @@ from repro_torch.diffusion.pipeline import (TorchDiTPipeline,  # noqa: E402
                                             _req_seed)
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.serving import engine as torch_engine  # noqa: E402
+from torch_threads import few_threads  # noqa: E402,F401
 
 PIXEL_BUDGET = 1e-4
 

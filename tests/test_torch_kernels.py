@@ -18,6 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from torch_threads import few_threads  # noqa: E402,F401
 
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 

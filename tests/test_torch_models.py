@@ -28,6 +28,7 @@ from repro_torch.convert import load_jax_params  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import dit, text_encoder, vae  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
+from torch_threads import few_threads  # noqa: E402,F401
 
 TOL = 1e-5
 CFG = DIT_IMAGE.reduced()

@@ -22,6 +22,7 @@ from repro.kernels.ssd import ssd_scan  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
+from torch_threads import few_threads  # noqa: E402,F401
 
 
 def _inputs(seed, b, l, h, p, n):

@@ -38,6 +38,7 @@ from repro_torch.models import dit  # noqa: E402
 
 from test_torch_engine import (PORT, _numpy_tree,  # noqa: E402
                                _serve_both, fixed_sp)
+from torch_threads import few_threads  # noqa: E402,F401
 
 TOL = 1e-5
 VIDEO_REQ = dict(height=64, width=64, frames=9, steps=3)   # 3 x 8 x 8 latent
