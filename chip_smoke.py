@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch port serves DiT-image, DiT-video,
-Mamba2 and Zamba2 on one NVIDIA GPU.
+"""Quickest proof that the PyTorch port serves DiT-image, DiT-video and
+the LM zoo (Mamba2, Zamba2, Whisper, Mixtral, DeepSeek-V2) on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -14,8 +15,10 @@ Phases, one line each (any failure raises and exits non-zero):
    its path's full-width shapes (DIT_IMAGE for K1-K3, the mamba2-1.3b
    prefill for K4, timed at batch 4 and 1; zamba2-7b's forward for K2
    causal at head dim 112 and its prefill for K4 at (p, n, chunk) =
-   (64, 64, 128); yi-6b's causal GQA forward for K2), fp32 and bf16, and
-   K1-K3 at
+   (64, 64, 128); yi-6b's causal GQA forward for K2; whisper-medium's
+   encoder self-attention over 1500 frames and its cross-attention of a
+   4-token prefill and of a decode step to them, at batch 4), fp32 and
+   bf16, and K1-K3 at
    DIT_VIDEO's shapes in fp32 (K1 at D=3072, K2 self over 20,280 keys
    and cross at head dim 128, K3 at the video hit), with kernel,
    plain-version and one-PyTorch-call times from CUDA events; K4's device
@@ -64,6 +67,21 @@ Phases, one line each (any failure raises and exits non-zero):
 12. hybrid-cpu: zamba2-7b, yi-6b and gemma3-12b at ``.reduced()`` (the
    SWA ring past its wrap): the card and the CPU give the same forward
    and prefill + decode logits on the same weights.
+13. zoo: one model live at a time, seeded random weights, a bf16 prefill
+   and 32 greedy decode steps each, then fp32 prefill + decode against
+   the teacher-forced forward (within 5e-4 of the largest logit):
+   whisper-medium at full width and depth (24 + 24 layers, 1.01 B
+   parameters; 4 x (1500 frames + 4 tokens); K2 48 times a prefill, 24 a
+   decode step, 72 a forward); mixtral-8x7b at full width, 4 of 32 layers
+   (4 x 2048 tokens; SWA and MoE launch no kernel, as in the JAX package;
+   fp32 check at 1000 + 32 tokens, where the MoE's capacity is exact);
+   deepseek-v2-236b at full width, the dense prefix layer + 2 MoE layers
+   of 60 (1 x 2048 tokens, naive and absorbed MLA decode, absorbed vs
+   naive within 1e-5; fp32 check at 600 + 32 tokens).  The depth cuts
+   keep the fp32 weights within the card's 80 GB.
+14. zoo-cpu: mixtral-8x7b, deepseek-v2-236b (q_lora_rank 24, three
+   layers, absorbed decode) and whisper-medium at ``.reduced()``, card
+   vs CPU logits within 1e-4 rel-L2.
 
 Kernel times (phase 3): ``ms`` is device time, from CUDA-event timing of
 replays of a CUDA graph that holds ``iters`` calls, so it leaves out the
@@ -73,7 +91,8 @@ is the host's cost of one wrapper call (many calls, no synchronise).  The
 library call is timed both ways too.
 
 The line before the last is the ``kernels`` JSON summary (K1-K3 carry
-their DIT_VIDEO case and its launches under ``video``); the last line
+their DIT_VIDEO case and its launches under ``video``, K2 and K4 their
+LM cases under the model's name); the last line
 is ``{"ok": true, "device": {...}}``.  Exits 2 without CUDA.
 
     python3 chip_smoke.py --kernels-only [--src DIR] [--json FILE]
@@ -86,6 +105,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -115,13 +135,14 @@ from repro_torch.configs.dit_models import DIT_IMAGE, DIT_VIDEO  # noqa: E402
 from repro_torch.core.scheduler import Decision, Policy  # noqa: E402
 from repro_torch.core.trajectory import ExecutionLayout, Request  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.models import dit, get_model, hybrid, ssm  # noqa: E402
+from repro_torch.models import dit, get_model, hybrid, layers, ssm  # noqa: E402
 from repro_torch.serving import serve_loop  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12           # CUDA cores; the kernels use no TF32
+BF16_FLOPS_PER_S = 989e12          # tensor cores, the peak for bf16 inputs
 BUDGET = {torch.float32: 1e-5, torch.bfloat16: 3e-2}   # DESIGN.md §12
 # K4 vs the sequential recurrence: two summation orders over 2048 steps,
 # the JAX package's own kernel vs sequential bound (tests/test_kernels.py)
@@ -133,6 +154,19 @@ LOGIT_BUDGET = 1e-3                # of the largest |logit|, fp32 decode
 LM_CPU_BUDGET = 1e-4               # rel-L2 on logits, card vs CPU
 ZAMBA = get_config("zamba2-7b")
 YI = get_config("yi-6b")
+# the zoo phase: whisper-medium at full width and depth; mixtral-8x7b and
+# deepseek-v2-236b at full width, cut in depth to fit the card's 80 GB in
+# fp32 (4 of 32 layers: 24.3 GB; the dense prefix layer + 2 MoE layers of
+# 60: 37.3 GB)
+WHISPER = get_config("whisper-medium")
+MIXTRAL = get_config("mixtral-8x7b").with_(num_layers=4)
+DEEPSEEK = get_config("deepseek-v2-236b").with_(num_layers=3)
+ZOO_BATCH, ZOO_PROMPT = 4, 4          # whisper: 4 x (1500 frames + 4 tokens)
+# fp32 decode vs forward where the forward's MoE capacity is exact
+# (tokens x top_k <= 4096): mixtral 1032 x 2, deepseek 632 x 6
+EXACT_PROMPT = {"mixtral-8x7b": 1000, "deepseek-v2-236b": 600}
+ZOO_LOGIT_BUDGET = 5e-4            # of the largest |logit|, fp32 decode
+MLA_BUDGET = 1e-5                  # absorbed vs naive decode, fp32
 DIT_KERNELS = ("fused_adaln", "attention", "splice_attention")
 # the video phase: the paper's class S (480x832, 49 frames: 13 latent
 # frames, 20,280 tokens) and leg (b)'s 17 frames (5 latent frames, 7,800
@@ -240,8 +274,9 @@ def host_us(fn, calls: int = 1000) -> float:
     return t / calls * 1e6
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+def bound_ms(nbytes: float, flops: float,
+             flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -354,7 +389,8 @@ def _check(label, kernel, plain, dtype, results, timing=None, budget=BUDGET):
         lib = timing.get("library")
         lib_ms = device_ms(lib, **depth) if lib is not None else None
         lib_cms = call_ms(lib, depth["iters"]) if lib is not None else None
-        b_ms, b_by = bound_ms(timing["bytes"], timing["flops"])
+        b_ms, b_by = bound_ms(timing["bytes"], timing["flops"],
+                              timing.get("flops_per_s", FP32_FLOPS_PER_S))
 
         def fmt(t):
             return "-" if t is None else f"{t:.4f} ms"
@@ -484,6 +520,7 @@ def phase_kernels() -> dict:
                    dtype, results, timing)
         _check_ssd(dtype, results)
         _check_lm_attention(dtype, results, gen)
+        _check_whisper_attention(dtype, results, gen)
     _check_video(results, gen)
     return results
 
@@ -536,12 +573,35 @@ def _check_lm_attention(dtype, results, gen) -> None:
             "grid": grid}
 
 
+def _check_whisper_attention(dtype, results, gen) -> None:
+    """K2 at whisper-medium's three shapes at batch 4 (16 heads x 64, no
+    GQA): the encoder's bidirectional self-attention over the 1500
+    frames, the decoder's cross-attention of a 4-token prompt (prefill)
+    and of one decode step (Sq = 1) to them; each against its plain
+    version and timed against its bound and SDPA on the same inputs."""
+    b, h, d, f = ZOO_BATCH, WHISPER.num_heads, WHISPER.head_dim, \
+        WHISPER.frontend_seq
+    k, v = (_rand((b, f, h, d), dtype, gen) for _ in range(2))
+    tag = "" if dtype == torch.float32 else " bf16"
+    for label, sq in (("self", f), ("cross", ZOO_PROMPT), ("decode", 1)):
+        q = _rand((b, sq, h, d), dtype, gen)
+        _check(f"attention whisper-medium {label} q{(b, sq, h, d)} kv"
+               f"{(b, f, h, d)}", lambda q=q: ops.attention(q, k, v),
+               lambda q=q: ref.attention_ref(q, k, v), dtype, results,
+               _attn_timing(q, k, v, sq, f, host_calls=200,
+                            summary=f"whisper-medium {label}{tag} attention"))
+
+
 def _attn_timing(q, k, v, sq, sk, **extra) -> dict:
     """Timing of an attention case: bytes and operations of the
-    function, and fp32 SDPA (heads first) as the library call."""
+    function, and SDPA (heads first) on the same inputs as the library
+    call; bf16 inputs are bound by the bf16 peak."""
     b, _, h, d = q.shape
-    return dict(bytes=(2 * q.numel() + k.numel() + v.numel()) * 4,
+    return dict(bytes=(2 * q.numel() + k.numel() + v.numel())
+                * q.element_size(),
                 flops=4 * b * h * d * sq * sk,
+                flops_per_s=(BF16_FLOPS_PER_S if q.dtype == torch.bfloat16
+                             else FP32_FLOPS_PER_S),
                 library=lambda: F.scaled_dot_product_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
                 **extra)
@@ -1243,25 +1303,60 @@ def phase_video(smi: str) -> dict:
     return totals
 
 
-def _lm_run(model, cfg, prompt, steps, dtype, feed=None) -> dict:
-    """Prefill ``prompt`` and decode ``steps`` tokens through the
-    serve-loop steps, on a cache from the family's ``init_cache``:
-    greedily, or teacher-forced on ``feed``'s columns.  Returns the
-    logits (b, 1 + steps, vocab), the tokens fed to decode (b, steps),
-    the prefill and decode wall times and the kernel launches of each."""
+#: K2 launches by the ``attention_apply`` call that made them, counted
+#: while :func:`_k2_sites` is open: ``self`` (bidirectional: whisper's
+#: encoder), ``cross`` (keys from ``kv_x`` or a cross cache) or ``causal``
+K2_SITES = {"self": 0, "cross": 0, "causal": 0}
+
+
+@contextlib.contextmanager
+def _k2_sites():
+    """Count K2 launches into :data:`K2_SITES` by attention site."""
+    apply = layers.attention_apply
+
+    def counted(*args, causal=True, kv_x=None, **kw):
+        before = ops.launches["attention"]
+        try:
+            return apply(*args, causal=causal, kv_x=kv_x, **kw)
+        finally:
+            site = ("cross" if kv_x is not None else
+                    "causal" if causal else "self")
+            K2_SITES[site] += ops.launches["attention"] - before
+    layers.attention_apply = counted
+    try:
+        yield
+    finally:
+        layers.attention_apply = apply
+
+
+def _reset_counts() -> None:
+    ops.reset_launches()
+    for site in K2_SITES:
+        K2_SITES[site] = 0
+
+
+def _lm_run(model, cfg, prompt, steps, dtype, feed=None, extra=(),
+            mla_absorbed=False) -> dict:
+    """Prefill ``prompt`` (after ``extra``'s frontend inputs: whisper's
+    frames) and decode ``steps`` tokens through the serve-loop steps, on
+    a cache from the family's ``init_cache``: greedily, or teacher-forced
+    on ``feed``'s columns.  Returns the logits (b, 1 + steps, vocab), the
+    tokens fed to decode (b, steps), the prefill and decode wall times,
+    and the kernel launches of each, also by K2 site."""
     prefill = serve_loop.make_prefill_step(cfg, dtype=dtype)
-    step = serve_loop.make_serve_step(cfg, dtype=dtype)
+    step = serve_loop.make_serve_step(cfg, dtype=dtype,
+                                      mla_absorbed=mla_absorbed)
     b, s = prompt.shape
     cache = get_model(cfg).init_cache(cfg, b, s + steps, dtype=dtype,
                                       device=prompt.device)
     sync = torch.cuda.synchronize if prompt.is_cuda else (lambda: None)
     sync()
-    before = dict(ops.launches)
+    before = dict(ops.launches), dict(K2_SITES)
     t0 = time.perf_counter()
-    lg, cache = prefill(model, prompt, cache)
+    lg, cache = prefill(model, prompt, *extra, cache)
     sync()
     t_prefill = time.perf_counter() - t0
-    mid = dict(ops.launches)
+    mid = dict(ops.launches), dict(K2_SITES)
     logits, fed = [lg[:, 0]], []
     t0 = time.perf_counter()
     for i in range(steps):
@@ -1273,10 +1368,16 @@ def _lm_run(model, cfg, prompt, steps, dtype, feed=None) -> dict:
         logits.append(lg[:, 0])
     sync()
     t_decode = time.perf_counter() - t0
+    after = ops.launches, K2_SITES
+
+    def diff(a, b):
+        return {k: b[k] - a[k] for k in a}
     return {"logits": torch.stack(logits, 1), "fed": torch.cat(fed, 1),
             "t_prefill": t_prefill, "t_decode": t_decode,
-            "prefill_launches": {k: mid[k] - before[k] for k in mid},
-            "decode_launches": {k: ops.launches[k] - mid[k] for k in mid}}
+            "prefill_launches": diff(before[0], mid[0]),
+            "decode_launches": diff(mid[0], after[0]),
+            "prefill_sites": diff(before[1], mid[1]),
+            "decode_sites": diff(mid[1], after[1])}
 
 
 def phase_lm(smi: str) -> dict:
@@ -1443,6 +1544,33 @@ def phase_hybrid(smi: str) -> dict:
     return {"prefill": pre, "forward": fwd}
 
 
+def _reduced_card_vs_cpu(cfg, toks, n_prefill, mla_absorbed=False,
+                         frames=None) -> float:
+    """``cfg`` (reduced) with the same weights on the card (kernels) and
+    on the CPU (plain versions): the largest logit rel-L2 between them,
+    over the forward on ``toks`` and a prefill of ``n_prefill`` tokens
+    plus teacher-forced decode steps to the end (after ``frames``, the
+    encoder's stub input, where the family takes them)."""
+    family = get_model(cfg)
+    cpu = family.init(cfg, device="cpu")
+    ssm.init_published_a_dt(cpu)
+    card = family.init(cfg)
+    card.load_state_dict(cpu.state_dict())
+    out = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        dev = next(model.parameters()).device
+        t = toks.to(dev)
+        extra = () if frames is None else (frames.to(dev),)
+        with torch.inference_mode():
+            full, _ = family.forward(model, t, *extra, cfg,
+                                     dtype=torch.float32)
+        steps = _lm_run(model, cfg, t[:, :n_prefill], t.shape[1] - n_prefill,
+                        torch.float32, feed=t[:, n_prefill:], extra=extra,
+                        mla_absorbed=mla_absorbed)["logits"]
+        out[name] = [full.cpu(), steps.cpu()]
+    return max(rel_l2(a, b) for a, b in zip(out["card"], out["cpu"]))
+
+
 def phase_hybrid_cpu() -> None:
     """zamba2-7b, yi-6b and gemma3-12b at ``.reduced()`` with the same
     weights on the card (K2 at d=32, K4 at (16, 16, 16)) and on the CPU
@@ -1451,24 +1579,8 @@ def phase_hybrid_cpu() -> None:
     t_phase = time.perf_counter()
     toks = torch.randint(0, 512, (2, 80),
                          generator=torch.Generator().manual_seed(3))
-    errs = {}
-    for arch in ("zamba2-7b", "yi-6b", "gemma3-12b"):
-        cfg = get_config(arch).reduced()
-        family = get_model(cfg)
-        cpu = family.init(cfg, device="cpu")
-        ssm.init_published_a_dt(cpu)
-        card = family.init(cfg)
-        card.load_state_dict(cpu.state_dict())
-        out = {}
-        for name, model in (("cpu", cpu), ("card", card)):
-            t = toks.to(next(model.parameters()).device)
-            with torch.inference_mode():
-                full, _ = family.forward(model, t, cfg, dtype=torch.float32)
-            steps = _lm_run(model, cfg, t[:, :72], 8, torch.float32,
-                            feed=t[:, 72:])["logits"]
-            out[name] = [full.cpu(), steps.cpu()]
-        errs[arch] = max(rel_l2(a, b) for a, b in zip(out["card"],
-                                                        out["cpu"]))
+    errs = {arch: _reduced_card_vs_cpu(get_config(arch).reduced(), toks, 72)
+            for arch in ("zamba2-7b", "yi-6b", "gemma3-12b")}
     print(f"hybrid-cpu: .reduced() forward (80 tokens) and prefill 72 + "
           f"decode 8, card vs CPU, logit rel-L2: "
           + ", ".join(f"{a} {e:.2e}" for a, e in errs.items())
@@ -1476,6 +1588,225 @@ def phase_hybrid_cpu() -> None:
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     if not max(errs.values()) <= LM_CPU_BUDGET:
         raise AssertionError(f"hybrid-cpu: card vs CPU rel-L2 {errs}")
+
+
+def _zoo_model(cfg):
+    """``cfg``'s model at full width on the card from seed 0, with its
+    parameter count and the GiB its fp32 weights take."""
+    held = torch.cuda.memory_allocated()
+    model = get_model(cfg).init(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    return model, n_params, (torch.cuda.memory_allocated() - held) / 2**30
+
+
+def _zoo_serve(model, cfg, prompt, extra=(), mla_absorbed=False) -> dict:
+    """The bf16 serve of one zoo model: a warm-up (one decode step), then
+    a prefill of ``prompt`` and 32 greedy decode steps with the launches
+    counted from zero.  Checks finite logits of the expected shape and
+    that every launch fell in a prefill or a decode step; prints tokens/s,
+    ms a step, peak memory and the launches.  Returns the run."""
+    b, s = prompt.shape
+    _lm_run(model, cfg, prompt, 1, torch.bfloat16, extra=extra,
+            mla_absorbed=mla_absorbed)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    run = _lm_run(model, cfg, prompt, LM_DECODE, torch.bfloat16,
+                  extra=extra, mla_absorbed=mla_absorbed)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pre, dec = run["prefill_launches"], run["decode_launches"]
+    if {n: pre[n] + dec[n] for n in pre} != ops.launches:
+        raise AssertionError(f"zoo: {cfg.name}: launches {ops.launches} "
+                             f"outside the prefill and decode steps")
+    if not torch.isfinite(run["logits"]).all() or run["logits"].shape \
+            != (b, LM_DECODE + 1, cfg.vocab_size):
+        raise AssertionError(f"zoo: {cfg.name}: logits "
+                             f"{tuple(run['logits'].shape)} not all finite")
+    mode = "" if cfg.mla is None else (
+        " absorbed" if mla_absorbed else " naive")
+    n_in = b * (s + sum(x.shape[1] for x in extra))
+    print(f"zoo: {cfg.name}{mode} bf16, batch {b}: prefill {s} tokens"
+          f"{f' + {extra[0].shape[1]} frames' if extra else ''} "
+          f"{n_in / run['t_prefill']:.0f} inputs/s "
+          f"({run['t_prefill'] * 1e3:.1f} ms); decode {LM_DECODE} "
+          f"steps {run['t_decode'] / LM_DECODE * 1e3:.2f} ms/step; peak "
+          f"mem {peak:.2f} GiB; launches prefill {pre}, decode {dec}",
+          flush=True)
+    return run
+
+
+def _zoo_exact(model, cfg, prompt, feed, extra=(), mla_absorbed=False):
+    """fp32 prefill of ``prompt`` + teacher-forced decode on ``feed``
+    against ``forward`` over the same tokens: max |diff| / max |logit|,
+    the run (:func:`_lm_run`'s dict) and the forward's launches, with its
+    K2 launches by site."""
+    _reset_counts()
+    with torch.inference_mode():
+        full, _ = get_model(cfg).forward(
+            model, torch.cat([prompt, feed], 1), *extra, cfg,
+            dtype=torch.float32)
+    fwd = {**ops.launches, "sites": dict(K2_SITES)}
+    want = full[:, prompt.shape[1] - 1:]
+    del full
+    run = _lm_run(model, cfg, prompt, feed.shape[1], torch.float32,
+                  feed=feed, extra=extra, mla_absorbed=mla_absorbed)
+    err = ((run["logits"] - want).abs().max() / want.abs().max()).item()
+    return err, run, fwd
+
+
+def _whisper_k2(run) -> dict:
+    """A whisper prefill + decode run's K2 launches as the kernels line
+    reports them: the prefill's encoder self-attentions and its cross-
+    attentions, and the decode steps' cross-attentions, each counted at
+    its site.  Fails unless every launch was counted at a site and they
+    are one a layer: encoder self and cross in a prefill, cross in each
+    decode step, no causal (cached decoder self runs the plain path)."""
+    pre, dec = run["prefill_sites"], run["decode_sites"]
+    got = {"self": pre["self"], "cross": pre["cross"],
+           "decode": dec["cross"]}
+    want = {"self": WHISPER.num_encoder_layers, "cross": WHISPER.num_layers,
+            "decode": WHISPER.num_layers * LM_DECODE}
+    launched = (run["prefill_launches"]["attention"]
+                + run["decode_launches"]["attention"])
+    if (got != want or pre["causal"] or dec["self"] or dec["causal"]
+            or sum(pre.values()) + sum(dec.values()) != launched):
+        raise AssertionError(f"zoo: whisper K2 launches prefill {pre}, "
+                             f"decode {dec} ({launched} in all); expected "
+                             f"{want}")
+    return got
+
+
+def phase_zoo(smi: str) -> dict:
+    """The rest of the LM zoo on the card, one model live at a time:
+    whisper-medium at full width and depth through K2 (encoder self,
+    cross at prefill and decode, the forward's causal decoder self),
+    mixtral-8x7b (SWA + MoE; no kernel, as in the JAX package) and
+    deepseek-v2-236b (MLA, naive and absorbed decode; no kernel) at full
+    width with depth cut to fit the card in fp32.  Each serves a bf16
+    prefill + 32 greedy decode steps, then an fp32 prefill + decode
+    against its forward.  Returns whisper's K2 launches by site, of the
+    bf16 serve and of the fp32 prefill + decode."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(11)
+
+    # -- whisper-medium: 24 + 24 layers, K2 at head dim 64 ------------------
+    cfg = WHISPER
+    model, n_params, gib = _zoo_model(cfg)
+    frames = torch.randn((ZOO_BATCH, cfg.frontend_seq, cfg.d_model),
+                         generator=gen).cuda()
+    prompt = torch.randint(0, cfg.vocab_size, (ZOO_BATCH, ZOO_PROMPT),
+                           generator=gen).cuda()
+    print(f"zoo: whisper-medium full width and depth ({cfg.num_encoder_layers}"
+          f" encoder + {cfg.num_layers} decoder layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim}; "
+          f"{n_params / 1e9:.3f} B parameters, {gib:.2f} GiB fp32)",
+          flush=True)
+    with _k2_sites():
+        run = _zoo_serve(model, cfg, prompt, (frames,))
+        others = {k: run["prefill_launches"][k] + run["decode_launches"][k]
+                  for k in ops.launches if k != "attention"}
+        if any(others.values()):
+            raise AssertionError(f"zoo: whisper launched {others}")
+        whisper = {"bf16": _whisper_k2(run)}
+        err, exact, fwd = _zoo_exact(model, cfg, prompt, run["fed"],
+                                     (frames,))
+        whisper["fp32"] = _whisper_k2(exact)
+    n = cfg.num_layers
+    print(f"zoo: whisper-medium fp32 prefill + {LM_DECODE} decode steps vs "
+          f"the teacher-forced forward (forward launches {fwd}): max |diff|"
+          f" / max |logit| {err:.2e} (budget {ZOO_LOGIT_BUDGET:.0e}); K2 "
+          f"launches by site {whisper}", flush=True)
+    if not err <= ZOO_LOGIT_BUDGET or fwd["attention"] != \
+            cfg.num_encoder_layers + 2 * n or fwd["sites"] != {
+                "self": cfg.num_encoder_layers, "cross": n, "causal": n}:
+        raise AssertionError(f"zoo: whisper decode vs forward {err:.2e}, "
+                             f"forward launches {fwd}")
+    del model, frames, run, exact
+    torch.cuda.empty_cache()
+
+    # -- mixtral-8x7b and deepseek-v2-236b: no kernel on the path -----------
+    for cfg, batch in ((MIXTRAL, LM_BATCH), (DEEPSEEK, 1)):
+        t0 = time.perf_counter()
+        model, n_params, gib = _zoo_model(cfg)
+        print(f"zoo: {cfg.name} full width, {cfg.num_layers} of "
+              f"{get_config(cfg.name).num_layers} layers "
+              f"({cfg.moe.num_experts} experts top-{cfg.moe.top_k}, "
+              f"{cfg.attention} attention; "
+              f"{n_params / 1e9:.3f} B parameters, {gib:.2f} GiB fp32)",
+              flush=True)
+        prompt = torch.randint(0, cfg.vocab_size, (batch, LM_PROMPT),
+                               generator=gen).cuda()
+        # fp32 against the forward where its MoE capacity is exact, on the
+        # first serve's tokens
+        short, feed = prompt[:1, :EXACT_PROMPT[cfg.name]], None
+        tokens = (short.shape[1] + LM_DECODE) * cfg.moe.top_k
+        errs, steps, launched = {}, {}, 0
+        for absorbed in ((False, True) if cfg.mla is not None else (False,)):
+            run = _zoo_serve(model, cfg, prompt, mla_absorbed=absorbed)
+            if any(run["prefill_launches"].values()) or any(
+                    run["decode_launches"].values()):
+                raise AssertionError(f"zoo: {cfg.name} launched a kernel")
+            feed = run["fed"][:1] if feed is None else feed
+            errs[absorbed], exact, _ = _zoo_exact(
+                model, cfg, short, feed, mla_absorbed=absorbed)
+            steps[absorbed] = exact["logits"]
+            launched += sum(ops.launches.values())
+            del run, exact
+        line = (f"zoo: {cfg.name} fp32 prefill {short.shape[1]} + "
+                f"{LM_DECODE} decode steps vs the teacher-forced forward "
+                f"({tokens} routed copies <= 4096: exact capacity; "
+                f"{launched} kernel launches): max |diff| / max |logit| "
+                + ", ".join(f"{'absorbed' if a else 'naive'} {e:.2e}"
+                            for a, e in errs.items())
+                + f" (budget {ZOO_LOGIT_BUDGET:.0e})")
+        ok = (max(errs.values()) <= ZOO_LOGIT_BUDGET and tokens <= 4096
+              and not launched)
+        if True in steps:
+            want = steps[False]
+            mla = ((steps[True] - want).abs().max()
+                   / want.abs().max()).item()
+            line += (f"; absorbed vs naive decode {mla:.2e} (budget "
+                     f"{MLA_BUDGET:.0e})")
+            ok = ok and mla <= MLA_BUDGET
+        print(line + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+        if not ok:
+            raise AssertionError(f"zoo: {cfg.name} fp32 checks failed")
+        del model, steps, prompt, feed
+        torch.cuda.empty_cache()
+    print(f"zoo: {time.perf_counter() - t_phase:.1f} s; whisper K2 launches "
+          f"{whisper}; on {smi}", flush=True)
+    return whisper
+
+
+def phase_zoo_cpu() -> None:
+    """mixtral-8x7b, deepseek-v2-236b (q_lora_rank 24, which .reduced()
+    turns off, and three layers: a dense prefix + two MoE super-blocks;
+    absorbed decode) and whisper-medium at ``.reduced()``, with the same
+    weights on the card and the CPU: forward over 40 tokens and a 32-token
+    prefill + 8 decode steps."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(12)
+    toks = torch.randint(0, 512, (2, 40), generator=gen)
+    errs = {}
+    for arch in ("mixtral-8x7b", "deepseek-v2-236b", "whisper-medium"):
+        cfg = get_config(arch).reduced()
+        if cfg.mla is not None:
+            cfg = cfg.with_(num_layers=3, mla=dataclasses.replace(
+                cfg.mla, q_lora_rank=24))
+        frames = None
+        if cfg.family == "encdec":
+            frames = torch.randn((2, cfg.frontend_seq, cfg.d_model),
+                                 generator=gen)
+        errs[arch] = _reduced_card_vs_cpu(cfg, toks, 32, cfg.mla is not None,
+                                          frames)
+    print(f"zoo-cpu: .reduced() forward (40 tokens) and prefill 32 + decode "
+          f"8, card vs CPU, logit rel-L2: "
+          + ", ".join(f"{a} {e:.2e}" for a, e in errs.items())
+          + f" (budget {LM_CPU_BUDGET:.0e}); "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if not max(errs.values()) <= LM_CPU_BUDGET:
+        raise AssertionError(f"zoo-cpu: card vs CPU rel-L2 {errs}")
 
 
 def main() -> int:
@@ -1513,9 +1844,16 @@ def main() -> int:
     phase_lm_cpu()
     zamba = phase_hybrid(smi)
     phase_hybrid_cpu()
+    whisper = phase_zoo(smi)
+    phase_zoo_cpu()
     lm_launches = {"zamba2-7b attention": zamba["forward"]["attention"],
                    "zamba2-7b ssd": zamba["prefill"]["ssd"],
                    "yi-6b attention": None}
+    # whisper-medium's K2, counted at its sites: the fp32 entries from the
+    # fp32 prefill + decode, the bf16 ones from the bf16 serve
+    for tag, dtype in (("", "fp32"), (" bf16", "bf16")):
+        for label, launched in whisper[dtype].items():
+            lm_launches[f"whisper-medium {label}{tag} attention"] = launched
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]
@@ -1533,7 +1871,10 @@ def main() -> int:
         for key, label, launched in (
                 [("video", f"video {name}", video.get(name))]
                 + [(m, f"{m} {name}", lm_launches.get(f"{m} {name}"))
-                   for m in ("zamba2-7b", "yi-6b")]):
+                   for m in ("zamba2-7b", "yi-6b") + tuple(
+                       f"whisper-medium {c}{t}" for c in ("self", "cross",
+                                                          "decode")
+                       for t in ("", " bf16"))]):
             v = results.get(label)
             if v is not None:
                 kernels[-1][key] = {

@@ -2,13 +2,17 @@
 
 The tree is the value tree of the JAX package's init (``split_params(
 ...)[0]`` of ``dit.init``, ``text_encoder.init``, ``vae.init``,
-``ssm.init``, ``transformer.init`` or ``hybrid.init``) with numpy leaves.
-Keys map to parameter names one to one (``attn.wq`` -> ``attn.wq``).  A
-leaf under a stacked key carries leading layer axes and fills one
-parameter per index: under ``"blocks"`` one axis (``blocks.{i}.<rest>``,
+``ssm.init``, ``transformer.init``, ``hybrid.init``, ``vlm.init`` or
+``encdec.init``) with numpy leaves.  Keys map to parameter names one to
+one (``attn.wq`` -> ``attn.wq``, ``dense_0.attn.w_dkv`` ->
+``dense_0.attn.w_dkv``).  A leaf under a stacked key carries leading
+layer axes and fills one parameter per index: under ``"blocks"``,
+``"enc_blocks"`` and ``"dec_blocks"`` one axis (``blocks.{i}.<rest>``,
 also the transformer's super-blocks, ``blocks.{i}.pos0.attn.wq``), under
 the hybrid's ``"mamba_groups"`` two (``mamba_groups.{g}.{j}.<rest>``).
-Layouts are the same in both packages, so no leaf is reshaped.
+Other axes are the parameter's own: a MoE layer's expert-stacked
+``moe.w_gate`` (E, d, eff) is one parameter.  Layouts are the same in
+both packages, so no leaf is reshaped.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ from torch import nn
 
 
 #: top-level keys whose leaves carry leading layer axes, and how many
-STACKED = {"blocks": 1, "mamba_groups": 2}
+STACKED = {"blocks": 1, "enc_blocks": 1, "dec_blocks": 1, "mamba_groups": 2}
 
 
 def _flatten(tree, prefix: str = ""):

@@ -1,6 +1,7 @@
-"""Shared model building blocks: the part of ``repro/models/layers.py``
-that the DiT serving path and the decoder LMs (dense, SWA, hybrid, SSM)
-use, in PyTorch.  MLA and MoE are a later slice.
+"""Shared model building blocks of ``repro/models/layers.py`` in
+PyTorch: attention (full, cached, SWA ring, cross), MLA, SwiGLU, the
+grouped capacity-buffer MoE and the embeddings, for the DiT serving path
+and every LM family.
 
 Parameters are ``nn.Module`` attributes named after the JAX tree keys and
 kept in the JAX einsum layouts (``wq`` is (d, H, hd), ``wo`` is
@@ -198,8 +199,10 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *, causal=True,
     SWA ring buffer: a prefill installs its last ``window`` keys at slots
     ``pos % window``, a decode step writes one slot and attends to the
     ``min(len + 1, window)`` valid ones.
-    Cross-attention: ``kv_x`` provides the key/value sequence (no cache;
-    the JAX package's precomputed cross-kv comes with the encdec slice).
+    Cross-attention: ``kv_x`` provides the key/value sequence; a
+    ``cache`` that holds ``"k"`` is the precomputed cross-kv and is used
+    in place of ``kv_x``'s.  Returns ``{"k", "v"}`` for the caller to
+    cache.
     """
     s = x.shape[1]
     if positions is None:
@@ -208,9 +211,12 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *, causal=True,
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
     if kv_x is not None:                              # cross attention
-        k, v = project(kv_x, p.wk), project(kv_x, p.wv)
+        if cache is not None and "k" in cache:        # precomputed cross-kv
+            k, v = cache["k"], cache["v"]
+        else:
+            k, v = project(kv_x, p.wk), project(kv_x, p.wv)
         out = _full_attention(q, k, v, causal=False)
-        new_cache = None
+        new_cache = {"k": k, "v": v}
     elif cache is None:                               # full self-attn
         k, v = project(x, p.wk), project(x, p.wv)
         if use_rope:
@@ -257,7 +263,127 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *, causal=True,
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """``mla_init``: the joint K/V down-projection with the decoupled
+    rope key (``w_dkv``), the latent's up-projections (``w_uk``,
+    ``w_uv``), the output and the latent's norm; queries come through
+    ``w_dq`` + ``q_norm`` + ``w_uq`` when ``q_lora_rank`` > 0, else
+    through ``w_uq`` from d_model."""
+
+    def __init__(self, cfg: ModelConfig, *, generator, device):
+        super().__init__()
+        m, d, h = cfg.mla, cfg.d_model, cfg.num_heads
+        qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+        kw = dict(generator=generator, device=device)
+        self.w_dkv = pspec((d, m.kv_lora_rank + m.qk_rope_head_dim), **kw)
+        self.w_uk = pspec((m.kv_lora_rank, h, m.qk_nope_head_dim), **kw)
+        self.w_uv = pspec((m.kv_lora_rank, h, m.v_head_dim), **kw)
+        self.wo = pspec((h, m.v_head_dim, d), **kw)
+        self.kv_norm = rmsnorm_init(m.kv_lora_rank, device)
+        if m.q_lora_rank:
+            self.w_dq = pspec((d, m.q_lora_rank), **kw)
+            self.q_norm = rmsnorm_init(m.q_lora_rank, device)
+            self.w_uq = pspec((m.q_lora_rank, h, qk_hd), **kw)
+        else:
+            self.w_uq = pspec((d, h, qk_hd), **kw)
+
+
+def mla_apply(p: MLA, x, cfg: ModelConfig, *, positions=None, cache=None,
+              absorbed: bool = False):
+    """MLA attention. The cache holds the *compressed* latent ``c`` (B,
+    S, r) and the shared rope key ``kr`` (B, S, 1, rope_hd), written in
+    place at rows ``len``..``len + s``.
+
+    ``absorbed=True`` projects q through ``w_uk`` into latent space and
+    scores it against concat(latent, rope key) as one product (no
+    per-step K/V expansion); the naive branch expands K and V from the
+    latent.  Scores are fp32 (products of x's dtype accumulated in fp32,
+    as JAX's ``preferred_element_type``); probabilities are cast to x's
+    dtype before the value product, as in the JAX package.
+    """
+    m = cfg.mla
+    b, s, _ = x.shape
+    h, dt = cfg.num_heads, x.dtype
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+
+    # --- queries
+    if hasattr(p, "w_dq"):
+        q = project(rmsnorm(p.q_norm, x @ p.w_dq.to(dt), cfg.norm_eps),
+                    p.w_uq)
+    else:
+        q = project(x, p.w_uq)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    # --- compressed kv latent (+ shared rope key)
+    c_lat, k_rope = (x @ p.w_dkv.to(dt)).split(
+        [m.kv_lora_rank, m.qk_rope_head_dim], -1)
+    c_lat = rmsnorm(p.kv_norm, c_lat, cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+
+    if cache is not None:
+        cache_len = cache["len"]
+        q_offset = cache_len[0]
+        rows = q_offset + torch.arange(s, device=x.device)
+        cache["c"].index_copy_(1, rows, c_lat.to(cache["c"].dtype))
+        cache["kr"].index_copy_(1, rows, k_rope.to(cache["kr"].dtype))
+        c_lat, k_rope = cache["c"], cache["kr"]
+        kv_len = cache_len + s
+        new_cache = {"c": c_lat, "kr": k_rope, "len": kv_len}
+    else:
+        new_cache = kv_len = None
+        q_offset = 0
+
+    sk = c_lat.shape[1]
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    if absorbed:
+        q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p.w_uk.to(dt))
+        q_cat = torch.cat([q_abs, q_rope], -1)
+        kv_cat = torch.cat([c_lat, k_rope[:, :, 0, :]], -1)
+        scores = torch.einsum("bshr,btr->bhst", q_cat.float(),
+                              kv_cat.float()) * scale
+        scores = _causal_len_mask(scores, s, sk, kv_len, q_offset)
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        ctx_lat = torch.einsum("bhst,btr->bshr", probs, c_lat)
+        out = torch.einsum("bshr,rhv->bshv", ctx_lat, p.w_uv.to(dt))
+    else:
+        k_nope = torch.einsum("btr,rhk->bthk", c_lat, p.w_uk.to(dt))
+        v = torch.einsum("btr,rhv->bthv", c_lat, p.w_uv.to(dt))
+        k = torch.cat([k_nope, k_rope.expand(b, sk, h, m.qk_rope_head_dim)],
+                      -1)
+        q_full = torch.cat([q_nope, q_rope], -1)
+        scores = torch.einsum("bshk,bthk->bhst", q_full.float(),
+                              k.float()) * scale
+        scores = _causal_len_mask(scores, s, sk, kv_len, q_offset)
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        out = torch.einsum("bhst,bthv->bshv", probs, v)
+    return project_out(out, p.wo), new_cache
+
+
+def _causal_len_mask(scores, sq, sk, kv_len, q_offset=0):
+    """scores: (B, H, sq, sk). Causal mask (+ kv_len validity for caches),
+    filled with -1e30 in fp32 score space."""
+    dev = scores.device
+    if kv_len is None:
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=dev).tril(
+            sk - sq)
+        return scores.masked_fill(~mask[None, None], -1e30)
+    valid = torch.arange(sk, device=dev)[None, :] < kv_len[:, None]  # (B, sk)
+    if sq == 1:
+        # decode: causal (kpos <= len) is implied by validity (kpos < len+1)
+        return scores.masked_fill(~valid[:, None, None], -1e30)
+    qpos = torch.arange(sq, device=dev) + q_offset                  # (sq,)
+    causal = torch.arange(sk, device=dev)[None, :] <= qpos[:, None]
+    mask = causal[None, None] & valid[:, None, None]
+    return scores.masked_fill(~mask, -1e30)
+
+
+# ---------------------------------------------------------------------------
+# MLP / MoE
 # ---------------------------------------------------------------------------
 
 class SwiGLU(nn.Module):
@@ -274,6 +400,109 @@ def swiglu_apply(p: SwiGLU, x):
     g = x @ p.w_gate.to(x.dtype)
     u = x @ p.w_up.to(x.dtype)
     return (F.silu(g) * u) @ p.w_down.to(x.dtype)
+
+
+class MoE(nn.Module):
+    """``moe_init``: the router (d, E), the expert-stacked SwiGLU weights
+    (E, d, eff) / (E, eff, d) and, with shared experts, one SwiGLU of
+    width ``eff * num_shared_experts``."""
+
+    def __init__(self, cfg: ModelConfig, *, generator, device):
+        super().__init__()
+        m, d = cfg.moe, cfg.d_model
+        eff = m.expert_d_ff or cfg.d_ff
+        kw = dict(generator=generator, device=device)
+        self.router = pspec((d, m.num_experts), **kw)
+        self.w_gate = pspec((m.num_experts, d, eff), **kw)
+        self.w_up = pspec((m.num_experts, d, eff), **kw)
+        self.w_down = pspec((m.num_experts, eff, d), **kw)
+        if m.num_shared_experts:
+            self.shared = SwiGLU(d, eff * m.num_shared_experts, **kw)
+
+
+def top_k(probs, k: int):
+    """The ``k`` largest entries of the last axis and their indices, in
+    ``jax.lax.top_k``'s order: descending, and the lower index first
+    among equal values (``torch.topk`` promises no order among ties, and
+    a bf16 router's logits tie often)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_route(p: MoE, xt, cfg: ModelConfig, exact: bool = False):
+    """Routing of grouped tokens ``xt`` (G, tg, d): router probabilities
+    (fp32), the top-k gate weights (x's dtype, renormalised) and expert
+    ids, each (token, k) pair's slot in its expert's queue, whether it
+    fits the capacity, and the capacity.
+
+    Capacity is every routed copy when ``exact`` or when a group routes at
+    most 4096, else the capacity factor's share (Python's ``round``, as
+    the JAX package).  Slots are ranks in token-major, k-minor order;
+    pairs past the capacity go to the overflow slot ``cap``.
+    """
+    m = cfg.moe
+    n_g, tg, _ = xt.shape
+    probs = torch.softmax((xt @ p.router.to(xt.dtype)).float(), dim=-1)
+    gate_w, gate_i = top_k(probs, m.top_k)                 # (g, tg, k)
+    gate_w = (gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)).to(
+        xt.dtype)
+    if exact or tg * m.top_k <= 4096:
+        cap = tg * m.top_k
+    else:
+        cap = int(max(4, round(tg * m.top_k / m.num_experts
+                               * m.capacity_factor)))
+    flat_e = gate_i.reshape(n_g, tg * m.top_k)             # (g, tg*k)
+    onehot = F.one_hot(flat_e, m.num_experts)
+    slot = (onehot.cumsum(1) - onehot).gather(2, flat_e[..., None])[..., 0]
+    keep = slot < cap
+    return probs, gate_w, gate_i, torch.where(keep, slot, cap), keep, cap
+
+
+def moe_apply(p: MoE, x, cfg: ModelConfig, exact: bool = False):
+    """Grouped capacity-buffer MoE: top-k route (:func:`moe_route`) ->
+    per-group scatter into a (G, E, C + 1, d) buffer -> batched expert
+    products -> weighted gather-combine, the overflow row masked out.
+    ``exact=True`` (decode) sets capacity = group tokens x top_k, so no
+    token drops.  Returns (out (B, S, d), the load-balance loss).
+    """
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    n_g = max(1, min(m.num_groups, t))
+    if t % n_g:
+        raise ValueError(f"moe_apply: {t} tokens do not split into "
+                         f"{n_g} groups")
+    tg, dt = t // n_g, x.dtype
+    xt = x.reshape(n_g, tg, d)
+    probs, gate_w, gate_i, slot, keep, cap = moe_route(p, xt, cfg, exact)
+    flat_e = gate_i.reshape(n_g, tg * m.top_k)
+
+    buf = x.new_zeros((n_g, m.num_experts, cap + 1, d))
+    tok_idx = torch.arange(tg, device=x.device).repeat_interleave(m.top_k)
+    g_idx = torch.arange(n_g, device=x.device)[:, None]
+    buf[g_idx, flat_e, slot] = xt[:, tok_idx]
+    h = F.silu(buf @ p.w_gate.to(dt)) * (buf @ p.w_up.to(dt))
+    del buf                  # the largest buffer, before the down product
+    y = h @ p.w_down.to(dt)
+    del h
+
+    gathered = y[g_idx, flat_e, slot].masked_fill(~keep[..., None], 0.0)
+    out = (gathered * gate_w.reshape(n_g, -1)[..., None]) \
+        .reshape(n_g, tg, m.top_k, d).sum(dim=2)
+    if hasattr(p, "shared"):
+        out = out + swiglu_apply(p.shared, xt)
+    aux = _load_balance_loss(probs.reshape(t, -1), gate_i.reshape(t, -1),
+                             m.num_experts)
+    return out.reshape(b, s, d), aux
+
+
+def _load_balance_loss(probs, gate_i, num_experts: int):
+    """Switch-style load-balancing auxiliary loss."""
+    t = probs.shape[0]
+    me = probs.mean(dim=0)                                 # mean router prob
+    ce = torch.bincount(gate_i.reshape(-1), minlength=num_experts).float() \
+        / (t * gate_i.shape[-1])
+    return num_experts * (me * ce).sum()
 
 
 # ---------------------------------------------------------------------------

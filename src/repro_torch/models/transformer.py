@@ -1,5 +1,5 @@
-"""Decoder-only LM for the dense and SWA (local:global) families, in
-PyTorch.
+"""Decoder-only LM covering the dense, MoE, MLA and SWA (local:global)
+families, in PyTorch.
 
 Port of ``repro/models/transformer.py``.  The JAX package scans its
 layers (``jax.lax.scan``) over *super-blocks*, one parameter subtree per
@@ -7,13 +7,17 @@ position of the local:global period; here the stack is a ``ModuleList``
 of super-blocks, each a ``ModuleDict`` of its ``pos{i}`` blocks, walked
 by a Python loop, so :func:`repro_torch.convert.load_jax_params` loads
 the JAX tree (``blocks`` stacked along a leading super-block axis) one
-to one.  The caches keep the JAX layout too: each leaf of
-``cache["blocks"]["pos{i}"]`` carries a leading super-block axis, and
-the K/V leaves are written in place (:mod:`repro_torch.models.layers`).
+to one.  MoE configs keep their first ``num_dense_layers`` blocks dense
+as ``dense_{i}`` before the stack (DeepSeek-V2 has one).  The caches
+keep the JAX layout too: each leaf of ``cache["blocks"]["pos{i}"]``
+carries a leading super-block axis, and the K/V (or, under MLA, latent
+and rope-key) leaves are written in place
+(:mod:`repro_torch.models.layers`).
 
 The uncached forward's full attention goes through the flash-attention
-kernel (causal); windowed layers, prefill and decode run the plain
-``sdpa``, as the JAX model does.  MLA and MoE blocks, ``remat`` and the
+kernel (causal); windowed layers, MLA (plain einsums in both packages),
+prefill and decode run plain tensor ops, as the JAX model does.  Decode
+steps run the MoE with exact capacity (no drops).  ``remat`` and the
 sharding constraints (``repro.sharding.ctx.constrain``, no effect
 without a mesh) are later slices.
 
@@ -30,48 +34,49 @@ from repro_torch.configs.base import MLA, SWA, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import resolve_device
 
-_NEXT_SLICE = "a later slice of the port (the next one: MoE, MLA, encdec)"
-
-
-def _refuse_unported(cfg: ModelConfig) -> None:
-    if cfg.attention == MLA:
-        raise NotImplementedError(f"MLA attention ({cfg.name}) is "
-                                  f"{_NEXT_SLICE}")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"MoE blocks ({cfg.name}) are "
-                                  f"{_NEXT_SLICE}")
-
 
 # ---------------------------------------------------------------------------
 # Single transformer block
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """``block_init``: pre-norm attention + SwiGLU MLP."""
+    """``block_init``: pre-norm attention (MLA where the config says) and
+    a SwiGLU MLP, or with ``moe`` the MoE layer."""
 
     def __init__(self, cfg: ModelConfig, *, moe: bool, generator, device):
         super().__init__()
-        if moe:
-            raise NotImplementedError(f"MoE blocks are {_NEXT_SLICE}")
-        _refuse_unported(cfg)
+        kw = dict(generator=generator, device=device)
         self.ln_attn = L.rmsnorm_init(cfg.d_model, device)
         self.ln_mlp = L.rmsnorm_init(cfg.d_model, device)
-        self.attn = L.Attention(cfg, generator=generator, device=device)
-        self.mlp = L.SwiGLU(cfg.d_model, cfg.d_ff, generator=generator,
-                            device=device)
+        self.attn = (L.MLA(cfg, **kw) if cfg.attention == MLA
+                     else L.Attention(cfg, **kw))
+        if moe:
+            self.moe = L.MoE(cfg, **kw)
+        else:
+            self.mlp = L.SwiGLU(cfg.d_model, cfg.d_ff, **kw)
 
 
 def block_apply(p: Block, x, cfg: ModelConfig, *, window: int, positions,
-                cache=None, sp_decode: bool = False):
+                cache=None, mla_absorbed: bool = False,
+                moe_exact: bool = False, sp_decode: bool = False):
     """Returns (x, new_cache, aux_loss)."""
     h = L.rmsnorm(p.ln_attn, x, cfg.norm_eps)
-    attn_out, new_cache = L.attention_apply(
-        p.attn, h, cfg, causal=True, window=window, positions=positions,
-        cache=cache, sp_decode=sp_decode)
+    if cfg.attention == MLA:
+        attn_out, new_cache = L.mla_apply(
+            p.attn, h, cfg, positions=positions, cache=cache,
+            absorbed=mla_absorbed)
+    else:
+        attn_out, new_cache = L.attention_apply(
+            p.attn, h, cfg, causal=True, window=window, positions=positions,
+            cache=cache, sp_decode=sp_decode)
     x = x + attn_out
     h = L.rmsnorm(p.ln_mlp, x, cfg.norm_eps)
-    aux = torch.zeros((), device=x.device)
-    return x + L.swiglu_apply(p.mlp, h), new_cache, aux
+    if hasattr(p, "moe"):
+        mlp_out, aux = L.moe_apply(p.moe, h, cfg, exact=moe_exact)
+    else:
+        mlp_out = L.swiglu_apply(p.mlp, h)
+        aux = torch.zeros((), device=x.device)
+    return x + mlp_out, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -107,7 +112,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
         super().__init__()
-        _refuse_unported(cfg)
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
@@ -133,8 +137,16 @@ def init(cfg: ModelConfig, *, generator=None, device=None) -> Transformer:
 
 def _block_cache(cfg: ModelConfig, batch: int, max_len: int, window: int,
                  dtype, device=None):
-    _refuse_unported(cfg)
     device = resolve_device(device)
+    if cfg.attention == MLA:
+        m = cfg.mla
+        return {
+            "c": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                             device=device),
+            "kr": torch.zeros((batch, max_len, 1, m.qk_rope_head_dim),
+                              dtype=dtype, device=device),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=device),
+        }
     size = min(window, max_len) if window else max_len
     kv, hd = cfg.num_kv_heads, cfg.head_dim
     return {
@@ -165,7 +177,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def _scan_blocks(model: Transformer, caches, x, cfg: ModelConfig, plan,
-                 positions, sp_decode: bool = False):
+                 positions, mla_absorbed: bool = False,
+                 moe_exact: bool = False, sp_decode: bool = False):
     """Walk the super-block stack. Returns (x, new_caches, aux_sum)."""
     aux = torch.zeros((), device=x.device)
     lens = {f"pos{pos}": [] for pos in range(plan["period"])}
@@ -177,16 +190,16 @@ def _scan_blocks(model: Transformer, caches, x, cfg: ModelConfig, plan,
             x, nc, a = block_apply(sup[key], x, cfg,
                                    window=plan["windows"][pos],
                                    positions=positions, cache=c,
-                                   sp_decode=sp_decode)
+                                   mla_absorbed=mla_absorbed,
+                                   moe_exact=moe_exact, sp_decode=sp_decode)
             aux = aux + a
             if nc is not None:
                 lens[key].append(nc["len"])
     if caches is None:
         return x, None, aux
-    # k/v were written in place through the per-layer views
-    new = {key: {"k": caches["blocks"][key]["k"],
-                 "v": caches["blocks"][key]["v"],
-                 "len": torch.stack(lens[key])} for key in lens}
+    # k/v (MLA: c/kr) were written in place through the per-layer views
+    new = {key: {**caches["blocks"][key], "len": torch.stack(lens[key])}
+           for key in lens}
     return x, new, aux
 
 
@@ -238,8 +251,11 @@ def prefill(model: Transformer, tokens, cache, cfg: ModelConfig, *,
 
 
 def decode_step(model: Transformer, tokens, cache, pos, cfg: ModelConfig, *,
-                dtype=torch.bfloat16, sp_decode: bool = False):
-    """One decode step. tokens (B, 1); pos (B,) absolute positions.
+                dtype=torch.bfloat16, mla_absorbed: bool = False,
+                sp_decode: bool = False):
+    """One decode step. tokens (B, 1); pos (B,) absolute positions.  The
+    MoE runs with exact capacity; ``mla_absorbed`` picks MLA's absorbed
+    decode.
 
     Returns (logits (B, 1, V), cache)."""
     plan = _stack_plan(cfg)
@@ -249,9 +265,11 @@ def decode_step(model: Transformer, tokens, cache, pos, cfg: ModelConfig, *,
     for i in range(plan["prefix_dense"]):
         x, nc, _ = block_apply(getattr(model, f"dense_{i}"), x, cfg,
                                window=0, positions=positions,
-                               cache=cache[f"dense_{i}"], sp_decode=sp_decode)
+                               cache=cache[f"dense_{i}"],
+                               mla_absorbed=mla_absorbed, sp_decode=sp_decode)
         new_caches[f"dense_{i}"] = nc
-    x, new_caches["blocks"], _ = _scan_blocks(model, cache, x, cfg, plan,
-                                              positions, sp_decode=sp_decode)
+    x, new_caches["blocks"], _ = _scan_blocks(
+        model, cache, x, cfg, plan, positions, mla_absorbed=mla_absorbed,
+        moe_exact=True, sp_decode=sp_decode)
     x = L.rmsnorm(model.ln_final, x, cfg.norm_eps)
     return L.unembed(model.embed, x, cfg), new_caches

@@ -1,12 +1,13 @@
 """serve_step / prefill_step factories per architecture.
 
-Port of ``repro/serving/serve_loop.py`` for the families the port has
-(``ssm``, ``hybrid``, ``dense``, ``vlm``; the rest raise through
-:func:`repro_torch.models.get_model`).  The steps take the model module
-where the JAX steps take ``params``, and run under
+Port of ``repro/serving/serve_loop.py`` for every LM family (``dit``
+raises through :func:`repro_torch.models.get_model`).  The steps take
+the model module where the JAX steps take ``params``, and run under
 ``torch.inference_mode()``.  ``dtype`` is the activation dtype (bf16,
-the JAX default).  ``sp_decode`` (flash decoding over a sharded cache)
-raises in a decode step: it needs the port of ``sharding/``.  The
+the JAX default).  ``mla_absorbed`` picks MLA's absorbed decode
+(``dense``/``moe``/``vlm``).  ``sp_decode`` (flash decoding over a
+sharded cache) raises in a decode step: it needs the port of
+``sharding/``.  The
 dry-run ``ShapeDtypeStruct`` spec functions (``input_specs``,
 ``cache_specs``) wait for the port of ``launch/``.
 """
@@ -19,9 +20,11 @@ from repro_torch.models import get_model
 
 
 def make_serve_step(cfg: ModelConfig, *, dtype=torch.bfloat16,
-                    sp_decode: bool = False):
+                    mla_absorbed: bool = False, sp_decode: bool = False):
     model = get_model(cfg)
-    kw = {"sp_decode": sp_decode} if cfg.family in ("dense", "vlm") else {}
+    kw = {}
+    if cfg.family in ("dense", "moe", "vlm"):
+        kw = {"mla_absorbed": mla_absorbed, "sp_decode": sp_decode}
 
     def serve_step(module, tokens, cache, pos):
         with torch.inference_mode():
@@ -33,7 +36,12 @@ def make_serve_step(cfg: ModelConfig, *, dtype=torch.bfloat16,
 def make_prefill_step(cfg: ModelConfig, *, dtype=torch.bfloat16):
     model = get_model(cfg)
 
-    if cfg.family == "vlm":
+    if cfg.family == "encdec":
+        def prefill_step(module, tokens, frames, cache):
+            with torch.inference_mode():
+                return model.prefill(module, tokens, frames, cache, cfg,
+                                     dtype=dtype)
+    elif cfg.family == "vlm":
         def prefill_step(module, tokens, patches, cache):
             with torch.inference_mode():
                 return model.prefill(module, tokens, patches, cache, cfg,

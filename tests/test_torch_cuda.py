@@ -51,6 +51,12 @@ ATTN_CASES = [
     (1, 520, 520, 32, 32, 112, True),
     # yi-6b's causal GQA (32 q heads over 4 kv heads) at head dim 128
     (1, 300, 300, 32, 4, 128, True),
+    # whisper-medium at batch 4: the encoder's self-attention over the
+    # 1500 frames (ragged against both tiles), the decoder's cross-
+    # attention of a 4-token prompt and of a decode step to them
+    (4, 1500, 1500, 16, 16, 64, False),
+    (4, 4, 1500, 16, 16, 64, False),
+    (4, 1, 1500, 16, 16, 64, False),
 ]
 ADALN_VARIANTS = {
     "mod_norm": ("shift", "scale"),
@@ -378,6 +384,100 @@ def test_cuda_hybrid_reduced_matches_the_cpu(cuda_device):
         for i in range(32, 40):
             lg, cache = step(model, t[:, i:i + 1], cache,
                              torch.full((2,), i, device=t.device))
+            steps.append(lg[:, 0])
+        out[name] = [full.cpu().double(),
+                     torch.stack(steps, 1).cpu().double()]
+    for got, want in zip(out["card"], out["cpu"]):
+        err = (torch.linalg.vector_norm(got - want)
+               / torch.linalg.vector_norm(want)).item()
+        assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+def test_cuda_moe_picks_match_the_cpu_on_ties(cuda_device):
+    """A reduced mixtral MoE layer in bf16 whose router columns 1 and 2 are
+    equal, on integer-valued inputs: every logit is exact on both sides,
+    so probabilities tie wherever logits do (columns 1 and 2 always), and
+    the card's expert picks must be the CPU's (``jax.lax.top_k``'s order,
+    the lower index first); outputs within the bf16 budget."""
+    from repro_torch.models import layers as L
+    cfg = get_config("mixtral-8x7b").reduced()
+    gen = torch.Generator().manual_seed(5)
+    cpu = L.MoE(cfg, generator=gen, device="cpu")
+    with torch.no_grad():
+        cpu.router.copy_(torch.randint(-2, 3, cpu.router.shape,
+                                       generator=gen) / 8)
+        cpu.router[:, 2] = cpu.router[:, 1]
+    card = L.MoE(cfg, generator=None, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randint(-2, 3, (2, 64, cfg.d_model), generator=gen).bfloat16()
+    picks, outs = {}, {}
+    for name, layer in (("cpu", cpu), ("card", card)):
+        xs = x.to(next(layer.parameters()).device)
+        with torch.inference_mode():
+            probs, _, gate_i, _, _, _ = L.moe_route(layer, xs.reshape(
+                1, -1, cfg.d_model), cfg)
+            outs[name] = L.moe_apply(layer, xs, cfg)[0].float().cpu()
+        picks[name] = gate_i.cpu()
+        assert torch.equal(probs[..., 1], probs[..., 2])
+    assert torch.equal(picks["card"], picks["cpu"])
+    # the tied pair splits on some tokens, and then expert 1 is picked
+    one = (picks["card"] == 1).any(-1) ^ (picks["card"] == 2).any(-1)
+    assert one.any() and not (picks["card"] == 2).any(-1)[one].any()
+    _close(outs["card"], outs["cpu"], "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,overrides", [
+    ("mixtral-8x7b", {}),
+    ("deepseek-v2-236b", {"num_layers": 3}),
+    ("whisper-medium", {}),
+])
+def test_cuda_moe_mla_encdec_reduced_match_the_cpu(cuda_device, arch,
+                                                   overrides):
+    """Reduced mixtral (SWA + MoE), deepseek (MLA, a dense prefix layer,
+    two MoE super-blocks; with q_lora_rank 24, which .reduced() turns
+    off) and whisper (K2 in the encoder and every cross-attention) with
+    the same weights: forward over 40 tokens, and a 32-token prefill plus
+    8 decode steps (deepseek: absorbed), the card against the CPU, fp32
+    logits within 1e-4 rel-L2."""
+    import dataclasses
+
+    from repro_torch.models import get_model
+    from repro_torch.serving import serve_loop
+    cfg = get_config(arch).reduced(**overrides)
+    if cfg.mla is not None:
+        cfg = cfg.with_(mla=dataclasses.replace(cfg.mla, q_lora_rank=24))
+    family = get_model(cfg)
+    cpu = family.init(cfg, device="cpu")
+    card = family.init(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, cfg.frontend_seq, cfg.d_model)).astype(np.float32))
+    out = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        dev = next(model.parameters()).device
+        t = toks.to(dev)
+        extra = (frames.to(dev),) if cfg.family == "encdec" else ()
+        before = ops.launches["attention"]
+        with torch.inference_mode():
+            full, _ = family.forward(model, t, *extra, cfg,
+                                     dtype=torch.float32)
+        if name == "card":
+            want = 3 * cfg.num_layers if cfg.family == "encdec" else 0
+            assert ops.launches["attention"] == before + want
+        prefill = serve_loop.make_prefill_step(cfg, dtype=torch.float32)
+        step = serve_loop.make_serve_step(
+            cfg, dtype=torch.float32, mla_absorbed=cfg.mla is not None)
+        cache = family.init_cache(cfg, 2, 40, dtype=torch.float32,
+                                  device=dev)
+        lg, cache = prefill(model, t[:, :32], *extra, cache)
+        steps = [lg[:, 0]]
+        for i in range(32, 40):
+            lg, cache = step(model, t[:, i:i + 1], cache,
+                             torch.full((2,), i, device=dev))
             steps.append(lg[:, 0])
         out[name] = [full.cpu().double(),
                      torch.stack(steps, 1).cpu().double()]

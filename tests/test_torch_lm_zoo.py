@@ -366,7 +366,8 @@ def test_ssd_plain_versions_at_zamba2_shape_match_jax():
 
 
 # ---------------------------------------------------------------------------
-# conversion, dispatch and what is not ported yet
+# conversion, dispatch and what is not ported yet (sp_decode; the MoE,
+# MLA and encdec families are tests/test_torch_moe_mla_encdec.py's)
 # ---------------------------------------------------------------------------
 
 def test_load_jax_params_fills_groups_super_blocks_and_tail(live_hybrid):
@@ -396,26 +397,6 @@ def test_vlm_prefill_takes_patches():
     assert lg.shape == (1, 1, cfg.vocab_size) and lg.dtype == torch.float32
     assert cache["blocks"]["pos0"]["len"].tolist() == [
         [cfg.frontend_seq + 4]] * cfg.num_layers
-
-
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v2-236b",
-                                  "whisper-medium"])
-def test_moe_and_encdec_families_raise(arch):
-    cfg = get_config(arch)
-    for make in (get_model, serve_loop.make_prefill_step,
-                 serve_loop.make_serve_step):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            make(cfg)
-
-
-def test_mla_and_moe_blocks_raise():
-    """A dense stack asked for MLA or MoE blocks names the next slice."""
-    mla = get_config("deepseek-v2-236b").reduced()
-    with pytest.raises(NotImplementedError, match="MLA.*later slice"):
-        T.Transformer(mla, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE.*later slice"):
-        T.Block(get_config("yi-6b").reduced(), moe=True, generator=None,
-                device="cpu")
 
 
 def test_sp_decode_raises():

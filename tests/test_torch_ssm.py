@@ -280,8 +280,7 @@ def test_configs_are_the_jax_packages():
         assert repr(get_config(name)) == repr(jax_get_config(name))
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v2-236b",
-                                  "whisper-medium", "dit-image"])
+@pytest.mark.parametrize("arch", ["dit-image"])
 def test_families_not_yet_ported_raise(arch):
     cfg = get_config(arch)
     for make in (get_model, serve_loop.make_prefill_step,
