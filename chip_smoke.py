@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch port serves DiT-image, DiT-video and
-the LM zoo (Mamba2, Zamba2, Whisper, Mixtral, DeepSeek-V2) on one NVIDIA
-GPU.
+the LM zoo (Mamba2, Zamba2, Whisper, Mixtral, DeepSeek-V2), and trains
+DiT-image and yi-6b, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -18,7 +18,10 @@ Phases, one line each (any failure raises and exits non-zero):
    (64, 64, 128); yi-6b's causal GQA forward for K2; whisper-medium's
    encoder self-attention over 1500 frames and its cross-attention of a
    4-token prefill and of a decode step to them, at batch 4), fp32 and
-   bf16, and K1-K3 at
+   bf16; the backward kernels of K2 (DIT_IMAGE's self and cross
+   attention at batch 2, yi-6b's causal GQA at 2 x 2048, whisper's
+   encoder self) and K1 (every variant at (2, 1024, 1536)), rel-L2 per
+   output, and K2's forward with its log-sum-exp written; and K1-K3 at
    DIT_VIDEO's shapes in fp32 (K1 at D=3072, K2 self over 20,280 keys
    and cross at head dim 128, K3 at the video hit), with kernel,
    plain-version and one-PyTorch-call times from CUDA events; K4's device
@@ -82,6 +85,18 @@ Phases, one line each (any failure raises and exits non-zero):
 14. zoo-cpu: mixtral-8x7b, deepseek-v2-236b (q_lora_rank 24, three
    layers, absorbed decode) and whisper-medium at ``.reduced()``, card
    vs CPU logits within 1e-4 rel-L2.
+15. train: (a) DIT_IMAGE at full width and depth (1.73 B parameters,
+   livened adaLN), bf16, AdamW, 5 steps on one synthetic batch of 2 x
+   1024 latent tokens + 64 text tokens: the loss must fall at every
+   step, K1 and K2 forward and backward launched every step; then a
+   ``remat="full"`` step whose loss and grad_norm equal ``"none"``'s
+   within 3e-2; (b) yi-6b at full width, 4 of 32 layers (1.22 B
+   parameters), 3 steps of 2 x 2048 tokens from the TokenPipeline
+   through K2's causal GQA backward.  Prints the losses, step walls,
+   samples or tokens/s, peak memory and the launches a step.
+16. train-cpu: DIT_IMAGE and yi-6b at ``.reduced()``, one fp32 step on
+   the same weights and batch on the card and the CPU: loss and every
+   gradient leaf within 1e-4 rel-L2; the ssm family must refuse to train.
 
 Kernel times (phase 3): ``ms`` is device time, from CUDA-event timing of
 replays of a CUDA graph that holds ``iters`` calls, so it leaves out the
@@ -92,7 +107,9 @@ library call is timed both ways too.
 
 The line before the last is the ``kernels`` JSON summary (K1-K3 carry
 their DIT_VIDEO case and its launches under ``video``, K2 and K4 their
-LM cases under the model's name); the last line
+LM cases under the model's name; the backward kernels' launches are the
+train phase's, K1's and K2's forward launches there ``train_launches``);
+the last line
 is ``{"ok": true, "device": {...}}``.  Exits 2 without CUDA.
 
     python3 chip_smoke.py --kernels-only [--src DIR] [--json FILE]
@@ -137,6 +154,8 @@ from repro_torch.core.trajectory import ExecutionLayout, Request  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import dit, get_model, hybrid, layers, ssm  # noqa: E402
 from repro_torch.serving import serve_loop  # noqa: E402
+from repro_torch.training import optimizer, train_loop  # noqa: E402
+from repro_torch.training.data import TokenPipeline  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -172,6 +191,23 @@ DIT_KERNELS = ("fused_adaln", "attention", "splice_attention")
 # frames, 20,280 tokens) and leg (b)'s 17 frames (5 latent frames, 7,800
 # tokens), both at 2 denoise steps
 VIDEO_S, VIDEO_HIT, VIDEO_STEPS = (480, 832, 49), (480, 832, 17), 2
+# the train phase: DIT_IMAGE at full width and depth, flow matching on one
+# synthetic batch (2 x 64x64 latents = 1024 tokens, 64 text tokens), bf16
+# as JAX's loss_fn runs it; yi-6b at full width, 4 of 32 layers, 2 x 2048
+# tokens from the TokenPipeline
+TRAIN_LR = 3e-4                    # JAX's make_train_step default (yi-6b)
+# the DiT's: at 3e-4 the full-width loss rises 2.34 -> 7.20 after the
+# first AdamW step and oscillates; 3e-5 is the largest of 3e-4, 1e-4,
+# 3e-5, 1e-5 at which it falls at every one of the five steps (measured
+# on an H100, PERF.md section 6).  JAX's make_train_step rises alike at
+# full width with the depth cut (tests/dit_lr_witness.py)
+DIT_TRAIN_LR = 3e-5
+DIT_TRAIN_BATCH, DIT_TRAIN_STEPS = 2, 5
+YI_TRAIN = YI.with_(num_layers=4)
+YI_TRAIN_BATCH, YI_TRAIN_SEQ, YI_TRAIN_STEPS = 2, 2048, 3
+REMAT_BUDGET = 3e-2                # remat="full" vs "none", bf16
+GRAD_CPU_BUDGET = 1e-4             # rel-L2 per gradient leaf, card vs CPU
+BWD_KERNELS = ("attention_bwd", "fused_adaln_bwd")
 SOURCES = {
     "fused_adaln": ("src/repro_torch/csrc/adaln.cu",
                     "src/repro/kernels/adaln.py:66"),
@@ -180,6 +216,11 @@ SOURCES = {
     "splice_attention": ("src/repro_torch/csrc/attention.cu",
                          "src/repro/kernels/splice.py:78"),
     "ssd": ("src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd.py:65"),
+    # the backward kernels of K2 and K1 (the TPU kernels have none)
+    "attention_bwd": ("src/repro_torch/csrc/attention_bwd.cu",
+                      "src/repro/kernels/flash_attention.py:82"),
+    "fused_adaln_bwd": ("src/repro_torch/csrc/adaln.cu",
+                        "src/repro/kernels/adaln.py:66"),
 }
 
 
@@ -259,6 +300,21 @@ def device_ms(fn, iters: int = 20, replays: int = 10) -> float:
     end.synchronize()
     del graph
     return start.elapsed_time(end) / (replays * iters)
+
+
+def profiled_ms(fn, calls: int = 10) -> float:
+    """Device ms of one call of ``fn``: every device activity (kernels,
+    memsets, copies) of ``calls`` calls under ``torch.profiler``, after a
+    warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages())
+    return total / calls / 1e3
 
 
 def host_us(fn, calls: int = 1000) -> float:
@@ -364,21 +420,33 @@ def _rand(shape, dtype, gen, scale=1.0):
     return (scale * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
 
 
-def _check(label, kernel, plain, dtype, results, timing=None, budget=BUDGET):
-    """Kernel against plain version: max abs error over max |plain|, per
-    output (a kernel may return a tuple), within ``budget[dtype]``."""
+def _check(label, kernel, plain, dtype, results, timing=None, budget=BUDGET,
+           l2=False):
+    """Kernel against plain version: max abs error over max |plain| (or,
+    with ``l2``, the rel-L2 error), per output (a kernel may return a
+    tuple; None entries must match), within ``budget[dtype]``."""
     out_k, out_p = kernel(), plain()
     torch.cuda.synchronize()
     if not isinstance(out_k, tuple):
         out_k, out_p = (out_k,), (out_p,)
     diff = rel = 0.0
     for k_, p_ in zip(out_k, out_p):
+        if k_ is None or p_ is None:
+            if (k_ is None) != (p_ is None):
+                raise AssertionError(f"{label}: outputs present differ")
+            continue
         d = (k_.float() - p_.float()).abs().max().item()
         diff = max(diff, d)
-        rel = max(rel, d / max(p_.float().abs().max().item(), 1e-30))
+        if l2:
+            r = ((k_.float() - p_.float()).norm()
+                 / p_.float().norm().clamp_min(1e-30)).item()
+        else:
+            r = d / max(p_.float().abs().max().item(), 1e-30)
+        rel = max(rel, r)
     ok = math.isfinite(rel) and rel <= budget[dtype]
-    line = (f"  {label} {str(dtype)[6:]}: max rel err {rel:.2e} "
-            f"(budget {budget[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
+    line = (f"  {label} {str(dtype)[6:]}: {'rel-L2' if l2 else 'max rel'} "
+            f"err {rel:.2e} (budget {budget[dtype]:.0e}) "
+            f"{'ok' if ok else 'FAIL'}")
     if timing is not None:
         # a kernel of tens of ms is timed over fewer calls
         depth = dict(iters=timing.get("iters", 20),
@@ -387,8 +455,17 @@ def _check(label, kernel, plain, dtype, results, timing=None, budget=BUDGET):
         hus = host_us(kernel, timing.get("host_calls", 1000))
         plain_ms = call_ms(plain, timing.get("plain_iters", 20))
         lib = timing.get("library")
-        lib_ms = device_ms(lib, **depth) if lib is not None else None
-        lib_cms = call_ms(lib, depth["iters"]) if lib is not None else None
+        fwd = timing.get("library_fwd")
+        if fwd is not None:
+            # a backward alone: (forward + backward) - forward, by the
+            # profiler (autograd's backward escapes a CUDA-graph capture)
+            lib_ms = profiled_ms(lib) - profiled_ms(fwd)
+            lib_cms = call_ms(lib, depth["iters"]) \
+                - call_ms(fwd, depth["iters"])
+        else:
+            lib_ms = device_ms(lib, **depth) if lib is not None else None
+            lib_cms = call_ms(lib, depth["iters"]) if lib is not None \
+                else None
         b_ms, b_by = bound_ms(timing["bytes"], timing["flops"],
                               timing.get("flops_per_s", FP32_FLOPS_PER_S))
 
@@ -521,8 +598,130 @@ def phase_kernels() -> dict:
         _check_ssd(dtype, results)
         _check_lm_attention(dtype, results, gen)
         _check_whisper_attention(dtype, results, gen)
+        _check_backward(dtype, results, gen)
     _check_video(results, gen)
     return results
+
+
+def _sdpa_backward(q, k, v, do, causal):
+    """SDPA (heads first) on K2's inputs: (forward + backward through
+    autograd, the forward alone), the library's backward being their
+    difference."""
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    gqa = q.shape[2] != k.shape[2]
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=gqa)
+
+    def both():
+        return torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+    return both, fwd
+
+
+def _check_backward(dtype, results, gen) -> None:
+    """The backward kernels against their plain versions (rel-L2 per
+    output) and timed, at the training path's shapes: K2 over DIT_IMAGE's
+    self (2, 1024, 24, 64) and cross (64 text tokens) attention, yi-6b's
+    causal GQA (2, 2048, 32 / 4, 128) and whisper-medium's encoder self
+    (4, 1500, 16, 64); K1 at (2, 1024, 1536), every variant.  Each
+    backward is bound by the five products of 2 d flops per (query, key)
+    pair (S, dP, dV, dK, dQ) or by its bytes (q, k, v, o, dO and lse
+    read, dq, dk, dv written); the library time is the backward alone of
+    SDPA, or of F.layer_norm plus the modulate, in ``dtype``.  Each K2
+    case first holds the forward with the log-sum-exp written (the
+    training path's) to ``ref.attention_ref``/``attention_lse_ref``, and
+    the plain backward reads those refs' o and lse, not the kernel's.
+    Also times that forward at the serving self shape."""
+    if not hasattr(ops, "attention_bwd"):     # an older checkout (--src)
+        print("  backward kernels: not in this checkout", flush=True)
+        return
+    fp32 = dtype == torch.float32
+    es = torch.finfo(dtype).bits // 8
+    tag = "" if fp32 else " bf16"
+    peak = FP32_FLOPS_PER_S if fp32 else BF16_FLOPS_PER_S
+    d_model, heads, hd = DIT_IMAGE.d_model, DIT_IMAGE.num_heads, \
+        DIT_IMAGE.head_dim
+    if fp32:     # the forward with lse, beside the serving self case
+        q = _rand((1, 1024, heads, hd), dtype, gen)
+        k, v = (_rand((1, 4096, heads, hd), dtype, gen) for _ in range(2))
+        timing = _attn_timing(q, k, v, 1024, 4096, host_calls=200,
+                              summary="attention with lse")
+        timing["bytes"] += 4 * heads * 1024
+        _check(f"attention self with lse q{tuple(q.shape)} kv"
+               f"{tuple(k.shape)}",
+               lambda: ops.attention_lse(q, k, v),
+               lambda: (ref.attention_ref(q, k, v),
+                        ref.attention_lse_ref(q, k)), dtype, results, timing)
+        del q, k, v
+    b = DIT_TRAIN_BATCH
+    cases = [("dit self", (b, 1024, heads, hd), heads, 1024, False),
+             ("dit cross", (b, 1024, heads, hd), heads, 64, False),
+             ("yi-6b causal", (YI_TRAIN_BATCH, YI_TRAIN_SEQ, YI.num_heads,
+                               YI.head_dim), YI.num_kv_heads, YI_TRAIN_SEQ,
+              True),
+             ("whisper-medium self", (ZOO_BATCH, WHISPER.frontend_seq,
+                                      WHISPER.num_heads, WHISPER.head_dim),
+              WHISPER.num_heads, WHISPER.frontend_seq, False)]
+    for label, (bb, sq, h, d), kv, sk, causal in cases:
+        q, do = (_rand((bb, sq, h, d), dtype, gen) for _ in range(2))
+        k, v = (_rand((bb, sk, kv, d), dtype, gen) for _ in range(2))
+        # the forward with lse at this case's shape, held to the refs; the
+        # plain backward takes the refs' o and lse, so that the two sides
+        # share no data the kernels made
+        o_ref = ref.attention_ref(q, k, v, causal=causal)
+        lse_ref = ref.attention_lse_ref(q, k, causal=causal)
+        _check(f"attention with lse {label} q{(bb, sq, h, d)} "
+               f"kv{(bb, sk, kv, d)}{' causal' if causal else ''}",
+               lambda: ops.attention_lse(q, k, v, causal=causal),
+               lambda: (o_ref, lse_ref), dtype, results)
+        o, lse = ops.attention_lse(q, k, v, causal=causal)
+        pairs = bb * h * (sq * (sq + 1) // 2 if causal else sq * sk)
+        both, fwd = _sdpa_backward(q, k, v, do, causal)
+        timing = dict(bytes=4 * (q.numel() + k.numel()) * es + 4 * lse.numel(),
+                      flops=10 * d * pairs, flops_per_s=peak, iters=10,
+                      replays=5, host_calls=50, plain_iters=3,
+                      library=both, library_fwd=fwd)
+        if label in ("dit self", "yi-6b causal", "whisper-medium self") \
+                or fp32:
+            timing["summary"] = f"attention_bwd {label}{tag}"
+        _check(f"attention_bwd {label} q{(bb, sq, h, d)} kv{(bb, sk, kv, d)}"
+               f"{' causal' if causal else ''}",
+               lambda: ops.attention_bwd(q, k, v, o, lse, do, causal=causal),
+               lambda: ref.attention_bwd_ref(q, k, v, o_ref, lse_ref, do,
+                                             causal=causal),
+               dtype, results, timing, l2=True)
+        del q, k, v, o, lse, o_ref, lse_ref, do, both, fwd
+    n = 1024
+    x, dy = (_rand((b, n, d_model), dtype, gen) for _ in range(2))
+    sh, sc, g = (_rand((b, d_model), dtype, gen, 0.5) for _ in range(3))
+    for vname, kw in {
+            "mod_norm": dict(shift=sh, scale=sc), "ln": dict(),
+            "gated_residual": dict(gate=g, ln=False),
+            "full": dict(shift=sh, scale=sc, gate=g)}.items():
+        timing = None
+        if vname == "mod_norm":
+            xt, sht, sct = (t.detach().requires_grad_(True)
+                            for t in (x, sh, sc))
+
+            def lib_fwd():
+                return F.layer_norm(xt, (d_model,), eps=1e-6) \
+                    * (1.0 + sct[:, None]) + sht[:, None]
+
+            def lib_both():
+                return torch.autograd.grad(lib_fwd(), (xt, sht, sct), dy)
+            timing = {"bytes": (3 * b * n + 4 * b) * d_model * es,
+                      "flops": 12 * b * n * d_model,
+                      "library": lib_both, "library_fwd": lib_fwd,
+                      "summary": f"fused_adaln_bwd{tag}"}
+        _check(f"adaln_bwd {vname} ({b}, {n}, {d_model})",
+               lambda kw=kw: ops.fused_adaln_bwd(x, dy=dy, **kw),
+               lambda kw=kw: ref.adaln_bwd_ref(x, dy=dy, **kw),
+               dtype, results, timing, l2=True)
+    if fp32:
+        results["attention_bwd"] = results["attention_bwd dit self"]
 
 
 def _check_lm_attention(dtype, results, gen) -> None:
@@ -867,6 +1066,9 @@ def phase_serve() -> dict:
                              f"refresh and hit steps")
     if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel never launched: {counts}")
+    if any(ops.launches[k] for k in BWD_KERNELS):
+        raise AssertionError(f"serve: a backward kernel launched: "
+                             f"{dict(ops.launches)}")
     lat = ", ".join(f"{k} {v:.2f} s" for k, v in sorted(run["latency"].items()))
     print(f"serve: DIT_IMAGE full width ({DIT_IMAGE.num_layers} layers, "
           f"d={DIT_IMAGE.d_model}), SP-4, cache_interval=2, steps=4: "
@@ -1809,6 +2011,209 @@ def phase_zoo_cpu() -> None:
         raise AssertionError(f"zoo-cpu: card vs CPU rel-L2 {errs}")
 
 
+def _step_launches(before: dict) -> dict:
+    return {k: ops.launches[k] - before[k] for k in
+            ("fused_adaln", "attention") + BWD_KERNELS}
+
+
+def _global_norm(grads: dict) -> float:
+    return float(torch.stack([g.float().norm() for g in grads.values()])
+                 .norm())
+
+
+def _train_dit(smi: str) -> None:
+    """(a) of the train phase: DIT_IMAGE at full width and depth."""
+    cfg = DIT_IMAGE
+    model = dit.init(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    dit.liven_adaln(model, cfg.d_model)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = train_loop.synth_batch(
+        cfg, DIT_TRAIN_BATCH, 0, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    tokens = DIT_TRAIN_BATCH * dit.token_count(cfg, 512, 512)
+    opt = optimizer.adamw_init(dict(model.named_parameters()))
+    step = train_loop.make_train_step(cfg, remat="none", lr=DIT_TRAIN_LR)
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, per_step = [], [], []
+    for _ in range(DIT_TRAIN_STEPS):
+        before = dict(ops.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        walls.append(time.perf_counter() - t0)
+        per_step.append(_step_launches(before))
+        losses.append(loss)
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"train: DiT loss {loss}, grad_norm {gnorm}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = per_step[-1]
+    if any(p != launches for p in per_step) or min(launches.values()) <= 0:
+        raise AssertionError(f"train: DiT launches a step {per_step}")
+    warm = sorted(walls[1:])[len(walls[1:]) // 2]
+    print(f"train: DIT_IMAGE full width and depth ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {n_params / 1e9:.3f} B parameters), "
+          f"livened adaLN, bf16, AdamW lr {DIT_TRAIN_LR:g}, batch "
+          f"{DIT_TRAIN_BATCH} x {tokens // DIT_TRAIN_BATCH} latent tokens + "
+          f"64 text tokens, {DIT_TRAIN_STEPS} steps on one batch: loss "
+          + ", ".join(f"{v:.5f}" for v in losses)
+          + "; step wall " + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+          + f" ms (median after the first {warm * 1e3:.1f} ms: "
+          f"{DIT_TRAIN_BATCH / warm:.2f} samples/s, {tokens / warm:.0f} "
+          f"tokens/s); peak mem {peak:.2f} GiB; launches a step {launches};"
+          f" on {smi}", flush=True)
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"train: DiT loss did not fall at every step: "
+                             f"{losses}")
+
+    # remat="full" against "none" from the same weights and state
+    loss_n, _, grads = train_loop.grads_of(model, batch, cfg, "none")
+    gnorm_n = _global_norm(grads)
+    del grads
+    step_full = train_loop.make_train_step(cfg, remat="full",
+                                           lr=DIT_TRAIN_LR)
+    before = dict(ops.launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, opt, m = step_full(model, opt, batch)
+    loss_f, gnorm_f = float(m["loss"]), float(m["grad_norm"])
+    wall_f = time.perf_counter() - t0
+    remat = _step_launches(before)
+    err = max(abs(loss_f - float(loss_n)) / abs(float(loss_n)),
+              abs(gnorm_f - gnorm_n) / gnorm_n)
+    print(f"train: DiT remat=\"full\" step: loss {loss_f:.6f} vs "
+          f"{float(loss_n):.6f}, grad_norm {gnorm_f:.5f} vs {gnorm_n:.5f} "
+          f"(remat=\"none\", same weights): rel err {err:.2e} (budget "
+          f"{REMAT_BUDGET:.0e}); wall {wall_f * 1e3:.1f} ms (the first "
+          f"remat call); launches {remat}", flush=True)
+    if not err <= REMAT_BUDGET or \
+            remat["attention"] != 2 * launches["attention"]:
+        raise AssertionError(f"train: remat step {err:.2e}, {remat}")
+    del model, opt, batch
+    torch.cuda.empty_cache()
+
+
+def _train_yi(smi: str) -> None:
+    """(b) of the train phase: yi-6b at full width, 4 of 32 layers."""
+    cfg = YI_TRAIN
+    model = get_model(cfg).init(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = optimizer.adamw_init(dict(model.named_parameters()))
+    step = train_loop.make_train_step(cfg, remat="none", lr=TRAIN_LR)
+    pipe = TokenPipeline(cfg, YI_TRAIN_BATCH, YI_TRAIN_SEQ, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, per_step = [], [], []
+    try:
+        for _ in range(YI_TRAIN_STEPS):
+            batch = {k: torch.from_numpy(v).cuda() for k, v in
+                     next(pipe).items()}
+            before = dict(ops.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, opt, m = step(model, opt, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            walls.append(time.perf_counter() - t0)
+            per_step.append(_step_launches(before))
+            losses.append(loss)
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                raise AssertionError(f"train: yi-6b loss {loss}, "
+                                     f"grad_norm {gnorm}")
+    finally:
+        pipe.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"fused_adaln": 0, "attention": cfg.num_layers,
+            "attention_bwd": cfg.num_layers, "fused_adaln_bwd": 0}
+    if any(p != want for p in per_step):
+        raise AssertionError(f"train: yi-6b launches a step {per_step}")
+    tokens = YI_TRAIN_BATCH * YI_TRAIN_SEQ
+    warm = min(walls[1:])
+    print(f"train: yi-6b full width, {cfg.num_layers} of 32 layers "
+          f"({n_params / 1e9:.3f} B parameters), bf16, AdamW lr "
+          f"{TRAIN_LR:g}, {YI_TRAIN_BATCH} x {YI_TRAIN_SEQ} tokens from the "
+          f"TokenPipeline, {YI_TRAIN_STEPS} steps: loss "
+          + ", ".join(f"{v:.4f}" for v in losses)
+          + "; step wall " + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+          + f" ms ({tokens / warm:.0f} tokens/s after the first); peak mem "
+          f"{peak:.2f} GiB; launches a step {per_step[-1]} (K2 causal GQA "
+          f"at d={cfg.head_dim}); on {smi}", flush=True)
+    del model, opt
+    torch.cuda.empty_cache()
+
+
+def phase_train(smi: str) -> dict:
+    """The training path on the card: (a) DIT_IMAGE at full width and
+    depth through K1 and K2 forward and backward, (b) yi-6b at full
+    width through K2's causal GQA backward.  Returns the phase's launch
+    counts."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    _train_dit(smi)
+    _train_yi(smi)
+    counts = dict(ops.launches)
+    if min(counts[k] for k in BWD_KERNELS) <= 0 or counts["ssd"] or \
+            counts["splice_attention"]:
+        raise AssertionError(f"train: launches {counts}")
+    print(f"train: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{counts}", flush=True)
+    return counts
+
+
+def phase_train_cpu() -> None:
+    """(c) of the train phase: DIT_IMAGE.reduced() (livened) and
+    yi-6b.reduced() with the same weights and batch on the card (kernels,
+    backward kernels) and on the CPU (plain versions, closed-form
+    backward): one fp32 step's loss and gradient per parameter leaf.
+    (The updated weights are not compared: a first AdamW step moves each
+    weight by about lr * sign(g), so a weight whose gradient is near zero
+    may move by +-lr on the two sides.)  Then the ssm family must refuse
+    to train on the card."""
+    t_phase = time.perf_counter()
+    errs = {}
+    for cfg in (DIT_IMAGE.reduced(), YI.reduced()):
+        family = get_model(cfg)
+        cpu = family.init(cfg, device="cpu")
+        if cfg.family == "dit":
+            dit.liven_adaln(cpu, cfg.d_model)
+        card = family.init(cfg)
+        card.load_state_dict(cpu.state_dict())
+        batch = train_loop.synth_batch(
+            cfg, 2, 64, generator=torch.Generator().manual_seed(5))
+        out = {}
+        for name, model in (("cpu", cpu), ("card", card)):
+            dev = next(model.parameters()).device
+            loss, _, grads = train_loop.grads_of(
+                model, {k: v.to(dev) for k, v in batch.items()}, cfg,
+                "none", dtype=torch.float32)
+            out[name] = (float(loss), {k: g.cpu() for k, g in grads.items()})
+        (lc, gc), (lg, gg) = out["cpu"], out["card"]
+        leaf = {k: rel_l2(gg[k], gc[k]) for k in gc}
+        worst = max(leaf, key=leaf.get)
+        errs[cfg.name] = (abs(lg - lc) / abs(lc), leaf[worst], worst)
+    print("train-cpu: .reduced() fp32 step, card vs CPU, loss rel err / "
+          "worst gradient leaf rel-L2: "
+          + ", ".join(f"{a} {e[0]:.2e} / {e[1]:.2e} ({e[2]})"
+                      for a, e in errs.items())
+          + f" (budget {GRAD_CPU_BUDGET:.0e})", flush=True)
+    if not max(max(e[0], e[1]) for e in errs.values()) <= GRAD_CPU_BUDGET:
+        raise AssertionError(f"train-cpu: card vs CPU {errs}")
+    cfg = MAMBA.reduced()
+    model = get_model(cfg).init(cfg)
+    step = train_loop.make_train_step(cfg, remat="none")
+    batch = train_loop.synth_batch(cfg, 1, 32, device="cuda")
+    try:
+        step(model, optimizer.adamw_init(dict(model.named_parameters())),
+             batch)
+    except NotImplementedError as e:
+        print(f"train-cpu: ssm refuses to train on the card: {e}; "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    else:
+        raise AssertionError("train-cpu: the ssm family trained without "
+                             "K4's backward")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -1846,6 +2251,9 @@ def main() -> int:
     phase_hybrid_cpu()
     whisper = phase_zoo(smi)
     phase_zoo_cpu()
+    train = phase_train(smi)
+    phase_train_cpu()
+    counts.update({k: train[k] for k in BWD_KERNELS})
     lm_launches = {"zamba2-7b attention": zamba["forward"]["attention"],
                    "zamba2-7b ssd": zamba["prefill"]["ssd"],
                    "yi-6b attention": None}
@@ -1865,6 +2273,11 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "library_call_ms": r["library_call_ms"]})
+        if name in ("fused_adaln", "attention"):   # the train phase's
+            kernels[-1]["train_launches"] = train[name]
+        if name in BWD_KERNELS:
+            kernels[-1]["note"] = ("backward kernel; the TPU kernel it "
+                                   "differentiates has none")
         # the same kernel at DIT_VIDEO's shape and at the decoder LMs'
         # (launches: a zamba2-7b forward's K2, a prefill's K4; yi-6b's
         # full-width forward is timed only)
@@ -1882,6 +2295,17 @@ def main() -> int:
                     **{k: v[k] for k in ("max_abs_err", "ms", "call_ms",
                                          "host_us", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")}}
+        # the backward kernels' other timed cases, and K2's forward with
+        # the log-sum-exp written (launched in the train phase only)
+        extra = {"attention": ["attention with lse"],
+                 "attention_bwd": [k for k in results if k.startswith(
+                     "attention_bwd ") and k != "attention_bwd dit self"],
+                 "fused_adaln_bwd": ["fused_adaln_bwd bf16"]}
+        for label in extra.get(name, ()):
+            v = results[label]
+            kernels[-1][label] = {k: v[k] for k in (
+                "case", "dtype", "max_abs_err", "ms", "call_ms", "host_us",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,7 @@
     python3 serve_profile.py --video  # DiT-video serving (class S, SP-4)
     python3 serve_profile.py --lm     # mamba2-1.3b prefill and decode
     python3 serve_profile.py --hybrid # zamba2-7b prefill and decode
+    python3 serve_profile.py --train  # a DIT_IMAGE and a yi-6b train step
 
 Serves the requests of chip_smoke.py's serve phase (DIT_IMAGE at full
 width, SP-4 on four rank threads, cache_interval=2, steps=4: two 512 px
@@ -28,6 +29,12 @@ at full width (seeded, livened weights), bf16, batch 4: one prefill of
 2048 tokens and, separately, 8 greedy decode steps, each after a warm-up
 run of the same work.  ``--hybrid`` does the same for the hybrid phase's
 zamba2-7b (81 Mamba2 layers and 13 shared-attention applications).
+
+With ``--train`` it profiles one step of each of chip_smoke.py's train
+phase models (DIT_IMAGE at full width and depth on its one batch, bf16;
+yi-6b at full width, 4 layers, 2 x 2048 tokens), after two warm-up
+steps; the port's backward kernels and the optimizer's ``_foreach``
+kernels are categories of their own.
 """
 from __future__ import annotations
 
@@ -46,14 +53,19 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke as smoke
 from repro_torch.configs.dit_models import DIT_IMAGE, DIT_VIDEO
 from repro_torch.kernels import build
-from repro_torch.models import get_model, ssm
+from repro_torch.models import dit, get_model, ssm
 from repro_torch.serving import serve_loop
+from repro_torch.training import optimizer, train_loop
+from repro_torch.training.data import TokenPipeline
 
 
 def category(name: str) -> str:
     low = name.lower()
     if "gfdit" in low:
-        return "port kernels (csrc/)"
+        return ("port backward kernels (csrc/)" if "bwd" in low
+                else "port kernels (csrc/)")
+    if "multi_tensor_apply" in low:
+        return "optimizer (_foreach kernels)"
     if "memcpy" in low or "memset" in low:
         return "host<->device copies"
     if any(k in low for k in ("gemm", "gemv", "cutlass", "sm90_xmma",
@@ -164,12 +176,57 @@ def profile_lm(cfg, decode_steps: int = 8) -> None:
         report(prof, wall)
 
 
+def profile_train(warm_steps: int = 2) -> None:
+    """One profiled train step of DIT_IMAGE and of yi-6b (4 layers)."""
+    dcfg = DIT_IMAGE
+    model = dit.init(dcfg, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    dit.liven_adaln(model, dcfg.d_model)
+    batch = train_loop.synth_batch(
+        dcfg, smoke.DIT_TRAIN_BATCH, 0, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    runs = [(dcfg, model, lambda: batch, smoke.DIT_TRAIN_LR)]
+    pipe = TokenPipeline(smoke.YI_TRAIN, smoke.YI_TRAIN_BATCH,
+                         smoke.YI_TRAIN_SEQ, seed=0)
+
+    def yi_batch():
+        return {k: torch.from_numpy(v).cuda() for k, v in next(pipe).items()}
+    runs.append((smoke.YI_TRAIN, None, yi_batch, smoke.TRAIN_LR))
+    try:
+        for cfg, model, next_batch, lr in runs:
+            if model is None:
+                model = get_model(cfg).init(cfg, generator=torch.Generator(
+                    device="cuda").manual_seed(0))
+            opt = optimizer.adamw_init(dict(model.named_parameters()))
+            step = train_loop.make_train_step(cfg, remat="none", lr=lr)
+            for i in range(warm_steps + 1):
+                b = next_batch()
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                torch.cuda.synchronize()
+                with prof if i == warm_steps else contextlib.nullcontext():
+                    t0 = time.perf_counter()
+                    model, opt, m = step(model, opt, b)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                print(f"{cfg.name} train step {i} ("
+                      f"{'profiled' if i == warm_steps else 'warm-up'}): "
+                      f"wall {wall:.4f} s, loss {float(m['loss']):.5f}",
+                      flush=True)
+            report(prof, wall)
+            del model, opt, step
+            torch.cuda.empty_cache()
+    finally:
+        pipe.close()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--lm", action="store_true",
                         help="profile the mamba2-1.3b prefill and decode")
     parser.add_argument("--hybrid", action="store_true",
                         help="profile the zamba2-7b prefill and decode")
+    parser.add_argument("--train", action="store_true",
+                        help="profile a DIT_IMAGE and a yi-6b train step")
     parser.add_argument("--video", action="store_true",
                         help="profile DIT_VIDEO serving one class-S "
                         "request at SP-4")
@@ -181,6 +238,8 @@ def main() -> int:
     build.load()
     if args.lm or args.hybrid:
         profile_lm(smoke.MAMBA if args.lm else smoke.ZAMBA)
+    elif args.train:
+        profile_train()
     elif args.video:
         serve_dit(DIT_VIDEO,
                   lambda: [smoke.video_request("S", smoke.VIDEO_S)], None,

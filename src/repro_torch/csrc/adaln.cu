@@ -30,6 +30,24 @@
 // of a batch reuse them.  x is read once and out written once.  When D
 // is not a multiple of V or a pointer is not 16-byte aligned, the same
 // template runs with V = 1 (scalar accesses), chosen at launch.
+//
+// Backward (adaln_bwd_kernel + adaln_bwd_reduce_kernel).  The TPU kernel
+// has no backward (the JAX package trains through its jnp LN/modulate);
+// the port's training path needs one for every variant above.  With
+// x^ = LN(x) (or x), y = x^ (1 + scale) + shift (or x^) and dy' =
+// dy * gate (or dy): dresidual = dy, dgate = sum_n dy * y, dshift =
+// sum_n dy', dscale = sum_n dy' * x^, and dx = rstd (dx^ - mean(dx^) -
+// x^ mean(dx^ x^)) with dx^ = dy' (1 + scale) (dx = dx^ without LN); the
+// sums run over the N tokens of a batch row, the means over D
+// (ref.adaln_bwd_ref).  Bound on the card: bytes (x and dy read, dx and
+// dresidual written).  One 256-thread block a tile of kAdaBwdRows token
+// rows of one batch row: first a warp a row recomputes mean and rstd
+// from x and the two row means of the dx formula; then each thread owns
+// columns (tid + 256 j) and walks the tile's rows, writing dx and
+// dresidual (x and dy again, now from L1/L2) and summing its columns'
+// dshift/dscale/dgate terms in registers, which it stores as the tile's
+// partial.  A second launch sums the partials of each (batch row,
+// column) over the tiles in order: deterministic, no float atomics.
 #include "common.cuh"
 
 namespace gfdit {
@@ -232,7 +250,220 @@ cudaError_t dispatch_adaln(const void* x, const void* shift, const void* scale,
                            variant, stream);
 }
 
+constexpr int kAdaBwdRows = 16;       // token rows a backward block
+constexpr int kAdaBwdThreads = 256;
+
+template <typename T, int NJ, bool LN, bool MOD, bool GATE>
+__global__ void __launch_bounds__(kAdaBwdThreads)
+    adaln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ shift,
+                     const T* __restrict__ scale, const T* __restrict__ gate,
+                     const T* __restrict__ dy, T* __restrict__ dx,
+                     T* __restrict__ dres, float* __restrict__ partial, int n,
+                     int d, float eps) {
+  __shared__ float stats[kAdaBwdRows][4];  // mu, rstd, mean dx^, mean dx^x^
+  const int tile = blockIdx.x, b = blockIdx.y;
+  const int r0 = tile * kAdaBwdRows, nrows = min(n - r0, kAdaBwdRows);
+  const long long mrow = static_cast<long long>(b) * d;
+  const long long xrow0 = (static_cast<long long>(b) * n + r0) * d;
+
+  if (LN) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int r = warp; r < nrows; r += kAdaBwdThreads / 32) {
+      const T* xr = x + xrow0 + static_cast<long long>(r) * d;
+      const T* gr = dy + xrow0 + static_cast<long long>(r) * d;
+      float s = 0.f;
+      for (int c = lane; c < d; c += 32) s += to_float(xr[c]);
+      const float mu = warp_sum(s) / d;
+      float q = 0.f;
+      for (int c = lane; c < d; c += 32) {
+        const float u = to_float(xr[c]) - mu;
+        q += u * u;
+      }
+      const float rstd = rsqrtf(warp_sum(q) / d + eps);
+      float c1 = 0.f, c2 = 0.f;
+      for (int c = lane; c < d; c += 32) {
+        float g = to_float(gr[c]);
+        if (GATE) g *= to_float(gate[mrow + c]);
+        if (MOD) g *= 1.f + to_float(scale[mrow + c]);
+        c1 += g;
+        c2 = fmaf(g, (to_float(xr[c]) - mu) * rstd, c2);
+      }
+      c1 = warp_sum(c1) / d;
+      c2 = warp_sum(c2) / d;
+      if (lane == 0) {
+        stats[r][0] = mu;
+        stats[r][1] = rstd;
+        stats[r][2] = c1;
+        stats[r][3] = c2;
+      }
+    }
+    __syncthreads();
+  }
+
+  float sh[NJ], sc[NJ], gt[NJ], ash[NJ], asc[NJ], ag[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = min(static_cast<int>(threadIdx.x) + kAdaBwdThreads * j,
+                      d - 1);
+    sh[j] = MOD ? to_float(shift[mrow + c]) : 0.f;
+    sc[j] = MOD ? 1.f + to_float(scale[mrow + c]) : 1.f;
+    gt[j] = GATE ? to_float(gate[mrow + c]) : 1.f;
+    ash[j] = asc[j] = ag[j] = 0.f;
+  }
+  for (int r = 0; r < nrows; ++r) {
+    const long long row = xrow0 + static_cast<long long>(r) * d;
+    float mu = 0.f, rstd = 1.f, c1 = 0.f, c2 = 0.f;
+    if (LN) {
+      mu = stats[r][0];
+      rstd = stats[r][1];
+      c1 = stats[r][2];
+      c2 = stats[r][3];
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = threadIdx.x + kAdaBwdThreads * j;
+      if (c < d) {
+        const float xv = to_float(x[row + c]);
+        const float xh = LN ? (xv - mu) * rstd : xv;
+        float g = to_float(dy[row + c]);
+        if (GATE) {
+          ag[j] = fmaf(g, MOD ? fmaf(xh, sc[j], sh[j]) : xh, ag[j]);
+          dres[row + c] = dy[row + c];
+          g *= gt[j];
+        }
+        if (MOD) {
+          ash[j] += g;
+          asc[j] = fmaf(g, xh, asc[j]);
+          g *= sc[j];
+        }
+        dx[row + c] = from_float<T>(LN ? rstd * (g - c1 - xh * c2) : g);
+      }
+    }
+  }
+  if (MOD || GATE) {
+    float* pb = partial + (mrow * gridDim.x + static_cast<long long>(tile)
+                           * d) * 3;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = threadIdx.x + kAdaBwdThreads * j;
+      if (c < d) {
+        if (MOD) {
+          pb[c] = ash[j];
+          pb[d + c] = asc[j];
+        }
+        if (GATE) pb[2 * d + c] = ag[j];
+      }
+    }
+  }
+}
+
+// dshift/dscale/dgate[b, c] = the sum over tiles, in order, of the
+// partials of (batch row b, column c).
+template <typename T>
+__global__ void __launch_bounds__(kAdaBwdThreads)
+    adaln_bwd_reduce_kernel(const float* __restrict__ partial,
+                            T* __restrict__ dshift, T* __restrict__ dscale,
+                            T* __restrict__ dgate, int tiles, int d) {
+  const int c = blockIdx.x * kAdaBwdThreads + threadIdx.x, b = blockIdx.y;
+  if (c >= d) return;
+  const float* pb = partial + static_cast<long long>(b) * tiles * 3 * d;
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    const float* pt = pb + static_cast<long long>(t) * 3 * d;
+    if (dshift != nullptr) {
+      s0 += pt[c];
+      s1 += pt[d + c];
+    }
+    if (dgate != nullptr) s2 += pt[2 * d + c];
+  }
+  const long long o = static_cast<long long>(b) * d + c;
+  if (dshift != nullptr) {
+    dshift[o] = from_float<T>(s0);
+    dscale[o] = from_float<T>(s1);
+  }
+  if (dgate != nullptr) dgate[o] = from_float<T>(s2);
+}
+
+template <typename T, int NJ>
+cudaError_t launch_adaln_bwd(const void* x, const void* shift,
+                             const void* scale, const void* gate,
+                             const void* dy, void* dx, void* dres,
+                             float* partial, int B, int n, int d, int tiles,
+                             int variant, cudaStream_t stream) {
+  const dim3 grid(tiles, B);
+#define GFDIT_ADALN_BWD(LN, MOD, GATE)                                       \
+  adaln_bwd_kernel<T, NJ, LN, MOD, GATE><<<grid, kAdaBwdThreads, 0,         \
+                                           stream>>>(                       \
+      static_cast<const T*>(x), static_cast<const T*>(shift),               \
+      static_cast<const T*>(scale), static_cast<const T*>(gate),            \
+      static_cast<const T*>(dy), static_cast<T*>(dx), static_cast<T*>(dres),\
+      partial, n, d, 1e-6f);                                                \
+  break;
+  switch (variant) {  // bit 0: ln, bit 1: shift/scale, bit 2: gate/residual
+    case 1: GFDIT_ADALN_BWD(true, false, false)
+    case 2: GFDIT_ADALN_BWD(false, true, false)
+    case 3: GFDIT_ADALN_BWD(true, true, false)
+    case 4: GFDIT_ADALN_BWD(false, false, true)
+    case 5: GFDIT_ADALN_BWD(true, false, true)
+    case 6: GFDIT_ADALN_BWD(false, true, true)
+    case 7: GFDIT_ADALN_BWD(true, true, true)
+    default: return cudaErrorInvalidValue;
+  }
+#undef GFDIT_ADALN_BWD
+  return cudaGetLastError();
+}
+
 }  // namespace gfdit
+
+// x/dy/dx/dres: (B, n, d) contiguous; shift/scale/gate and their
+// gradients: (B, d) contiguous, all of one dtype; absent operands null
+// (dres and dgate with gate, dshift and dscale with shift).  partial:
+// B * tiles * 3 * d fp32 scratch, tiles = ceil(n / 16), when shift or
+// gate is given.
+extern "C" int gfdit_adaln_bwd(const void* x, const void* shift,
+                               const void* scale, const void* gate,
+                               const void* dy, void* dx, void* dres,
+                               void* dshift, void* dscale, void* dgate,
+                               float* partial, int B, int n, int d, int tiles,
+                               int ln, int dtype, int device, void* stream) {
+  using namespace gfdit;
+  const bool mod = shift != nullptr, gated = gate != nullptr;
+  if (d <= 0 || d > kAdaMaxDim || B <= 0 || n <= 0 || B > 65535 ||
+      tiles != (n + kAdaBwdRows - 1) / kAdaBwdRows ||
+      mod != (scale != nullptr) || mod != (dshift != nullptr) ||
+      mod != (dscale != nullptr) || gated != (dres != nullptr) ||
+      gated != (dgate != nullptr) || ((mod || gated) && partial == nullptr))
+    return cudaErrorInvalidValue;
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return err;
+  const int variant = (ln ? 1 : 0) | (mod ? 2 : 0) | (gated ? 4 : 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GFDIT_ADALN_BWD_NJ(T, NJ)                                           \
+  if (d <= kAdaBwdThreads * NJ) {                                           \
+    err = launch_adaln_bwd<T, NJ>(x, shift, scale, gate, dy, dx, dres,      \
+                                  partial, B, n, d, tiles, variant, s);     \
+    if (err == cudaSuccess && (mod || gated)) {                             \
+      adaln_bwd_reduce_kernel<T>                                            \
+          <<<dim3((d + kAdaBwdThreads - 1) / kAdaBwdThreads, B),            \
+             kAdaBwdThreads, 0, s>>>(partial, static_cast<T*>(dshift),      \
+                                     static_cast<T*>(dscale),               \
+                                     static_cast<T*>(dgate), tiles, d);     \
+      err = cudaGetLastError();                                             \
+    }                                                                       \
+    return err;                                                             \
+  }
+  if (dtype == kFloat32) {
+    GFDIT_ADALN_BWD_NJ(float, 1)
+    GFDIT_ADALN_BWD_NJ(float, 4)
+    GFDIT_ADALN_BWD_NJ(float, 16)
+  } else if (dtype == kBFloat16) {
+    GFDIT_ADALN_BWD_NJ(__nv_bfloat16, 1)
+    GFDIT_ADALN_BWD_NJ(__nv_bfloat16, 4)
+    GFDIT_ADALN_BWD_NJ(__nv_bfloat16, 16)
+  }
+#undef GFDIT_ADALN_BWD_NJ
+  return cudaErrorInvalidValue;
+}
 
 // x/residual/out: (rows = B*N, d) contiguous; shift/scale/gate: (B, d)
 // contiguous, all of one dtype.  Absent operands are null.

@@ -56,6 +56,13 @@
 //     floats keep the 8 key rows of a load on distinct banks (29 16-byte
 //     units a row, odd).  Shared memory (fp32): Q 29.0 KB, two K/V stages
 //     58.0 KB, P 8 KB, 95.0 KB a block: 2 blocks an SM, as at d=128.
+//   * Log-sum-exp.  For a training caller the epilogue also writes each
+//     query row's log-sum-exp of its scaled scores, (B, H, Sq) fp32 in
+//     natural-log units (m is kept in raw score units and the exp is
+//     exp2 with log2(e) folded into the scale, so
+//     lse = (m * scale_log2 + log2(l)) * ln 2), which the backward
+//     kernels of attention_bwd.cu read to recompute P.  A null lse
+//     pointer (the serving path and the splice) writes nothing.
 // The key axis is walked as up to three segments, each read from ONE
 // source tensor: plain attention has one; the splice has stale
 // [0, offset), fresh [offset, offset+L) and stale [offset+L, Sk), so no
@@ -69,6 +76,7 @@ constexpr int kAttnThreads = 32 * kAttnWarps;
 constexpr int kBK = 32;            // keys per tile
 constexpr float kNegInf = -1e30f;  // fill in fp32 score space only
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // A run of key positions [begin, end) read from one K/V source tensor of
 // shape (B, src_len, KV, D); key `begin` lives at source row `src_row0`.
@@ -149,8 +157,9 @@ __device__ __forceinline__ Cursor next_tile(const Segs<T>& segs, Cursor c,
 template <typename T, int D>
 __global__ void __launch_bounds__(kAttnThreads,
                                   AttnShape<T, D>::MIN_BLOCKS)
-    attn_kernel(const T* __restrict__ q, T* __restrict__ out, Segs<T> segs,
-                int Sq, int H, int KV, float scale_log2, int causal) {
+    attn_kernel(const T* __restrict__ q, T* __restrict__ out,
+                float* __restrict__ lse, Segs<T> segs, int Sq, int H, int KV,
+                float scale_log2, int causal) {
   using S = AttnShape<T, D>;
   constexpr int A = S::A, BQ = S::BQ, VW = S::VW, NVC = S::NVC;
   constexpr int EPC = S::EPC, CPR = S::CPR, PITCH = S::PITCH;
@@ -310,6 +319,9 @@ __global__ void __launch_bounds__(kAttnThreads,
       lsum += __shfl_xor_sync(0xffffffffu, lsum, o);
     const int qi = q0 + wrow + 4 * a + rg;
     if (qi >= Sq) continue;
+    if (lse != nullptr && kg == 0)
+      lse[((long long)b * H + h) * Sq + qi] =
+          (m[a] * scale_log2 + log2f(lsum)) * kLn2;
     const float inv = 1.f / fmaxf(lsum, 1e-30f);
     T* o = out + (((long long)b * Sq + qi) * H + h) * D;
 #pragma unroll
@@ -323,15 +335,16 @@ __global__ void __launch_bounds__(kAttnThreads,
 }
 
 template <typename T, int D>
-cudaError_t launch_attn(const void* q, void* out, const Segs<T>& segs, int B,
-                        int Sq, int H, int KV, float sm_scale, int causal,
-                        int device, cudaStream_t stream) {
+cudaError_t launch_attn(const void* q, void* out, float* lse,
+                        const Segs<T>& segs, int B, int Sq, int H, int KV,
+                        float sm_scale, int causal, int device,
+                        cudaStream_t stream) {
   using S = AttnShape<T, D>;
   const cudaError_t err = allow_smem_once<attn_kernel<T, D>>(S::kSmem, device);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + S::BQ - 1) / S::BQ, B * H);
   attn_kernel<T, D><<<grid, kAttnThreads, S::kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<T*>(out), segs, Sq, H, KV,
+      static_cast<const T*>(q), static_cast<T*>(out), lse, segs, Sq, H, KV,
       sm_scale * kLog2e, causal);
   return cudaGetLastError();
 }
@@ -347,12 +360,13 @@ cudaError_t occupancy_attn(int device, int* blocks, int* smem) {
 }
 
 template <typename T>
-cudaError_t dispatch_attn(const void* q, void* out, const Segs<T>& segs, int B,
-                          int Sq, int H, int KV, int D, float sm_scale,
-                          int causal, int device, cudaStream_t stream) {
+cudaError_t dispatch_attn(const void* q, void* out, float* lse,
+                          const Segs<T>& segs, int B, int Sq, int H, int KV,
+                          int D, float sm_scale, int causal, int device,
+                          cudaStream_t stream) {
 #define GFDIT_ATTN(DIM)                                                    \
   case DIM:                                                                \
-    return launch_attn<T, DIM>(q, out, segs, B, Sq, H, KV, sm_scale,       \
+    return launch_attn<T, DIM>(q, out, lse, segs, B, Sq, H, KV, sm_scale,  \
                                causal, device, stream);
   switch (D) {
     GFDIT_ATTN(16)
@@ -395,11 +409,13 @@ inline bool aligned16(const void* p) {
 }  // namespace gfdit
 
 // q/out: (B, Sq, H, D); k/v: (B, Sk, KV, D); all contiguous, one dtype,
-// 16-byte aligned (cp.async copies 16 bytes).
+// 16-byte aligned (cp.async copies 16 bytes).  lse: null, or (B, H, Sq)
+// fp32 to receive each row's log-sum-exp (the autograd path).
 extern "C" int gfdit_attention(const void* q, const void* k, const void* v,
-                               void* out, int B, int Sq, int Sk, int H, int KV,
-                               int D, int causal, float sm_scale, int dtype,
-                               int device, void* stream) {
+                               void* out, float* lse, int B, int Sq, int Sk,
+                               int H, int KV, int D, int causal,
+                               float sm_scale, int dtype, int device,
+                               void* stream) {
   using namespace gfdit;
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
       (causal && Sq != Sk) || !aligned16(q) || !aligned16(k) ||
@@ -409,13 +425,12 @@ extern "C" int gfdit_attention(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return dispatch_attn<float>(q, out, plain_segs<float>(k, v, Sk), B, Sq, H,
-                                KV, D, sm_scale, causal, device, s);
+    return dispatch_attn<float>(q, out, lse, plain_segs<float>(k, v, Sk), B,
+                                Sq, H, KV, D, sm_scale, causal, device, s);
   if (dtype == kBFloat16)
-    return dispatch_attn<__nv_bfloat16>(q, out,
-                                        plain_segs<__nv_bfloat16>(k, v, Sk), B,
-                                        Sq, H, KV, D, sm_scale, causal, device,
-                                        s);
+    return dispatch_attn<__nv_bfloat16>(
+        q, out, lse, plain_segs<__nv_bfloat16>(k, v, Sk), B, Sq, H, KV, D,
+        sm_scale, causal, device, s);
   return cudaErrorInvalidValue;
 }
 
@@ -438,11 +453,11 @@ extern "C" int gfdit_splice_attention(const void* q, const void* k_stale,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
     return dispatch_attn<float>(
-        q, out, splice_segs<float>(k_stale, v_stale, k_fresh, v_fresh, Sk, L, offset),
+        q, out, nullptr, splice_segs<float>(k_stale, v_stale, k_fresh, v_fresh, Sk, L, offset),
         B, Sq, H, KV, D, sm_scale, 0, device, s);
   if (dtype == kBFloat16)
     return dispatch_attn<__nv_bfloat16>(
-        q, out,
+        q, out, nullptr,
         splice_segs<__nv_bfloat16>(k_stale, v_stale, k_fresh, v_fresh, Sk, L, offset),
         B, Sq, H, KV, D, sm_scale, 0, device, s);
   return cudaErrorInvalidValue;

@@ -36,9 +36,15 @@ _SIGNATURES = {
     # x, shift, scale, gate, residual, out, rows, n, d, ln, dtype, device,
     # stream
     "gfdit_adaln": [_P] * 6 + [_I] * 6 + [_P],
-    # q, k, v, out, B, Sq, Sk, H, KV, D, causal, sm_scale, dtype, device,
-    # stream
-    "gfdit_attention": [_P] * 4 + [_I] * 7 + [_F, _I, _I, _P],
+    # x, shift, scale, gate, dy, dx, dresidual, dshift, dscale, dgate,
+    # partial, B, n, d, tiles, ln, dtype, device, stream
+    "gfdit_adaln_bwd": [_P] * 11 + [_I] * 7 + [_P],
+    # q, k, v, out, lse, B, Sq, Sk, H, KV, D, causal, sm_scale, dtype,
+    # device, stream
+    "gfdit_attention": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
+    # q, k, v, o, dout, lse, dq, dk, dv, delta, B, Sq, Sk, H, KV, D, causal,
+    # sm_scale, dtype, device, stream
+    "gfdit_attention_bwd": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P],
     # q, k_stale, v_stale, k_fresh, v_fresh, out, B, Sq, Sk, L, H, KV, D,
     # offset, sm_scale, dtype, device, stream
     "gfdit_splice_attention": [_P] * 6 + [_I] * 8 + [_F, _I, _I, _P],

@@ -10,6 +10,19 @@ nothing is padded: the kernels mask ragged sequence edges themselves.
 Each launch adds one to :data:`launches` under the wrapper's name, so a
 run can show that its path went through the kernels.
 
+Gradients.  ``attention`` and ``fused_adaln`` are differentiable: when
+grad mode is on and an operand requires grad they run through a
+``torch.autograd.Function`` whose backward is K2's or K1's backward
+kernel (:func:`attention_bwd`, :func:`fused_adaln_bwd`) on the card and
+its closed-form plain version in ``ref.py`` on the CPU; only then does
+K2's forward write the log-sum-exp its backward reads.  Otherwise (a
+serving call under ``inference_mode``, frozen weights) they launch what
+they always did.  ``splice_attention`` and ``ssd`` have no backward
+kernel yet and raise ``NotImplementedError`` rather than return an
+output without a gradient path.  The JAX package's Pallas kernels have
+no backward at all: it trains through its jnp path, which the port does
+not keep.
+
 The DiT path calls these wrappers thousands of times a request, on rank
 threads that share one GIL, and K1's kernel runs for a few microseconds,
 so the host's cost per call is kept low: the C entry points are looked
@@ -34,6 +47,9 @@ from repro_torch.kernels import build, ref
 HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 #: widest row the adaLN kernel holds in registers (one warp, 128 a lane)
 MAX_ADALN_DIM = 4096
+#: token rows a block of K1's backward kernel sums its column partials
+#: over (``csrc/adaln.cu``'s kAdaBwdRows)
+ADALN_BWD_ROWS = 16
 #: (head_dim p, state n, chunk) the SSD kernel is instantiated for
 SSD_SHAPES = ((64, 128, 128), (16, 16, 16), (16, 16, 32), (32, 16, 64),
               (64, 32, 128), (64, 64, 128))
@@ -44,7 +60,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 #: kernel launches per wrapper since the last :func:`reset_launches`
 launches = {"fused_adaln": 0, "attention": 0, "splice_attention": 0,
-            "ssd": 0}
+            "ssd": 0, "attention_bwd": 0, "fused_adaln_bwd": 0}
 #: the library's C entry points by name, bound on first use
 _fns: dict = {}
 
@@ -122,6 +138,25 @@ def _stream(device: int) -> int:
     return torch._C._cuda_getCurrentRawStream(device)
 
 
+def _wants_grad(*tensors) -> bool:
+    """True when autograd will differentiate through this call (grad
+    mode on, checked first: the serving path runs in inference mode)."""
+    if not torch.is_grad_enabled():
+        return False
+    for t in tensors:
+        if t is not None and t.requires_grad:
+            return True
+    return False
+
+
+def _refuse_grad(name: str, why: str, *tensors) -> None:
+    if _wants_grad(*tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel: {why}.  Call it under "
+            f"torch.no_grad() or inference_mode, or with operands that do "
+            f"not require grad")
+
+
 def _aligned(name: str, **ptrs) -> None:
     for what, ptr in ptrs.items():
         if ptr % 16:
@@ -132,9 +167,23 @@ def _aligned(name: str, **ptrs) -> None:
 def attention(q, k, v, *, causal: bool = False):
     """Flash attention.  q: (B, Sq, H, d); k/v: (B, Sk, KV, d) with
     H % KV == 0; causal needs Sq == Sk.  Every operand 16-byte aligned.
-    Returns (B, Sq, H, d)."""
+    Returns (B, Sq, H, d).  Differentiable (see the module's note)."""
+    if _wants_grad(q, k, v):
+        return _Attention.apply(q, k, v, causal)
+    return _attention_fwd(q, k, v, causal, False)[0]
+
+
+def attention_lse(q, k, v, *, causal: bool = False):
+    """K2's forward as the autograd path runs it: (out, lse), lse the
+    (B, H, Sq) fp32 log-sum-exp of each row's scaled scores."""
+    return _attention_fwd(q, k, v, causal, True)
+
+
+def _attention_fwd(q, k, v, causal: bool, want_lse: bool):
     if not (q.is_cuda or _on_card(q, k, v)):
-        return ref.attention_ref(q, k, v, causal=causal)
+        out = ref.attention_ref(q, k, v, causal=causal)
+        return out, (ref.attention_lse_ref(q, k, causal=causal)
+                     if want_lse else None)
     name = "attention"
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
@@ -145,12 +194,65 @@ def attention(q, k, v, *, causal: bool = False):
                          f"causal={causal} with Sq={sq}, Sk={sk}")
     fn = _fn("gfdit_attention")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     pq, pk, pv = q.data_ptr(), k.data_ptr(), v.data_ptr()
     _aligned(name, q=pq, k=pk, v=pv)
     dev = q.get_device()
-    _launch(name, fn, pq, pk, pv, out.data_ptr(), b, sq, sk, h, kv, d,
+    _launch(name, fn, pq, pk, pv, out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, sq, sk, h, kv, d,
             int(causal), 1.0 / math.sqrt(d), dtype, dev, _stream(dev))
-    return out
+    return out, lse
+
+
+def attention_bwd(q, k, v, o, lse, do, *, causal: bool = False):
+    """K2's backward: (dq, dk, dv) of :func:`attention` at output ``o``
+    with log-sum-exp ``lse`` (from :func:`attention_lse`) for the output
+    gradient ``do``.  On the card one call runs three kernels of
+    ``csrc/attention_bwd.cu`` (D = rowsum(dO * O), then dK/dV, then dQ)
+    and counts one launch; the CPU version is ``ref.attention_bwd_ref``."""
+    if not (q.is_cuda or _on_card(q, k, v, o, lse, do)):
+        return ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    name = "attention_bwd"
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    dtype = _check(name, q, ("q", q, (b, sq, h, d)), ("k", k, (b, sk, kv, d)),
+                   ("v", v, (b, sk, kv, d)), ("o", o, (b, sq, h, d)),
+                   ("do", do, (b, sq, h, d)))
+    _check(name, lse, ("lse", lse, (b, h, sq)))
+    if lse.dtype != torch.float32 or lse.get_device() != q.get_device():
+        raise ValueError(f"{name}: lse must be float32 on {q.device}, got "
+                         f"{lse.dtype} on {lse.device}")
+    if d not in HEAD_DIMS or h % kv or (causal and sq != sk):
+        raise ValueError(f"{name}: unsupported head_dim={d}, H={h}, KV={kv}, "
+                         f"causal={causal} with Sq={sq}, Sk={sk}")
+    fn = _fn("gfdit_attention_bwd")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dev = q.get_device()
+    _launch(name, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), b, sq, sk, h, kv, d, int(causal),
+            1.0 / math.sqrt(d), dtype, dev, _stream(dev))
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """K2 with its backward kernel; the forward saves q, k, v, the output
+    and the log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = _attention_fwd(q, k, v, causal, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*attention_bwd(q, k, v, out, lse, do.contiguous(),
+                               causal=ctx.causal), None)
 
 
 def splice_attention(q, k_stale, v_stale, k_fresh, v_fresh, *, offset: int):
@@ -158,7 +260,11 @@ def splice_attention(q, k_stale, v_stale, k_fresh, v_fresh, *, offset: int):
 
     The kernel reads keys [0, offset) and [offset+L, Sk) from the stale
     snapshot and [offset, offset+L) from the fresh shard; the spliced
-    tensor never exists.  The CPU version materializes it."""
+    tensor never exists.  The CPU version materializes it.  No backward:
+    raises when autograd would differentiate through it."""
+    _refuse_grad("splice_attention", "the §11 hit path only serves, and "
+                 "no training path reaches it", q, k_stale, v_stale, k_fresh,
+                 v_fresh)
     if not (q.is_cuda or _on_card(q, k_stale, v_stale, k_fresh, v_fresh)):
         return ref.splice_attention_ref(q, k_stale, v_stale, k_fresh,
                                         v_fresh, offset=offset)
@@ -197,6 +303,7 @@ def fused_adaln(x, shift=None, scale=None, gate=None, residual=None, *,
       gate/residual, ln=False   -> residual + gate*x
       everything                -> residual + gate*(LN(x)*(1+scale)+shift)
     x/residual: (B, N, D); shift/scale/gate: (B, D), all of x's dtype.
+    Differentiable (see the module's note).
     """
     if (shift is None) != (scale is None):
         raise ValueError("fused_adaln: shift and scale go together")
@@ -204,6 +311,12 @@ def fused_adaln(x, shift=None, scale=None, gate=None, residual=None, *,
         raise ValueError("fused_adaln: gate and residual go together")
     if not (ln or shift is not None or gate is not None):
         raise ValueError("fused_adaln: identity fusion requested")
+    if _wants_grad(x, shift, scale, gate, residual):
+        return _AdaLN.apply(x, shift, scale, gate, residual, ln)
+    return _adaln_fwd(x, shift, scale, gate, residual, ln)
+
+
+def _adaln_fwd(x, shift, scale, gate, residual, ln: bool):
     if not x.is_cuda and not _on_card(
             *(t for t in (x, shift, scale, gate, residual) if t is not None)):
         return ref.adaln_ref(x, shift, scale, gate, residual, ln=ln)
@@ -229,6 +342,67 @@ def fused_adaln(x, shift=None, scale=None, gate=None, residual=None, *,
     return out
 
 
+def fused_adaln_bwd(x, shift=None, scale=None, gate=None, dy=None, *,
+                    ln: bool = True):
+    """K1's backward: (dx, dshift, dscale, dgate, dresidual) of
+    :func:`fused_adaln` for the output gradient ``dy`` (None where the
+    operand is absent; the residual's presence follows the gate's).  On
+    the card a row kernel writes dx and dresidual and each block's column
+    partials of dshift/dscale/dgate into scratch, and a second launch sums
+    the partials in a fixed order (deterministic, no atomics); one call
+    counts one launch.  The CPU version is ``ref.adaln_bwd_ref``."""
+    given = [t for t in (x, shift, scale, gate, dy) if t is not None]
+    if not x.is_cuda and not _on_card(*given):
+        return ref.adaln_bwd_ref(x, shift, scale, gate, dy, ln=ln)
+    name = "fused_adaln_bwd"
+    b, n, d = x.shape
+    specs = [("x", x, (b, n, d)), ("dy", dy, (b, n, d))]
+    if shift is not None:
+        specs += [("shift", shift, (b, d)), ("scale", scale, (b, d))]
+    if gate is not None:
+        specs += [("gate", gate, (b, d))]
+    dtype = _check(name, x, *specs)
+    if not 0 < d <= MAX_ADALN_DIM or b * n == 0:
+        raise ValueError(f"{name}: unsupported shape {tuple(x.shape)}")
+    dx = torch.empty_like(x)
+    dres = dshift = dscale = dgate = partial = None
+    if shift is not None:
+        dshift, dscale = torch.empty_like(shift), torch.empty_like(scale)
+    if gate is not None:
+        dgate, dres = torch.empty_like(gate), torch.empty_like(x)
+    tiles = -(-n // ADALN_BWD_ROWS)
+    if shift is not None or gate is not None:
+        partial = torch.empty(b * tiles * 3 * d, dtype=torch.float32,
+                              device=x.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    dev = x.get_device()
+    _launch(name, _fn("gfdit_adaln_bwd"), x.data_ptr(), ptr(shift),
+            ptr(scale), ptr(gate), dy.data_ptr(), dx.data_ptr(), ptr(dres),
+            ptr(dshift), ptr(dscale), ptr(dgate), ptr(partial), b, n, d,
+            tiles, int(ln), dtype, dev, _stream(dev))
+    return dx, dshift, dscale, dgate, dres
+
+
+class _AdaLN(torch.autograd.Function):
+    """K1 with its backward kernel; the forward saves x and the (B, D)
+    modulation rows (the residual's gradient is the output's)."""
+
+    @staticmethod
+    def forward(ctx, x, shift, scale, gate, residual, ln):
+        ctx.save_for_backward(x, shift, scale, gate)
+        ctx.ln = ln
+        return _adaln_fwd(x, shift, scale, gate, residual, ln)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, shift, scale, gate = ctx.saved_tensors
+        dx, dshift, dscale, dgate, dres = fused_adaln_bwd(
+            x, shift, scale, gate, dy.contiguous(), ln=ctx.ln)
+        return dx, dshift, dscale, dgate, dres, None
+
+
 def ssd(x, dt, A, B, C, *, chunk: int = 128):
     """Mamba2 SSD chunked scan.  x: (b, l, h, p); dt: (b, l, h) and
     A: (h,) fp32; B/C: (b, l, n) of x's dtype (fp32 or bf16); x, B and C
@@ -239,7 +413,11 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
     of ``chunk``; the CPU version is the sequential recurrence.  On the
     card one call runs the four stage kernels of ``csrc/ssd.cu``
     (:data:`SSD_STAGES`) and counts one launch; their scratch is
-    allocated here (``ref.ssd_chunked_ref`` computes the same stages)."""
+    allocated here (``ref.ssd_chunked_ref`` computes the same stages).
+    No backward yet: raises when autograd would differentiate through it."""
+    _refuse_grad("ssd", "K4's backward (the SSD chunked-scan gradient) is "
+                 "the next slice of the port, so the ssm and hybrid "
+                 "families cannot train yet", x, dt, A, B, C)
     if not (x.is_cuda or _on_card(x, dt, A, B, C)):
         return ref.ssd_ref(x, dt, A, B, C, chunk=chunk)
     name = "ssd"

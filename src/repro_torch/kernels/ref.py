@@ -4,28 +4,72 @@ Each follows its JAX oracle in ``repro/kernels/ref.py`` line for line:
 softmax and normalisation run in fp32 and the result is cast back to the
 input's dtype.  The wrappers in :mod:`repro_torch.kernels.ops` run these
 for CPU tensors only; on the card they are what the kernels are held to.
+
+The backward kernels of K2 and K1 have plain versions here too
+(:func:`attention_bwd_ref`, :func:`adaln_bwd_ref`): the closed-form
+gradients, in fp32, of :func:`attention_ref` and :func:`adaln_ref`, which
+is what ``jax.vjp`` of the JAX oracles computes.  The JAX package has no
+backward kernel (it trains through its jnp path).
 """
 from __future__ import annotations
 
 import torch
 
 
-def attention_ref(q, k, v, *, causal: bool = False):
-    """q: (B, Sq, H, d); k/v: (B, Sk, KV, d). fp32 softmax."""
-    b, sq, h, d = q.shape
-    kv = k.shape[2]
-    group = h // kv
-    k = torch.repeat_interleave(k, group, dim=2)
-    v = torch.repeat_interleave(v, group, dim=2)
+def _scores(q, k, causal: bool):
+    """fp32 scores q.k^T / sqrt(d), (B, H, Sq, Sk), with k's heads
+    repeated over their GQA group and the causal mask filled with -1e30."""
+    sq, h, d = q.shape[1:]
+    k = torch.repeat_interleave(k, h // k.shape[2], dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / (d ** 0.5)
     if causal:
         mask = torch.tril(torch.ones((sq, k.shape[1]), dtype=torch.bool,
                                      device=q.device),
                           diagonal=k.shape[1] - sq)
         s = torch.where(mask[None, None], s, -1e30)
-    p = torch.softmax(s, dim=-1)
+    return s
+
+
+def attention_ref(q, k, v, *, causal: bool = False):
+    """q: (B, Sq, H, d); k/v: (B, Sk, KV, d). fp32 softmax."""
+    v = torch.repeat_interleave(v, q.shape[2] // v.shape[2], dim=2)
+    p = torch.softmax(_scores(q, k, causal), dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return out.to(q.dtype)
+
+
+def attention_lse_ref(q, k, *, causal: bool = False):
+    """The log-sum-exp of each query row's scaled scores, (B, H, Sq) fp32,
+    in natural-log units: what K2's forward writes for its backward."""
+    return torch.logsumexp(_scores(q, k, causal), dim=-1)
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = False):
+    """Gradients (dq, dk, dv) of :func:`attention_ref` for the output
+    gradient ``do``, in closed form (FlashAttention-2's), in fp32:
+
+        P = exp(S - lse),  D = rowsum(dO * O),  dS = P * (dO V^T - D),
+        dQ = scale dS K,   dK = scale dS^T Q,   dV = P^T dO,
+
+    with S the masked scaled scores of :func:`_scores` (masked entries
+    give P = 0) and dK, dV summed over each KV head's query group.
+    o: the forward's output; lse: (B, H, Sq) fp32.  Each gradient comes
+    back in its operand's dtype."""
+    b, sk, kv, d = k.shape
+    group = q.shape[2] // kv
+    scale = d ** -0.5
+    p = torch.exp(_scores(q, k, causal) - lse[..., None].float())
+    dof = do.float()
+    kr = torch.repeat_interleave(k, group, dim=2).float()
+    vr = torch.repeat_interleave(v, group, dim=2).float()
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)          # (B, H, Sq)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vr) - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(b, sk, kv, group, d).sum(3)
+    dv = dv.reshape(b, sk, kv, group, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def adaln_ref(x, shift=None, scale=None, gate=None, residual=None, *,
@@ -47,6 +91,45 @@ def adaln_ref(x, shift=None, scale=None, gate=None, residual=None, *,
     if gate is not None:
         out = residual.float() + gate.float()[:, None] * out
     return out.to(x.dtype)
+
+
+def adaln_bwd_ref(x, shift=None, scale=None, gate=None, dy=None, *,
+                  ln: bool = True, eps: float = 1e-6):
+    """Gradients of :func:`adaln_ref` for the output gradient ``dy``, in
+    closed form, in fp32: (dx, dshift, dscale, dgate, dresidual), None
+    where the operand is absent.  With x^ = LN(x) (or x), the branch
+    y = x^ (1 + scale) + shift (or x^) and dy' = dy * gate (or dy):
+
+        dresidual = dy,  dgate = sum_n dy * y,  dshift = sum_n dy',
+        dscale = sum_n dy' * x^,  dx^ = dy' (1 + scale),
+        dx = rstd (dx^ - mean(dx^) - x^ mean(dx^ x^))   (LN; else dx^),
+
+    the sums over the N tokens of each batch row, the means over D.
+    Each gradient comes back in x's dtype."""
+    dt = x.dtype
+    xf, g = x.float(), dy.float()
+    if ln:
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        rstd = torch.rsqrt(var + eps)
+        xh = (xf - mu) * rstd
+    else:
+        xh = xf
+    dshift = dscale = dgate = dres = None
+    if gate is not None:
+        y = xh if shift is None else \
+            xh * (1.0 + scale.float()[:, None]) + shift.float()[:, None]
+        dgate = (g * y).sum(1).to(dt)
+        dres = dy.to(dt)
+        g = g * gate.float()[:, None]
+    if shift is not None:
+        dshift = g.sum(1).to(dt)
+        dscale = (g * xh).sum(1).to(dt)
+        g = g * (1.0 + scale.float()[:, None])
+    if ln:
+        g = rstd * (g - g.mean(-1, keepdim=True)
+                    - xh * (g * xh).mean(-1, keepdim=True))
+    return g.to(dt), dshift, dscale, dgate, dres
 
 
 def splice_attention_ref(q, k_stale, v_stale, k_fresh, v_fresh, *,

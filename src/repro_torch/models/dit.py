@@ -1,11 +1,17 @@
-"""Latent Diffusion Transformer (DiT, arXiv:2212.09748): the serving
-path of ``repro/models/dit.py`` in PyTorch.
+"""Latent Diffusion Transformer (DiT, arXiv:2212.09748):
+``repro/models/dit.py`` in PyTorch.
 
 adaLN-Zero blocks with self-attention over latent tokens and
 cross-attention to text conditioning (PixArt-style).  Every LN/modulate
 and gated-residual site goes through the fused adaLN kernel, every
 attention through the flash-attention kernel, and a §11 cache hit through
-the splice-attention kernel (:mod:`repro_torch.kernels.ops`).
+the splice-attention kernel (:mod:`repro_torch.kernels.ops`).  Two
+forwards: ``forward_sp_tokens`` (the serving path, a token shard under
+sequence parallelism, gathering K/V between projection and attention)
+and ``forward`` (the whole latent through ``dit_block_apply``, bf16 by
+default, with ``remat``; the flow-matching trainer's).  K1 and K2
+differentiate through their backward kernels, so ``forward`` trains on
+the card.
 
 Token layout: latents (B, F, H, W, C) -> patchify p x p spatial ->
 (B, F*(H/p)*(W/p), p*p*C) -> linear embed -> N tokens.
@@ -21,7 +27,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.layers import pspec, pzeros
+from repro_torch.models.layers import pspec, pzeros, resolve_device
 
 # ---------------------------------------------------------------------------
 # Embeddings
@@ -118,6 +124,84 @@ class DiT(nn.Module):
         # rank thread shares
         self.register_buffer("pos_freqs", _pos_freqs(d // 2).to(device),
                              persistent=False)
+
+
+def liven_adaln(model: DiT, d_model: int, *, seed: int = 123,
+                scale: float = 0.05) -> None:
+    """Small seeded draws, in place, for a DiT's zero-initialised adaLN
+    modulation (``ada_w``, ``ada_b``, ``final_ada_*``) and output head
+    (``final_out``).  At the JAX init they are zero (adaLN-Zero), so every
+    attention and adaLN branch is gated off and gets a zero upstream
+    gradient.  The draws come from a ``torch.Generator`` on the model's
+    device, scaled by (128 / d_model)^1/2 so that the modulation keeps
+    the size it has at the reduced width (d_model 128)."""
+    device = model.final_out.device
+    scale = scale * math.sqrt(128 / d_model)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = [p for blk in model.blocks for p in (blk.ada_w, blk.ada_b)]
+    params += [model.final_ada_w, model.final_ada_b, model.final_out]
+    with torch.no_grad():
+        for p in params:
+            p.copy_(scale * torch.randn(p.shape, generator=gen,
+                                        device=device))
+
+
+def init(cfg: ModelConfig, *, generator=None, device=None) -> DiT:
+    """``dit.init``: a DiT at cfg's shapes on ``device`` (the card by
+    default), weights from ``generator`` (seed 0 by default)."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return DiT(cfg, generator=generator, device=device)
+
+
+def dit_block_apply(p: DiTBlock, x, c, txt, cfg: ModelConfig):
+    """x: (B, N, D) latent tokens; c: (B, D) adaLN cond; txt: (B, Lt, D)."""
+    sh_a, sc_a, g_a, sh_m, sc_m, g_m = _split_mods(c, p.ada_w, p.ada_b, 6)
+    h = _mod_norm(x, sh_a, sc_a)
+    attn, _ = L.attention_apply(p.attn, h, cfg, causal=False, use_rope=False)
+    x = _gated_residual(x, g_a, attn)
+
+    # cross-attention to text conditioning (not modulated, PixArt-style)
+    h = _mod_norm(x)
+    ca, _ = L.attention_apply(p.cross, h, cfg, causal=False, kv_x=txt,
+                              use_rope=False)
+    x = x + ca
+
+    h = _mod_norm(x, sh_m, sc_m)
+    return _gated_residual(x, g_m, L.swiglu_apply(p.mlp, h))
+
+
+def forward(model: DiT, latents, t, txt_embeds, cfg: ModelConfig, *,
+            dtype=torch.bfloat16, remat: str = "none"):
+    """Denoiser forward: predicts velocity/noise for latent input.
+
+    latents: (B, F, H, W, C); t: (B,) timesteps; txt_embeds:
+    (B, Lt, cond_dim).  Returns (B, F, H, W, C) fp32.  The timestep path
+    runs in fp32 against weights cast to ``dtype``, as JAX's promotion
+    of an fp32 einsum with a bf16 operand does.  ``remat="full"``
+    recomputes each block in the backward (JAX's ``jax.checkpoint`` of
+    the scan body; other values, as in JAX, recompute nothing).
+    """
+    dc = cfg.dit
+    shape = latents.shape
+    x = patchify(latents, dc.patch_size).to(dtype) @ model.x_embed.to(dtype)
+    x = x + _sincos(x.shape[1], model.pos_freqs).to(dtype)[None]
+
+    t_emb = timestep_embedding(t, 256)
+    c = t_emb @ model.t_mlp1.to(dtype).float()
+    c = F.silu(c) @ model.t_mlp2.to(dtype).float()
+    txt = txt_embeds.to(dtype) @ model.txt_proj.to(dtype)
+    # keep the conditioning in compute dtype, as JAX's scan carry
+    c = (c + txt.mean(dim=1)).to(dtype)
+
+    block = L.remat(dit_block_apply, "full" if remat == "full" else "none")
+    for blk in model.blocks:
+        x = block(blk, x, c, txt, cfg)
+
+    sh, sc = _split_mods(c, model.final_ada_w, model.final_ada_b, 2)
+    x = _mod_norm(x, sh, sc) @ model.final_out.to(dtype)
+    return unpatchify(x.float(), shape, dc.patch_size)
 
 
 def patchify(latents, patch: int):

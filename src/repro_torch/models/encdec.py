@@ -150,9 +150,10 @@ def _scan_dec(model: EncDec, caches, x, enc_out, cfg: ModelConfig, positions,
 
 
 def forward(model: EncDec, tokens, frames, cfg: ModelConfig, *,
-            dtype=torch.bfloat16):
+            remat: str = "none", dtype=torch.bfloat16):
     """Teacher-forced logits (B, S, V) in fp32, and a zero aux loss.
-    frames: the stub frontend's embeddings."""
+    frames: the stub frontend's embeddings.  ``remat`` is taken and
+    unused, as in the JAX package."""
     enc_out = encode(model, frames.to(dtype), cfg)
     x = L.embed(model.embed, tokens, cfg, dtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]

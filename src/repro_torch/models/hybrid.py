@@ -77,24 +77,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _scan_groups(model: Hybrid, caches, x, cfg: ModelConfig, positions):
-    """Each group's Mamba2 layers, then the shared block.  Returns (x,
-    (new Mamba2 caches, new shared K/V caches)) or (x, None)."""
+    """Each group's Mamba2 layers, then the shared block, with their
+    caches.  Returns (x, (new Mamba2 caches, new shared K/V caches))."""
     m_new, a_lens = [], []
     for g, group in enumerate(model.mamba_groups):
         m_new.append([])
         for j, blk in enumerate(group):
-            c = None if caches is None else \
-                {key: v[g, j] for key, v in caches["mamba_groups"].items()}
+            c = {key: v[g, j] for key, v in caches["mamba_groups"].items()}
             x, nc = S.ssd_block_apply(blk, x, cfg, cache=c)
             m_new[-1].append(nc)
-        a_c = None if caches is None else \
-            {key: v[g] for key, v in caches["shared_kv"].items()}
+        a_c = {key: v[g] for key, v in caches["shared_kv"].items()}
         x, nac, _ = T.block_apply(model.shared_attn, x, cfg, window=0,
                                   positions=positions, cache=a_c)
-        if nac is not None:
-            a_lens.append(nac["len"])
-    if caches is None:
-        return x, None
+        a_lens.append(nac["len"])
     mamba = {key: torch.stack([torch.stack([c[key] for c in grp])
                                for grp in m_new])
              for key in m_new[0][0]}
@@ -115,12 +110,25 @@ def _apply_tail(model: Hybrid, caches, x, cfg: ModelConfig):
     return x, new
 
 
-def forward(model: Hybrid, tokens, cfg: ModelConfig, *,
+def _group(model: Hybrid, g: int, x, cfg: ModelConfig, positions):
+    """One group's Mamba2 layers, then the shared block, uncached."""
+    for blk in model.mamba_groups[g]:
+        x, _ = S.ssd_block_apply(blk, x, cfg)
+    return T.block_apply(model.shared_attn, x, cfg, window=0,
+                         positions=positions)[0]
+
+
+def forward(model: Hybrid, tokens, cfg: ModelConfig, *, remat: str = "none",
             dtype=torch.bfloat16):
-    """Teacher-forced logits (b, s, vocab) in fp32, and the zero aux loss."""
+    """Teacher-forced logits (b, s, vocab) in fp32, and the zero aux loss.
+    ``remat="full"`` recomputes each group in the backward (JAX's
+    ``jax.checkpoint`` of the group); K4 has no backward yet, so a
+    differentiated forward raises in ``ops.ssd``."""
     x = L.embed(model.embed, tokens, cfg, dtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, _ = _scan_groups(model, None, x, cfg, positions)
+    fn = L.remat(_group, "full" if remat == "full" else "none")
+    for g in range(len(model.mamba_groups)):
+        x = fn(model, g, x, cfg, positions)
     x, _ = _apply_tail(model, None, x, cfg)
     x = L.rmsnorm(model.ln_final, x, cfg.norm_eps)
     return L.unembed(model.embed, x, cfg), torch.zeros((), device=x.device)

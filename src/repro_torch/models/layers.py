@@ -20,10 +20,12 @@ copies; in place, a decode step does not copy every layer's cache.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -39,6 +41,36 @@ def resolve_device(device) -> torch.device:
                            "the model on the CPU (the kernels' plain "
                            "versions)")
     return device
+
+
+def _matmul_policy(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: keep the outputs of
+    products without batch dimensions, recompute everything else."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default):
+        return torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch.utils.checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, mode: str):
+    """``fn`` under the JAX package's rematerialization ``mode``:
+    ``"none"`` as is; ``"full"`` recomputed in the backward
+    (``jax.checkpoint``: ``torch.utils.checkpoint``, non-reentrant);
+    ``"selective"`` saving only the plain matmul outputs
+    (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``).
+    All three give the same values."""
+    if mode == "none":
+        return fn
+    if mode == "full":
+        return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                                 use_reentrant=False)
+    if mode == "selective":
+        ctx = functools.partial(
+            torch.utils.checkpoint.create_selective_checkpoint_contexts,
+            _matmul_policy)
+        return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                                 use_reentrant=False, context_fn=ctx)
+    raise ValueError(f"remat: unknown mode {mode!r}")
 
 
 # ---------------------------------------------------------------------------

@@ -207,21 +207,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0,
 
 
 def _scan(model: Mamba2, caches, x, cfg: ModelConfig):
+    """Every layer with its cache (prefill, decode)."""
     new = []
     for i, blk in enumerate(model.blocks):
-        c_l = None if caches is None else \
-            {k: v[i] for k, v in caches["blocks"].items()}
+        c_l = {k: v[i] for k, v in caches["blocks"].items()}
         x, nc = ssd_block_apply(blk, x, cfg, cache=c_l)
         new.append(nc)
-    if caches is None:
-        return x, None
     return x, {k: torch.stack([c[k] for c in new]) for k in new[0]}
 
 
-def forward(model: Mamba2, tokens, cfg: ModelConfig, *, dtype=torch.bfloat16):
-    """Teacher-forced logits (b, s, vocab) in fp32, and the zero aux loss."""
+def _block(blk, x, cfg: ModelConfig):
+    return ssd_block_apply(blk, x, cfg)[0]
+
+
+def forward(model: Mamba2, tokens, cfg: ModelConfig, *, remat: str = "none",
+            dtype=torch.bfloat16):
+    """Teacher-forced logits (b, s, vocab) in fp32, and the zero aux loss.
+    ``remat="full"`` recomputes each layer in the backward (JAX's
+    ``jax.checkpoint`` of the scan body); K4 has no backward yet, so a
+    differentiated forward raises in ``ops.ssd``."""
     x = L.embed(model.embed, tokens, cfg, dtype)
-    x, _ = _scan(model, None, x, cfg)
+    fn = L.remat(_block, "full" if remat == "full" else "none")
+    for blk in model.blocks:
+        x = fn(blk, x, cfg)
     x = L.rmsnorm(model.ln_final, x, cfg.norm_eps)
     return L.unembed(model.embed, x, cfg), torch.zeros((), device=x.device)
 

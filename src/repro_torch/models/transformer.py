@@ -17,9 +17,11 @@ and rope-key) leaves are written in place
 The uncached forward's full attention goes through the flash-attention
 kernel (causal); windowed layers, MLA (plain einsums in both packages),
 prefill and decode run plain tensor ops, as the JAX model does.  Decode
-steps run the MoE with exact capacity (no drops).  ``remat`` and the
-sharding constraints (``repro.sharding.ctx.constrain``, no effect
-without a mesh) are later slices.
+steps run the MoE with exact capacity (no drops).  The forward takes
+JAX's ``remat`` (``"none"``, ``"full"`` or ``"selective"``, per
+super-block; :func:`repro_torch.models.layers.remat`).  The sharding
+constraints (``repro.sharding.ctx.constrain``, no effect without a mesh)
+are a later slice.
 
 Entry points build on the card unless given ``device="cpu"``.
 """
@@ -176,27 +178,42 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # Forward passes
 # ---------------------------------------------------------------------------
 
+def _super_block(sup, x, cfg: ModelConfig, plan, positions):
+    """One uncached super-block. Returns (x, aux)."""
+    aux = torch.zeros((), device=x.device)
+    for pos in range(plan["period"]):
+        x, _, a = block_apply(sup[f"pos{pos}"], x, cfg,
+                              window=plan["windows"][pos], positions=positions)
+        aux = aux + a
+    return x, aux
+
+
 def _scan_blocks(model: Transformer, caches, x, cfg: ModelConfig, plan,
                  positions, mla_absorbed: bool = False,
-                 moe_exact: bool = False, sp_decode: bool = False):
-    """Walk the super-block stack. Returns (x, new_caches, aux_sum)."""
+                 moe_exact: bool = False, sp_decode: bool = False,
+                 remat: str = "none"):
+    """Walk the super-block stack. Returns (x, new_caches, aux_sum).
+    Uncached (the forward), each super-block under ``remat``; cached
+    (prefill, decode), each layer with its cache."""
     aux = torch.zeros((), device=x.device)
+    if caches is None:
+        fn = L.remat(_super_block, remat)
+        for sup in model.blocks:
+            x, a = fn(sup, x, cfg, plan, positions)
+            aux = aux + a
+        return x, None, aux
     lens = {f"pos{pos}": [] for pos in range(plan["period"])}
     for i, sup in enumerate(model.blocks):
         for pos in range(plan["period"]):
             key = f"pos{pos}"
-            c = None if caches is None else \
-                {k: v[i] for k, v in caches["blocks"][key].items()}
+            c = {k: v[i] for k, v in caches["blocks"][key].items()}
             x, nc, a = block_apply(sup[key], x, cfg,
                                    window=plan["windows"][pos],
                                    positions=positions, cache=c,
                                    mla_absorbed=mla_absorbed,
                                    moe_exact=moe_exact, sp_decode=sp_decode)
             aux = aux + a
-            if nc is not None:
-                lens[key].append(nc["len"])
-    if caches is None:
-        return x, None, aux
+            lens[key].append(nc["len"])
     # k/v (MLA: c/kr) were written in place through the per-layer views
     new = {key: {**caches["blocks"][key], "len": torch.stack(lens[key])}
            for key in lens}
@@ -212,7 +229,7 @@ def _embed(model: Transformer, tokens, cfg: ModelConfig, dtype,
 
 
 def forward(model: Transformer, tokens, cfg: ModelConfig, *,
-            dtype=torch.bfloat16, extra_embeds=None):
+            remat: str = "none", dtype=torch.bfloat16, extra_embeds=None):
     """Teacher-forced logits (B, S, V) in fp32, and the aux loss.
 
     ``extra_embeds``: optional (B, S_front, d) modality-frontend embeddings
@@ -226,7 +243,8 @@ def forward(model: Transformer, tokens, cfg: ModelConfig, *,
         x, _, a = block_apply(getattr(model, f"dense_{i}"), x, cfg,
                               window=0, positions=positions)
         aux_total = aux_total + a
-    x, _, aux = _scan_blocks(model, None, x, cfg, plan, positions)
+    x, _, aux = _scan_blocks(model, None, x, cfg, plan, positions,
+                             remat=remat)
     x = L.rmsnorm(model.ln_final, x, cfg.norm_eps)
     return L.unembed(model.embed, x, cfg), aux_total + aux
 

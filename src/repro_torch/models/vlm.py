@@ -20,9 +20,10 @@ decode_step = T.decode_step
 
 
 def forward(model: T.Transformer, tokens, patches, cfg: ModelConfig, *,
-            dtype=torch.bfloat16):
+            remat: str = "none", dtype=torch.bfloat16):
     """patches: (B, frontend_seq, d) precomputed patch embeddings (stub)."""
-    return T.forward(model, tokens, cfg, dtype=dtype, extra_embeds=patches)
+    return T.forward(model, tokens, cfg, remat=remat, dtype=dtype,
+                     extra_embeds=patches)
 
 
 def prefill(model: T.Transformer, tokens, patches, cache, cfg: ModelConfig,

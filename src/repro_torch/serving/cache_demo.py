@@ -41,7 +41,6 @@ tests/test_torch_scenario_cache.py and ``chip_smoke.py``.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
@@ -52,6 +51,7 @@ from repro_torch.core.scheduler import (ControlPlane, Dispatch, Policy,
 from repro_torch.core.simulator import SimBackend
 from repro_torch.core.trajectory import ExecutionLayout, Request
 from repro_torch.diffusion.adapters import convert_request
+from repro_torch.models import dit
 from repro_torch.serving.engine import ServingEngine
 
 RES = 128                    # 64 latent tokens: small, fast
@@ -107,23 +107,14 @@ def cache_modes(events: list[dict]) -> list[tuple]:
 
 def _liven(pipeline, seed: int = 123, scale: float = 0.05):
     """Replace the adaLN-Zero zero-init gates (and the zero output head)
-    with small fixed-seed values.  An untrained DiT gates its attention
-    output by exactly zero, so stale-KV reuse would be vacuously exact —
-    livening the gates makes the error-budget claim a real measurement
-    while keeping every leg of the demo deterministic (same seed, same
-    perturbation, every engine).  The draws come from a
-    ``torch.Generator`` on the pipeline's device, scaled by
-    (128 / d_model)^1/2 so that the modulation keeps the size it has at
-    the reduced width (d_model 128)."""
-    model = pipeline.dit
-    scale = scale * math.sqrt(128 / pipeline.cfg.d_model)
-    gen = torch.Generator(device=pipeline.device).manual_seed(seed)
-    params = [p for blk in model.blocks for p in (blk.ada_w, blk.ada_b)]
-    params += [model.final_ada_w, model.final_ada_b, model.final_out]
-    with torch.no_grad():
-        for p in params:
-            p.copy_(scale * torch.randn(p.shape, generator=gen,
-                                        device=pipeline.device))
+    with small fixed-seed values (:func:`repro_torch.models.dit.
+    liven_adaln`).  An untrained DiT gates its attention output by
+    exactly zero, so stale-KV reuse would be vacuously exact — livening
+    the gates makes the error-budget claim a real measurement while
+    keeping every leg of the demo deterministic (same seed, same
+    perturbation, every engine)."""
+    dit.liven_adaln(pipeline.dit, pipeline.cfg.d_model, seed=seed,
+                    scale=scale)
 
 
 def run_wall(cfg, reqs, *, cache_interval, shift: bool = True,

@@ -1,7 +1,8 @@
 """serve_step / prefill_step factories per architecture.
 
 Port of ``repro/serving/serve_loop.py`` for every LM family (``dit``
-raises through :func:`repro_torch.models.get_model`).  The steps take
+has no prefill or decode step: its factories raise ``ValueError``; a DiT
+request is served by ``repro_torch.serving.engine.ServingEngine``).  The steps take
 the model module where the JAX steps take ``params``, and run under
 ``torch.inference_mode()``.  ``dtype`` is the activation dtype (bf16,
 the JAX default).  ``mla_absorbed`` picks MLA's absorbed decode
@@ -19,9 +20,17 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import get_model
 
 
+def _lm(cfg: ModelConfig):
+    if cfg.family == "dit":
+        raise ValueError("the dit family has no prefill or decode step: a "
+                         "DiT request is served by repro_torch.serving."
+                         "engine.ServingEngine")
+    return get_model(cfg)
+
+
 def make_serve_step(cfg: ModelConfig, *, dtype=torch.bfloat16,
                     mla_absorbed: bool = False, sp_decode: bool = False):
-    model = get_model(cfg)
+    model = _lm(cfg)
     kw = {}
     if cfg.family in ("dense", "moe", "vlm"):
         kw = {"mla_absorbed": mla_absorbed, "sp_decode": sp_decode}
@@ -34,7 +43,7 @@ def make_serve_step(cfg: ModelConfig, *, dtype=torch.bfloat16,
 
 
 def make_prefill_step(cfg: ModelConfig, *, dtype=torch.bfloat16):
-    model = get_model(cfg)
+    model = _lm(cfg)
 
     if cfg.family == "encdec":
         def prefill_step(module, tokens, frames, cache):

@@ -1,2 +1,3 @@
-"""Training-side infrastructure the serving path reuses: on-disk
-checkpoints (the denoise snapshots of ``core/failures.py``)."""
+"""Training: the train step for every family (``train_loop``), AdamW,
+gradient compression, the token pipeline, checkpoints and the resilient
+trainer; ``train_lm`` is the command-line trainer."""

@@ -67,6 +67,8 @@ def _unflatten(template, load, prefix: tuple = ()):
     if isinstance(template, (list, tuple)):
         out = [_unflatten(v, load, prefix + (str(i),))
                for i, v in enumerate(template)]
+        if hasattr(template, "_fields"):        # a NamedTuple
+            return type(template)(*out)
         return type(template)(out)
     return load("/".join(prefix), template)
 

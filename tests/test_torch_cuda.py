@@ -4,7 +4,8 @@ These need a CUDA device and nvcc (the kernels have no CPU mode) and skip
 elsewhere; the JAX side is not imported, so they run on a machine without
 JAX:  ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Tolerance: max abs error over max abs reference, <= 1e-5 in fp32 and
-<= 3e-2 in bf16 (DESIGN.md §12); the SSD scan against its sequential
+<= 3e-2 in bf16 (DESIGN.md §12); the backward kernels' gradients by
+rel-L2 per output, with the same budgets; the SSD scan against its sequential
 plain version <= 1e-4 in fp32 (two summation orders over the sequence,
 the JAX package's own kernel vs sequential bound in
 ``tests/test_kernels.py``).
@@ -188,6 +189,202 @@ def test_cuda_adaln_kernel(cuda_device, variant, dtype, d, aligned):
     got = ops.fused_adaln(t["x"], ln=ln, **kw)
     assert ops.launches["fused_adaln"] == before + 1
     _close(got, ref.adaln_ref(t["x"], ln=ln, **kw), dtype)
+
+
+#: K2's backward: causal, GQA, cross (Sq != Sk), ragged against the
+#: 64-row tile (32 at d=256), every head dim of ops.HEAD_DIMS, and the
+#: training path's shapes at small batch
+ATTN_BWD_CASES = [
+    # (b, sq, sk, h, kv, d, causal)
+    (1, 37, 77, 4, 4, 32, False),      # cross, both edges ragged
+    (2, 50, 50, 4, 2, 64, False),      # GQA
+    (1, 33, 33, 2, 2, 128, True),      # causal, odd
+    (1, 130, 130, 4, 4, 64, True),     # causal over 3 tiles
+    (1, 160, 160, 4, 2, 112, True),    # causal GQA at zamba2's head dim
+    (1, 70, 100, 2, 2, 256, False),    # d=256's 32-row tile
+    (1, 19, 19, 4, 4, 16, False),      # the reduced text encoder's
+    (2, 200, 64, 24, 24, 64, False),   # DIT_IMAGE's cross to 64 tokens
+    (1, 300, 300, 32, 4, 128, True),   # yi-6b's causal GQA
+    (2, 150, 150, 16, 16, 64, False),  # whisper's encoder self, ragged
+]
+
+
+def _rel_l2(got, want):
+    torch.cuda.synchronize()
+    got, want = got.double(), want.double()
+    assert got.shape == want.shape
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", ATTN_BWD_CASES)
+def test_cuda_attention_backward_kernel(cuda_device, b, sq, sk, h, kv, d,
+                                        causal, dtype):
+    """K2's forward log-sum-exp and its backward kernels against the plain
+    versions on the same inputs (rel-L2 per output, 1e-5 fp32, 3e-2
+    bf16); one backward call counts one launch."""
+    rng = np.random.default_rng(d + sq)
+    q = _card(rng, (b, sq, h, d), dtype, cuda_device)
+    k, v = (_card(rng, (b, sk, kv, d), dtype, cuda_device)
+            for _ in range(2))
+    do = _card(rng, (b, sq, h, d), dtype, cuda_device)
+    out, lse = ops.attention_lse(q, k, v, causal=causal)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    assert _rel_l2(lse, ref.attention_lse_ref(q, k, causal=causal)) <= 1e-6
+    _close(out, ref.attention_ref(q, k, v, causal=causal), dtype)
+    o = ref.attention_ref(q, k, v, causal=causal).contiguous()
+    lse = ref.attention_lse_ref(q, k, causal=causal)
+    before = ops.launches["attention_bwd"]
+    got = ops.attention_bwd(q, k, v, o, lse, do, causal=causal)
+    assert ops.launches["attention_bwd"] == before + 1
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        err = _rel_l2(g, w)
+        assert err <= TOL[dtype], (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", sorted(ADALN_VARIANTS) + ["modulate"])
+# DIT_IMAGE; ragged against the 16-row tile and the scalar path; widest
+@pytest.mark.parametrize("d,n", [(1536, 130), (100, 37), (4096, 20)])
+def test_cuda_adaln_backward_kernel(cuda_device, variant, dtype, d, n):
+    """K1's backward against its plain version, every variant (and
+    shift/scale without LN), rel-L2 per output."""
+    rng = np.random.default_rng(d + n)
+    b = 2
+    x = _card(rng, (b, n, d), dtype, cuda_device)
+    dy = _card(rng, (b, n, d), dtype, cuda_device)
+    t = {name: _card(rng, (b, d), dtype, cuda_device, 0.2)
+         for name in ("shift", "scale", "gate")}
+    names = ADALN_VARIANTS.get(variant, ("shift", "scale"))
+    kw = {name: t[name] for name in names if name != "residual"}
+    ln = variant not in ("gated_residual", "modulate")
+    before = ops.launches["fused_adaln_bwd"]
+    got = ops.fused_adaln_bwd(x, dy=dy, ln=ln, **kw)
+    assert ops.launches["fused_adaln_bwd"] == before + 1
+    want = ref.adaln_bwd_ref(x, dy=dy, ln=ln, **kw)
+    for name, g, w in zip(("dx", "dshift", "dscale", "dgate", "dresidual"),
+                          got, want):
+        assert (g is None) == (w is None), name
+        if w is not None:
+            err = _rel_l2(g, w)
+            assert err <= TOL[dtype], (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["attention", "fused_adaln",
+                                     "splice_attention", "ssd"])
+def test_cuda_no_wrapper_drops_a_gradient(cuda_device, wrapper):
+    """A backward() through each kernel wrapper on the card gives the
+    plain versions' gradients (autograd of ``ref.py`` on the CPU, same
+    inputs), or the wrapper raises: no operand that requires grad is
+    left without one.  K2 and K1 backpropagate through their backward
+    kernels; K3 and K4 have none yet and refuse."""
+    rng = np.random.default_rng(7)
+
+    def leaf(*shape, scale=1.0):
+        return _card(rng, shape, "float32", cuda_device, scale) \
+            .requires_grad_(True)
+    if wrapper == "splice_attention":
+        args = (leaf(1, 8, 2, 64), leaf(1, 16, 2, 64), leaf(1, 16, 2, 64),
+                leaf(1, 8, 2, 64), leaf(1, 8, 2, 64))
+        with pytest.raises(NotImplementedError, match="no backward kernel"):
+            ops.splice_attention(*args, offset=4)
+        return
+    if wrapper == "ssd":
+        x, dt, B, C = (leaf(1, 32, 2, 16), leaf(1, 32, 2, scale=0.1),
+                       leaf(1, 32, 16), leaf(1, 32, 16))
+        A = -torch.ones(2, device=cuda_device)
+        with pytest.raises(NotImplementedError, match="next slice"):
+            ops.ssd(x, dt, A, B, C, chunk=16)
+        return
+    if wrapper == "attention":
+        args = (leaf(2, 40, 4, 64), leaf(2, 40, 2, 64), leaf(2, 40, 2, 64))
+        kernel = lambda *a: ops.attention(*a, causal=True)  # noqa: E731
+        plain = lambda *a: ref.attention_ref(*a, causal=True)  # noqa: E731
+    else:
+        args = (leaf(2, 40, 96), leaf(2, 96, scale=0.2),
+                leaf(2, 96, scale=0.2), leaf(2, 96, scale=0.2),
+                leaf(2, 40, 96))
+        kernel, plain = ops.fused_adaln, ref.adaln_ref
+    dy = torch.from_numpy(rng.standard_normal(args[0].shape).astype(
+        np.float32)).to(cuda_device)
+    kernel(*args).backward(dy)
+    cpu = [a.detach().cpu().requires_grad_(True) for a in args]
+    plain(*cpu).backward(dy.cpu())
+    for a, c in zip(args, cpu):
+        assert a.grad is not None and a.grad.is_cuda
+        assert _rel_l2(a.grad, c.grad.to(cuda_device)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_serving_calls_launch_no_backward_path(cuda_device):
+    """Under inference_mode, and with operands that do not require grad,
+    K2 and K1 return outputs without a grad_fn and K2 writes no
+    log-sum-exp: the serving path launches what it did before."""
+    q = torch.randn(1, 64, 2, 64, device=cuda_device)
+    x = torch.randn(1, 64, 128, device=cuda_device, requires_grad=True)
+    with torch.inference_mode():
+        assert ops.fused_adaln(x).grad_fn is None
+    assert ops.attention(q, q, q).grad_fn is None
+    assert ops.fused_adaln(x).grad_fn is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["dit-image", "yi-6b", "whisper-medium"])
+def test_cuda_reduced_train_step_matches_the_cpu(cuda_device, arch):
+    """One fp32 step of the reduced model on the card (K1/K2 and their
+    backward kernels) and on the CPU (plain versions, closed-form
+    backward), same weights and batch: the loss and every parameter
+    leaf's gradient within 1e-4 rel-L2 (the card-vs-CPU budget of the
+    LM checks), and the updated weights of a bf16 step within 3e-2."""
+    from repro_torch.models import dit, get_model
+    from repro_torch.training import optimizer, train_loop
+    cfg = get_config(arch).reduced()
+    family = get_model(cfg)
+    cpu = family.init(cfg, device="cpu")
+    if cfg.family == "dit":
+        dit.liven_adaln(cpu, cfg.d_model)
+    card = family.init(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    batch = train_loop.synth_batch(cfg, 2, 24,
+                                   generator=torch.Generator().manual_seed(3))
+    if cfg.family == "dit":        # 16 x 16 latents: 64 tokens
+        batch = {k: v[:, :, :16, :16] if v.ndim == 5 else v
+                 for k, v in batch.items()}
+    got = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        dev = next(model.parameters()).device
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, _, grads = train_loop.grads_of(model, b, cfg, "none",
+                                             dtype=torch.float32)
+        got[name] = (float(loss), {k: g.cpu() for k, g in grads.items()})
+        step = train_loop.make_train_step(cfg, remat="full")
+        step(model, optimizer.adamw_init(dict(model.named_parameters())), b)
+    (lc, gc), (lg, gg) = got["cpu"], got["card"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for name in gc:
+        assert gg[name].norm() > 0 or gc[name].norm() == 0, name
+        err = ((gg[name].double() - gc[name].double()).norm()
+               / gc[name].double().norm().clamp_min(1e-30)).item()
+        assert err <= 1e-4, (name, err)
+    for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
+        assert _rel_l2(p, q.to(cuda_device)) <= TOL["bfloat16"], name
+
+
+@pytest.mark.cuda
+def test_cuda_ssm_refuses_to_train(cuda_device):
+    from repro_torch.models import get_model
+    from repro_torch.training import optimizer, train_loop
+    cfg = get_config("mamba2-1.3b").reduced()
+    model = get_model(cfg).init(cfg, device=cuda_device)
+    step = train_loop.make_train_step(cfg, remat="none")
+    with pytest.raises(NotImplementedError, match="next slice"):
+        step(model, optimizer.adamw_init(dict(model.named_parameters())),
+             train_loop.synth_batch(cfg, 1, 32, device=cuda_device))
 
 
 @pytest.mark.cuda

@@ -282,9 +282,13 @@ def test_configs_are_the_jax_packages():
 
 @pytest.mark.parametrize("arch", ["dit-image"])
 def test_families_not_yet_ported_raise(arch):
+    """Every family is ported now: ``get_model`` returns the DiT module
+    (``dit.forward``, the trainer's); the DiT has no prefill or decode
+    step, so the serve-loop factories refuse it."""
+    from repro_torch.models import dit
     cfg = get_config(arch)
-    for make in (get_model, serve_loop.make_prefill_step,
-                 serve_loop.make_serve_step):
-        with pytest.raises(NotImplementedError, match="later slice"):
+    assert get_model(cfg) is dit
+    for make in (serve_loop.make_prefill_step, serve_loop.make_serve_step):
+        with pytest.raises(ValueError, match="no prefill or decode step"):
             make(cfg)
     assert get_model(CFG) is ssm
