@@ -10,7 +10,8 @@ Phases, one line each (any failure raises and exits non-zero):
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: the CUDA kernels of ``src/repro_torch/csrc`` with nvcc, before
    any engine starts (a first-use build inside a rank thread would
-   outlast GFC's collective timeout).
+   outlast GFC's collective timeout); K2's backward kernels' registers,
+   spills, shared memory and blocks an SM at head dims 64 and 128.
 3. kernels: each kernel against its plain PyTorch version on the card at
    its path's full-width shapes (DIT_IMAGE for K1-K3, the mamba2-1.3b
    prefill for K4, timed at batch 4 and 1; zamba2-7b's forward for K2
@@ -20,8 +21,10 @@ Phases, one line each (any failure raises and exits non-zero):
    4-token prefill and of a decode step to them, at batch 4), fp32 and
    bf16; the backward kernels of K2 (DIT_IMAGE's self and cross
    attention at batch 2, yi-6b's causal GQA at 2 x 2048, whisper's
-   encoder self) and K1 (every variant at (2, 1024, 1536)), rel-L2 per
-   output, and K2's forward with its log-sum-exp written; and K1-K3 at
+   encoder self; bf16 on the tensor cores, fp32 on the CUDA cores, each
+   with its three kernels' device time) and K1 (every variant at (2,
+   1024, 1536)), rel-L2 per output, and K2's forward with its
+   log-sum-exp written; and K1-K3 at
    DIT_VIDEO's shapes in fp32 (K1 at D=3072, K2 self over 20,280 keys
    and cross at head dim 128, K3 at the video hit), with kernel,
    plain-version and one-PyTorch-call times from CUDA events; K4's device
@@ -88,12 +91,15 @@ Phases, one line each (any failure raises and exits non-zero):
 15. train: (a) DIT_IMAGE at full width and depth (1.73 B parameters,
    livened adaLN), bf16, AdamW, 5 steps on one synthetic batch of 2 x
    1024 latent tokens + 64 text tokens: the loss must fall at every
-   step, K1 and K2 forward and backward launched every step; then a
-   ``remat="full"`` step whose loss and grad_norm equal ``"none"``'s
-   within 3e-2; (b) yi-6b at full width, 4 of 32 layers (1.22 B
-   parameters), 3 steps of 2 x 2048 tokens from the TokenPipeline
-   through K2's causal GQA backward.  Prints the losses, step walls,
-   samples or tokens/s, peak memory and the launches a step.
+   step and stay within 3e-2 of the five losses of the CUDA-core
+   backward kernels, K1 and K2 forward and backward launched every step;
+   then a ``remat="full"`` step whose loss and grad_norm must equal
+   ``"none"``'s bit for bit (the recompute replays the same kernels on
+   the same inputs); (b) yi-6b at
+   full width, 4 of 32 layers (1.22 B parameters), 3 steps of 2 x 2048
+   tokens from the TokenPipeline through K2's causal GQA backward.
+   Prints the losses, step walls, samples or tokens/s, peak memory and
+   the launches a step.
 16. train-cpu: DIT_IMAGE and yi-6b at ``.reduced()``, one fp32 step on
    the same weights and batch on the card and the CPU: loss and every
    gradient leaf within 1e-4 rel-L2; the ssm family must refuse to train.
@@ -205,7 +211,12 @@ DIT_TRAIN_LR = 3e-5
 DIT_TRAIN_BATCH, DIT_TRAIN_STEPS = 2, 5
 YI_TRAIN = YI.with_(num_layers=4)
 YI_TRAIN_BATCH, YI_TRAIN_SEQ, YI_TRAIN_STEPS = 2, 2048, 3
-REMAT_BUDGET = 3e-2                # remat="full" vs "none", bf16
+# the five DIT_IMAGE losses with K2's backward on the CUDA cores (fp32
+# arithmetic on bf16 operands; PERF.md section 6); with the tensor-core
+# kernels, which round P and dS to bf16, each must stay within the bf16
+# budget of these
+CUDA_CORE_DIT_LOSSES = (2.31661, 2.16704, 1.98995, 1.81137, 1.67245)
+LOSS_BUDGET = 3e-2
 GRAD_CPU_BUDGET = 1e-4             # rel-L2 per gradient leaf, card vs CPU
 BWD_KERNELS = ("attention_bwd", "fused_adaln_bwd")
 SOURCES = {
@@ -406,6 +417,7 @@ def phase_build() -> None:
             spill = max(r["spill_bytes"] for r in hits)
             print(f"  {label}: {len(hits)} instantiation(s), registers "
                   f"{regs}, spill bytes {spill}", flush=True)
+    _report_attention_bwd(report)
     for f in sorted(report):      # K4 at (64, 128, 128) and (64, 64, 128)
         m = re.match(r"_ZN5gfdit(\d+)", f)
         name = f[m.end():m.end() + int(m[1])] if m else f
@@ -414,6 +426,30 @@ def phase_build() -> None:
                     f"Li64ELi{n}ELi128E" in f or name == "ssd_cb"):
                 print(f"  {name}<{'bf16' if 'bfloat' in f else 'fp32'}, "
                       f"(64,) {n}, 128>: {report[f]}", flush=True)
+
+
+def _report_attention_bwd(report: dict) -> None:
+    """K2's bf16 (tensor-core) backward kernels at the training path's
+    head dims (64: the DiT, 128: yi-6b): registers and spill bytes
+    (ptxas), shared bytes and resident blocks an SM (the occupancy
+    calculator)."""
+    if not hasattr(ops, "attention_bwd_occupancy"):   # an older checkout
+        return
+    kernels = ("attn_bwd_dkdv_mma_kernel", "attn_bwd_dq_mma_kernel")
+    for d in (64, 128):
+        parts = []
+        for kernel, (blocks, smem) in zip(
+                kernels, ops.attention_bwd_occupancy(d).values()):
+            prefix = f"_ZN5gfdit{len(kernel)}{kernel}ILi{d}E"
+            r = next((r for f, r in report.items()
+                      if f.startswith(prefix)), None)
+            regs = "?" if r is None else r["registers"]
+            spill = "?" if r is None else r["spill_bytes"]
+            parts.append(f"{kernel}<{d}> {regs} registers, spill bytes "
+                         f"{spill}, {smem / 1024:.2f} KiB shared, {blocks} "
+                         f"blocks an SM")
+        print(f"  attention_bwd bf16 d={d}: " + "; ".join(parts),
+              flush=True)
 
 
 def _rand(shape, dtype, gen, scale=1.0):
@@ -633,7 +669,8 @@ def _check_backward(dtype, results, gen) -> None:
     SDPA, or of F.layer_norm plus the modulate, in ``dtype``.  Each K2
     case first holds the forward with the log-sum-exp written (the
     training path's) to ``ref.attention_ref``/``attention_lse_ref``, and
-    the plain backward reads those refs' o and lse, not the kernel's.
+    the plain backward reads those refs' o and lse, not the kernel's;
+    then each backward call's three kernels are timed by the profiler.
     Also times that forward at the serving self shape."""
     if not hasattr(ops, "attention_bwd"):     # an older checkout (--src)
         print("  backward kernels: not in this checkout", flush=True)
@@ -684,15 +721,17 @@ def _check_backward(dtype, results, gen) -> None:
                       flops=10 * d * pairs, flops_per_s=peak, iters=10,
                       replays=5, host_calls=50, plain_iters=3,
                       library=both, library_fwd=fwd)
-        if label in ("dit self", "yi-6b causal", "whisper-medium self") \
-                or fp32:
-            timing["summary"] = f"attention_bwd {label}{tag}"
+        timing["summary"] = f"attention_bwd {label}{tag}"
         _check(f"attention_bwd {label} q{(bb, sq, h, d)} kv{(bb, sk, kv, d)}"
                f"{' causal' if causal else ''}",
                lambda: ops.attention_bwd(q, k, v, o, lse, do, causal=causal),
                lambda: ref.attention_bwd_ref(q, k, v, o_ref, lse_ref, do,
                                              causal=causal),
                dtype, results, timing, l2=True)
+        results.setdefault("attention_bwd_split", {})[f"{label}{tag}"] = \
+            kernel_split_ms(lambda: ops.attention_bwd(
+                q, k, v, o, lse, do, causal=causal),
+                f"attention_bwd {label}{tag}", "attn_bwd")
         del q, k, v, o, lse, o_ref, lse_ref, do, both, fwd
     n = 1024
     x, dy = (_rand((b, n, d_model), dtype, gen) for _ in range(2))
@@ -901,9 +940,10 @@ def ssd_flops(b, l, h, p, n, c) -> int:
     return 2 * b * total
 
 
-def ssd_stage_ms(fn, b: int, calls: int = 10) -> dict:
-    """Device ms a call of each K4 kernel (by name) over ``calls`` calls
-    under ``torch.profiler``."""
+def kernel_split_ms(fn, label: str, family: str, calls: int = 10) -> dict:
+    """Device ms a call of each kernel of ``csrc`` whose name holds
+    ``family`` (K4's four stages, K2's three backward kernels), over
+    ``calls`` calls of ``fn`` under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -914,10 +954,10 @@ def ssd_stage_ms(fn, b: int, calls: int = 10) -> dict:
     out = {}
     for avg in prof.key_averages():
         m = re.search(r"gfdit::(\w+)", avg.key)
-        if m and "ssd" in m[1] and avg.self_device_time_total > 0:
+        if m and family in m[1] and avg.self_device_time_total > 0:
             out[m[1]] = out.get(m[1], 0.0) + avg.self_device_time_total
     out = {k: v / calls / 1e3 for k, v in out.items()}
-    print(f"  ssd b={b} device ms a call by kernel: "
+    print(f"  {label} device ms a call by kernel: "
           + ", ".join(f"{k} {v:.4f}" for k, v in out.items()), flush=True)
     return out
 
@@ -970,8 +1010,9 @@ def _check_ssd(dtype, results) -> None:
                    dtype, results, None, SSD_BUDGET)
         if timing is not None and dtype == torch.float32:
             key = f"b={b}" if case != zamba else f"zamba2 b={b}"
-            results.setdefault("ssd_stages", {})[key] = ssd_stage_ms(
-                lambda a=args, c=c: ops.ssd(*a, chunk=c), b)
+            results.setdefault("ssd_stages", {})[key] = kernel_split_ms(
+                lambda a=args, c=c: ops.ssd(*a, chunk=c), f"ssd {key}",
+                "ssd")
     if dtype == torch.float32:
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         occ = {}
@@ -2066,6 +2107,15 @@ def _train_dit(smi: str) -> None:
     if not all(b < a for a, b in zip(losses, losses[1:])):
         raise AssertionError(f"train: DiT loss did not fall at every step: "
                              f"{losses}")
+    drift = max(abs(a - b) / b for a, b in zip(losses, CUDA_CORE_DIT_LOSSES))
+    print("train: DiT losses " + ", ".join(f"{v:.5f}" for v in losses)
+          + " against the CUDA-core backward's " + ", ".join(
+              f"{v:.5f}" for v in CUDA_CORE_DIT_LOSSES)
+          + f": worst rel diff {drift:.2e} (budget {LOSS_BUDGET:.0e})",
+          flush=True)
+    if not drift <= LOSS_BUDGET:
+        raise AssertionError(f"train: DiT losses {losses} drift {drift:.2e} "
+                             f"from {CUDA_CORE_DIT_LOSSES}")
 
     # remat="full" against "none" from the same weights and state
     loss_n, _, grads = train_loop.grads_of(model, batch, cfg, "none")
@@ -2082,13 +2132,13 @@ def _train_dit(smi: str) -> None:
     remat = _step_launches(before)
     err = max(abs(loss_f - float(loss_n)) / abs(float(loss_n)),
               abs(gnorm_f - gnorm_n) / gnorm_n)
+    bitwise = loss_f == float(loss_n) and gnorm_f == gnorm_n
     print(f"train: DiT remat=\"full\" step: loss {loss_f:.6f} vs "
           f"{float(loss_n):.6f}, grad_norm {gnorm_f:.5f} vs {gnorm_n:.5f} "
-          f"(remat=\"none\", same weights): rel err {err:.2e} (budget "
-          f"{REMAT_BUDGET:.0e}); wall {wall_f * 1e3:.1f} ms (the first "
-          f"remat call); launches {remat}", flush=True)
-    if not err <= REMAT_BUDGET or \
-            remat["attention"] != 2 * launches["attention"]:
+          f"(remat=\"none\", same weights): rel err {err:.2e}, bitwise "
+          f"equal {bitwise} (required); wall {wall_f * 1e3:.1f} ms (the "
+          f"first remat call); launches {remat}", flush=True)
+    if not bitwise or remat["attention"] != 2 * launches["attention"]:
         raise AssertionError(f"train: remat step {err:.2e}, {remat}")
     del model, opt, batch
     torch.cuda.empty_cache()

@@ -56,6 +56,9 @@ _SIGNATURES = {
     "gfdit_ssd_occupancy": [_I] * 9 + [_IP, _IP, _IP],
     # D, dtype, device -> blocks per SM, shared memory bytes
     "gfdit_attention_occupancy": [_I] * 3 + [_IP, _IP],
+    # D, which (0 dK/dV, 1 dQ), device -> blocks per SM, shared memory
+    # bytes (the bf16 kernels)
+    "gfdit_attention_bwd_occupancy": [_I] * 3 + [_IP, _IP],
 }
 
 
@@ -113,12 +116,17 @@ def _build(target: Path) -> None:
     target.with_suffix(".log").write_text(build_info["ptxas"])
 
 
+def library_path() -> Path:
+    """Where the library built from the current ``csrc/`` lives."""
+    return BUILD_DIR / f"libgfdit-{_digest()}.so"
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built from ``csrc/`` on the first call."""
     global _lib
     with _lock:
         if _lib is None:
-            target = BUILD_DIR / f"libgfdit-{_digest()}.so"
+            target = library_path()
             if target.exists():
                 build_info["seconds"] = 0.0
             else:

@@ -10,6 +10,10 @@ plain version <= 1e-4 in fp32 (two summation orders over the sequence,
 the JAX package's own kernel vs sequential bound in
 ``tests/test_kernels.py``).
 """
+import shutil
+import subprocess
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -206,6 +210,25 @@ ATTN_BWD_CASES = [
     (2, 200, 64, 24, 24, 64, False),   # DIT_IMAGE's cross to 64 tokens
     (1, 300, 300, 32, 4, 128, True),   # yi-6b's causal GQA
     (2, 150, 150, 16, 16, 64, False),  # whisper's encoder self, ragged
+    # the bf16 tensor-core kernels' tile edges (16 rows a warp; 64 keys a
+    # dK/dV block, 32 at d=256; 64 or 32 queries a dK/dV step; 64
+    # queries a dQ block): Sq and Sk of 1, 15, 17, 63, 65 and 129
+    (1, 1, 1, 2, 2, 64, False),
+    (1, 1, 129, 4, 2, 128, False),
+    (1, 129, 1, 2, 1, 16, False),
+    (1, 15, 17, 4, 4, 32, False),
+    (2, 17, 15, 4, 2, 64, False),
+    (1, 63, 65, 2, 2, 112, False),
+    (1, 65, 63, 2, 2, 256, False),
+    (1, 15, 15, 2, 2, 64, True),
+    (1, 17, 17, 2, 2, 256, True),
+    (1, 65, 65, 4, 4, 64, True),
+    (1, 129, 129, 2, 2, 256, True),
+    # causal over several tiles at d=112 and d=128; GQA group 8 at d=128
+    (1, 257, 257, 4, 2, 112, True),
+    (2, 193, 193, 4, 4, 128, True),
+    (1, 129, 129, 16, 2, 128, True),
+    (1, 100, 150, 16, 2, 128, False),
 ]
 
 
@@ -239,10 +262,88 @@ def test_cuda_attention_backward_kernel(cuda_device, b, sq, sk, h, kv, d,
     got = ops.attention_bwd(q, k, v, o, lse, do, causal=causal)
     assert ops.launches["attention_bwd"] == before + 1
     want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    sizes = _one_key_sizes(q, k, v, do) if sk == 1 else {}
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
-        err = _rel_l2(g, w)
+        if name in sizes:
+            err = (g.double() - w.double()).norm().item() / sizes[name]
+        else:
+            err = _rel_l2(g, w)
         assert err <= TOL[dtype], (name, err)
+
+
+def _one_key_sizes(q, k, v, do) -> dict:
+    """With one key the softmax is constant, so dq and dk are 0: each is
+    scale times dS = dP - D, the difference of two equal sums over the
+    head dim, where rel-L2 measures rounding noise against noise.  Their
+    errors are held instead against the size of what cancels: the sum of
+    |dO| |v| times |k| (dq) or |q| (dk)."""
+    d, group = q.shape[3], q.shape[2] // k.shape[2]
+    kr, vr = (torch.repeat_interleave(t, group, dim=2).double().abs()
+              for t in (k, v))
+    s = (do.double().abs() * vr).sum(-1, keepdim=True) * d ** -0.5
+    return {"dq": (s * kr).norm().item(),
+            "dk": (s * q.double().abs()).sum(1).norm().item()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", [
+    (2, 200, 200, 8, 2, 64, True), (1, 130, 77, 4, 4, 128, False),
+    (1, 70, 100, 2, 2, 256, False)])
+def test_cuda_attention_backward_is_deterministic(cuda_device, b, sq, sk, h,
+                                                 kv, d, causal, dtype):
+    """Two backward calls on the same inputs give the same bits: every
+    gradient element is summed by one thread in a fixed order (no
+    atomics)."""
+    rng = np.random.default_rng(11)
+    q, do = (_card(rng, (b, sq, h, d), dtype, cuda_device) for _ in range(2))
+    k, v = (_card(rng, (b, sk, kv, d), dtype, cuda_device)
+            for _ in range(2))
+    o, lse = ops.attention_lse(q, k, v, causal=causal)
+    first = ops.attention_bwd(q, k, v, o, lse, do, causal=causal)
+    second = ops.attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b_), name
+
+
+def _sass_functions(lib) -> dict:
+    """{mangled function name: its SASS} of a built library, by
+    ``cuobjdump -sass``; skips where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        pytest.skip("cuobjdump not found")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True, timeout=600).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return {f: "\n".join(body) for f, body in funcs.items()}
+
+
+@pytest.mark.cuda
+def test_cuda_attention_backward_bf16_runs_on_tensor_cores(cuda_device):
+    """The bf16 dK/dV and dQ kernels of every head dim hold HMMA (tensor
+    core) instructions, and the CUDA-core kernels are fp32 only: no bf16
+    head dim reaches them."""
+    from repro_torch.kernels import build
+    build.load()
+    funcs = _sass_functions(build.library_path())
+    for kernel in ("attn_bwd_dkdv_mma_kernel", "attn_bwd_dq_mma_kernel"):
+        found = {f: body for f, body in funcs.items()
+                 if f"{len(kernel)}{kernel}I" in f}
+        assert len(found) == len(ops.HEAD_DIMS), (kernel, sorted(found))
+        for f, body in found.items():
+            assert "HMMA" in body, f
+    for kernel in ("attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel"):
+        found = [f for f in funcs if f"{len(kernel)}{kernel}I" in f]
+        assert len(found) == len(ops.HEAD_DIMS), (kernel, found)
+        assert not any("bfloat16" in f for f in found), found
 
 
 @pytest.mark.cuda

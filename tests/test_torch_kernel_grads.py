@@ -119,6 +119,61 @@ def test_attention_bwd_ref_in_bf16(case):
         assert _rel(_np(c), _np(a)) <= TOL["bfloat16"], name
 
 
+#: yi-6b's causal GQA (32 query heads over 4 KV heads: group 8, head dim
+#: 128) cut to one KV head and 96 tokens
+YI_GQA_CASE = (2, 96, 96, 8, 1, 128, True)
+
+
+def _attention_bwd_bf16_rounded(q, k, v, o, lse, do, causal):
+    """K2's bf16 backward kernels in closed form, rounding where they do:
+    bf16 operands; S = Q K^T and dP = dO V^T exact products summed in
+    fp32; P = exp(S scale - lse), 0 where masked, and dS = P (dP - D) in
+    fp32; P and dS rounded to bf16 before the dV, dK and dQ products,
+    which sum in fp32; the gradients rounded to bf16."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    group = h // kv
+    qf, dof = q.float(), do.float()
+    kf = torch.repeat_interleave(k, group, dim=2).float()
+    vf = torch.repeat_interleave(v, group, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * d ** -0.5
+    keep = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        keep = torch.tril(keep)
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta[..., None])
+    p16, ds16 = (t.to(torch.bfloat16).float() for t in (p, ds))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds16, kf) * d ** -0.5
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds16, qf) * d ** -0.5
+    dv = torch.einsum("bhqk,bqhd->bkhd", p16, dof)
+    dk = dk.reshape(b, sk, kv, group, d).sum(3)
+    dv = dv.reshape(b, sk, kv, group, d).sum(3)
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("case", ATTN_CASES + [YI_GQA_CASE], ids=str)
+def test_attention_bwd_bf16_rounding_within_budget(case):
+    """The bf16 kernels' rounding points (P and dS to bf16 before their
+    products) keep each gradient within the bf16 budget of the fp32
+    closed form ``ref.attention_bwd_ref`` and of ``jax.vjp`` of the JAX
+    oracle, on the same bf16 inputs."""
+    (q, k, v, do), causal = _attn_inputs(case, seed=5)
+    bf = torch.bfloat16
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(bf) for a in (q, k, v, do))
+    o = ref.attention_ref(tq, tk, tv, causal=causal)
+    lse = ref.attention_lse_ref(tq, tk, causal=causal)
+    got = _attention_bwd_bf16_rounded(tq, tk, tv, o, lse, tdo, causal)
+    want = ref.attention_bwd_ref(tq, tk, tv, o, lse, tdo, causal=causal)
+    _, vjp = jax.vjp(lambda a, b_, c: jref.attention_ref(
+        a, b_, c, causal=causal), *(jnp.asarray(_np(t)) for t in (tq, tk, tv)))
+    jgrads = vjp(jnp.asarray(_np(tdo)))
+    for name, g, w, j in zip("qkv", got, want, jgrads):
+        assert g.dtype == bf and g.shape == w.shape, name
+        assert _rel(_np(g), _np(w)) <= TOL["bfloat16"], name
+        assert _rel(_np(g), j) <= TOL["bfloat16"], name
+
+
 def _adaln_inputs(names, seed=0, b=2, n=11, d=48):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((b, n, d)).astype(np.float32)
