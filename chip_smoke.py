@@ -11,7 +11,8 @@ Phases, one line each (any failure raises and exits non-zero):
 2. build: the CUDA kernels of ``src/repro_torch/csrc`` with nvcc, before
    any engine starts (a first-use build inside a rank thread would
    outlast GFC's collective timeout); K2's backward kernels' registers,
-   spills, shared memory and blocks an SM at head dims 64 and 128.
+   spills, shared memory and blocks an SM: fp32 at every head dim, bf16
+   at 64 and 128.
 3. kernels: each kernel against its plain PyTorch version on the card at
    its path's full-width shapes (DIT_IMAGE for K1-K3, the mamba2-1.3b
    prefill for K4, timed at batch 4 and 1; zamba2-7b's forward for K2
@@ -21,10 +22,11 @@ Phases, one line each (any failure raises and exits non-zero):
    4-token prefill and of a decode step to them, at batch 4), fp32 and
    bf16; the backward kernels of K2 (DIT_IMAGE's self and cross
    attention at batch 2, yi-6b's causal GQA at 2 x 2048, whisper's
-   encoder self; bf16 on the tensor cores, fp32 on the CUDA cores, each
-   with its three kernels' device time) and K1 (every variant at (2,
-   1024, 1536)), rel-L2 per output, and K2's forward with its
-   log-sum-exp written; and K1-K3 at
+   encoder self; on the tensor cores, bf16 products or fp32 ones as
+   three TF32 products, each with its three kernels' device time; fp32
+   with both bounds, split-TF32's and the CUDA cores') and K1 (every
+   variant at (2, 1024, 1536)), rel-L2 per output, and K2's forward with
+   its log-sum-exp written; and K1-K3 at
    DIT_VIDEO's shapes in fp32 (K1 at D=3072, K2 self over 20,280 keys
    and cross at head dim 128, K3 at the video hit), with kernel,
    plain-version and one-PyTorch-call times from CUDA events; K4's device
@@ -89,8 +91,13 @@ Phases, one line each (any failure raises and exits non-zero):
    layers, absorbed decode) and whisper-medium at ``.reduced()``, card
    vs CPU logits within 1e-4 rel-L2.
 15. train: (a) DIT_IMAGE at full width and depth (1.73 B parameters,
-   livened adaLN), bf16, AdamW, 5 steps on one synthetic batch of 2 x
-   1024 latent tokens + 64 text tokens: the loss must fall at every
+   livened adaLN) on one synthetic batch of 2 x 1024 latent tokens + 64
+   text tokens: first one fp32 gradient (``train_loop.grads_of``, K2's
+   backward 56 times in split-TF32), whose loss, global gradient norm
+   and gradient (its rel-L2 estimated by seeded random projections, over
+   every leaf and over the q, k, v projections) must lie within 1e-5 of
+   the CUDA-core kernels' (``CUDA_CORE_DIT_FP32``);
+   then bf16, AdamW, 5 steps on that batch: the loss must fall at every
    step and stay within 3e-2 of the five losses of the CUDA-core
    backward kernels, K1 and K2 forward and backward launched every step;
    then a ``remat="full"`` step whose loss and grad_norm must equal
@@ -123,6 +130,13 @@ is ``{"ok": true, "device": {...}}``.  Exits 2 without CUDA.
 runs phases 1-3 only, importing ``repro_torch`` from ``DIR`` (default:
 ``src`` beside this script; another checkout's ``src`` times that tree's
 kernels with this script's timing) and writing every timed case to FILE.
+
+    python3 chip_smoke.py --fp32-grad [--src DIR]
+
+runs phases 1-2 and the train phase's fp32 DIT_IMAGE gradient through
+DIR's kernels; it prints the values it gates before it gates them, so
+run on the tree whose fp32 backward ran on the CUDA cores it records
+``CUDA_CORE_DIT_FP32``, and thereafter reproduces it.
 """
 from __future__ import annotations
 
@@ -130,6 +144,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import inspect
 import json
 import math
 import re
@@ -166,7 +181,8 @@ from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12           # CUDA cores; the kernels use no TF32
+FP32_FLOPS_PER_S = 67e12           # CUDA cores (fp32 outside the tensor cores)
+TF32_FLOPS_PER_S = 494.7e12        # tensor cores, TF32 inputs
 BF16_FLOPS_PER_S = 989e12          # tensor cores, the peak for bf16 inputs
 BUDGET = {torch.float32: 1e-5, torch.bfloat16: 3e-2}   # DESIGN.md §12
 # K4 vs the sequential recurrence: two summation orders over 2048 steps,
@@ -217,6 +233,21 @@ YI_TRAIN_BATCH, YI_TRAIN_SEQ, YI_TRAIN_STEPS = 2, 2048, 3
 # budget of these
 CUDA_CORE_DIT_LOSSES = (2.31661, 2.16704, 1.98995, 1.81137, 1.67245)
 LOSS_BUDGET = 3e-2
+# one fp32 DIT_IMAGE gradient on the train phase's livened weights and
+# batch with K2's fp32 backward on the CUDA cores (``--fp32-grad --src``
+# of that tree, on an H100 80GB HBM3; PERF.md section 6): its loss, and by
+# group (``_grad_probes``) its norm and FP32_PROBES seeded projections;
+# the split-TF32 kernels must give each within the fp32 budget
+CUDA_CORE_DIT_FP32 = dict(loss=2.3167552947998047, probes={
+    "all": (1.0618573512033176, (
+        -0.5436788542289479, -0.42053053353220793, 2.000046497365971,
+        2.1315536003133624, -0.0042045412456677145, -0.3988950094774549,
+        0.6229518167868969, 0.7228904420411484)),
+    "qkv": (0.46566527802847857, (
+        0.8324628138519293, -0.1723280761095161, 0.7193572710069223,
+        0.08646574567560353, 0.23783361394478286, -0.025197524184553996,
+        0.9665144097781553, -0.3727531571245166))})
+FP32_PROBES = 8
 GRAD_CPU_BUDGET = 1e-4             # rel-L2 per gradient leaf, card vs CPU
 BWD_KERNELS = ("attention_bwd", "fused_adaln_bwd")
 SOURCES = {
@@ -429,27 +460,36 @@ def phase_build() -> None:
 
 
 def _report_attention_bwd(report: dict) -> None:
-    """K2's bf16 (tensor-core) backward kernels at the training path's
-    head dims (64: the DiT, 128: yi-6b): registers and spill bytes
-    (ptxas), shared bytes and resident blocks an SM (the occupancy
-    calculator)."""
+    """K2's backward kernels: registers and spill bytes (ptxas), shared
+    bytes and resident blocks an SM (the occupancy calculator), for every
+    fp32 (split-TF32) instantiation and for bf16 at the training path's
+    head dims (64: the DiT, 128: yi-6b)."""
     if not hasattr(ops, "attention_bwd_occupancy"):   # an older checkout
         return
+    # an older checkout: bf16 kernels only, their names without the dtype
+    typed = "dtype" in inspect.signature(
+        ops.attention_bwd_occupancy).parameters
     kernels = ("attn_bwd_dkdv_mma_kernel", "attn_bwd_dq_mma_kernel")
-    for d in (64, 128):
-        parts = []
-        for kernel, (blocks, smem) in zip(
-                kernels, ops.attention_bwd_occupancy(d).values()):
-            prefix = f"_ZN5gfdit{len(kernel)}{kernel}ILi{d}E"
-            r = next((r for f, r in report.items()
-                      if f.startswith(prefix)), None)
-            regs = "?" if r is None else r["registers"]
-            spill = "?" if r is None else r["spill_bytes"]
-            parts.append(f"{kernel}<{d}> {regs} registers, spill bytes "
-                         f"{spill}, {smem / 1024:.2f} KiB shared, {blocks} "
-                         f"blocks an SM")
-        print(f"  attention_bwd bf16 d={d}: " + "; ".join(parts),
-              flush=True)
+    for dtype, code, dims in ((torch.float32, "f", ops.HEAD_DIMS),
+                              (torch.bfloat16, "13__nv_bfloat16", (64, 128))):
+        if not typed and dtype == torch.float32:
+            continue
+        for d in dims:
+            occ = (ops.attention_bwd_occupancy(d, dtype) if typed
+                   else ops.attention_bwd_occupancy(d))
+            parts = []
+            for kernel, (blocks, smem) in zip(kernels, occ.values()):
+                prefix = (f"_ZN5gfdit{len(kernel)}{kernel}I"
+                          f"{code if typed else ''}Li{d}E")
+                r = next((r for f, r in report.items()
+                          if f.startswith(prefix)), None)
+                regs = "?" if r is None else r["registers"]
+                spill = "?" if r is None else r["spill_bytes"]
+                parts.append(f"{kernel}<{d}> {regs} registers, spill bytes "
+                             f"{spill}, {smem / 1024:.2f} KiB shared, "
+                             f"{blocks} blocks an SM")
+            print(f"  attention_bwd {str(dtype)[6:]} d={d}: "
+                  + "; ".join(parts), flush=True)
 
 
 def _rand(shape, dtype, gen, scale=1.0):
@@ -665,7 +705,11 @@ def _check_backward(dtype, results, gen) -> None:
     (4, 1500, 16, 64); K1 at (2, 1024, 1536), every variant.  Each
     backward is bound by the five products of 2 d flops per (query, key)
     pair (S, dP, dV, dK, dQ) or by its bytes (q, k, v, o, dO and lse
-    read, dq, dk, dv written); the library time is the backward alone of
+    read, dq, dk, dv written); K2's at the bf16 tensor-core rate in bf16,
+    and in fp32 at three TF32 products for each fp32 one on the tensor
+    cores (its ``bound_ms``; the ratio printed beside it), with the
+    CUDA-core bound of the five fp32 products printed beside it on the
+    ``bounds:`` line; the library time is the backward alone of
     SDPA, or of F.layer_norm plus the modulate, in ``dtype``.  Each K2
     case first holds the forward with the log-sum-exp written (the
     training path's) to ``ref.attention_ref``/``attention_lse_ref``, and
@@ -678,7 +722,8 @@ def _check_backward(dtype, results, gen) -> None:
     fp32 = dtype == torch.float32
     es = torch.finfo(dtype).bits // 8
     tag = "" if fp32 else " bf16"
-    peak = FP32_FLOPS_PER_S if fp32 else BF16_FLOPS_PER_S
+    # fp32: three TF32 products for each fp32 one on the tensor cores
+    peak, passes = (TF32_FLOPS_PER_S, 3) if fp32 else (BF16_FLOPS_PER_S, 1)
     d_model, heads, hd = DIT_IMAGE.d_model, DIT_IMAGE.num_heads, \
         DIT_IMAGE.head_dim
     if fp32:     # the forward with lse, beside the serving self case
@@ -717,10 +762,10 @@ def _check_backward(dtype, results, gen) -> None:
         o, lse = ops.attention_lse(q, k, v, causal=causal)
         pairs = bb * h * (sq * (sq + 1) // 2 if causal else sq * sk)
         both, fwd = _sdpa_backward(q, k, v, do, causal)
-        timing = dict(bytes=4 * (q.numel() + k.numel()) * es + 4 * lse.numel(),
-                      flops=10 * d * pairs, flops_per_s=peak, iters=10,
-                      replays=5, host_calls=50, plain_iters=3,
-                      library=both, library_fwd=fwd)
+        nbytes = 4 * (q.numel() + k.numel()) * es + 4 * lse.numel()
+        timing = dict(bytes=nbytes, flops=passes * 10 * d * pairs,
+                      flops_per_s=peak, iters=10, replays=5, host_calls=50,
+                      plain_iters=3, library=both, library_fwd=fwd)
         timing["summary"] = f"attention_bwd {label}{tag}"
         _check(f"attention_bwd {label} q{(bb, sq, h, d)} kv{(bb, sk, kv, d)}"
                f"{' causal' if causal else ''}",
@@ -728,6 +773,14 @@ def _check_backward(dtype, results, gen) -> None:
                lambda: ref.attention_bwd_ref(q, k, v, o_ref, lse_ref, do,
                                              causal=causal),
                dtype, results, timing, l2=True)
+        if fp32:
+            entry = results[timing["summary"]]
+            cc_ms, cc_by = bound_ms(nbytes, 10 * d * pairs)
+            print(f"    bounds: 3xTF32 {entry['bound_ms']:.4f} ms "
+                  f"({entry['bound_by']}; the kernel at "
+                  f"{entry['bound_ms'] / entry['ms']:.3f} of it), CUDA-core "
+                  f"fp32 {cc_ms:.4f} ms ({cc_by}; "
+                  f"{cc_ms / entry['ms']:.3f})", flush=True)
         results.setdefault("attention_bwd_split", {})[f"{label}{tag}"] = \
             kernel_split_ms(lambda: ops.attention_bwd(
                 q, k, v, o, lse, do, causal=causal),
@@ -2062,16 +2115,104 @@ def _global_norm(grads: dict) -> float:
                  .norm())
 
 
-def _train_dit(smi: str) -> None:
-    """(a) of the train phase: DIT_IMAGE at full width and depth."""
+def _dit_train_setup():
+    """DIT_IMAGE at full width and depth with livened adaLN, and its one
+    synthetic batch: (cfg, model, batch)."""
     cfg = DIT_IMAGE
     model = dit.init(cfg, generator=torch.Generator(
         device="cuda").manual_seed(0))
     dit.liven_adaln(model, cfg.d_model)
-    n_params = sum(p.numel() for p in model.parameters())
     batch = train_loop.synth_batch(
         cfg, DIT_TRAIN_BATCH, 0, device="cuda",
         generator=torch.Generator(device="cuda").manual_seed(1))
+    return cfg, model, batch
+
+
+def _grad_probes(grads: dict) -> dict:
+    """By group, the gradient's norm and FP32_PROBES seeded projections
+    sum(g * r_j), r_j standard normal from seed j, leaf by leaf in name
+    order (summed in fp64): over every leaf ("all") and over the
+    attention's q, k and v projections ("qkv", whose gradients come
+    straight out of K2's backward).  A difference e between two gradients
+    moves a projection by e . r_j, of variance |e|^2, so the RMS of the
+    projections' differences over the norm estimates e's rel-L2, which
+    the norm itself (moved by g . e + |e|^2 / 2 only) does not."""
+    groups = {"all": lambda n: True,
+              "qkv": lambda n: n.rsplit(".", 1)[-1] in ("wq", "wk", "wv")}
+    names = sorted(grads)
+    out = {}
+    for group, keep in groups.items():
+        leaves = [grads[n] for n in names if keep(n)]
+        out[group] = (float(torch.stack([g.double().norm()
+                                         for g in leaves]).norm()), [])
+    for j in range(FP32_PROBES):
+        gen = torch.Generator(device="cuda").manual_seed(j)
+        sums = dict.fromkeys(groups, 0.0)
+        for n in names:
+            g = grads[n].reshape(-1)
+            dot = float(torch.dot(g.double(), torch.randn(
+                g.numel(), generator=gen, device="cuda").double()))
+            for group, keep in groups.items():
+                sums[group] += dot if keep(n) else 0.0
+        for group in groups:
+            out[group][1].append(sums[group])
+    return out
+
+
+def _dit_fp32_grad(cfg, model, batch, smi: str) -> None:
+    """One fp32 gradient of the livened DIT_IMAGE on its batch
+    (``train_loop.grads_of``, remat "none"): K2's backward twice a layer
+    (self and cross).  Prints the wall (to the loss on the host), the
+    peak memory, the launches, the loss and ``_grad_probes``, then gates:
+    the loss, and by group the norm and the probes' estimate of the
+    gradient's rel-L2 from ``CUDA_CORE_DIT_FP32``, within the fp32
+    budget."""
+    before = dict(ops.launches)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _, grads = train_loop.grads_of(model, batch, cfg, "none",
+                                         torch.float32)
+    loss = float(loss)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = _step_launches(before)
+    probes = _grad_probes(grads)
+    del grads
+    print(f"train: DiT fp32 gradient (grads_of, remat \"none\"): loss "
+          f"{loss!r}; wall {wall * 1e3:.1f} ms; peak mem {peak:.2f} GiB; "
+          f"launches {launches}; on {smi}; norm and probes by group "
+          f"{probes!r}", flush=True)
+    if not math.isfinite(loss) or not all(
+            math.isfinite(x) for norm, ps in probes.values()
+            for x in [norm] + ps) \
+            or launches["attention_bwd"] != 2 * cfg.num_layers:
+        raise AssertionError(f"train: DiT fp32 gradient: loss {loss}, "
+                             f"probes {probes}, launches {launches}")
+    want = CUDA_CORE_DIT_FP32
+    errs = {"loss": abs(loss - want["loss"]) / abs(want["loss"])}
+    for group, (norm, ps) in probes.items():
+        want_norm, want_ps = want["probes"][group]
+        errs[f"{group} norm"] = abs(norm - want_norm) / want_norm
+        errs[f"{group} rel-L2"] = math.sqrt(sum(
+            (p - q) ** 2 for p, q in zip(ps, want_ps)) / FP32_PROBES) \
+            / want_norm
+    budget = BUDGET[torch.float32]
+    print("train: DiT fp32 gradient against the CUDA-core kernels': rel "
+          "diff " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (budget {budget:.0e})", flush=True)
+    if not max(errs.values()) <= budget:
+        raise AssertionError(f"train: DiT fp32 gradient off the CUDA-core "
+                             f"kernels': {errs}")
+
+
+def _train_dit(smi: str) -> None:
+    """(a) of the train phase: DIT_IMAGE at full width and depth, one
+    fp32 gradient, then the bf16 steps."""
+    cfg, model, batch = _dit_train_setup()
+    _dit_fp32_grad(cfg, model, batch, smi)
+    n_params = sum(p.numel() for p in model.parameters())
     tokens = DIT_TRAIN_BATCH * dit.token_count(cfg, 512, 512)
     opt = optimizer.adamw_init(dict(model.named_parameters()))
     step = train_loop.make_train_step(cfg, remat="none", lr=DIT_TRAIN_LR)
@@ -2271,6 +2412,9 @@ def main() -> int:
     parser.add_argument("--src", help="import repro_torch from this src "
                         "directory (default: the one beside this script)")
     parser.add_argument("--json", help="write every timed kernel case here")
+    parser.add_argument("--fp32-grad", action="store_true",
+                        help="run the device and build phases and the "
+                        "train phase's fp32 DIT_IMAGE gradient")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -2278,6 +2422,9 @@ def main() -> int:
         return 2
     smi = phase_device()
     phase_build()
+    if args.fp32_grad:
+        _dit_fp32_grad(*_dit_train_setup(), smi)
+        return 0
     results = phase_kernels()
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
@@ -2355,7 +2502,8 @@ def main() -> int:
             v = results[label]
             kernels[-1][label] = {k: v[k] for k in (
                 "case", "dtype", "max_abs_err", "ms", "call_ms", "host_us",
-                "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                "plain_ms", "bound_ms", "bound_by", "library_ms")
+                if k in v}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

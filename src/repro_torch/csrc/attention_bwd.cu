@@ -14,12 +14,13 @@
 // dS = P * (dP - D), dP = dO V^T:  dV = P^T dO,  dK = scale dS^T Q,
 // dQ = scale dS K.  Three launches:
 //   1. attn_bwd_delta_kernel: D, one warp a (batch, query, head) row.
-//   2. a dK/dV kernel: one block a (batch, KV head, key tile).  It holds
-//      its K and V tile in shared memory and dK, dV in registers, and
-//      walks the H/KV query heads of its GQA group and their query tiles
-//      (from the diagonal on when causal), recomputing P and dS per tile.
-//   3. a dQ kernel: one block a (batch, head, query tile), walking the
-//      key tiles (up to the diagonal when causal).
+//   2. attn_bwd_dkdv_mma_kernel: one block a (batch, KV head, key tile).
+//      It holds its K and V tile in shared memory and dK, dV in
+//      registers, and walks the H/KV query heads of its GQA group and
+//      their query tiles (from the diagonal on when causal), recomputing
+//      P and dS per tile.
+//   3. attn_bwd_dq_mma_kernel: one block a (batch, head, query tile),
+//      walking the key tiles (up to the diagonal when causal).
 // No atomics: each output element is summed by one thread in a fixed
 // order, so the result is deterministic.  Masked entries (a ragged edge,
 // above the causal diagonal) get P = 0 in fp32 score space, as the plain
@@ -28,77 +29,82 @@
 // operations, five products of 2 d flops per (query, key) pair (S, dP,
 // dV, dK, dQ); the kernels do seven (the dQ kernel recomputes S and dP).
 //
-// bf16 (the training callers' dtype): the tensor cores.  The bound is the
-// 10 d flops a pair at 989 TFLOP/s (0.0326 ms for DIT_IMAGE's self
-// attention at batch 2; the kernels do 14 d).  Every product is mma.sync
-// m16n8k16 (bf16 operands, fp32 accumulators); no wgmma, TMA or
-// multi-stage ring yet.
-//   * Tiles stay bf16 in shared memory: rows of d + 8 elements (an odd
-//     number of 16-byte units, so the 8 rows one ldmatrix phase reads
-//     fall in distinct banks), staged by 16-byte cp.async (one stage)
-//     with the ragged rows zero-filled.  Operands go to registers by
-//     ldmatrix; one read along the other axis (dO and Q for dV and dK, K
-//     for dQ) by ldmatrix.trans.
+// Both dtypes run the same two kernel templates on the tensor cores:
+// mma.sync with fp32 accumulators; no wgmma, TMA or multi-stage ring yet.
+//   * bf16 (the training callers' dtype): every product is m16n8k16 on
+//     bf16 operands.  Bound: 10 d flops a pair at 989 TFLOP/s (0.0326 ms
+//     for DIT_IMAGE's self attention at batch 2; the kernels do 14 d).
+//     P and dS are rounded to bf16 before the dV, dK and dQ products, as
+//     FlashAttention-2 does; dS is formed from the fp32 P.  S and dP are
+//     exact products of the bf16 operands summed in fp32.
+//   * fp32 (every gradient check, and any float32 caller; budget 1e-5
+//     rel-L2, where one TF32 product keeps ~5e-4): split-TF32.  Each fp32
+//     operand x splits in registers, after its fragment load, into
+//     hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest, and
+//     each product is three m16n8k8 TF32 ones, a_lo b_hi, a_hi b_lo, then
+//     a_hi b_hi (the small terms first, as CUTLASS's 3xTF32; a_lo b_lo,
+//     ~2^-22 of the product, is dropped).  P and dS stay fp32 and split
+//     the same way.  The sums over the sequence (dV, dK, dQ) go from the
+//     tensor cores to the CUDA cores every kSumSteps k steps (see
+//     mma_ab).  Bound: 3 x 10 d flops a pair at 494.7 TFLOP/s dense TF32
+//     (0.195 ms for DIT_IMAGE's self attention; the 10 d on the CUDA
+//     cores at 67 TFLOP/s would take 0.481).  A split is four integer or
+//     fp32 operations, and each fp32 product (three mma) needs 2.5 to
+//     2.75 of them at d = 64 and 128: every warp splits the shared Q/dO
+//     (dK/dV) or K/V (dQ) fragments again, so the splits' operations
+//     outnumber the mma about 3.5 to 1.
+//   * Tiles stay in the inputs' dtype in shared memory, in rows of d plus
+//     one 16-byte unit (d + 8 bf16, d + 4 fp32: the 8 rows one ldmatrix
+//     phase reads fall in distinct banks), staged by 16-byte cp.async
+//     (one stage) with the ragged rows zero-filled.  Operands along d go
+//     to registers by ldmatrix, which on fp32 rows gives exactly the TF32
+//     fragment (lane: row lane/4, word lane%4).  Reads along the other
+//     axis (dO and Q for dV and dK, K for dQ): bf16 by ldmatrix.trans;
+//     fp32 by 32-bit loads, since .trans moves 16-bit elements (see
+//     mma_ab: with pitch d + 4 = 4 (mod 16) words they are conflict-free
+//     too, so one pitch serves both reads).
 //   * dK/dV: 4 warps; a warp owns 16 keys and computes S^T = K Q^T and
 //     dP^T = V dO^T for them directly, so P^T and dS^T come out in the
-//     accumulator layout, which is the A-fragment layout of the next
-//     product: they are rounded to bf16x2 in registers and feed dV += P^T
-//     dO and dK += dS^T Q without a trip through shared memory.  dK and
-//     dV of 16 keys x d columns are d fp32 registers a thread; at d = 256
-//     two warps share 16 keys (each computes S^T and dP^T) and split the
-//     columns.  Keys a block BK = 64 (32 at d = 256); queries a step
-//     BQ = 64 at d <= 64, else 32 (registers: 16 at d = 128 fits 3 blocks
-//     an SM but was slower, the per-step barriers and staging doubled).
-//     The mask is applied only on a step that crosses a ragged edge or
-//     the causal diagonal.
+//     accumulator layout and feed dV += P^T dO and dK += dS^T Q from
+//     registers without a trip through shared memory: in bf16 two
+//     accumulator tiles are one A fragment; in TF32 one tile is one,
+//     its columns permuted (see mma_ab).  dK and dV of 16 keys x d
+//     columns are d fp32 registers a thread; at d = 256 two warps share
+//     16 keys (each computes S^T and dP^T) and split the columns (in
+//     fp32 at d = 128 too it was slower: 1.5 times the products for 3
+//     blocks an SM).  Keys a block BK = 64 (32 at d = 256); queries a
+//     step BQ = 64 at d <= 64 (fp32: d <= 32), else 32 (bf16: 16 at
+//     d = 128 fits 3 blocks an SM but was slower, the per-step barriers
+//     and staging doubled; fp32 at d = 64: 32 holds 3 blocks an SM
+//     without the 496-byte spill of 64).  The mask is applied only on a
+//     step that crosses a ragged edge or the causal diagonal.
 //   * dQ: 4 warps of 16 queries, 64 queries a block; S = Q K^T and
 //     dP = dO V^T, then dS as the A fragment of dQ += dS K.  Each row's
-//     lse and D stay in registers.  Keys a step 64 (32 at d = 256).
-//   * Rounding: P and dS are rounded to bf16 before the dV, dK and dQ
-//     products, as FlashAttention-2 does; dS is formed from the fp32 P.
-//     S and dP are exact products of the bf16 operands summed in fp32.
-//   * Occupancy (128 threads a block): dK/dV (2 BK + 2 BQ) (d + 8) bf16
-//     + 2 BQ fp32 of shared memory, 36.5 KiB at d = 64 and 51.25 KiB at
-//     d = 128; dQ (128 + 2 BK2) (d + 8) bf16, 36 and 68 KiB.  Registers
-//     bound it: the launch bounds hold dK/dV at d <= 64 and dQ at
-//     d <= 128 to 168 a thread, 3 blocks an SM (spilling 96 bytes at
-//     dK/dV d = 64, 48 and 12 at dQ d = 112 and 128); dK/dV at d = 128
-//     takes 240, 2 blocks.
+//     lse and D stay in registers.  Keys a step 64; 32 at d = 256, and
+//     in fp32 at d >= 112 (shared memory: 99 KiB at d = 128 for 2 blocks
+//     an SM, where 64 keys would take 132 KiB and allow one).
+//   * Occupancy (128 threads a block): dK/dV (2 BK + 2 BQ) P elements +
+//     2 BQ fp32 of shared memory: bf16 36.5 KiB at d = 64 and 51.25 KiB
+//     at d = 128, fp32 51.25 and 99.25 KiB; dQ (128 + 2 BK2) P: bf16 36
+//     and 68 KiB, fp32 68 and 99 KiB.  The launch bounds hold dK/dV at
+//     d <= 64 and dQ at d <= 64 (bf16: d <= 128) to 168 registers a
+//     thread, 3 blocks an SM; at d = 112 and 128 the rest take up to 240
+//     (bf16) or 255 (fp32), 2 blocks.  (ptxas's counts for every
+//     instantiation: chip_smoke.py's build phase and PERF.md section 6.)
 //   * Order: a causal dK/dV grid already starts with its heaviest key
 //     tiles (blockIdx.x = 0 walks every query tile); reversing the dQ
 //     grid's order for causal did not change its time.
 //   * A warp whose keys all lie above the causal diagonal of a query step
 //     (dK/dV), or whose queries all lie below it (dQ), skips the step's
 //     products.
-//
-// fp32: the CUDA-core kernels, unchanged (their 1e-5 budget would
-// need split-TF32 on the tensor cores).  256 threads as a 16 x 16 grid; a
-// BT x BT score tile (BT = 64, 32 at d = 256) gives each thread RT x RT
-// entries (rows ty + 16a, columns tx + 16t) and a BT x d output tile
-// RT x d/16 entries (columns tx + 16u).  Shared rows are fp32 with an odd
-// pitch (d + 1, BT + 1), so the 16 rows one load instruction reads fall
-// in 16 distinct banks and the other operand is a broadcast.  Shared
-// memory: 4 BT x (d + 1) tiles and 2 BT x (BT + 1) tiles, 100 KB at
-// d = 64 (2 blocks an SM), 166 KB at d = 128 (one).
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace gfdit {
 
-constexpr int kBwdThreads = 256;
+constexpr int kBwdThreads = 256;   // the D kernel's block
 constexpr float kBwdLog2e = 1.4426950408889634f;
-
-template <int D>
-struct BwdShape {
-  static constexpr int BT = D <= 128 ? 64 : 32;  // queries (= keys) a tile
-  static constexpr int RT = BT / 16;             // tile rows a thread
-  static constexpr int CT = D / 16;              // head-dim columns a thread
-  static constexpr int PD = D + 1;               // shared pitch of a d row
-  static constexpr int PT = BT + 1;              // shared pitch of a BT row
-  static_assert(D % 16 == 0, "attention_bwd: head dim a multiple of 16");
-  // K, V, Q and dO tiles; P and dS; lse and D of the query tile
-  static constexpr size_t kSmem =
-      sizeof(float) * (4 * BT * PD + 2 * BT * PT + 2 * BT);
-};
 
 // D[b, h, i] = sum_c dO[b, i, h, c] * O[b, i, h, c]: one warp a row of
 // the (B, Sq, H, d) layout, row r = (b * Sq + i) * H + h.
@@ -124,283 +130,44 @@ __global__ void __launch_bounds__(kBwdThreads)
 }
 
 // ---------------------------------------------------------------------------
-// fp32: the CUDA-core kernels
-// ---------------------------------------------------------------------------
-
-// Rows [r0, r0 + BT) of head `head` of a (B, S, NH, D) tensor into a
-// BT x (D + 1) fp32 shared tile; rows past S are zero.
-template <int D, int BT>
-__device__ __forceinline__ void load_rows(float* dst,
-                                          const float* __restrict__ src,
-                                          int b, int r0, int S, int NH,
-                                          int head) {
-  constexpr int PD = D + 1;
-  for (int idx = threadIdx.x; idx < BT * D; idx += kBwdThreads) {
-    const int r = idx / D, c = idx % D, row = r0 + r;
-    dst[r * PD + c] =
-        row < S ? src[((static_cast<long long>(b) * S + row) * NH + head) *
-                          D + c]
-                : 0.f;
-  }
-}
-
-// lse and D of the query tile at q0 (0 past Sq; those rows are masked).
-template <int BT>
-__device__ __forceinline__ void load_row_stats(float* Ls, float* Ds,
-                                               const float* lse_h,
-                                               const float* delta_h, int q0,
-                                               int Sq) {
-  for (int r = threadIdx.x; r < BT; r += kBwdThreads) {
-    const bool ok = q0 + r < Sq;
-    Ls[r] = ok ? lse_h[q0 + r] : 0.f;
-    Ds[r] = ok ? delta_h[q0 + r] : 0.f;
-  }
-}
-
-// For the thread's RT x RT entries of the (q0, k0) tile pair: S = Q K^T
-// and dP = dO V^T over the head dim, then P = exp(S scale - lse) (0 where
-// masked) and dS = P (dP - D), stored to shared Ps (when WRITE_P) and dSs.
-template <int D, int BT, bool WRITE_P>
-__device__ __forceinline__ void probs_and_dscores(
-    const float* Qs, const float* dOs, const float* Ks, const float* Vs,
-    const float* Ls, const float* Ds, float* Ps, float* dSs, int q0, int k0,
-    int Sq, int Sk, float scale_log2, int causal) {
-  constexpr int RT = BT / 16, PD = D + 1, PT = BT + 1;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[RT][RT], dp[RT][RT];
-#pragma unroll
-  for (int a = 0; a < RT; ++a)
-#pragma unroll
-    for (int t = 0; t < RT; ++t) s[a][t] = dp[a][t] = 0.f;
-#pragma unroll 4
-  for (int kk = 0; kk < D; ++kk) {
-    float qa[RT], oa[RT], kb[RT], vb[RT];
-#pragma unroll
-    for (int a = 0; a < RT; ++a) {
-      qa[a] = Qs[(ty + 16 * a) * PD + kk];
-      oa[a] = dOs[(ty + 16 * a) * PD + kk];
-      kb[a] = Ks[(tx + 16 * a) * PD + kk];
-      vb[a] = Vs[(tx + 16 * a) * PD + kk];
-    }
-#pragma unroll
-    for (int a = 0; a < RT; ++a)
-#pragma unroll
-      for (int t = 0; t < RT; ++t) {
-        s[a][t] = fmaf(qa[a], kb[t], s[a][t]);
-        dp[a][t] = fmaf(oa[a], vb[t], dp[a][t]);
-      }
-  }
-#pragma unroll
-  for (int a = 0; a < RT; ++a) {
-    const int r = ty + 16 * a, i = q0 + r;
-    const float lse2 = Ls[r] * kBwdLog2e, dd = Ds[r];
-#pragma unroll
-    for (int t = 0; t < RT; ++t) {
-      const int c = tx + 16 * t, j = k0 + c;
-      const bool ok = i < Sq && j < Sk && !(causal && j > i);
-      const float p = ok ? exp2f(fmaf(s[a][t], scale_log2, -lse2)) : 0.f;
-      if (WRITE_P) Ps[r * PT + c] = p;
-      dSs[r * PT + c] = p * (dp[a][t] - dd);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kBwdThreads)
-    attn_bwd_dkdv_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         int Sq, int Sk, int H, int KV, float scale,
-                         int causal) {
-  using S = BwdShape<D>;
-  constexpr int BT = S::BT, RT = S::RT, CT = S::CT, PD = S::PD, PT = S::PT;
-  extern __shared__ __align__(16) float bwd_smem[];
-  float* Ks = bwd_smem;
-  float* Vs = Ks + BT * PD;
-  float* Qs = Vs + BT * PD;
-  float* dOs = Qs + BT * PD;
-  float* Ps = dOs + BT * PD;
-  float* dSs = Ps + BT * PT;
-  float* Ls = dSs + BT * PT;
-  float* Ds = Ls + BT;
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int k0 = blockIdx.x * BT;
-  const int b = blockIdx.y / KV, kvh = blockIdx.y % KV, group = H / KV;
-  const float scale_log2 = scale * kBwdLog2e;
-  load_rows<D, BT>(Ks, k, b, k0, Sk, KV, kvh);
-  load_rows<D, BT>(Vs, v, b, k0, Sk, KV, kvh);
-
-  float dka[RT][CT], dva[RT][CT];
-#pragma unroll
-  for (int a = 0; a < RT; ++a)
-#pragma unroll
-    for (int u = 0; u < CT; ++u) dka[a][u] = dva[a][u] = 0.f;
-
-  // causal (Sq = Sk): query tiles before this key tile see none of its keys
-  const int qstart = causal ? k0 : 0;
-  for (int g = 0; g < group; ++g) {
-    const int h = kvh * group + g;
-    const long long row0 = (static_cast<long long>(b) * H + h) * Sq;
-    for (int q0 = qstart; q0 < Sq; q0 += BT) {
-      __syncthreads();       // the last tile's readers are done
-      load_rows<D, BT>(Qs, q, b, q0, Sq, H, h);
-      load_rows<D, BT>(dOs, dout, b, q0, Sq, H, h);
-      load_row_stats<BT>(Ls, Ds, lse + row0, delta + row0, q0, Sq);
-      __syncthreads();
-      probs_and_dscores<D, BT, true>(Qs, dOs, Ks, Vs, Ls, Ds, Ps, dSs, q0,
-                                     k0, Sq, Sk, scale_log2, causal);
-      __syncthreads();
-      // dV[j] += sum_i P[i][j] dO[i];  dK[j] += sum_i dS[i][j] Q[i]
-#pragma unroll 4
-      for (int i = 0; i < BT; ++i) {
-        float pj[RT], dsj[RT], oc[CT], qc[CT];
-#pragma unroll
-        for (int a = 0; a < RT; ++a) {
-          pj[a] = Ps[i * PT + ty + 16 * a];
-          dsj[a] = dSs[i * PT + ty + 16 * a];
-        }
-#pragma unroll
-        for (int u = 0; u < CT; ++u) {
-          oc[u] = dOs[i * PD + tx + 16 * u];
-          qc[u] = Qs[i * PD + tx + 16 * u];
-        }
-#pragma unroll
-        for (int a = 0; a < RT; ++a)
-#pragma unroll
-          for (int u = 0; u < CT; ++u) {
-            dva[a][u] = fmaf(pj[a], oc[u], dva[a][u]);
-            dka[a][u] = fmaf(dsj[a], qc[u], dka[a][u]);
-          }
-      }
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < RT; ++a) {
-    const int j = k0 + ty + 16 * a;
-    if (j >= Sk) continue;
-    const long long base =
-        ((static_cast<long long>(b) * Sk + j) * KV + kvh) * D;
-#pragma unroll
-    for (int u = 0; u < CT; ++u) {
-      dk[base + tx + 16 * u] = dka[a][u] * scale;
-      dv[base + tx + 16 * u] = dva[a][u];
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kBwdThreads)
-    attn_bwd_dq_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const float* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta,
-                       float* __restrict__ dq, int Sq, int Sk, int H, int KV,
-                       float scale, int causal) {
-  using S = BwdShape<D>;
-  constexpr int BT = S::BT, RT = S::RT, CT = S::CT, PD = S::PD, PT = S::PT;
-  extern __shared__ __align__(16) float bwd_smem[];
-  float* Ks = bwd_smem;
-  float* Vs = Ks + BT * PD;
-  float* Qs = Vs + BT * PD;
-  float* dOs = Qs + BT * PD;
-  float* dSs = dOs + BT * PD + BT * PT;   // the dK/dV kernel's layout
-  float* Ls = dSs + BT * PT;
-  float* Ds = Ls + BT;
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * BT;
-  const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / (H / KV);
-  const float scale_log2 = scale * kBwdLog2e;
-  const long long row0 = (static_cast<long long>(b) * H + h) * Sq;
-  load_rows<D, BT>(Qs, q, b, q0, Sq, H, h);
-  load_rows<D, BT>(dOs, dout, b, q0, Sq, H, h);
-  load_row_stats<BT>(Ls, Ds, lse + row0, delta + row0, q0, Sq);
-
-  float dqa[RT][CT];
-#pragma unroll
-  for (int a = 0; a < RT; ++a)
-#pragma unroll
-    for (int u = 0; u < CT; ++u) dqa[a][u] = 0.f;
-
-  // causal (Sq = Sk): keys past this tile's last query are never seen
-  const int kend = causal ? min(Sk, q0 + BT) : Sk;
-  for (int k0 = 0; k0 < kend; k0 += BT) {
-    __syncthreads();         // the last tile's readers are done
-    load_rows<D, BT>(Ks, k, b, k0, Sk, KV, kvh);
-    load_rows<D, BT>(Vs, v, b, k0, Sk, KV, kvh);
-    __syncthreads();
-    probs_and_dscores<D, BT, false>(Qs, dOs, Ks, Vs, Ls, Ds, nullptr, dSs,
-                                    q0, k0, Sq, Sk, scale_log2, causal);
-    __syncthreads();
-    // dQ[i] += sum_j dS[i][j] K[j]
-#pragma unroll 4
-    for (int j = 0; j < BT; ++j) {
-      float dsa[RT], kc[CT];
-#pragma unroll
-      for (int a = 0; a < RT; ++a) dsa[a] = dSs[(ty + 16 * a) * PT + j];
-#pragma unroll
-      for (int u = 0; u < CT; ++u) kc[u] = Ks[j * PD + tx + 16 * u];
-#pragma unroll
-      for (int a = 0; a < RT; ++a)
-#pragma unroll
-        for (int u = 0; u < CT; ++u)
-          dqa[a][u] = fmaf(dsa[a], kc[u], dqa[a][u]);
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < RT; ++a) {
-    const int i = q0 + ty + 16 * a;
-    if (i >= Sq) continue;
-    const long long base = ((static_cast<long long>(b) * Sq + i) * H + h) * D;
-#pragma unroll
-    for (int u = 0; u < CT; ++u)
-      dq[base + tx + 16 * u] = dqa[a][u] * scale;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16: the tensor-core kernels
+// the tensor-core kernels: bf16 m16n8k16, fp32 as split-TF32 m16n8k8
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = 32 * kMmaWarps;
 
-template <int D>
+template <typename T, int D>
 struct BwdMmaShape {
+  static constexpr bool kTf32 = std::is_same_v<T, float>;
   static constexpr int CS = D > 128 ? 2 : 1;       // warps sharing 16 keys
   static constexpr int BK = 16 * kMmaWarps / CS;   // keys a dK/dV block
-  static constexpr int BQ = D <= 64 ? 64 : 32;     // queries a dK/dV step
+  static constexpr int BQ = D <= (kTf32 ? 32 : 64) ? 64 : 32;  // dK/dV step
   static constexpr int BQ2 = 16 * kMmaWarps;       // queries a dQ block
-  static constexpr int BK2 = D <= 128 ? 64 : 32;   // keys a dQ step
-  static constexpr int P = D + 8;                  // shared pitch, bf16
+  static constexpr int BK2 = D <= (kTf32 ? 64 : 128) ? 64 : 32;  // dQ step
+  static constexpr int P = D + 16 / sizeof(T);     // shared pitch, elements
   // resident blocks an SM the launch bounds hold the registers to
   static constexpr int kDkdvBlocks = D <= 64 ? 3 : 1;
-  static constexpr int kDqBlocks = D <= 128 ? 3 : 1;
+  static constexpr int kDqBlocks =
+      D <= (kTf32 ? 64 : 128) ? 3 : (kTf32 && D <= 128 ? 2 : 1);
   static_assert(D % 16 == 0 && (D / CS) % 16 == 0,
                 "attention_bwd: head dim a multiple of 16");
   // K, V tiles, Q and dO tiles, lse * log2(e) and D of the query step
   static constexpr size_t kSmemDkdv =
-      sizeof(bf16) * (2 * BK + 2 * BQ) * P + sizeof(float) * 2 * BQ;
+      sizeof(T) * (2 * BK + 2 * BQ) * P + sizeof(float) * 2 * BQ;
   // Q and dO tiles, K and V tiles
-  static constexpr size_t kSmemDq = sizeof(bf16) * (2 * BQ2 + 2 * BK2) * P;
+  static constexpr size_t kSmemDq = sizeof(T) * (2 * BQ2 + 2 * BK2) * P;
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// Four 8x8 bf16 matrices, thread i giving the address of row i % 8 of
-// matrix i / 8; register j gets matrix j's (row lane/4, columns
-// 2 (lane%4), +1), or with .trans its (rows 2 (lane%4), +1, column lane/4).
-__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p) {
+// Four 8 x 16-byte matrices, thread i giving the address of row i % 8 of
+// matrix i / 8; register j gets matrix j's row lane/4, 32-bit word lane%4
+// (two bf16: columns 2 (lane%4), +1; or one fp32), or with .trans (bf16
+// only) its rows 2 (lane%4), +1 of column lane/4.
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -427,26 +194,97 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// acc (16 x 8 NT) += A B^T over K = 16 KS: A's 16 rows at `a` and B's
-// 8 NT rows at `b`, both row-major bf16 in shared memory at pitch P
-// (B read as the col operand, untransposed).
-template <int NT, int KS, int P>
-__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const bf16* a,
-                                        const bf16* b, int lane) {
+// c (16 x 8, fp32) += a (16 x 8, tf32, row) * b (8 x 8, tf32, col).
+// Fragments: a {(g, t), (g+8, t), (g, t+4), (g+8, t+4)}; b {(k t, n g),
+// (k t+4, n g)}; c as for bf16.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo, each TF32 rounded to nearest (ties away from zero), to
+// ~2^-22 of x.  Done as CUTLASS's 3xTF32 does, on the fp32 bits: the
+// mma reads the top 19 bits of an operand and drops the rest, so
+// bits + 0x1000 (half a TF32 ulp) is x rounded; hi's dropped bits are
+// cleared, so that x - hi is exact.  cvt.rna.tf32.f32 computes the same
+// for finite x, but sm_90a runs it as a compare, an add and a select or
+// mask (for inf and NaN): with it the DIT_IMAGE self-attention backward
+// took 1.39 ms on an H100, with the add and the mask here 1.03 (both
+// with one k step a sum in mma_ab).  An inf or NaN operand gives a NaN
+// lo, so NaN still reaches the output.
+struct Tf32Split {
+  unsigned hi, lo;
+};
+__device__ __forceinline__ Tf32Split split_tf32(float x) {
+  const unsigned hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  return {hi, __float_as_uint(x - __uint_as_float(hi)) + 0x1000u};
+}
+__device__ __forceinline__ void split_a(unsigned (&hi)[4], unsigned (&lo)[4],
+                                        float a0, float a1, float a2,
+                                        float a3) {
+  const float a[4] = {a0, a1, a2, a3};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const Tf32Split s = split_tf32(a[i]);
+    hi[i] = s.hi;
+    lo[i] = s.lo;
+  }
+}
+
+// One fp32 product in split-TF32: c += a_lo b_hi + a_hi b_lo + a_hi b_hi,
+// the small terms first.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const unsigned (&ahi)[4],
+                                           const unsigned (&alo)[4],
+                                           Tf32Split b0, Tf32Split b1) {
+  mma_tf32(c, alo, b0.hi, b1.hi);
+  mma_tf32(c, ahi, b0.lo, b1.lo);
+  mma_tf32(c, ahi, b0.hi, b1.hi);
+}
+
+// acc (16 x 8 NT) += A B^T over K = D: A's 16 rows at `a` and B's 8 NT
+// rows at `b`, both row-major T in shared memory at pitch P (B read as
+// the col operand, untransposed).  One ldmatrix.x4 a k step of 16 bytes
+// a row: k = 16 bf16 (one m16n8k16), or 8 fp32 (one m16n8k8 in
+// split-TF32, each operand split after its load).
+template <int NT, int D, int P, typename T>
+__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const T* a,
+                                        const T* b, int lane) {
   static_assert(NT % 2 == 0, "mma_abt: n tiles in pairs");
-  const bf16* pa = a + (lane & 15) * P + (lane >> 4) * 8;
-  const bf16* pb = b + ((lane & 7) + ((lane >> 4) << 3)) * P +
-                   ((lane >> 3) & 1) * 8;
+  constexpr int E = 16 / sizeof(T);      // elements a 16-byte unit
+  const T* pa = a + (lane & 15) * P + (lane >> 4) * E;
+  const T* pb = b + ((lane & 7) + ((lane >> 4) << 3)) * P +
+                ((lane >> 3) & 1) * E;
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
+  for (int ks = 0; ks < D / (2 * E); ++ks) {
     unsigned af[4];
-    ldsm4(af, pa + ks * 16);
+    ldsm4(af, pa + ks * 2 * E);
+    if constexpr (std::is_same_v<T, bf16>) {
 #pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      unsigned bfr[4];
-      ldsm4(bfr, pb + np * 16 * P + ks * 16);
-      mma_bf16(acc[2 * np], af, bfr[0], bfr[1]);
-      mma_bf16(acc[2 * np + 1], af, bfr[2], bfr[3]);
+      for (int np = 0; np < NT / 2; ++np) {
+        unsigned bfr[4];
+        ldsm4(bfr, pb + np * 16 * P + ks * 16);
+        mma_bf16(acc[2 * np], af, bfr[0], bfr[1]);
+        mma_bf16(acc[2 * np + 1], af, bfr[2], bfr[3]);
+      }
+    } else {
+      unsigned ahi[4], alo[4];
+      split_a(ahi, alo, __uint_as_float(af[0]), __uint_as_float(af[1]),
+              __uint_as_float(af[2]), __uint_as_float(af[3]));
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        unsigned bfr[4];
+        ldsm4(bfr, pb + np * 16 * P + ks * 8);
+        mma_3xtf32(acc[2 * np], ahi, alo, split_tf32(__uint_as_float(bfr[0])),
+                   split_tf32(__uint_as_float(bfr[1])));
+        mma_3xtf32(acc[2 * np + 1], ahi, alo,
+                   split_tf32(__uint_as_float(bfr[2])),
+                   split_tf32(__uint_as_float(bfr[3])));
+      }
     }
   }
 }
@@ -472,6 +310,54 @@ __device__ __forceinline__ void mma_ab(float (&acc)[NT][4],
     }
 }
 
+// acc (16 x 8 NT) += A B over K = 8 KS in split-TF32: A is the KS
+// accumulator tiles c of the previous product (16 x 8 fp32 each), B's
+// 8 KS rows (k) of 8 NT columns (n) at `b`, row-major fp32 in shared
+// memory at pitch P.  The thread's C columns 2t and 2t + 1 serve as A's
+// k slots t and t + 4, so no shuffle is needed; B's rows are read in the
+// same order, row 2t into b0 and 2t + 1 into b1, by 32-bit loads.  With
+// P = 4 (mod 16) words, the rows 2t of one load lie 8 banks apart and the
+// 8 columns g fill them: no conflict.
+//
+// These products sum over the sequence (dV and dK over the GQA group's
+// queries, dQ over the keys): thousands of mma steps an element.  The
+// tensor cores do not round their fp32 sum to nearest (they truncate the
+// aligned addends), so an accumulator carried through them all drifts
+// one way: 1.8e-5 rel-L2 on dK at 8 heads x 300 queries, over the 1e-5
+// budget.  So the products of kSumSteps k steps go to a fresh
+// accumulator, which the CUDA cores add to `acc`, rounding to nearest
+// (on an H100, DIT_IMAGE's self-attention backward took 1.03, 0.99 and
+// 0.96 ms with 1, 2 and 4 k steps a sum, at ~1.6e-6 rel-L2 each).
+constexpr int kSumSteps = 4;
+template <int NT, int KS, int P>
+__device__ __forceinline__ void mma_ab(float (&acc)[NT][4],
+                                       const float (&c)[KS][4],
+                                       const float* b, int lane) {
+  static_assert(P % 16 == 4, "mma_ab: the pitch of conflict-free row pairs");
+  static_assert(KS % kSumSteps == 0, "mma_ab: k steps in whole sums");
+  const float* pb = b + 2 * (lane & 3) * P + (lane >> 2);
+#pragma unroll
+  for (int k0 = 0; k0 < KS; k0 += kSumSteps) {
+    unsigned ahi[kSumSteps][4], alo[kSumSteps][4];
+#pragma unroll
+    for (int j = 0; j < kSumSteps; ++j)
+      split_a(ahi[j], alo[j], c[k0 + j][0], c[k0 + j][2], c[k0 + j][1],
+              c[k0 + j][3]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kSumSteps; ++j) {
+        const float* row = pb + (k0 + j) * 8 * P + 8 * n;
+        mma_3xtf32(part, ahi[j], alo[j], split_tf32(row[0]),
+                   split_tf32(row[P]));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+    }
+  }
+}
+
 // The accumulators of 16 x 8 NT, rounded to bf16, as the A fragments of
 // a product over K = 8 NT: tiles 2m and 2m + 1 make k step m.
 template <int NT>
@@ -493,28 +379,27 @@ __device__ __forceinline__ void zero(float (&c)[NT][4]) {
     c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
 }
 
-// Rows [r0, r0 + ROWS) of head `head` of a (B, S, NH, D) bf16 tensor
-// into a ROWS x P shared tile by 16-byte cp.async; rows past S are
-// zero-filled.  The caller commits and waits.
-template <int D, int ROWS, int P>
-__device__ __forceinline__ void stage_rows(bf16* dst,
-                                           const bf16* __restrict__ src,
+// Rows [r0, r0 + ROWS) of head `head` of a (B, S, NH, D) tensor into a
+// ROWS x P shared tile by 16-byte cp.async; rows past S are zero-filled.
+// The caller commits and waits.
+template <int D, int ROWS, int P, typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src,
                                            int b, int r0, int S, int NH,
                                            int head) {
-  constexpr int CPR = D / 8;             // 16-byte chunks a row
+  constexpr int E = 16 / sizeof(T), CPR = D / E;   // 16-byte chunks a row
   for (int c = threadIdx.x; c < ROWS * CPR; c += kMmaThreads) {
     const int r = c / CPR, col = c % CPR, row = r0 + r;
-    const bf16* from = src + ((static_cast<long long>(b) * S +
-                               min(row, S - 1)) * NH + head) * D + col * 8;
-    cp_async16(dst + r * P + col * 8, from, row < S);
+    const T* from = src + ((static_cast<long long>(b) * S +
+                            min(row, S - 1)) * NH + head) * D + col * E;
+    cp_async16(dst + r * P + col * E, from, row < S);
   }
 }
 
-// Stores a 16 x 8 NT fp32 accumulator (times `mul`) as bf16 rows
-// [r0, r0 + 16) of column block c0 of head `head` of a (B, S, NH, D)
-// tensor; rows past S are dropped.
-template <int D, int NT>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
+// Stores a 16 x 8 NT fp32 accumulator (times `mul`) as rows [r0, r0 + 16)
+// of column block c0 of head `head` of a (B, S, NH, D) tensor; rows past
+// S are dropped.
+template <int D, int NT, typename T>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst,
                                            const float (&c)[NT][4], float mul,
                                            int b, int r0, int S, int NH,
                                            int head, int c0, int lane) {
@@ -523,12 +408,13 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
   for (int half = 0; half < 2; ++half) {
     const int row = r0 + g + 8 * half;
     if (row >= S) continue;
-    bf16* out = dst + ((static_cast<long long>(b) * S + row) * NH + head) *
-                          D + c0 + 2 * t;
+    T* out = dst + ((static_cast<long long>(b) * S + row) * NH + head) * D +
+             c0 + 2 * t;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<unsigned*>(out + 8 * n) =
-          bf16x2_bits(c[n][2 * half] * mul, c[n][2 * half + 1] * mul);
+    for (int n = 0; n < NT; ++n) {
+      const float v[2] = {c[n][2 * half] * mul, c[n][2 * half + 1] * mul};
+      store_vec<2>(out + 8 * n, v);
+    }
   }
 }
 
@@ -563,27 +449,26 @@ __device__ __forceinline__ void dkdv_probs(float (&st)[NQ][4],
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads,
-                                  BwdMmaShape<D>::kDkdvBlocks)
-    attn_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
-                             const bf16* __restrict__ k,
-                             const bf16* __restrict__ v,
-                             const bf16* __restrict__ dout,
+                                  BwdMmaShape<T, D>::kDkdvBlocks)
+    attn_bwd_dkdv_mma_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ dout,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
-                             bf16* __restrict__ dk, bf16* __restrict__ dv,
-                             int Sq, int Sk, int H, int KV, float scale,
-                             int causal) {
-  using S = BwdMmaShape<D>;
+                             T* __restrict__ dk, T* __restrict__ dv, int Sq,
+                             int Sk, int H, int KV, float scale, int causal) {
+  using S = BwdMmaShape<T, D>;
   constexpr int BK = S::BK, BQ = S::BQ, P = S::P, DC = D / S::CS;
   constexpr int NQ = BQ / 8;             // n tiles of S^T: queries
   constexpr int ND = DC / 8;             // n tiles of the warp's dK, dV
   extern __shared__ __align__(16) unsigned char bwd_mma_smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(bwd_mma_smem);
-  bf16* Vs = Ks + BK * P;
-  bf16* Qs = Vs + BK * P;
-  bf16* dOs = Qs + BQ * P;
+  T* Ks = reinterpret_cast<T*>(bwd_mma_smem);
+  T* Vs = Ks + BK * P;
+  T* Qs = Vs + BK * P;
+  T* dOs = Qs + BQ * P;
   float* Ls = reinterpret_cast<float*>(dOs + BQ * P);   // lse * log2(e)
   float* Ds = Ls + BQ;
 
@@ -622,8 +507,8 @@ __global__ void __launch_bounds__(kMmaThreads,
       float st[NQ][4], dpt[NQ][4];       // S^T and dP^T: keys x queries
       zero(st);
       zero(dpt);
-      mma_abt<NQ, D / 16, P>(st, Ks + kw * P, Qs, lane);
-      mma_abt<NQ, D / 16, P>(dpt, Vs + kw * P, dOs, lane);
+      mma_abt<NQ, D, P>(st, Ks + kw * P, Qs, lane);
+      mma_abt<NQ, D, P>(dpt, Vs + kw * P, dOs, lane);
       // every (query, key) of the step is seen: no ragged edge, and the
       // warp's last key is at or below the step's first query
       if (q0 + BQ <= Sq && jw + 16 <= Sk && !(causal && jw + 15 > q0))
@@ -632,36 +517,41 @@ __global__ void __launch_bounds__(kMmaThreads,
       else
         dkdv_probs<NQ, true>(st, dpt, Ls, Ds, q0, jw, Sq, Sk, causal,
                              scale_log2, lane);
-      unsigned pa[NQ / 2][4], dsa[NQ / 2][4];
-      to_a_frags<NQ>(pa, st);
-      to_a_frags<NQ>(dsa, dpt);
-      mma_ab<ND, NQ / 2, P>(dva, pa, dOs + c0, lane);    // dV += P^T dO
-      mma_ab<ND, NQ / 2, P>(dka, dsa, Qs + c0, lane);    // dK += dS^T Q
+      if constexpr (S::kTf32) {          // P^T and dS^T stay fp32
+        mma_ab<ND, NQ, P>(dva, st, dOs + c0, lane);      // dV += P^T dO
+        mma_ab<ND, NQ, P>(dka, dpt, Qs + c0, lane);      // dK += dS^T Q
+      } else {
+        unsigned pa[NQ / 2][4], dsa[NQ / 2][4];
+        to_a_frags<NQ>(pa, st);
+        to_a_frags<NQ>(dsa, dpt);
+        mma_ab<ND, NQ / 2, P>(dva, pa, dOs + c0, lane);  // dV += P^T dO
+        mma_ab<ND, NQ / 2, P>(dka, dsa, Qs + c0, lane);  // dK += dS^T Q
+      }
     }
   }
   store_rows<D, ND>(dk, dka, scale, b, jw, Sk, KV, kvh, c0, lane);
   store_rows<D, ND>(dv, dva, 1.f, b, jw, Sk, KV, kvh, c0, lane);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads, BwdMmaShape<D>::kDqBlocks)
-    attn_bwd_dq_mma_kernel(const bf16* __restrict__ q,
-                           const bf16* __restrict__ k,
-                           const bf16* __restrict__ v,
-                           const bf16* __restrict__ dout,
+template <typename T, int D>
+__global__ void __launch_bounds__(kMmaThreads, BwdMmaShape<T, D>::kDqBlocks)
+    attn_bwd_dq_mma_kernel(const T* __restrict__ q,
+                           const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           const T* __restrict__ dout,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
-                           bf16* __restrict__ dq, int Sq, int Sk, int H,
-                           int KV, float scale, int causal) {
-  using S = BwdMmaShape<D>;
+                           T* __restrict__ dq, int Sq, int Sk, int H, int KV,
+                           float scale, int causal) {
+  using S = BwdMmaShape<T, D>;
   constexpr int BQ = S::BQ2, BK = S::BK2, P = S::P;
   constexpr int NK = BK / 8;             // n tiles of S: keys
   constexpr int ND = D / 8;              // n tiles of dQ
   extern __shared__ __align__(16) unsigned char bwd_mma_smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(bwd_mma_smem);
-  bf16* dOs = Qs + BQ * P;
-  bf16* Ks = dOs + BQ * P;
-  bf16* Vs = Ks + BK * P;
+  T* Qs = reinterpret_cast<T*>(bwd_mma_smem);
+  T* dOs = Qs + BQ * P;
+  T* Ks = dOs + BQ * P;
+  T* Vs = Ks + BK * P;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -697,8 +587,8 @@ __global__ void __launch_bounds__(kMmaThreads, BwdMmaShape<D>::kDqBlocks)
     float s[NK][4], dp[NK][4];           // S and dP: queries x keys
     zero(s);
     zero(dp);
-    mma_abt<NK, D / 16, P>(s, Qs + 16 * warp * P, Ks, lane);
-    mma_abt<NK, D / 16, P>(dp, dOs + 16 * warp * P, Vs, lane);
+    mma_abt<NK, D, P>(s, Qs + 16 * warp * P, Ks, lane);
+    mma_abt<NK, D, P>(dp, dOs + 16 * warp * P, Vs, lane);
 #pragma unroll
     for (int n = 0; n < NK; ++n)
 #pragma unroll
@@ -710,9 +600,13 @@ __global__ void __launch_bounds__(kMmaThreads, BwdMmaShape<D>::kDqBlocks)
             ok ? exp2f(fmaf(s[n][e], scale_log2, -lse2[half])) : 0.f;
         dp[n][e] = p * (dp[n][e] - dd[half]);
       }
-    unsigned dsa[NK / 2][4];
-    to_a_frags<NK>(dsa, dp);
-    mma_ab<ND, NK / 2, P>(dqa, dsa, Ks, lane);           // dQ += dS K
+    if constexpr (S::kTf32) {            // dS stays fp32
+      mma_ab<ND, NK, P>(dqa, dp, Ks, lane);              // dQ += dS K
+    } else {
+      unsigned dsa[NK / 2][4];
+      to_a_frags<NK>(dsa, dp);
+      mma_ab<ND, NK / 2, P>(dqa, dsa, Ks, lane);         // dQ += dS K
+    }
   }
   store_rows<D, ND>(dq, dqa, scale, b, iw, Sq, H, h, 0, lane);
 }
@@ -721,103 +615,60 @@ __global__ void __launch_bounds__(kMmaThreads, BwdMmaShape<D>::kDqBlocks)
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T>
-cudaError_t launch_delta(const void* o, const void* dout, float* delta,
-                         int rows, int Sq, int H, int D,
-                         cudaStream_t stream) {
-  attn_bwd_delta_kernel<T><<<(rows + kBwdThreads / 32 - 1) /
+template <typename T, int D>
+cudaError_t launch_attn_bwd(const void* q, const void* k, const void* v,
+                            const void* o, const void* dout,
+                            const float* lse, void* dq, void* dk, void* dv,
+                            float* delta, int B, int Sq, int Sk, int H,
+                            int KV, float sm_scale, int causal, int device,
+                            cudaStream_t stream) {
+  using S = BwdMmaShape<T, D>;
+  cudaError_t err =
+      allow_smem_once<attn_bwd_dkdv_mma_kernel<T, D>>(S::kSmemDkdv, device);
+  if (err != cudaSuccess) return err;
+  err = allow_smem_once<attn_bwd_dq_mma_kernel<T, D>>(S::kSmemDq, device);
+  if (err != cudaSuccess) return err;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  attn_bwd_delta_kernel<T><<<(B * Sq * H + kBwdThreads / 32 - 1) /
                                  (kBwdThreads / 32),
                              kBwdThreads, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, Sq,
-      H, D);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_attn_bwd_fp32(const void* q, const void* k, const void* v,
-                                 const void* o, const void* dout,
-                                 const float* lse, void* dq, void* dk,
-                                 void* dv, float* delta, int B, int Sq,
-                                 int Sk, int H, int KV, float sm_scale,
-                                 int causal, int device,
-                                 cudaStream_t stream) {
-  using S = BwdShape<D>;
-  cudaError_t err = allow_smem_once<attn_bwd_dkdv_kernel<D>>(S::kSmem, device);
-  if (err != cudaSuccess) return err;
-  err = allow_smem_once<attn_bwd_dq_kernel<D>>(S::kSmem, device);
-  if (err != cudaSuccess) return err;
-  const float* qt = static_cast<const float*>(q);
-  const float* kt = static_cast<const float*>(k);
-  const float* vt = static_cast<const float*>(v);
-  const float* dot = static_cast<const float*>(dout);
-  if ((err = launch_delta<float>(o, dout, delta, B * Sq * H, Sq, H, D,
-                                 stream)) != cudaSuccess)
-    return err;
-  attn_bwd_dkdv_kernel<D>
-      <<<dim3((Sk + S::BT - 1) / S::BT, B * KV), kBwdThreads, S::kSmem,
-         stream>>>(qt, kt, vt, dot, lse, delta, static_cast<float*>(dk),
-                   static_cast<float*>(dv), Sq, Sk, H, KV, sm_scale, causal);
+      static_cast<const T*>(o), dot, delta, B * Sq * H, Sq, H, D);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  attn_bwd_dq_kernel<D>
-      <<<dim3((Sq + S::BT - 1) / S::BT, B * H), kBwdThreads, S::kSmem,
-         stream>>>(qt, kt, vt, dot, lse, delta, static_cast<float*>(dq), Sq,
-                   Sk, H, KV, sm_scale, causal);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_attn_bwd_bf16(const void* q, const void* k, const void* v,
-                                 const void* o, const void* dout,
-                                 const float* lse, void* dq, void* dk,
-                                 void* dv, float* delta, int B, int Sq,
-                                 int Sk, int H, int KV, float sm_scale,
-                                 int causal, int device,
-                                 cudaStream_t stream) {
-  using S = BwdMmaShape<D>;
-  cudaError_t err =
-      allow_smem_once<attn_bwd_dkdv_mma_kernel<D>>(S::kSmemDkdv, device);
-  if (err != cudaSuccess) return err;
-  err = allow_smem_once<attn_bwd_dq_mma_kernel<D>>(S::kSmemDq, device);
-  if (err != cudaSuccess) return err;
-  const bf16* qt = static_cast<const bf16*>(q);
-  const bf16* kt = static_cast<const bf16*>(k);
-  const bf16* vt = static_cast<const bf16*>(v);
-  const bf16* dot = static_cast<const bf16*>(dout);
-  if ((err = launch_delta<bf16>(o, dout, delta, B * Sq * H, Sq, H, D,
-                                stream)) != cudaSuccess)
-    return err;
-  attn_bwd_dkdv_mma_kernel<D>
+  attn_bwd_dkdv_mma_kernel<T, D>
       <<<dim3((Sk + S::BK - 1) / S::BK, B * KV), kMmaThreads, S::kSmemDkdv,
-         stream>>>(qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dk),
-                   static_cast<bf16*>(dv), Sq, Sk, H, KV, sm_scale, causal);
+         stream>>>(qt, kt, vt, dot, lse, delta, static_cast<T*>(dk),
+                   static_cast<T*>(dv), Sq, Sk, H, KV, sm_scale, causal);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  attn_bwd_dq_mma_kernel<D>
+  attn_bwd_dq_mma_kernel<T, D>
       <<<dim3((Sq + S::BQ2 - 1) / S::BQ2, B * H), kMmaThreads, S::kSmemDq,
-         stream>>>(qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dq), Sq,
-                   Sk, H, KV, sm_scale, causal);
+         stream>>>(qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), Sq, Sk,
+                   H, KV, sm_scale, causal);
   return cudaGetLastError();
 }
 
-// Resident blocks an SM and dynamic shared bytes of the bf16 dK/dV
-// (which = 0) or dQ (which = 1) kernel at head dim D.
-template <int D>
+// Resident blocks an SM and dynamic shared bytes of the dK/dV (which = 0)
+// or dQ (which = 1) kernel of element type T at head dim D.
+template <typename T, int D>
 cudaError_t occupancy_attn_bwd(int which, int device, int* blocks,
                                int* smem) {
-  using S = BwdMmaShape<D>;
+  using S = BwdMmaShape<T, D>;
   if (which == 0) {
     *smem = static_cast<int>(S::kSmemDkdv);
     const cudaError_t err =
-        allow_smem_once<attn_bwd_dkdv_mma_kernel<D>>(S::kSmemDkdv, device);
+        allow_smem_once<attn_bwd_dkdv_mma_kernel<T, D>>(S::kSmemDkdv, device);
     if (err != cudaSuccess) return err;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, attn_bwd_dkdv_mma_kernel<D>, kMmaThreads, S::kSmemDkdv);
+        blocks, attn_bwd_dkdv_mma_kernel<T, D>, kMmaThreads, S::kSmemDkdv);
   }
   *smem = static_cast<int>(S::kSmemDq);
   const cudaError_t err =
-      allow_smem_once<attn_bwd_dq_mma_kernel<D>>(S::kSmemDq, device);
+      allow_smem_once<attn_bwd_dq_mma_kernel<T, D>>(S::kSmemDq, device);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, attn_bwd_dq_mma_kernel<D>, kMmaThreads, S::kSmemDq);
+      blocks, attn_bwd_dq_mma_kernel<T, D>, kMmaThreads, S::kSmemDq);
 }
 
 }  // namespace gfdit
@@ -825,8 +676,8 @@ cudaError_t occupancy_attn_bwd(int which, int device, int* blocks,
 #define GFDIT_BWD_HEAD_DIMS(X) X(16) X(32) X(64) X(112) X(128) X(256)
 
 // q/o/dout/dq: (B, Sq, H, D); k/v/dk/dv: (B, Sk, KV, D), all contiguous
-// and of one dtype (bf16 ones 16-byte aligned); lse and the scratch
-// delta: (B, H, Sq) fp32.
+// and of one dtype, q, k, v and dout 16-byte aligned; lse and the
+// scratch delta: (B, H, Sq) fp32.
 extern "C" int gfdit_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const float* lse,
@@ -845,12 +696,12 @@ extern "C" int gfdit_attention_bwd(const void* q, const void* k,
 #define GFDIT_ATTN_BWD(DIM)                                                  \
   case DIM:                                                                  \
     return dtype == kFloat32                                                 \
-               ? launch_attn_bwd_fp32<DIM>(q, k, v, o, dout, lse, dq, dk, dv, \
-                                           delta, B, Sq, Sk, H, KV, sm_scale, \
-                                           causal, device, s)                 \
-               : launch_attn_bwd_bf16<DIM>(q, k, v, o, dout, lse, dq, dk, dv, \
-                                           delta, B, Sq, Sk, H, KV, sm_scale, \
-                                           causal, device, s);
+               ? launch_attn_bwd<float, DIM>(q, k, v, o, dout, lse, dq, dk,  \
+                                             dv, delta, B, Sq, Sk, H, KV,    \
+                                             sm_scale, causal, device, s)    \
+               : launch_attn_bwd<bf16, DIM>(q, k, v, o, dout, lse, dq, dk,   \
+                                            dv, delta, B, Sq, Sk, H, KV,     \
+                                            sm_scale, causal, device, s);
   switch (D) {
     GFDIT_BWD_HEAD_DIMS(GFDIT_ATTN_BWD)
     default: return cudaErrorInvalidValue;
@@ -858,18 +709,22 @@ extern "C" int gfdit_attention_bwd(const void* q, const void* k,
 #undef GFDIT_ATTN_BWD
 }
 
-// Resident blocks an SM and dynamic shared-memory bytes of the bf16
-// (tensor-core) dK/dV (which = 0) or dQ (which = 1) backward kernel at
-// head dim D, from the CUDA occupancy calculator.
-extern "C" int gfdit_attention_bwd_occupancy(int D, int which, int device,
-                                             int* blocks, int* smem) {
+// Resident blocks an SM and dynamic shared-memory bytes of the dK/dV
+// (which = 0) or dQ (which = 1) backward kernel of `dtype` at head dim D,
+// from the CUDA occupancy calculator.
+extern "C" int gfdit_attention_bwd_occupancy(int D, int dtype, int which,
+                                             int device, int* blocks,
+                                             int* smem) {
   using namespace gfdit;
-  if (which != 0 && which != 1) return cudaErrorInvalidValue;
+  if ((which != 0 && which != 1) || (dtype != kFloat32 && dtype != kBFloat16))
+    return cudaErrorInvalidValue;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
-#define GFDIT_BWD_OCC(DIM) \
-  case DIM:                \
-    return occupancy_attn_bwd<DIM>(which, device, blocks, smem);
+#define GFDIT_BWD_OCC(DIM)                                                 \
+  case DIM:                                                                \
+    return dtype == kFloat32                                               \
+               ? occupancy_attn_bwd<float, DIM>(which, device, blocks, smem) \
+               : occupancy_attn_bwd<bf16, DIM>(which, device, blocks, smem);
   switch (D) {
     GFDIT_BWD_HEAD_DIMS(GFDIT_BWD_OCC)
     default: return cudaErrorInvalidValue;

@@ -56,9 +56,9 @@ _SIGNATURES = {
     "gfdit_ssd_occupancy": [_I] * 9 + [_IP, _IP, _IP],
     # D, dtype, device -> blocks per SM, shared memory bytes
     "gfdit_attention_occupancy": [_I] * 3 + [_IP, _IP],
-    # D, which (0 dK/dV, 1 dQ), device -> blocks per SM, shared memory
-    # bytes (the bf16 kernels)
-    "gfdit_attention_bwd_occupancy": [_I] * 3 + [_IP, _IP],
+    # D, dtype, which (0 dK/dV, 1 dQ), device -> blocks per SM, shared
+    # memory bytes
+    "gfdit_attention_bwd_occupancy": [_I] * 4 + [_IP, _IP],
 }
 
 

@@ -209,9 +209,11 @@ def attention_bwd(q, k, v, o, lse, do, *, causal: bool = False):
     """K2's backward: (dq, dk, dv) of :func:`attention` at output ``o``
     with log-sum-exp ``lse`` (from :func:`attention_lse`) for the output
     gradient ``do``.  On the card one call runs three kernels of
-    ``csrc/attention_bwd.cu`` (D = rowsum(dO * O), then dK/dV, then dQ;
-    bf16 on the tensor cores, fp32 on the CUDA cores) and counts one
-    launch; the CPU version is ``ref.attention_bwd_ref``."""
+    ``csrc/attention_bwd.cu`` (D = rowsum(dO * O), then dK/dV, then dQ,
+    both on the tensor cores: bf16 products, or fp32 ones as three TF32
+    products each) and counts one launch; q, k, v and ``do`` must be
+    16-byte aligned (the kernels stage them by 16-byte copies).  The CPU
+    version is ``ref.attention_bwd_ref``."""
     if not (q.is_cuda or _on_card(q, k, v, o, lse, do)):
         return ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
     name = "attention_bwd"
@@ -230,9 +232,8 @@ def attention_bwd(q, k, v, o, lse, do, *, causal: bool = False):
     fn = _fn("gfdit_attention_bwd")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    if q.dtype == torch.bfloat16:   # staged by 16-byte copies
-        _aligned(name, q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
-                 do=do.data_ptr())
+    _aligned(name, q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
+             do=do.data_ptr())
     dev = q.get_device()
     _launch(name, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -479,15 +480,16 @@ def attention_occupancy(head_dim: int, dtype=torch.float32,
                       _DTYPES[dtype], device)
 
 
-def attention_bwd_occupancy(head_dim: int, device: int = 0) -> dict:
+def attention_bwd_occupancy(head_dim: int, dtype=torch.float32,
+                            device: int = 0) -> dict:
     """``{"dkdv": ..., "dq": ...}``: (resident blocks per SM, dynamic
-    shared-memory bytes) of K2's two bf16 (tensor-core) backward kernels
-    at ``head_dim``, from the CUDA occupancy calculator."""
+    shared-memory bytes) of K2's two ``dtype`` backward kernels at
+    ``head_dim``, from the CUDA occupancy calculator."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"attention_bwd: unsupported head_dim={head_dim}")
     fn = _fn("gfdit_attention_bwd_occupancy")
     return {kernel: _occupancy("attention_bwd_occupancy", fn, head_dim,
-                               which, device)
+                               _DTYPES[dtype], which, device)
             for which, kernel in enumerate(("dkdv", "dq"))}
 
 

@@ -326,24 +326,75 @@ def _sass_functions(lib) -> dict:
     return {f: "\n".join(body) for f, body in funcs.items()}
 
 
-@pytest.mark.cuda
-def test_cuda_attention_backward_bf16_runs_on_tensor_cores(cuda_device):
-    """The bf16 dK/dV and dQ kernels of every head dim hold HMMA (tensor
-    core) instructions, and the CUDA-core kernels are fp32 only: no bf16
-    head dim reaches them."""
+#: per dtype, the operand type of the HMMA (tensor-core) instructions its
+#: backward products compile to (m16n8k16 on bf16, m16n8k8 on TF32, as
+#: ``cuobjdump -sass`` spells them) and the dtype's code in the kernels'
+#: mangled names
+BWD_HMMA = {"bfloat16": (".BF16", "13__nv_bfloat16"),
+            "float32": (".TF32", "f")}
+
+
+def _attention_backward_sass(dtype) -> tuple[dict, dict]:
+    """({mangled name: SASS} of K2's dK/dV and dQ kernels of ``dtype``,
+    the same of every function of the library): one dK/dV and one dQ
+    kernel at every head dim of ``ops.HEAD_DIMS``, each holding the
+    dtype's HMMA."""
     from repro_torch.kernels import build
     build.load()
     funcs = _sass_functions(build.library_path())
+    operand, code = BWD_HMMA[dtype]
+    found = {}
     for kernel in ("attn_bwd_dkdv_mma_kernel", "attn_bwd_dq_mma_kernel"):
-        found = {f: body for f, body in funcs.items()
-                 if f"{len(kernel)}{kernel}I" in f}
-        assert len(found) == len(ops.HEAD_DIMS), (kernel, sorted(found))
-        for f, body in found.items():
-            assert "HMMA" in body, f
-    for kernel in ("attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel"):
-        found = [f for f in funcs if f"{len(kernel)}{kernel}I" in f]
-        assert len(found) == len(ops.HEAD_DIMS), (kernel, found)
-        assert not any("bfloat16" in f for f in found), found
+        mine = {f: body for f, body in funcs.items()
+                if f"{len(kernel)}{kernel}I{code}Li" in f}
+        assert len(mine) == len(ops.HEAD_DIMS), (kernel, sorted(mine))
+        for f, body in mine.items():
+            assert any("HMMA" in line and operand in line
+                       for line in body.splitlines()), (f, operand)
+        found.update(mine)
+    return found, funcs
+
+
+@pytest.mark.cuda
+def test_cuda_attention_backward_bf16_runs_on_tensor_cores(cuda_device):
+    """The bf16 dK/dV and dQ kernels of every head dim hold bf16 HMMA
+    (tensor core) instructions."""
+    _attention_backward_sass("bfloat16")
+
+
+@pytest.mark.cuda
+def test_cuda_attention_backward_fp32_runs_split_tf32(cuda_device):
+    """The fp32 dK/dV and dQ kernels of every head dim hold TF32 HMMA
+    instructions, three to each fp32 product (a count divisible by 3),
+    and no other backward kernel is left: every ``attn_bwd`` function of
+    the library is the D kernel or one of the two tensor-core templates
+    (the CUDA-core fp32 kernels are gone)."""
+    found, funcs = _attention_backward_sass("float32")
+    for f, body in found.items():
+        count = sum("HMMA" in line for line in body.splitlines())
+        assert count and count % 3 == 0, (f, count)
+        assert "BF16" not in body, f
+    names = [f for f in funcs if "attn_bwd" in f]
+    allowed = ("attn_bwd_delta_kernel", "attn_bwd_dkdv_mma_kernel",
+               "attn_bwd_dq_mma_kernel")
+    assert names and all(any(a in f for a in allowed) for f in names), names
+    assert len(names) == 2 + 4 * len(ops.HEAD_DIMS), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_attention_bwd_rejects_misaligned_operands(cuda_device, dtype):
+    """The backward kernels stage q, k, v and dO by 16-byte cp.async in
+    both dtypes: a contiguous operand off a 16-byte boundary is refused,
+    never copied."""
+    dt = getattr(torch, dtype)
+    q = torch.zeros(1, 8, 2, 64, device=cuda_device, dtype=dt)
+    lse = torch.zeros(1, 2, 8, device=cuda_device)
+    do = torch.zeros(q.numel() + 1, device=cuda_device, dtype=dt)[1:]
+    do = do.view(q.shape)
+    assert do.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.attention_bwd(q, q, q, q, lse, do)
 
 
 @pytest.mark.cuda

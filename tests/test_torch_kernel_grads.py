@@ -14,7 +14,10 @@ what that jnp training differentiates.  Here:
 * ``ref.adaln_bwd_ref`` (K1's backward) the same way, for every variant;
 * ``ops.attention`` / ``ops.fused_adaln`` backpropagating through their
   ``autograd.Function`` on CPU tensors (the closed forms), and
-  ``ops.splice_attention`` / ``ops.ssd`` refusing to.
+  ``ops.splice_attention`` / ``ops.ssd`` refusing to;
+* the rounding of K2's backward kernels in closed form: bf16 (P and dS
+  rounded to bf16) and fp32 (split-TF32 products), each within its
+  dtype's budget.
 
 The refs compute in fp32 whatever their input (as the kernels do), so
 ``gradcheck`` in float64 does not apply; the comparisons are fp32.
@@ -124,32 +127,35 @@ def test_attention_bwd_ref_in_bf16(case):
 YI_GQA_CASE = (2, 96, 96, 8, 1, 128, True)
 
 
-def _attention_bwd_bf16_rounded(q, k, v, o, lse, do, causal):
-    """K2's bf16 backward kernels in closed form, rounding where they do:
-    bf16 operands; S = Q K^T and dP = dO V^T exact products summed in
-    fp32; P = exp(S scale - lse), 0 where masked, and dS = P (dP - D) in
-    fp32; P and dS rounded to bf16 before the dV, dK and dQ products,
-    which sum in fp32; the gradients rounded to bf16."""
+def _attention_bwd_rounded(q, k, v, o, lse, do, causal, product=torch.einsum,
+                           round_pds=lambda t: t):
+    """K2's backward kernels in closed form, rounding where they do: the
+    five products (S = Q K^T, dP = dO V^T, dV = P^T dO, dK = dS^T Q,
+    dQ = dS K) through ``product`` (by default exact products of the
+    operands summed in fp32); P = exp(S scale - lse), 0 where masked,
+    dS = P (dP - D) and D = rowsum(dO O) in fp32; P and dS through
+    ``round_pds`` before their products; the gradients in the inputs'
+    dtype."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     group = h // kv
     qf, dof = q.float(), do.float()
     kf = torch.repeat_interleave(k, group, dim=2).float()
     vf = torch.repeat_interleave(v, group, dim=2).float()
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * d ** -0.5
+    s = product("bqhd,bkhd->bhqk", qf, kf) * d ** -0.5
     keep = torch.ones((sq, sk), dtype=torch.bool)
     if causal:
         keep = torch.tril(keep)
     p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
     delta = (dof * o.float()).sum(-1).transpose(1, 2)
-    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta[..., None])
-    p16, ds16 = (t.to(torch.bfloat16).float() for t in (p, ds))
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds16, kf) * d ** -0.5
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds16, qf) * d ** -0.5
-    dv = torch.einsum("bhqk,bqhd->bkhd", p16, dof)
+    ds = p * (product("bqhd,bkhd->bhqk", dof, vf) - delta[..., None])
+    p, ds = round_pds(p), round_pds(ds)
+    dq = product("bhqk,bkhd->bqhd", ds, kf) * d ** -0.5
+    dk = product("bhqk,bqhd->bkhd", ds, qf) * d ** -0.5
+    dv = product("bhqk,bqhd->bkhd", p, dof)
     dk = dk.reshape(b, sk, kv, group, d).sum(3)
     dv = dv.reshape(b, sk, kv, group, d).sum(3)
-    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+    return tuple(t.to(q.dtype) for t in (dq, dk, dv))
 
 
 @pytest.mark.parametrize("case", ATTN_CASES + [YI_GQA_CASE], ids=str)
@@ -163,7 +169,11 @@ def test_attention_bwd_bf16_rounding_within_budget(case):
     tq, tk, tv, tdo = (torch.from_numpy(a).to(bf) for a in (q, k, v, do))
     o = ref.attention_ref(tq, tk, tv, causal=causal)
     lse = ref.attention_lse_ref(tq, tk, causal=causal)
-    got = _attention_bwd_bf16_rounded(tq, tk, tv, o, lse, tdo, causal)
+    # the bf16 kernels' products are exact on bf16 operands; P and dS are
+    # rounded to bf16 before theirs
+    got = _attention_bwd_rounded(
+        tq, tk, tv, o, lse, tdo, causal,
+        round_pds=lambda t: t.to(torch.bfloat16).float())
     want = ref.attention_bwd_ref(tq, tk, tv, o, lse, tdo, causal=causal)
     _, vjp = jax.vjp(lambda a, b_, c: jref.attention_ref(
         a, b_, c, causal=causal), *(jnp.asarray(_np(t)) for t in (tq, tk, tv)))
@@ -172,6 +182,57 @@ def test_attention_bwd_bf16_rounding_within_budget(case):
         assert g.dtype == bf and g.shape == w.shape, name
         assert _rel(_np(g), _np(w)) <= TOL["bfloat16"], name
         assert _rel(_np(g), j) <= TOL["bfloat16"], name
+
+
+def _tf32(x):
+    """fp32 ``x`` rounded to TF32 as the kernels round it: to nearest on
+    the bits (ties away from zero), the 13 low mantissa bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(eq, a, b, passes):
+    """``torch.einsum(eq, a, b)`` of fp32 operands as the kernels' tensor
+    cores compute it, each operand split as x = hi + lo with hi = tf32(x)
+    and lo = tf32(x - hi): split-TF32 (``passes=3``) sums a_lo b_hi +
+    a_hi b_lo + a_hi b_hi; one TF32 product (``passes=1``) is a_hi b_hi.
+    Products of TF32 values are exact in fp32, so only the sums round."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = torch.einsum(eq, ah, bh)
+    if passes == 3:
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        out = torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + out
+    return out
+
+
+@pytest.mark.parametrize("passes", [3, 1], ids=["3xTF32", "1xTF32"])
+@pytest.mark.parametrize("case", ATTN_CASES + [YI_GQA_CASE], ids=str)
+def test_attention_bwd_split_tf32_within_budget(case, passes):
+    """The fp32 kernels' split-TF32 products (three TF32 products for each
+    fp32 one) keep each gradient within the fp32 budget of the closed form
+    ``ref.attention_bwd_ref`` and of ``jax.vjp`` of the JAX oracle; one
+    TF32 product exceeds it at the same inputs for every gradient, so the
+    budget tells the two apart."""
+    (q, k, v, do), causal = _attn_inputs(case, seed=6)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o = ref.attention_ref(tq, tk, tv, causal=causal)
+    lse = ref.attention_lse_ref(tq, tk, causal=causal)
+    # the fp32 kernels' products, P and dS split like every other operand
+    got = _attention_bwd_rounded(
+        tq, tk, tv, o, lse, tdo, causal,
+        product=lambda eq, a, b: _tf32_product(eq, a, b, passes))
+    want = ref.attention_bwd_ref(tq, tk, tv, o, lse, tdo, causal=causal)
+    _, vjp = jax.vjp(lambda a, b_, c: jref.attention_ref(
+        a, b_, c, causal=causal), jnp.asarray(q), jnp.asarray(k),
+        jnp.asarray(v))
+    jgrads = vjp(jnp.asarray(do))
+    for name, g, w, j in zip("qkv", got, want, jgrads):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        errs = (_rel(_np(g), _np(w)), _rel(_np(g), j))
+        if passes == 3:
+            assert max(errs) <= TOL["float32"], (name, errs)
+        else:
+            assert min(errs) > TOL["float32"], (name, errs)
 
 
 def _adaln_inputs(names, seed=0, b=2, n=11, d=48):
