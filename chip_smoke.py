@@ -12,7 +12,8 @@ Phases, one line each (any failure raises and exits non-zero):
    any engine starts (a first-use build inside a rank thread would
    outlast GFC's collective timeout); K2's backward kernels' registers,
    spills, shared memory and blocks an SM: fp32 at every head dim, bf16
-   at 64 and 128.
+   at 64 and 128; K1's backward row kernel's registers and spills at
+   DIT_IMAGE's width, every variant, with its plan and blocks an SM.
 3. kernels: each kernel against its plain PyTorch version on the card at
    its path's full-width shapes (DIT_IMAGE for K1-K3, the mamba2-1.3b
    prefill for K4, timed at batch 4 and 1; zamba2-7b's forward for K2
@@ -25,8 +26,10 @@ Phases, one line each (any failure raises and exits non-zero):
    encoder self; on the tensor cores, bf16 products or fp32 ones as
    three TF32 products, each with its three kernels' device time; fp32
    with both bounds, split-TF32's and the CUDA cores') and K1 (every
-   variant at (2, 1024, 1536)), rel-L2 per output, and K2's forward with
-   its log-sum-exp written; and K1-K3 at
+   variant at (2, 1024, 1536), each timed beside its bound and the
+   library's backward, with its two kernels' device time), rel-L2 per
+   output, and K2's forward with its log-sum-exp written; K1's forward
+   gated residual beside ``residual + gate * x``; and K1-K3 at
    DIT_VIDEO's shapes in fp32 (K1 at D=3072, K2 self over 20,280 keys
    and cross at head dim 128, K3 at the video hit), with kernel,
    plain-version and one-PyTorch-call times from CUDA events; K4's device
@@ -100,9 +103,10 @@ Phases, one line each (any failure raises and exits non-zero):
    then bf16, AdamW, 5 steps on that batch: the loss must fall at every
    step and stay within 3e-2 of the five losses of the CUDA-core
    backward kernels, K1 and K2 forward and backward launched every step;
-   then a ``remat="full"`` step whose loss and grad_norm must equal
-   ``"none"``'s bit for bit (the recompute replays the same kernels on
-   the same inputs); (b) yi-6b at
+   then ``remat="full"`` gradients whose every leaf, and a
+   ``remat="full"`` step whose loss and grad_norm (taken as the
+   optimizer takes it), must equal ``"none"``'s bit for bit (the
+   recompute replays the same kernels on the same inputs); (b) yi-6b at
    full width, 4 of 32 layers (1.22 B parameters), 3 steps of 2 x 2048
    tokens from the TokenPipeline through K2's causal GQA backward.
    Prints the losses, step walls, samples or tokens/s, peak memory and
@@ -449,6 +453,7 @@ def phase_build() -> None:
             print(f"  {label}: {len(hits)} instantiation(s), registers "
                   f"{regs}, spill bytes {spill}", flush=True)
     _report_attention_bwd(report)
+    _report_adaln_bwd(report)
     for f in sorted(report):      # K4 at (64, 128, 128) and (64, 64, 128)
         m = re.match(r"_ZN5gfdit(\d+)", f)
         name = f[m.end():m.end() + int(m[1])] if m else f
@@ -490,6 +495,42 @@ def _report_attention_bwd(report: dict) -> None:
                              f"{blocks} blocks an SM")
             print(f"  attention_bwd {str(dtype)[6:]} d={d}: "
                   + "; ".join(parts), flush=True)
+
+
+ADALN_BWD_VARIANTS = {"ln": (1, 0, 0), "mod_norm": (1, 1, 0),
+                      "gated_residual": (0, 0, 1), "full": (1, 1, 1)}
+
+
+def _report_adaln_bwd(report: dict) -> None:
+    """K1's backward row kernel at DIT_IMAGE's width, every variant the
+    kernels phase times: registers and spill bytes (ptxas) and, where the
+    checkout has ``ops.adaln_bwd_plan``, its plan at the training shape
+    (2, 1024, 1536) with the resident blocks an SM (the occupancy
+    calculator).  An older checkout (``--src``) shows the instantiation it
+    launches at that width, by its template's integer arguments."""
+    pat = re.compile(r"_ZN5gfdit16adaln_bwd_kernelI(f|13__nv_bfloat16)"
+                     r"((?:Li\d+E)+)Lb([01])ELb([01])ELb([01])E")
+    planned = hasattr(ops, "adaln_bwd_plan")
+    d = DIT_IMAGE.d_model
+    for dtype, code in ((torch.float32, "f"), (torch.bfloat16,
+                                              "13__nv_bfloat16")):
+        for vname, (ln, mod, gated) in ADALN_BWD_VARIANTS.items():
+            if planned:
+                plan = ops.adaln_bwd_plan(DIT_TRAIN_BATCH, 1024, d, ln=ln,
+                                          mod=mod, gated=gated, dtype=dtype)
+                v = 4 if dtype == torch.float32 else 8
+                want = (v, plan["vectors_a_lane"])
+            else:      # the older kernel: NJ = 16 columns a thread at D=1536
+                plan, want = None, (16,)
+            hits = [(f, r) for f, r in report.items()
+                    if (m := pat.match(f)) and m[1] == code
+                    and tuple(int(i) for i in re.findall(r"\d+", m[2]))
+                    == want and (int(m[3]), int(m[4]), int(m[5]))
+                    == (ln, mod, gated)]
+            regs = ", ".join(f"{r['registers']} registers, spill bytes "
+                             f"{r['spill_bytes']}" for _, r in hits) or "?"
+            print(f"  adaln_bwd {str(dtype)[6:]} {vname} d={d}: {regs}"
+                  + ("" if plan is None else f"; plan {plan}"), flush=True)
 
 
 def _rand(shape, dtype, gen, scale=1.0):
@@ -603,6 +644,11 @@ def phase_kernels() -> dict:
                                 x, (d_model,), w, b, eps=1e-6))
                         if fp32 and n == 1024:
                             timing["summary"] = "fused_adaln"
+                    elif vname == "gated_residual":   # the DiT's residuals
+                        timing["library"] = (
+                            lambda x=x, g=g, res=res: res + g[:, None] * x)
+                        timing["summary"] = ("fused_adaln gated_residual"
+                                             + ("" if fp32 else " bf16"))
                 _check(f"adaln {vname} N={n} D={d_model}",
                        lambda x=x, kw=kw: ops.fused_adaln(x, **kw),
                        lambda x=x, kw=kw: ref.adaln_ref(x, **kw),
@@ -787,31 +833,45 @@ def _check_backward(dtype, results, gen) -> None:
                 f"attention_bwd {label}{tag}", "attn_bwd")
         del q, k, v, o, lse, o_ref, lse_ref, do, both, fwd
     n = 1024
-    x, dy = (_rand((b, n, d_model), dtype, gen) for _ in range(2))
+    x, dy, res = (_rand((b, n, d_model), dtype, gen) for _ in range(3))
     sh, sc, g = (_rand((b, d_model), dtype, gen, 0.5) for _ in range(3))
-    for vname, kw in {
-            "mod_norm": dict(shift=sh, scale=sc), "ln": dict(),
-            "gated_residual": dict(gate=g, ln=False),
-            "full": dict(shift=sh, scale=sc, gate=g)}.items():
-        timing = None
-        if vname == "mod_norm":
-            xt, sht, sct = (t.detach().requires_grad_(True)
-                            for t in (x, sh, sc))
+    xt, sht, sct, gt, rt = (t.detach().requires_grad_(True)
+                            for t in (x, sh, sc, g, res))
 
-            def lib_fwd():
-                return F.layer_norm(xt, (d_model,), eps=1e-6) \
-                    * (1.0 + sct[:, None]) + sht[:, None]
-
-            def lib_both():
-                return torch.autograd.grad(lib_fwd(), (xt, sht, sct), dy)
-            timing = {"bytes": (3 * b * n + 4 * b) * d_model * es,
-                      "flops": 12 * b * n * d_model,
-                      "library": lib_both, "library_fwd": lib_fwd,
-                      "summary": f"fused_adaln_bwd{tag}"}
-        _check(f"adaln_bwd {vname} ({b}, {n}, {d_model})",
-               lambda kw=kw: ops.fused_adaln_bwd(x, dy=dy, **kw),
+    def norm(mod):
+        y = F.layer_norm(xt, (d_model,), eps=1e-6)
+        return y * (1.0 + sct[:, None]) + sht[:, None] if mod else y
+    # variant: (kernel's keywords, library forward and its leaves, the
+    # (B, D) rows read (and as many written), flops an element)
+    variants = {
+        "mod_norm": (dict(shift=sh, scale=sc), lambda: norm(True),
+                     (xt, sht, sct), 2, 12),
+        "ln": (dict(), lambda: norm(False), (xt,), 0, 10),
+        "gated_residual": (dict(gate=g, ln=False),
+                           lambda: rt + gt[:, None] * xt, (xt, gt, rt), 1, 4),
+        "full": (dict(shift=sh, scale=sc, gate=g),
+                 lambda: rt + gt[:, None] * norm(True),
+                 (xt, sht, sct, gt, rt), 3, 16)}
+    for vname, (kw, lib_fwd, leaves, mod_rows, per_elem) in variants.items():
+        def lib_both(lib_fwd=lib_fwd, leaves=leaves):
+            return torch.autograd.grad(lib_fwd(), leaves, dy)
+        # x and dy read, dx written, the (B, D) rows read and their
+        # gradients written; dresidual is dy itself, so nothing for it
+        label = "fused_adaln_bwd" + ("" if vname == "mod_norm"
+                                     else f" {vname}") + tag
+        # 200 calls of two launches stay within the launch queue, so the
+        # host time is the host's
+        timing = {"bytes": (3 * b * n + 2 * mod_rows * b) * d_model * es,
+                  "flops": per_elem * b * n * d_model, "host_calls": 200,
+                  "library": lib_both, "library_fwd": lib_fwd,
+                  "summary": label}
+        kernel = (lambda kw=kw: ops.fused_adaln_bwd(x, dy=dy, **kw))
+        _check(f"adaln_bwd {vname} ({b}, {n}, {d_model})", kernel,
                lambda kw=kw: ref.adaln_bwd_ref(x, dy=dy, **kw),
                dtype, results, timing, l2=True)
+        results.setdefault("fused_adaln_bwd_split", {})[label] = \
+            kernel_split_ms(kernel, label, "adaln_bwd")
+    del x, dy, res, xt, sht, sct, gt, rt
     if fp32:
         results["attention_bwd"] = results["attention_bwd dit self"]
 
@@ -2111,8 +2171,12 @@ def _step_launches(before: dict) -> dict:
 
 
 def _global_norm(grads: dict) -> float:
-    return float(torch.stack([g.float().norm() for g in grads.values()])
-                 .norm())
+    """The global gradient norm as ``optimizer.adamw_update`` takes it
+    (``torch._foreach_norm``, then the root of the summed squares), so it
+    can be held bit for bit against a train step's ``grad_norm``: another
+    formula for the same norm rounds differently in the last bit."""
+    norms = torch._foreach_norm([g.float() for g in grads.values()])
+    return float(torch.stack(norms).square().sum().sqrt())
 
 
 def _dit_train_setup():
@@ -2258,10 +2322,13 @@ def _train_dit(smi: str) -> None:
         raise AssertionError(f"train: DiT losses {losses} drift {drift:.2e} "
                              f"from {CUDA_CORE_DIT_LOSSES}")
 
-    # remat="full" against "none" from the same weights and state
+    # remat="full" against "none" from the same weights and state: every
+    # gradient leaf, then the remat train step's loss and grad_norm
     loss_n, _, grads = train_loop.grads_of(model, batch, cfg, "none")
+    _, _, grads_f = train_loop.grads_of(model, batch, cfg, "full")
+    differ = [k for k in grads if not torch.equal(grads[k], grads_f[k])]
     gnorm_n = _global_norm(grads)
-    del grads
+    del grads, grads_f
     step_full = train_loop.make_train_step(cfg, remat="full",
                                            lr=DIT_TRAIN_LR)
     before = dict(ops.launches)
@@ -2273,12 +2340,14 @@ def _train_dit(smi: str) -> None:
     remat = _step_launches(before)
     err = max(abs(loss_f - float(loss_n)) / abs(float(loss_n)),
               abs(gnorm_f - gnorm_n) / gnorm_n)
-    bitwise = loss_f == float(loss_n) and gnorm_f == gnorm_n
+    bitwise = (not differ and loss_f == float(loss_n)
+               and gnorm_f == gnorm_n)
     print(f"train: DiT remat=\"full\" step: loss {loss_f:.6f} vs "
           f"{float(loss_n):.6f}, grad_norm {gnorm_f:.5f} vs {gnorm_n:.5f} "
-          f"(remat=\"none\", same weights): rel err {err:.2e}, bitwise "
-          f"equal {bitwise} (required); wall {wall_f * 1e3:.1f} ms (the "
-          f"first remat call); launches {remat}", flush=True)
+          f"(remat=\"none\", same weights): rel err {err:.2e}, gradient "
+          f"leaves differing {len(differ)} {differ[:4]}, bitwise equal "
+          f"{bitwise} (required); wall {wall_f * 1e3:.1f} ms (the first "
+          f"remat call); launches {remat}", flush=True)
     if not bitwise or remat["attention"] != 2 * launches["attention"]:
         raise AssertionError(f"train: remat step {err:.2e}, {remat}")
     del model, opt, batch
@@ -2494,10 +2563,13 @@ def main() -> int:
                                          "bound_by", "library_ms")}}
         # the backward kernels' other timed cases, and K2's forward with
         # the log-sum-exp written (launched in the train phase only)
-        extra = {"attention": ["attention with lse"],
+        extra = {"fused_adaln": ["fused_adaln gated_residual",
+                                 "fused_adaln gated_residual bf16"],
+                 "attention": ["attention with lse"],
                  "attention_bwd": [k for k in results if k.startswith(
                      "attention_bwd ") and k != "attention_bwd dit self"],
-                 "fused_adaln_bwd": ["fused_adaln_bwd bf16"]}
+                 "fused_adaln_bwd": [k for k in results if k.startswith(
+                     "fused_adaln_bwd ")]}
         for label in extra.get(name, ()):
             v = results[label]
             kernels[-1][label] = {k: v[k] for k in (

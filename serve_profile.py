@@ -35,6 +35,12 @@ phase models (DIT_IMAGE at full width and depth on its one batch, bf16;
 yi-6b at full width, 4 layers, 2 x 2048 tokens), after two warm-up
 steps; the port's backward kernels and the optimizer's ``_foreach``
 kernels are categories of their own.
+
+Every run also prints the port's kernels (``csrc/``) one by one: device
+seconds and launches by kernel name, its template arguments summed.
+``--src DIR`` imports ``repro_torch`` from another checkout's ``src``
+(read by ``chip_smoke`` when it is imported), so this script profiles
+that tree's kernels, for parent-against-change runs in one call.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ import argparse
 import collections
 import contextlib
 import json
+import re
 import sys
 import tempfile
 import time
@@ -92,6 +99,17 @@ def report(prof, wall: float) -> None:
         print(f"  {cat}: {us / 1e6:.4f} s ({us / 1e6 / wall:.3f} of wall)")
         for k_us, count, name in sorted(top[cat], reverse=True)[:5]:
             print(f"      {k_us / 1e6:.4f} s  {count:6d} x  {name[:90]}")
+    port = collections.defaultdict(lambda: [0.0, 0])
+    for cat in ("port kernels (csrc/)", "port backward kernels (csrc/)"):
+        for us, count, name in top[cat]:
+            m = re.search(r"gfdit::(\w+)", name)
+            k = port[m[1] if m else name]
+            k[0] += us
+            k[1] += count
+    if port:
+        print("  port kernels by name: " + ", ".join(
+            f"{name} {us / 1e6:.4f} s ({count} x)" for name, (us, count)
+            in sorted(port.items(), key=lambda kv: -kv[1][0])))
 
 
 def copy_bytes(prof) -> None:
@@ -230,6 +248,8 @@ def main() -> int:
     parser.add_argument("--video", action="store_true",
                         help="profile DIT_VIDEO serving one class-S "
                         "request at SP-4")
+    parser.add_argument("--src", help="import repro_torch from this src "
+                        "directory (default: the one beside this script)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("serve_profile: needs a CUDA device", file=sys.stderr)

@@ -31,7 +31,7 @@
 // is not a multiple of V or a pointer is not 16-byte aligned, the same
 // template runs with V = 1 (scalar accesses), chosen at launch.
 //
-// Backward (adaln_bwd_kernel + adaln_bwd_reduce_kernel).  The TPU kernel
+// Backward (adaln_bwd_kernel + adaln_bwd_cols_kernel).  The TPU kernel
 // has no backward (the JAX package trains through its jnp LN/modulate);
 // the port's training path needs one for every variant above.  With
 // x^ = LN(x) (or x), y = x^ (1 + scale) + shift (or x^) and dy' =
@@ -39,15 +39,33 @@
 // sum_n dy', dscale = sum_n dy' * x^, and dx = rstd (dx^ - mean(dx^) -
 // x^ mean(dx^ x^)) with dx^ = dy' (1 + scale) (dx = dx^ without LN); the
 // sums run over the N tokens of a batch row, the means over D
-// (ref.adaln_bwd_ref).  Bound on the card: bytes (x and dy read, dx and
-// dresidual written).  One 256-thread block a tile of kAdaBwdRows token
-// rows of one batch row: first a warp a row recomputes mean and rstd
-// from x and the two row means of the dx formula; then each thread owns
-// columns (tid + 256 j) and walks the tile's rows, writing dx and
-// dresidual (x and dy again, now from L1/L2) and summing its columns'
-// dshift/dscale/dgate terms in registers, which it stores as the tile's
-// partial.  A second launch sums the partials of each (batch row,
-// column) over the tiles in order: deterministic, no float atomics.
+// (ref.adaln_bwd_ref).  dresidual is dy itself: nothing is written for
+// it.  Bound on the card: bytes (x and dy read once, dx written once).
+// Design: a team of 32 * tw threads works on one token row at a time;
+// each lane holds NV 16-byte vectors of x and dy (at D=1536: 4 warps of
+// 3 float4 a lane, or 6 warps of 8 bf16), converted to fp32 once, so the
+// row is read from DRAM once.  mean, rstd and the two row means of the
+// dx formula come from those registers: warp shuffles, then one
+// shared-memory exchange across the team's warps under a barrier of the
+// team's threads alone.  Rows reach a team through a ring of kBwdStages
+// shared-memory stages filled by 16-byte cp.async (each thread copies
+// the vectors it will read back, so no barrier guards the ring): two
+// rows are in flight while it works on a third.  A block holds two
+// teams (one when a row needs more than 8 warps or two would not fit in
+// shared memory) and walks a contiguous run of rows of one
+// batch row; each thread owns the same columns on every row and sums
+// their dshift/dscale/dgate terms in registers, the modulation rows
+// staged once in shared memory.  At the end the teams add their sums
+// into shared memory in team order and the block writes one partial row
+// a sum.  The rule bwd_rows picks the rows a block so the grid is
+// kBwdBlocksPerSm blocks an SM; the wrapper sizes the partials' scratch
+// by the same rule (gfdit_adaln_bwd_scratch).  A second launch sums each
+// column's partials over the blocks of its batch row in a fixed order
+// (deterministic, no float atomics).  When D is not a multiple of the
+// vector or a pointer is not 16-byte aligned, the same template runs
+// with V = 1 (plain copies into the ring).
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace gfdit {
@@ -250,156 +268,405 @@ cudaError_t dispatch_adaln(const void* x, const void* shift, const void* scale,
                            variant, stream);
 }
 
-constexpr int kAdaBwdRows = 16;       // token rows a backward block
-constexpr int kAdaBwdThreads = 256;
+constexpr int kBwdMaxThreads = 512;    // two teams of 8 warps, or one of 16
+constexpr int kBwdStages = 3;          // rows a team has staged or in work
+constexpr int kBwdBlocksPerSm = 2;     // the grid the row rule aims at
+constexpr int kBwdColGroups = 16;      // partial rows the column kernel
+                                       // sums at once, a warp each
+// dynamic shared bytes a block may ask for (a plan that would need more
+// runs one team a block; the most any takes is 180 KB, fp32 at D=3072)
+constexpr int kBwdMaxSmem = 200 * 1024;
 
-template <typename T, int NJ, bool LN, bool MOD, bool GATE>
-__global__ void __launch_bounds__(kAdaBwdThreads)
+// The barrier of one team's threads (named barrier team + 1; 0 is
+// __syncthreads).
+__device__ __forceinline__ void team_sync(int team, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(team + 1), "r"(threads)
+               : "memory");
+}
+
+// Each v[k] summed over the team's lanes: shuffles, then the team's warp
+// sums from shared memory in warp order (every lane gets the same bits).
+// red holds a row per warp of the block; each reduction of a row uses its
+// own red, so a warp that runs ahead cannot overwrite a value another
+// warp has yet to read.
+template <int K>
+__device__ __forceinline__ void team_sum(float (&v)[K], float (*red)[2],
+                                         int team, int tw) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = warp_sum(v[k]);
+  if (tw == 1) return;
+  const int w = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) red[w][k] = v[k];
+  }
+  team_sync(team, 32 * tw);
+  const int w0 = team * tw;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float s = 0.f;
+    for (int i = 0; i < tw; ++i) s += red[w0 + i][k];
+    v[k] = s;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One vector of a row into the team's stage: an asynchronous 16-byte copy
+// (L2 only), or a plain copy on the scalar path.
+template <typename T, int V>
+__device__ __forceinline__ void stage_copy(Pack<T, V>* dst,
+                                           const Pack<T, V>* src) {
+  if constexpr (sizeof(T) * V == 16)
+    cp_async16(dst, src, true);
+  else
+    *dst = *src;
+}
+
+// Shared bytes of a row-kernel block: each team's kBwdStages stages of x
+// and dy (lanes * NV vectors each), then kSums rows of lanes * NV * V
+// floats (the modulation rows, then the block's sums).
+template <typename T, int V, int NV>
+constexpr size_t bwd_smem(int tw, int teams, int sums) {
+  return (sizeof(T) * V * kBwdStages * 2 * teams + sizeof(float) * V * sums) *
+         32 * tw * NV;
+}
+
+// Rows [chunk * rows, +rows) of batch row b = blockIdx.x / chunks.  Each
+// thread copies, and later reads back, only its own vectors of a stage,
+// so the staging needs no barrier: a cp.async group a row, waited for
+// kBwdStages - 2 rows ahead.  In the shared region slot c is column c.
+template <typename T, int V, int NV, bool LN, bool MOD, bool GATE>
+__global__ void __launch_bounds__(kBwdMaxThreads)
     adaln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ shift,
                      const T* __restrict__ scale, const T* __restrict__ gate,
                      const T* __restrict__ dy, T* __restrict__ dx,
-                     T* __restrict__ dres, float* __restrict__ partial, int n,
-                     int d, float eps) {
-  __shared__ float stats[kAdaBwdRows][4];  // mu, rstd, mean dx^, mean dx^x^
-  const int tile = blockIdx.x, b = blockIdx.y;
-  const int r0 = tile * kAdaBwdRows, nrows = min(n - r0, kAdaBwdRows);
-  const long long mrow = static_cast<long long>(b) * d;
-  const long long xrow0 = (static_cast<long long>(b) * n + r0) * d;
+                     float* __restrict__ partial, int n, int d, int tw,
+                     int rows, int chunks, float eps) {
+  using P = Pack<T, V>;
+  constexpr int E = NV * V;                 // elements a lane
+  constexpr int S = kBwdStages;
+  constexpr int kSums = (MOD ? 2 : 0) + (GATE ? 1 : 0);
+  constexpr int kGate = MOD ? 2 : 0;        // the gate's row in the region
+  extern __shared__ float4 smem4[];
+  __shared__ float red[2][kBwdMaxThreads / 32][2];
 
-  if (LN) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int r = warp; r < nrows; r += kAdaBwdThreads / 32) {
-      const T* xr = x + xrow0 + static_cast<long long>(r) * d;
-      const T* gr = dy + xrow0 + static_cast<long long>(r) * d;
-      float s = 0.f;
-      for (int c = lane; c < d; c += 32) s += to_float(xr[c]);
-      const float mu = warp_sum(s) / d;
-      float q = 0.f;
-      for (int c = lane; c < d; c += 32) {
-        const float u = to_float(xr[c]) - mu;
-        q += u * u;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lanes = 32 * tw, slots = lanes * E, vecs = lanes * NV;
+  const int team = tid / lanes, t = tid % lanes, teams = nthreads / lanes;
+  const int block = blockIdx.x, b = block / chunks, chunk = block % chunks;
+  const int r1 = min(n, (chunk + 1) * rows);
+  const int nvec = d / V;
+  const long long brow = static_cast<long long>(b) * n;
+  const long long mrow = static_cast<long long>(b) * d;
+  P* ring = reinterpret_cast<P*>(smem4) + team * S * 2 * vecs;
+  float* region = reinterpret_cast<float*>(reinterpret_cast<P*>(smem4) +
+                                           teams * S * 2 * vecs);
+
+  auto issue = [&](int r, int s) {          // row r into stage s
+    const long long at = (brow + r) * d;
+    const P* xr = reinterpret_cast<const P*>(x + at);
+    const P* gr = reinterpret_cast<const P*>(dy + at);
+    P* sx = ring + s * 2 * vecs;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {          // clamped: padding lanes copy too
+      const int c = min(t + lanes * j, nvec - 1);
+      stage_copy(sx + t + lanes * j, xr + c);
+      stage_copy(sx + vecs + t + lanes * j, gr + c);
+    }
+  };
+  const int first = chunk * rows + team;
+#pragma unroll
+  for (int k = 0; k < S - 1; ++k) {         // in flight while staging
+    if (first + k * teams < r1) issue(first + k * teams, k);
+    cp_async_commit();
+  }
+
+  if constexpr (kSums > 0) {
+    // every load first (a thread stages at most E columns: slots = lanes
+    // * E and a block has at least lanes threads), then the stores
+    float m[E][kSums];
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const int c = tid + k * nthreads;
+      const bool in = c < d;
+      if (MOD) {
+        m[k][0] = in ? to_float(shift[mrow + c]) : 0.f;
+        m[k][1] = in ? 1.f + to_float(scale[mrow + c]) : 0.f;
       }
-      const float rstd = rsqrtf(warp_sum(q) / d + eps);
-      float c1 = 0.f, c2 = 0.f;
-      for (int c = lane; c < d; c += 32) {
-        float g = to_float(gr[c]);
-        if (GATE) g *= to_float(gate[mrow + c]);
-        if (MOD) g *= 1.f + to_float(scale[mrow + c]);
-        c1 += g;
-        c2 = fmaf(g, (to_float(xr[c]) - mu) * rstd, c2);
-      }
-      c1 = warp_sum(c1) / d;
-      c2 = warp_sum(c2) / d;
-      if (lane == 0) {
-        stats[r][0] = mu;
-        stats[r][1] = rstd;
-        stats[r][2] = c1;
-        stats[r][3] = c2;
+      if (GATE) m[k][kGate] = in ? to_float(gate[mrow + c]) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const int c = tid + k * nthreads;
+      if (c < slots) {
+#pragma unroll
+        for (int q = 0; q < kSums; ++q) region[q * slots + c] = m[k][q];
       }
     }
     __syncthreads();
   }
 
-  float sh[NJ], sc[NJ], gt[NJ], ash[NJ], asc[NJ], ag[NJ];
+  float ash[E], asc[E], ag[E];
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int c = min(static_cast<int>(threadIdx.x) + kAdaBwdThreads * j,
-                      d - 1);
-    sh[j] = MOD ? to_float(shift[mrow + c]) : 0.f;
-    sc[j] = MOD ? 1.f + to_float(scale[mrow + c]) : 1.f;
-    gt[j] = GATE ? to_float(gate[mrow + c]) : 1.f;
-    ash[j] = asc[j] = ag[j] = 0.f;
-  }
-  for (int r = 0; r < nrows; ++r) {
-    const long long row = xrow0 + static_cast<long long>(r) * d;
+  for (int k = 0; k < E; ++k) ash[k] = asc[k] = ag[k] = 0.f;
+
+  int s = 0;                                // this row's stage
+  for (int r = first; r < r1; r += teams) {
+    cp_async_wait<S - 2>();                 // this row has landed
+    float xf[E], gf[E];
+    const P* sx = ring + s * 2 * vecs;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const P xv = sx[t + lanes * j], gv = sx[vecs + t + lanes * j];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        xf[j * V + e] = to_float(xv.v[e]);
+        gf[j * V + e] = to_float(gv.v[e]);
+      }
+    }
+    // the row S - 1 ahead into the stage read one row ago
+    const int ahead = r + (S - 1) * teams;
+    if (ahead < r1) issue(ahead, s == 0 ? S - 1 : s - 1);
+    cp_async_commit();
+    s = s == S - 1 ? 0 : s + 1;
+
+    // dx^ = dy * gate * (1 + scale) of element e of vector j
+    auto dxh = [&](int j, int e) {
+      const int col = (t + lanes * j) * V + e;
+      float g = gf[j * V + e];
+      if (GATE) g *= region[kGate * slots + col];
+      if (MOD) g *= region[slots + col];
+      return g;
+    };
     float mu = 0.f, rstd = 1.f, c1 = 0.f, c2 = 0.f;
     if (LN) {
-      mu = stats[r][0];
-      rstd = stats[r][1];
-      c1 = stats[r][2];
-      c2 = stats[r][3];
-    }
+      // sum x and sum dx^ (dx^ needs no statistic of the row), then
+      // sum (x - mu)^2 and sum dx^ (x - mu): mean(dx^ x^) is rstd times
+      // the mean of the second, so two reductions give all four
+      float m1[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = threadIdx.x + kAdaBwdThreads * j;
-      if (c < d) {
-        const float xv = to_float(x[row + c]);
-        const float xh = LN ? (xv - mu) * rstd : xv;
-        float g = to_float(dy[row + c]);
+      for (int j = 0; j < NV; ++j) {
+        float u = 0.f, w = 0.f;
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          u += xf[j * V + e];
+          w += dxh(j, e);
+        }
+        if (t + lanes * j < nvec) {
+          m1[0] += u;
+          m1[1] += w;
+        }
+      }
+      team_sum(m1, red[0], team, tw);
+      mu = m1[0] / d;
+      c1 = m1[1] / d;
+      float m2[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        float u = 0.f, w = 0.f;
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float xc = xf[j * V + e] - mu;
+          u = fmaf(xc, xc, u);
+          w = fmaf(dxh(j, e), xc, w);
+        }
+        if (t + lanes * j < nvec) {
+          m2[0] += u;
+          m2[1] += w;
+        }
+      }
+      team_sum(m2, red[1], team, tw);
+      rstd = rsqrtf(m2[0] / d + eps);
+      c2 = rstd * m2[1] / d;
+    }
+
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int col = (t + lanes * j) * V;
+      float sh[V], sc[V], gt[V];
+      if (MOD) {
+        load_vec<V>(region + col, sh);
+        load_vec<V>(region + slots + col, sc);
+      }
+      if (GATE) load_vec<V>(region + kGate * slots + col, gt);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int k = j * V + e;
+        const float xh = LN ? (xf[k] - mu) * rstd : xf[k];
+        float g = gf[k];
         if (GATE) {
-          ag[j] = fmaf(g, MOD ? fmaf(xh, sc[j], sh[j]) : xh, ag[j]);
-          dres[row + c] = dy[row + c];
-          g *= gt[j];
+          ag[k] = fmaf(g, MOD ? fmaf(xh, sc[e], sh[e]) : xh, ag[k]);
+          g *= gt[e];
         }
         if (MOD) {
-          ash[j] += g;
-          asc[j] = fmaf(g, xh, asc[j]);
-          g *= sc[j];
+          ash[k] += g;
+          asc[k] = fmaf(g, xh, asc[k]);
+          g *= sc[e];
         }
-        dx[row + c] = from_float<T>(LN ? rstd * (g - c1 - xh * c2) : g);
+        gf[k] = LN ? rstd * (g - c1 - xh * c2) : g;
       }
     }
-  }
-  if (MOD || GATE) {
-    float* pb = partial + (mrow * gridDim.x + static_cast<long long>(tile)
-                           * d) * 3;
+    P* dxr = reinterpret_cast<P*>(dx + (brow + r) * d);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = threadIdx.x + kAdaBwdThreads * j;
-      if (c < d) {
-        if (MOD) {
-          pb[c] = ash[j];
-          pb[d + c] = asc[j];
-        }
-        if (GATE) pb[2 * d + c] = ag[j];
+    for (int j = 0; j < NV; ++j) {
+      P o;
+#pragma unroll
+      for (int e = 0; e < V; ++e) o.v[e] = from_float<T>(gf[j * V + e]);
+      if (t + lanes * j < nvec) dxr[t + lanes * j] = o;
+    }
+  }
+
+  if constexpr (kSums > 0) {
+    // the teams' sums into the region in team order (team 0 overwrites
+    // the modulation rows, which every team has finished reading)
+    for (int tm = 0; tm < teams; ++tm) {
+      __syncthreads();
+      if (team == tm) {
+#pragma unroll
+        for (int j = 0; j < NV; ++j)
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            const int k = j * V + e, col = (t + lanes * j) * V + e;
+            if (MOD) {
+              region[col] = (tm ? region[col] : 0.f) + ash[k];
+              region[slots + col] = (tm ? region[slots + col] : 0.f) + asc[k];
+            }
+            if (GATE) {
+              float* p = region + kGate * slots + col;
+              *p = (tm ? *p : 0.f) + ag[k];
+            }
+          }
       }
     }
+    __syncthreads();
+    float* pb = partial + static_cast<long long>(block) * kSums * d;
+    for (int s = 0; s < kSums; ++s)
+      for (int c = tid; c < d; c += nthreads)
+        pb[s * d + c] = region[s * slots + c];
   }
 }
 
-// dshift/dscale/dgate[b, c] = the sum over tiles, in order, of the
-// partials of (batch row b, column c).
+// dshift/dscale/dgate[b, c]: the sum over the chunks of batch row b, in
+// order, of the partials of column c (each of kBwdColGroups warps sums
+// every kBwdColGroups-th chunk, then one warp adds the groups in order).
+// partial: (B, chunks, sums, d); out[s] the sums' outputs in that order.
 template <typename T>
-__global__ void __launch_bounds__(kAdaBwdThreads)
-    adaln_bwd_reduce_kernel(const float* __restrict__ partial,
-                            T* __restrict__ dshift, T* __restrict__ dscale,
-                            T* __restrict__ dgate, int tiles, int d) {
-  const int c = blockIdx.x * kAdaBwdThreads + threadIdx.x, b = blockIdx.y;
-  if (c >= d) return;
-  const float* pb = partial + static_cast<long long>(b) * tiles * 3 * d;
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-  for (int t = 0; t < tiles; ++t) {
-    const float* pt = pb + static_cast<long long>(t) * 3 * d;
-    if (dshift != nullptr) {
-      s0 += pt[c];
-      s1 += pt[d + c];
-    }
-    if (dgate != nullptr) s2 += pt[2 * d + c];
+__global__ void __launch_bounds__(32 * kBwdColGroups)
+    adaln_bwd_cols_kernel(const float* __restrict__ partial, T* out0,
+                          T* out1, T* out2, int chunks, int sums, int d) {
+  __shared__ float part[kBwdColGroups][32];
+  const int c = blockIdx.x * 32 + threadIdx.x, s = blockIdx.y,
+            b = blockIdx.z, g = threadIdx.y;
+  float acc = 0.f;
+  if (c < d) {
+    const long long stride = static_cast<long long>(sums) * d;
+    const float* p = partial + static_cast<long long>(b) * chunks * stride
+                     + static_cast<long long>(s) * d + c;
+#pragma unroll 8
+    for (int k = g; k < chunks; k += kBwdColGroups) acc += p[k * stride];
   }
-  const long long o = static_cast<long long>(b) * d + c;
-  if (dshift != nullptr) {
-    dshift[o] = from_float<T>(s0);
-    dscale[o] = from_float<T>(s1);
+  part[g][threadIdx.x] = acc;
+  __syncthreads();
+  if (g == 0 && c < d) {
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < kBwdColGroups; ++i) sum += part[i][threadIdx.x];
+    T* out = s == 0 ? out0 : s == 1 ? out1 : out2;
+    out[static_cast<long long>(b) * d + c] = from_float<T>(sum);
   }
-  if (dgate != nullptr) dgate[o] = from_float<T>(s2);
 }
 
-template <typename T, int NJ>
-cudaError_t launch_adaln_bwd(const void* x, const void* shift,
-                             const void* scale, const void* gate,
-                             const void* dy, void* dx, void* dres,
-                             float* partial, int B, int n, int d, int tiles,
-                             int variant, cudaStream_t stream) {
-  const dim3 grid(tiles, B);
-#define GFDIT_ADALN_BWD(LN, MOD, GATE)                                       \
-  adaln_bwd_kernel<T, NJ, LN, MOD, GATE><<<grid, kAdaBwdThreads, 0,         \
-                                           stream>>>(                       \
-      static_cast<const T*>(x), static_cast<const T*>(shift),               \
-      static_cast<const T*>(scale), static_cast<const T*>(gate),            \
-      static_cast<const T*>(dy), static_cast<T*>(dx), static_cast<T*>(dres),\
-      partial, n, d, 1e-6f);                                                \
-  break;
-  switch (variant) {  // bit 0: ln, bit 1: shift/scale, bit 2: gate/residual
+inline int sm_count(int device) {
+  static std::atomic<int> cached[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return 0;
+  int v = cached[device].load(std::memory_order_relaxed);
+  if (v == 0 && cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount,
+                                       device) == cudaSuccess)
+    cached[device].store(v, std::memory_order_relaxed);
+  return v;
+}
+
+// The row rule: rows a block, so that the B * chunks blocks come to
+// kBwdBlocksPerSm an SM (fewer when the batch rows hold fewer tokens).
+// It depends on (B, n) and the card alone, so the wrapper can size the
+// partials' scratch (B * chunks * sums * d floats) before the launch.
+inline bool bwd_rows(int B, int n, int device, int* rows, int* chunks) {
+  const int sms = sm_count(device);
+  if (sms <= 0 || B <= 0 || n <= 0) return false;
+  const long long want = (static_cast<long long>(kBwdBlocksPerSm) * sms
+                          + B - 1) / B;
+  const int c0 = static_cast<int>(std::min<long long>(n, want));
+  *rows = (n + c0 - 1) / c0;
+  *chunks = (n + *rows - 1) / *rows;
+  return true;
+}
+
+// Vectors a lane holds (the one instantiation a path has): 12 elements a
+// lane in fp32 (3 float4) and on the scalar path, 8 (one vector) in
+// bf16, so that x^, dx^ and three sums a column stay in registers.
+template <typename T, int V>
+constexpr int kBwdNV = V == 1 ? 12 : (sizeof(T) == 4 ? 3 : 1);
+
+struct BwdPlan {
+  int tw, nv, threads, teams, rows, chunks;
+};
+
+// The narrowest team (1 to 16 warps) whose lanes cover the row with NV
+// vectors each (D=1536: 4 warps in fp32, 6 in bf16); two teams a block
+// while they fit in kBwdMaxThreads and kBwdMaxSmem.
+template <typename T, int V>
+bool bwd_plan(int B, int n, int d, int sums, int device, BwdPlan* p) {
+  constexpr int NV = kBwdNV<T, V>;
+  const int nvec = d / V, tw = (nvec + 32 * NV - 1) / (32 * NV);
+  if (tw > kBwdMaxThreads / 32) return false;
+  p->tw = tw;
+  p->nv = NV;
+  p->teams = 64 * tw <= kBwdMaxThreads &&
+                     bwd_smem<T, V, NV>(tw, 2, sums) <= kBwdMaxSmem
+                 ? 2
+                 : 1;
+  p->threads = 32 * tw * p->teams;
+  return bwd_rows(B, n, device, &p->rows, &p->chunks);
+}
+
+template <typename T, int V, int NV, bool LN, bool MOD, bool GATE>
+cudaError_t launch_bwd(const void* x, const void* shift, const void* scale,
+                       const void* gate, const void* dy, void* dx,
+                       float* partial, int B, int n, int d,
+                       const BwdPlan& p, int device, cudaStream_t stream,
+                       int* blocks_per_sm) {
+  constexpr auto kernel = adaln_bwd_kernel<T, V, NV, LN, MOD, GATE>;
+  constexpr int kSums = (MOD ? 2 : 0) + (GATE ? 1 : 0);
+  const size_t smem = bwd_smem<T, V, NV>(p.tw, p.teams, kSums);
+  cudaError_t err = allow_smem_once<kernel>(kBwdMaxSmem, device);
+  if (err != cudaSuccess) return err;
+  if (blocks_per_sm != nullptr)   // a query: occupancy, no launch
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, kernel, p.threads, smem);
+  kernel<<<B * p.chunks, p.threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(shift),
+      static_cast<const T*>(scale), static_cast<const T*>(gate),
+      static_cast<const T*>(dy), static_cast<T*>(dx), partial, n, d, p.tw,
+      p.rows, p.chunks, 1e-6f);
+  return cudaGetLastError();
+}
+
+template <typename T, int V, int NV>
+cudaError_t launch_bwd_variant(const void* x, const void* shift,
+                               const void* scale, const void* gate,
+                               const void* dy, void* dx, float* partial,
+                               int B, int n, int d, int variant,
+                               const BwdPlan& p, int device,
+                               cudaStream_t stream, int* blocks_per_sm) {
+#define GFDIT_ADALN_BWD(LN, MOD, GATE)                                    \
+  return launch_bwd<T, V, NV, LN, MOD, GATE>(x, shift, scale, gate, dy,  \
+                                             dx, partial, B, n, d, p,    \
+                                             device, stream, blocks_per_sm);
+  switch (variant) {  // bit 0: ln, bit 1: shift/scale, bit 2: gate
     case 1: GFDIT_ADALN_BWD(true, false, false)
     case 2: GFDIT_ADALN_BWD(false, true, false)
     case 3: GFDIT_ADALN_BWD(true, true, false)
@@ -410,59 +677,158 @@ cudaError_t launch_adaln_bwd(const void* x, const void* shift,
     default: return cudaErrorInvalidValue;
   }
 #undef GFDIT_ADALN_BWD
+}
+
+// Plans the launch (vector or scalar path), then launches the row kernel,
+// or with blocks_per_sm only reports the plan and its occupancy.
+template <typename T>
+cudaError_t dispatch_bwd(const void* x, const void* shift, const void* scale,
+                         const void* gate, const void* dy, void* dx,
+                         float* partial, int B, int n, int d, int variant,
+                         bool vec, int device, cudaStream_t stream,
+                         BwdPlan* plan, int* blocks_per_sm) {
+  constexpr int kV = 16 / sizeof(T);
+  BwdPlan p;
+  const int sums = (variant & 2 ? 2 : 0) + (variant & 4 ? 1 : 0);
+  if (vec ? !bwd_plan<T, kV>(B, n, d, sums, device, &p)
+          : !bwd_plan<T, 1>(B, n, d, sums, device, &p))
+    return cudaErrorInvalidValue;
+  if (plan != nullptr) *plan = p;
+  if (vec)
+    return launch_bwd_variant<T, kV, kBwdNV<T, kV>>(
+        x, shift, scale, gate, dy, dx, partial, B, n, d, variant, p, device,
+        stream, blocks_per_sm);
+  return launch_bwd_variant<T, 1, kBwdNV<T, 1>>(
+      x, shift, scale, gate, dy, dx, partial, B, n, d, variant, p, device,
+      stream, blocks_per_sm);
+}
+
+template <typename T>
+cudaError_t launch_cols(const float* partial, void* dshift, void* dscale,
+                        void* dgate, int B, int d, const BwdPlan& p,
+                        cudaStream_t stream) {
+  T* outs[3];
+  int sums = 0;
+  for (void* o : {dshift, dscale, dgate})
+    if (o != nullptr) outs[sums++] = static_cast<T*>(o);
+  if (sums == 0) return cudaSuccess;
+  adaln_bwd_cols_kernel<T>
+      <<<dim3((d + 31) / 32, sums, B), dim3(32, kBwdColGroups), 0, stream>>>(
+          partial, outs[0], sums > 1 ? outs[1] : nullptr,
+          sums > 2 ? outs[2] : nullptr, p.chunks, sums, d);
   return cudaGetLastError();
 }
 
 }  // namespace gfdit
 
-// x/dy/dx/dres: (B, n, d) contiguous; shift/scale/gate and their
-// gradients: (B, d) contiguous, all of one dtype; absent operands null
-// (dres and dgate with gate, dshift and dscale with shift).  partial:
-// B * tiles * 3 * d fp32 scratch, tiles = ceil(n / 16), when shift or
-// gate is given.
+// Floats of fp32 scratch gfdit_adaln_bwd needs for its partials at
+// (B, n, d) with shift/scale (mod) and gate as given: B * chunks * sums *
+// d by the kernel's row rule (0 when there is no column sum); -1 for a
+// shape or device it cannot plan.
+extern "C" long long gfdit_adaln_bwd_scratch(int B, int n, int d, int mod,
+                                             int gated, int device) {
+  using namespace gfdit;
+  int rows, chunks;
+  if (d <= 0 || !bwd_rows(B, n, device, &rows, &chunks)) return -1;
+  return static_cast<long long>(B) * chunks * ((mod ? 2 : 0) + (gated ? 1 : 0))
+         * d;
+}
+
+inline bool adaln_bwd_vec(const void* x, const void* dy, const void* dx,
+                          int d, int dtype) {
+  using gfdit::aligned16;
+  return d % (dtype == gfdit::kFloat32 ? 4 : 8) == 0 && aligned16(x) &&
+         aligned16(dy) && aligned16(dx);
+}
+
+// x/dy/dx: (B, n, d) contiguous; shift/scale/gate and their gradients:
+// (B, d) contiguous, all of one dtype; absent operands null (dgate with
+// gate, dshift and dscale with shift).  partial: scratch of
+// partial_floats fp32, at least gfdit_adaln_bwd_scratch's, when shift or
+// gate is given.  dresidual is dy: the caller hands dy on.
 extern "C" int gfdit_adaln_bwd(const void* x, const void* shift,
                                const void* scale, const void* gate,
-                               const void* dy, void* dx, void* dres,
-                               void* dshift, void* dscale, void* dgate,
-                               float* partial, int B, int n, int d, int tiles,
+                               const void* dy, void* dx, void* dshift,
+                               void* dscale, void* dgate, float* partial,
+                               long long partial_floats, int B, int n, int d,
                                int ln, int dtype, int device, void* stream) {
   using namespace gfdit;
   const bool mod = shift != nullptr, gated = gate != nullptr;
   if (d <= 0 || d > kAdaMaxDim || B <= 0 || n <= 0 || B > 65535 ||
-      tiles != (n + kAdaBwdRows - 1) / kAdaBwdRows ||
-      mod != (scale != nullptr) || mod != (dshift != nullptr) ||
-      mod != (dscale != nullptr) || gated != (dres != nullptr) ||
-      gated != (dgate != nullptr) || ((mod || gated) && partial == nullptr))
+      (!ln && !mod && !gated) || mod != (scale != nullptr) ||
+      mod != (dshift != nullptr) || mod != (dscale != nullptr) ||
+      gated != (dgate != nullptr) ||
+      ((mod || gated) &&
+       (partial == nullptr ||
+        partial_floats < gfdit_adaln_bwd_scratch(B, n, d, mod, gated,
+                                                 device))))
     return cudaErrorInvalidValue;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   const int variant = (ln ? 1 : 0) | (mod ? 2 : 0) | (gated ? 4 : 0);
+  const bool vec = adaln_bwd_vec(x, dy, dx, d, dtype);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GFDIT_ADALN_BWD_NJ(T, NJ)                                           \
-  if (d <= kAdaBwdThreads * NJ) {                                           \
-    err = launch_adaln_bwd<T, NJ>(x, shift, scale, gate, dy, dx, dres,      \
-                                  partial, B, n, d, tiles, variant, s);     \
-    if (err == cudaSuccess && (mod || gated)) {                             \
-      adaln_bwd_reduce_kernel<T>                                            \
-          <<<dim3((d + kAdaBwdThreads - 1) / kAdaBwdThreads, B),            \
-             kAdaBwdThreads, 0, s>>>(partial, static_cast<T*>(dshift),      \
-                                     static_cast<T*>(dscale),               \
-                                     static_cast<T*>(dgate), tiles, d);     \
-      err = cudaGetLastError();                                             \
-    }                                                                       \
-    return err;                                                             \
-  }
+  BwdPlan p;
   if (dtype == kFloat32) {
-    GFDIT_ADALN_BWD_NJ(float, 1)
-    GFDIT_ADALN_BWD_NJ(float, 4)
-    GFDIT_ADALN_BWD_NJ(float, 16)
-  } else if (dtype == kBFloat16) {
-    GFDIT_ADALN_BWD_NJ(__nv_bfloat16, 1)
-    GFDIT_ADALN_BWD_NJ(__nv_bfloat16, 4)
-    GFDIT_ADALN_BWD_NJ(__nv_bfloat16, 16)
+    err = dispatch_bwd<float>(x, shift, scale, gate, dy, dx, partial, B, n,
+                              d, variant, vec, device, s, &p, nullptr);
+    if (err == cudaSuccess)
+      err = launch_cols<float>(partial, dshift, dscale, dgate, B, d, p, s);
+    return err;
   }
-#undef GFDIT_ADALN_BWD_NJ
+  if (dtype == kBFloat16) {
+    err = dispatch_bwd<__nv_bfloat16>(x, shift, scale, gate, dy, dx, partial,
+                                      B, n, d, variant, vec, device, s, &p,
+                                      nullptr);
+    if (err == cudaSuccess)
+      err = launch_cols<__nv_bfloat16>(partial, dshift, dscale, dgate, B, d,
+                                       p, s);
+    return err;
+  }
   return cudaErrorInvalidValue;
+}
+
+// The row kernel's plan at (B, n, d) for the variant (ln, mod, gated) in
+// dtype on the vector path (vec) or the scalar one: out = {warps a row,
+// vectors a lane, threads a block, rows a block, blocks a batch row,
+// resident blocks an SM (occupancy calculator), shared bytes a block}.
+extern "C" int gfdit_adaln_bwd_plan(int B, int n, int d, int ln, int mod,
+                                    int gated, int dtype, int vec,
+                                    int device, int* out) {
+  using namespace gfdit;
+  const int v = vec ? (dtype == kFloat32 ? 4 : 8) : 1;
+  if (d <= 0 || d > kAdaMaxDim || d % v || (!ln && !mod && !gated))
+    return cudaErrorInvalidValue;
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return err;
+  const int variant = (ln ? 1 : 0) | (mod ? 2 : 0) | (gated ? 4 : 0);
+  BwdPlan p;
+  int blocks = 0;
+  if (dtype == kFloat32)
+    err = dispatch_bwd<float>(nullptr, nullptr, nullptr, nullptr, nullptr,
+                              nullptr, nullptr, B, n, d, variant, vec,
+                              device, nullptr, &p, &blocks);
+  else if (dtype == kBFloat16)
+    err = dispatch_bwd<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr,
+                                      nullptr, nullptr, nullptr, B, n, d,
+                                      variant, vec, device, nullptr, &p,
+                                      &blocks);
+  else
+    return cudaErrorInvalidValue;
+  if (err != cudaSuccess) return err;
+  const int sums = (mod ? 2 : 0) + (gated ? 1 : 0);
+  const size_t smem =
+      dtype == kFloat32
+          ? (vec ? bwd_smem<float, 4, kBwdNV<float, 4>>(p.tw, p.teams, sums)
+                 : bwd_smem<float, 1, kBwdNV<float, 1>>(p.tw, p.teams, sums))
+          : (vec ? bwd_smem<__nv_bfloat16, 8, kBwdNV<__nv_bfloat16, 8>>(
+                       p.tw, p.teams, sums)
+                 : bwd_smem<__nv_bfloat16, 1, kBwdNV<__nv_bfloat16, 1>>(
+                       p.tw, p.teams, sums));
+  const int vals[7] = {p.tw, p.nv, p.threads, p.rows, p.chunks, blocks,
+                       static_cast<int>(smem)};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return cudaSuccess;
 }
 
 // x/residual/out: (rows = B*N, d) contiguous; shift/scale/gate: (B, d)

@@ -36,9 +36,13 @@ _SIGNATURES = {
     # x, shift, scale, gate, residual, out, rows, n, d, ln, dtype, device,
     # stream
     "gfdit_adaln": [_P] * 6 + [_I] * 6 + [_P],
-    # x, shift, scale, gate, dy, dx, dresidual, dshift, dscale, dgate,
-    # partial, B, n, d, tiles, ln, dtype, device, stream
-    "gfdit_adaln_bwd": [_P] * 11 + [_I] * 7 + [_P],
+    # x, shift, scale, gate, dy, dx, dshift, dscale, dgate, partial,
+    # partial floats, B, n, d, ln, dtype, device, stream
+    "gfdit_adaln_bwd": [_P] * 10 + [ctypes.c_longlong] + [_I] * 6 + [_P],
+    # B, n, d, mod, gated, device -> floats of partials' scratch
+    "gfdit_adaln_bwd_scratch": [_I] * 6,
+    # B, n, d, ln, mod, gated, dtype, vec, device -> the plan (7 ints)
+    "gfdit_adaln_bwd_plan": [_I] * 9 + [_IP],
     # q, k, v, out, lse, B, Sq, Sk, H, KV, D, causal, sm_scale, dtype,
     # device, stream
     "gfdit_attention": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
@@ -60,6 +64,8 @@ _SIGNATURES = {
     # memory bytes
     "gfdit_attention_bwd_occupancy": [_I] * 4 + [_IP, _IP],
 }
+
+_RESTYPES = {"gfdit_adaln_bwd_scratch": ctypes.c_longlong}
 
 
 def _nvcc() -> str:
@@ -135,7 +141,7 @@ def load() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             lib.gfdit_error_string.argtypes = [ctypes.c_int]
             lib.gfdit_error_string.restype = ctypes.c_char_p
             _lib = lib

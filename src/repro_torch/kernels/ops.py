@@ -47,9 +47,6 @@ from repro_torch.kernels import build, ref
 HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 #: widest row the adaLN kernel holds in registers (one warp, 128 a lane)
 MAX_ADALN_DIM = 4096
-#: token rows a block of K1's backward kernel sums its column partials
-#: over (``csrc/adaln.cu``'s kAdaBwdRows)
-ADALN_BWD_ROWS = 16
 #: (head_dim p, state n, chunk) the SSD kernel is instantiated for
 SSD_SHAPES = ((64, 128, 128), (16, 16, 16), (16, 16, 32), (32, 16, 64),
               (64, 32, 128), (64, 64, 128))
@@ -351,10 +348,13 @@ def fused_adaln_bwd(x, shift=None, scale=None, gate=None, dy=None, *,
                     ln: bool = True):
     """K1's backward: (dx, dshift, dscale, dgate, dresidual) of
     :func:`fused_adaln` for the output gradient ``dy`` (None where the
-    operand is absent; the residual's presence follows the gate's).  On
-    the card a row kernel writes dx and dresidual and each block's column
-    partials of dshift/dscale/dgate into scratch, and a second launch sums
-    the partials in a fixed order (deterministic, no atomics); one call
+    operand is absent; the residual's presence follows the gate's, and
+    its gradient is ``dy`` itself, as in the plain version: nothing is
+    copied).  On the card a row kernel reads each row of x and dy once,
+    writes dx and, per block of rows, one partial row of each column sum
+    (dshift, dscale, dgate as present) into scratch sized by the kernel's
+    own rule (``gfdit_adaln_bwd_scratch``); a second launch sums the
+    partials in a fixed order (deterministic, no atomics).  One call
     counts one launch.  The CPU version is ``ref.adaln_bwd_ref``."""
     given = [t for t in (x, shift, scale, gate, dy) if t is not None]
     if not x.is_cuda and not _on_card(*given):
@@ -369,25 +369,47 @@ def fused_adaln_bwd(x, shift=None, scale=None, gate=None, dy=None, *,
     dtype = _check(name, x, *specs)
     if not 0 < d <= MAX_ADALN_DIM or b * n == 0:
         raise ValueError(f"{name}: unsupported shape {tuple(x.shape)}")
+    dev = x.get_device()
     dx = torch.empty_like(x)
-    dres = dshift = dscale = dgate = partial = None
+    dshift = dscale = dgate = partial = None
+    floats = 0
     if shift is not None:
         dshift, dscale = torch.empty_like(shift), torch.empty_like(scale)
     if gate is not None:
-        dgate, dres = torch.empty_like(gate), torch.empty_like(x)
-    tiles = -(-n // ADALN_BWD_ROWS)
+        dgate = torch.empty_like(gate)
     if shift is not None or gate is not None:
-        partial = torch.empty(b * tiles * 3 * d, dtype=torch.float32,
-                              device=x.device)
+        floats = _fn("gfdit_adaln_bwd_scratch")(
+            b, n, d, int(shift is not None), int(gate is not None), dev)
+        partial = torch.empty(floats, dtype=torch.float32, device=x.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
-    dev = x.get_device()
     _launch(name, _fn("gfdit_adaln_bwd"), x.data_ptr(), ptr(shift),
-            ptr(scale), ptr(gate), dy.data_ptr(), dx.data_ptr(), ptr(dres),
-            ptr(dshift), ptr(dscale), ptr(dgate), ptr(partial), b, n, d,
-            tiles, int(ln), dtype, dev, _stream(dev))
-    return dx, dshift, dscale, dgate, dres
+            ptr(scale), ptr(gate), dy.data_ptr(), dx.data_ptr(), ptr(dshift),
+            ptr(dscale), ptr(dgate), ptr(partial), floats, b, n, d, int(ln),
+            dtype, dev, _stream(dev))
+    return dx, dshift, dscale, dgate, None if gate is None else dy
+
+
+def adaln_bwd_plan(b: int, n: int, d: int, *, ln: bool = True,
+                   mod: bool = True, gated: bool = False,
+                   dtype=torch.float32, aligned: bool = True,
+                   device: int = 0) -> dict:
+    """The launch K1's backward row kernel makes at (b, n, d) for the
+    variant, on the vector path (``aligned``: 16-byte aligned operands and
+    d a multiple of the 16-byte vector) or the scalar one: warps a row,
+    vectors a lane, threads and rows a block, blocks a batch row, resident
+    blocks an SM (the occupancy calculator) and shared bytes a block."""
+    out = (ctypes.c_int * 7)()
+    vec = aligned and d % (128 // torch.finfo(dtype).bits) == 0
+    err = _fn("gfdit_adaln_bwd_plan")(b, n, d, int(ln), int(mod), int(gated),
+                                      _DTYPES[dtype], int(vec), device, out)
+    if err != 0:
+        msg = _fn("gfdit_error_string")(err).decode()
+        raise RuntimeError(f"adaln_bwd_plan: {msg} ({err})")
+    return dict(zip(("warps_a_row", "vectors_a_lane", "threads",
+                     "rows_a_block", "blocks_a_batch_row", "blocks_per_sm",
+                     "smem_bytes"), out))
 
 
 class _AdaLN(torch.autograd.Function):

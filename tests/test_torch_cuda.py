@@ -397,33 +397,150 @@ def test_cuda_attention_bwd_rejects_misaligned_operands(cuda_device, dtype):
         ops.attention_bwd(q, q, q, q, lse, do)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("variant", sorted(ADALN_VARIANTS) + ["modulate"])
-# DIT_IMAGE; ragged against the 16-row tile and the scalar path; widest
-@pytest.mark.parametrize("d,n", [(1536, 130), (100, 37), (4096, 20)])
-def test_cuda_adaln_backward_kernel(cuda_device, variant, dtype, d, n):
-    """K1's backward against its plain version, every variant (and
-    shift/scale without LN), rel-L2 per output."""
-    rng = np.random.default_rng(d + n)
-    b = 2
-    x = _card(rng, (b, n, d), dtype, cuda_device)
-    dy = _card(rng, (b, n, d), dtype, cuda_device)
-    t = {name: _card(rng, (b, d), dtype, cuda_device, 0.2)
+ADALN_BWD_VARIANTS = sorted(ADALN_VARIANTS) + ["modulate"]
+
+
+def _adaln_bwd_inputs(rng, b, n, d, dtype, device, variant, offset=0):
+    """x and dy of (b, n, d), the variant's (B, D) rows as keywords, and
+    ln; with ``offset`` x starts that many elements past an allocation
+    (16-byte misaligned for an odd offset: the kernel's scalar path)."""
+    x = _card(rng, (b, n, d), dtype, device)
+    if offset:
+        moved = torch.empty(b * n * d + offset, dtype=x.dtype,
+                            device=device)[offset:].view(b, n, d)
+        moved.copy_(x)
+        x = moved
+    dy = _card(rng, (b, n, d), dtype, device)
+    t = {name: _card(rng, (b, d), dtype, device, 0.2)
          for name in ("shift", "scale", "gate")}
     names = ADALN_VARIANTS.get(variant, ("shift", "scale"))
     kw = {name: t[name] for name in names if name != "residual"}
-    ln = variant not in ("gated_residual", "modulate")
-    before = ops.launches["fused_adaln_bwd"]
-    got = ops.fused_adaln_bwd(x, dy=dy, ln=ln, **kw)
-    assert ops.launches["fused_adaln_bwd"] == before + 1
-    want = ref.adaln_bwd_ref(x, dy=dy, ln=ln, **kw)
+    return x, dy, kw, variant not in ("gated_residual", "modulate")
+
+
+def _adaln_bwd_close(got, want, dtype):
     for name, g, w in zip(("dx", "dshift", "dscale", "dgate", "dresidual"),
                           got, want):
         assert (g is None) == (w is None), name
         if w is not None:
+            assert g.dtype == w.dtype and g.shape == w.shape, name
             err = _rel_l2(g, w)
             assert err <= TOL[dtype], (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ADALN_BWD_VARIANTS)
+# DIT_IMAGE; ragged against a block's rows, and D=100 (a vector path of
+# 25 float4 in fp32, the scalar path in bf16); widest; one token row; a
+# DIT_VIDEO shard (5070 rows of 3072)
+@pytest.mark.parametrize("b,d,n", [(2, 1536, 130), (2, 100, 37),
+                                   (2, 4096, 20), (1, 1536, 1),
+                                   (1, 3072, 5070)])
+def test_cuda_adaln_backward_kernel(cuda_device, variant, dtype, b, d, n):
+    """K1's backward against its plain version, every variant (and
+    shift/scale without LN), rel-L2 per output."""
+    rng = np.random.default_rng(d + n)
+    x, dy, kw, ln = _adaln_bwd_inputs(rng, b, n, d, dtype, cuda_device,
+                                      variant)
+    before = ops.launches["fused_adaln_bwd"]
+    got = ops.fused_adaln_bwd(x, dy=dy, ln=ln, **kw)
+    assert ops.launches["fused_adaln_bwd"] == before + 1
+    _adaln_bwd_close(got, ref.adaln_bwd_ref(x, dy=dy, ln=ln, **kw), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ADALN_BWD_VARIANTS)
+@pytest.mark.parametrize("d,n", [(1536, 130), (1000, 45)])
+def test_cuda_adaln_backward_scalar_path(cuda_device, variant, dtype, d, n):
+    """With x one element off a 16-byte boundary the kernel runs its
+    scalar instantiation (V = 1), held to the same budget."""
+    rng = np.random.default_rng(5)
+    x, dy, kw, ln = _adaln_bwd_inputs(rng, 2, n, d, dtype, cuda_device,
+                                      variant, offset=1)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    got = ops.fused_adaln_bwd(x, dy=dy, ln=ln, **kw)
+    _adaln_bwd_close(got, ref.adaln_bwd_ref(x, dy=dy, ln=ln, **kw), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ADALN_BWD_VARIANTS)
+def test_cuda_adaln_backward_is_deterministic(cuda_device, variant, dtype):
+    """Two calls on the same inputs give the same bits: the row sums run
+    in a fixed order, and each column sum adds its blocks' partials in a
+    fixed order (no atomics).  (2, 300, 1536) spreads each batch row over
+    many blocks of several rows."""
+    rng = np.random.default_rng(13)
+    x, dy, kw, ln = _adaln_bwd_inputs(rng, 2, 300, 1536, dtype, cuda_device,
+                                      variant)
+    first = ops.fused_adaln_bwd(x, dy=dy, ln=ln, **kw)
+    second = ops.fused_adaln_bwd(x, dy=dy, ln=ln, **kw)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dx", "dshift", "dscale", "dgate"), first,
+                           second):
+        assert (a is None) == (b_ is None), name
+        if a is not None:
+            assert torch.equal(a, b_), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["gated_residual", "full"])
+def test_cuda_adaln_backward_hands_dy_on_as_dresidual(cuda_device, variant):
+    """The residual's gradient is the output's: the wrapper returns the
+    incoming dy tensor itself, as the plain version does, and writes no
+    copy; through autograd the residual's gradient is dy's values."""
+    rng = np.random.default_rng(17)
+    x, dy, kw, ln = _adaln_bwd_inputs(rng, 2, 64, 256, "float32",
+                                      cuda_device, variant)
+    dres = ops.fused_adaln_bwd(x, dy=dy, ln=ln, **kw)[4]
+    assert dres is dy and dres.data_ptr() == dy.data_ptr()
+    res = torch.zeros_like(x, requires_grad=True)
+    ops.fused_adaln(x, residual=res, ln=ln, **kw).backward(dy)
+    assert torch.equal(res.grad, dy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", sorted(ADALN_VARIANTS))
+def test_cuda_adaln_gradient_matches_the_plain_version(cuda_device, variant,
+                                                      dtype):
+    """backward() through ``ops.fused_adaln`` on the card (K1 and its
+    backward kernel) gives the gradients of autograd through
+    ``ref.adaln_ref`` on the same inputs on the card, every operand."""
+    rng = np.random.default_rng(19)
+    b, n, d = 2, 77, 1536
+    args = {"x": _card(rng, (b, n, d), dtype, cuda_device)}
+    for name in ADALN_VARIANTS[variant]:
+        shape = (b, n, d) if name == "residual" else (b, d)
+        args[name] = _card(rng, shape, dtype, cuda_device, 0.2)
+    ln = variant != "gated_residual"
+    dy = _card(rng, (b, n, d), dtype, cuda_device)
+    grads = []
+    for fn in (ops.fused_adaln, ref.adaln_ref):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in
+                  args.items()}
+        fn(**leaves, ln=ln).backward(dy)
+        grads.append({k: v.grad for k, v in leaves.items()})
+    for name in args:
+        assert _rel_l2(grads[0][name], grads[1][name]) <= TOL[dtype], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_adaln_backward_plan_fills_the_card(cuda_device, dtype):
+    """At DIT_IMAGE's training shape (2, 1024, 1536) the row kernel's grid
+    covers every SM, and every batch row's blocks together walk its 1024
+    rows (the rule the wrapper sizes its scratch by)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for ln, mod, gated in ((1, 1, 0), (1, 0, 0), (0, 0, 1), (1, 1, 1)):
+        plan = ops.adaln_bwd_plan(2, 1024, 1536, ln=ln, mod=mod,
+                                  gated=gated, dtype=getattr(torch, dtype))
+        chunks, rows = plan["blocks_a_batch_row"], plan["rows_a_block"]
+        assert 2 * chunks >= sms, plan
+        assert (chunks - 1) * rows < 1024 <= chunks * rows, plan
+        assert plan["blocks_per_sm"] >= 1, plan
 
 
 @pytest.mark.cuda

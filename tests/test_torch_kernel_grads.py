@@ -299,6 +299,24 @@ def test_adaln_bwd_ref_in_bf16(variant):
         assert _rel(_np(closed[name]), _np(a)) <= TOL["bfloat16"], name
 
 
+@pytest.mark.parametrize("variant", ["gated_residual", "ln_gated", "full",
+                                     "modulate_gated"])
+def test_fused_adaln_bwd_hands_dy_on_as_dresidual(variant):
+    """The residual's gradient is the output's: ``ops.fused_adaln_bwd``
+    returns the incoming dy tensor itself (no copy, as the kernel path
+    does), and backward() through ``ops.fused_adaln`` gives the residual
+    dy's values."""
+    names, ln = ADALN_VARIANTS[variant]
+    x, dy, kw = _adaln_inputs(names, seed=4)
+    tx, tdy = torch.from_numpy(x), torch.from_numpy(dy)
+    rows = {n: torch.from_numpy(kw[n]) for n in names if n != "residual"}
+    dres = ops.fused_adaln_bwd(tx, dy=tdy, ln=ln, **rows)[4]
+    assert dres is tdy
+    res = torch.from_numpy(kw["residual"]).requires_grad_(True)
+    ops.fused_adaln(tx, residual=res, ln=ln, **rows).backward(tdy)
+    assert torch.equal(res.grad, tdy)
+
+
 @pytest.mark.parametrize("case", ATTN_CASES[:4], ids=str)
 def test_ops_attention_backpropagates_through_the_closed_form(case):
     """On CPU tensors ``ops.attention``'s Function runs the plain forward
