@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch port serves DiT-image, DiT-video and
 the LM zoo (Mamba2, Zamba2, Whisper, Mixtral, DeepSeek-V2), and trains
-DiT-image and yi-6b, on one NVIDIA GPU.
+DiT-image, yi-6b, mamba2-1.3b and zamba2-7b, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -13,7 +13,9 @@ Phases, one line each (any failure raises and exits non-zero):
    outlast GFC's collective timeout); K2's backward kernels' registers,
    spills, shared memory and blocks an SM: fp32 at every head dim, bf16
    at 64 and 128; K1's backward row kernel's registers and spills at
-   DIT_IMAGE's width, every variant, with its plan and blocks an SM.
+   DIT_IMAGE's width, every variant, with its plan and blocks an SM; the
+   registers and spills of K4's forward and backward stage kernels at
+   (p, n, chunk) = (64, 128, 128) and (64, 64, 128).
 3. kernels: each kernel against its plain PyTorch version on the card at
    its path's full-width shapes (DIT_IMAGE for K1-K3, the mamba2-1.3b
    prefill for K4, timed at batch 4 and 1; zamba2-7b's forward for K2
@@ -33,7 +35,11 @@ Phases, one line each (any failure raises and exits non-zero):
    DIT_VIDEO's shapes in fp32 (K1 at D=3072, K2 self over 20,280 keys
    and cross at head dim 128, K3 at the video hit), with kernel,
    plain-version and one-PyTorch-call times from CUDA events; K4's device
-   time by stage kernel (``torch.profiler``) and each stage's occupancy.
+   time by stage kernel (``torch.profiler``) and each stage's occupancy;
+   K4's backward at the mamba2-1.3b and zamba2-7b training shapes (2 x
+   2048 tokens), fp32 and bf16, rel-L2 per output (dx, ddt, dA, dB, dC)
+   against ``ref.ssd_bwd_ref``, timed as the other backward kernels
+   with its four stage kernels' device time and occupancy.
 4. serve: ``ServingEngine(DIT_IMAGE, SP-4, cache_interval=2)`` at full
    width serves two 512 px and one 1024 px request; every request must
    finish with finite pixels, through K1-K3, with both §11 refresh and
@@ -108,12 +114,21 @@ Phases, one line each (any failure raises and exits non-zero):
    optimizer takes it), must equal ``"none"``'s bit for bit (the
    recompute replays the same kernels on the same inputs); (b) yi-6b at
    full width, 4 of 32 layers (1.22 B parameters), 3 steps of 2 x 2048
-   tokens from the TokenPipeline through K2's causal GQA backward.
-   Prints the losses, step walls, samples or tokens/s, peak memory and
-   the launches a step.
-16. train-cpu: DIT_IMAGE and yi-6b at ``.reduced()``, one fp32 step on
-   the same weights and batch on the card and the CPU: loss and every
-   gradient leaf within 1e-4 rel-L2; the ssm family must refuse to train.
+   tokens from the TokenPipeline through K2's causal GQA backward; (c)
+   mamba2-1.3b at full width and depth (48 layers, 1.44 B parameters, A
+   and dt in Mamba2's published ranges), 3 bf16 AdamW steps of 2 x 2048
+   tokens from the TokenPipeline, K4 and its backward 48 times a step;
+   (d) zamba2-7b at full width, 12 of 81 layers (two groups of six and
+   the shared block), the same, K4 and its backward 12 times a step and
+   K2 causal forward and backward twice at d=112.  Prints the losses,
+   step walls, samples or tokens/s, peak memory and the launches a
+   step.
+16. train-cpu: DIT_IMAGE, yi-6b, mamba2-1.3b and zamba2-7b at
+   ``.reduced()`` (the SSD families livened, 60 tokens: a ragged last
+   chunk), one fp32 step on the same weights and batch on the card and
+   the CPU: loss and every gradient leaf within 1e-4 rel-L2; then the
+   reduced mamba2's ``remat="full"`` gradients equal to ``"none"``'s bit
+   for bit on the card.
 
 Kernel times (phase 3): ``ms`` is device time, from CUDA-event timing of
 replays of a CUDA graph that holds ``iters`` calls, so it leaves out the
@@ -123,9 +138,10 @@ is the host's cost of one wrapper call (many calls, no synchronise).  The
 library call is timed both ways too.
 
 The line before the last is the ``kernels`` JSON summary (K1-K3 carry
-their DIT_VIDEO case and its launches under ``video``, K2 and K4 their
-LM cases under the model's name; the backward kernels' launches are the
-train phase's, K1's and K2's forward launches there ``train_launches``);
+their DIT_VIDEO case and its launches under ``video``, K2, K4 and K4's
+backward their LM cases under the model's name; the backward kernels'
+launches are the train phase's, K1's, K2's and K4's forward launches
+there ``train_launches``);
 the last line
 is ``{"ok": true, "device": {...}}``.  Exits 2 without CUDA.
 
@@ -231,6 +247,11 @@ DIT_TRAIN_LR = 3e-5
 DIT_TRAIN_BATCH, DIT_TRAIN_STEPS = 2, 5
 YI_TRAIN = YI.with_(num_layers=4)
 YI_TRAIN_BATCH, YI_TRAIN_SEQ, YI_TRAIN_STEPS = 2, 2048, 3
+# the SSD families train as yi-6b does: mamba2-1.3b at full width and
+# depth, zamba2-7b at full width, 12 of 81 layers (two groups of six, so
+# the shared block's gradient sums two sites), cut as yi-6b so that fp32
+# weights, gradients and AdamW's moments fit the card's 80 GB
+ZAMBA_TRAIN = ZAMBA.with_(num_layers=12)
 # the five DIT_IMAGE losses with K2's backward on the CUDA cores (fp32
 # arithmetic on bf16 operands; PERF.md section 6); with the tensor-core
 # kernels, which round P and dS to bf16, each must stay within the bf16
@@ -253,7 +274,7 @@ CUDA_CORE_DIT_FP32 = dict(loss=2.3167552947998047, probes={
         0.9665144097781553, -0.3727531571245166))})
 FP32_PROBES = 8
 GRAD_CPU_BUDGET = 1e-4             # rel-L2 per gradient leaf, card vs CPU
-BWD_KERNELS = ("attention_bwd", "fused_adaln_bwd")
+BWD_KERNELS = ("attention_bwd", "fused_adaln_bwd", "ssd_bwd")
 SOURCES = {
     "fused_adaln": ("src/repro_torch/csrc/adaln.cu",
                     "src/repro/kernels/adaln.py:66"),
@@ -262,11 +283,13 @@ SOURCES = {
     "splice_attention": ("src/repro_torch/csrc/attention.cu",
                          "src/repro/kernels/splice.py:78"),
     "ssd": ("src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd.py:65"),
-    # the backward kernels of K2 and K1 (the TPU kernels have none)
+    # the backward kernels of K2, K1 and K4 (the TPU kernels have none)
     "attention_bwd": ("src/repro_torch/csrc/attention_bwd.cu",
                       "src/repro/kernels/flash_attention.py:82"),
     "fused_adaln_bwd": ("src/repro_torch/csrc/adaln.cu",
                         "src/repro/kernels/adaln.py:66"),
+    "ssd_bwd": ("src/repro_torch/csrc/ssd_bwd.cu",
+                "src/repro/kernels/ssd.py:65"),
 }
 
 
@@ -455,11 +478,12 @@ def phase_build() -> None:
     _report_attention_bwd(report)
     _report_adaln_bwd(report)
     for f in sorted(report):      # K4 at (64, 128, 128) and (64, 64, 128)
-        m = re.match(r"_ZN5gfdit(\d+)", f)
+        m = re.match(r"_ZN5gfdit(\d+)", f)       # and its backward
         name = f[m.end():m.end() + int(m[1])] if m else f
         for n in (128, 64):
             if name.startswith("ssd") and f"Li{n}ELi128E" in f and (
-                    f"Li64ELi{n}ELi128E" in f or name == "ssd_cb"):
+                    f"Li64ELi{n}ELi128E" in f
+                    or name in ("ssd_cb", "ssd_bwd_sum")):
                 print(f"  {name}<{'bf16' if 'bfloat' in f else 'fp32'}, "
                       f"(64,) {n}, 128>: {report[f]}", flush=True)
 
@@ -718,6 +742,7 @@ def phase_kernels() -> dict:
                        q, ks_, vs_, kf, vf, offset=o),
                    dtype, results, timing)
         _check_ssd(dtype, results)
+        _check_ssd_bwd(dtype, results)
         _check_lm_attention(dtype, results, gen)
         _check_whisper_attention(dtype, results, gen)
         _check_backward(dtype, results, gen)
@@ -1105,6 +1130,8 @@ def _check_ssd(dtype, results) -> None:
                 "bytes": (2 * x.numel() + 2 * B.numel()) * es
                 + (dt.numel() + h + b * h * p * n) * 4,
                 "flops": ssd_flops(b, l, h, p, n, c),
+                "flops_per_s": (BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                                else FP32_FLOPS_PER_S),
                 "plain_iters": 3, "host_calls": 200}
             if i == 0:
                 timing["summary"] = "ssd"
@@ -1148,6 +1175,103 @@ def _check_ssd(dtype, results) -> None:
                       f"({smem / 1024:.1f} KB shared memory each), {sms} "
                       f"SMs: {waves:.2f} waves", flush=True)
         results["ssd_occupancy"] = occ
+
+
+def ssd_bwd_flops(b, l, h, p, n, c, dstate: bool = False) -> int:
+    """Operations K4's backward needs, two per multiply-add: per (batch,
+    chunk) of r rows, the causal triangles of the dB and dC products once,
+    2 r(r+1)/2 n (B and C have one group, so each head's L (dy . xb) is
+    summed over the heads first); per head the triangles of dy . xb and
+    of the dxb product, 2 r(r+1)/2 p, and r p n for each of the chunk's
+    state gradient Q and S_in^T dy (neither in the first chunk: nothing
+    needs the gradient entering it, and its S_in is zero) and G B and
+    G^T xb (not in the last chunk without ``dstate``: G is zero there)."""
+    nc = -(-l // c)
+    total = 0
+    for k, l0 in enumerate(range(0, l, c)):
+        r = min(c, l - l0)
+        tri = r * (r + 1) // 2
+        states = 2 * (k > 0) + 2 * (k < nc - 1 or dstate)
+        total += 2 * tri * n + h * (2 * tri * p + states * r * p * n)
+    return 2 * b * total
+
+
+def _check_ssd_bwd(dtype, results) -> None:
+    """K4's backward at the train phase's shapes: mamba2-1.3b's (b=2,
+    l=2048, h=64, p=64, n=128, chunk 128) and zamba2-7b's (h=112, n=64),
+    each on the scratch of K4's forward on the same operands and without
+    a final-state gradient (the training path drops the state), timed;
+    in fp32 also mamba2's with one, untimed.  rel-L2 per output (dx, ddt,
+    dA, dB, dC) against ``ref.ssd_bwd_ref`` within the SSD's budget; the
+    bound is operations (``ssd_bwd_flops``) at the card's peak for the
+    operands' type (bf16: the bf16 tensor-core rate; fp32: three TF32
+    products for each fp32 one, as K2's fp32 backward, with the CUDA-core
+    bound printed beside it) or bytes (x, dy, B, C, dt and A read once,
+    their gradients written once); no single PyTorch call computes the
+    SSD's gradient, so no library time.  Then each call's four stage
+    kernels by the profiler, and in fp32 each stage's occupancy."""
+    if not hasattr(ops, "ssd_bwd"):       # an older checkout (--src)
+        print("  ssd_bwd: not in this checkout", flush=True)
+        return
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    fp32 = dtype == torch.float32
+    es = torch.finfo(dtype).bits // 8
+    tag = "" if fp32 else " bf16"
+    # fp32: three TF32 products for each fp32 one on the tensor cores
+    peak, passes = (TF32_FLOPS_PER_S, 3) if fp32 else (BF16_FLOPS_PER_S, 1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for cfg in (MAMBA, ZAMBA):
+        _, h, _ = ssm.ssm_dims(cfg)
+        b, l = YI_TRAIN_BATCH, YI_TRAIN_SEQ
+        p, n, c = cfg.ssm.head_dim, cfg.ssm.state_dim, cfg.ssm.chunk
+        x, dt, A, B, C = ssd_inputs(b, l, h, p, n, dtype, gen)
+        dy = _rand((b, l, h, p), dtype, gen)
+        _, _, scratch = ops.ssd_for_grad(x, dt, A, B, C, chunk=c)
+        label = "ssd_bwd" if cfg is MAMBA else f"{cfg.name} ssd_bwd"
+        nbytes = (3 * x.numel() + 4 * B.numel()) * es \
+            + 2 * (dt.numel() + h) * 4
+        flops = ssd_bwd_flops(b, l, h, p, n, c)
+        timing = dict(bytes=nbytes, flops=passes * flops, flops_per_s=peak,
+                      iters=10, replays=5, host_calls=50, plain_iters=2,
+                      summary=label + tag)
+
+        def kernel(x=x, dt=dt, A=A, B=B, C=C, dy=dy, c=c, scratch=scratch):
+            return ops.ssd_bwd(x, dt, A, B, C, dy, chunk=c, scratch=scratch)
+        case = f"{cfg.name} b={b} l={l} h={h} (p, n, chunk)={(p, n, c)}"
+        _check(f"ssd_bwd {case}", kernel,
+               lambda: ref.ssd_bwd_ref(x, dt, A, B, C, dy, chunk=c),
+               dtype, results, timing, SSD_BUDGET, l2=True)
+        if fp32:
+            entry = results[label]
+            cc_ms, cc_by = bound_ms(nbytes, flops)
+            print(f"    bounds: 3xTF32 {entry['bound_ms']:.4f} ms "
+                  f"({entry['bound_by']}; the kernel at "
+                  f"{entry['bound_ms'] / entry['ms']:.3f} of it), CUDA-core "
+                  f"fp32 {cc_ms:.4f} ms ({cc_by}; "
+                  f"{cc_ms / entry['ms']:.3f})", flush=True)
+        results.setdefault("ssd_bwd_split", {})[label + tag] = \
+            kernel_split_ms(kernel, label + tag, "ssd_bwd")
+        if fp32 and cfg is MAMBA:
+            ds = torch.randn((b, h, p, n), generator=gen, device="cuda")
+            _check(f"ssd_bwd {case} with a final-state gradient",
+                   lambda: ops.ssd_bwd(x, dt, A, B, C, dy, ds, chunk=c,
+                                       scratch=scratch),
+                   lambda: ref.ssd_bwd_ref(x, dt, A, B, C, dy, ds, chunk=c),
+                   dtype, results, None, SSD_BUDGET, l2=True)
+            del ds
+        if fp32:
+            for name, (blocks, smem, grid) in ops.ssd_bwd_occupancy(
+                    b, l, h, p, n, c).items():
+                waves = grid / (blocks * sms)
+                results.setdefault("ssd_bwd_occupancy", {})[
+                    f"{label} {name}"] = {
+                    "blocks_per_sm": blocks, "smem_bytes": smem, "sms": sms,
+                    "grid": grid, "waves": waves}
+                print(f"  ssd_bwd occupancy {cfg.name} {name}: {grid} "
+                      f"blocks of 256 threads, {blocks} resident per SM "
+                      f"({smem / 1024:.1f} KB shared memory each), {sms} "
+                      f"SMs: {waves:.2f} waves", flush=True)
+        del x, dt, A, B, C, dy, scratch
 
 
 def _serve(cfg, policy, reqs, *, cache_interval, device="cuda", setup=None,
@@ -2167,7 +2291,7 @@ def phase_zoo_cpu() -> None:
 
 def _step_launches(before: dict) -> dict:
     return {k: ops.launches[k] - before[k] for k in
-            ("fused_adaln", "attention") + BWD_KERNELS}
+            ("fused_adaln", "attention", "ssd") + BWD_KERNELS}
 
 
 def _global_norm(grads: dict) -> float:
@@ -2295,7 +2419,11 @@ def _train_dit(smi: str) -> None:
             raise AssertionError(f"train: DiT loss {loss}, grad_norm {gnorm}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = per_step[-1]
-    if any(p != launches for p in per_step) or min(launches.values()) <= 0:
+    dit_kernels = ("fused_adaln", "attention", "attention_bwd",
+                   "fused_adaln_bwd")
+    if any(p != launches for p in per_step) or min(
+            launches[k] for k in dit_kernels) <= 0 or launches["ssd"] or \
+            launches["ssd_bwd"]:
         raise AssertionError(f"train: DiT launches a step {per_step}")
     warm = sorted(walls[1:])[len(walls[1:]) // 2]
     print(f"train: DIT_IMAGE full width and depth ({cfg.num_layers} layers, "
@@ -2354,11 +2482,19 @@ def _train_dit(smi: str) -> None:
     torch.cuda.empty_cache()
 
 
-def _train_yi(smi: str) -> None:
-    """(b) of the train phase: yi-6b at full width, 4 of 32 layers."""
-    cfg = YI_TRAIN
+def _train_lm(smi: str, cfg, full: int) -> dict:
+    """(b)-(d) of the train phase: the decoder LM ``cfg`` (of ``full``
+    layers at full depth) at full width, bf16, AdamW at TRAIN_LR,
+    YI_TRAIN_STEPS steps of YI_TRAIN_BATCH x YI_TRAIN_SEQ tokens from the
+    TokenPipeline; the SSD families with A and dt in Mamba2's published
+    ranges.  Every step must launch K2 causal and its backward once an
+    attention layer (yi-6b) or shared-block site (zamba2-7b), K4 and its
+    backward once a Mamba2 layer, and nothing else.  Returns the
+    launches a step."""
     model = get_model(cfg).init(cfg, generator=torch.Generator(
         device="cuda").manual_seed(0))
+    if cfg.ssm is not None:
+        ssm.init_published_a_dt(model)
     n_params = sum(p.numel() for p in model.parameters())
     opt = optimizer.adamw_init(dict(model.named_parameters()))
     step = train_loop.make_train_step(cfg, remat="none", lr=TRAIN_LR)
@@ -2378,69 +2514,86 @@ def _train_yi(smi: str) -> None:
             per_step.append(_step_launches(before))
             losses.append(loss)
             if not (math.isfinite(loss) and math.isfinite(gnorm)):
-                raise AssertionError(f"train: yi-6b loss {loss}, "
+                raise AssertionError(f"train: {cfg.name} loss {loss}, "
                                      f"grad_norm {gnorm}")
     finally:
         pipe.close()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = {"fused_adaln": 0, "attention": cfg.num_layers,
-            "attention_bwd": cfg.num_layers, "fused_adaln_bwd": 0}
+    attn = (cfg.num_layers if cfg.family == "dense" else
+            hybrid._group_plan(cfg)[1] if cfg.family == "hybrid" else 0)
+    mamba = 0 if cfg.ssm is None else cfg.num_layers
+    want = {"fused_adaln": 0, "attention": attn, "ssd": mamba,
+            "attention_bwd": attn, "fused_adaln_bwd": 0, "ssd_bwd": mamba}
     if any(p != want for p in per_step):
-        raise AssertionError(f"train: yi-6b launches a step {per_step}")
+        raise AssertionError(f"train: {cfg.name} launches a step "
+                             f"{per_step}, expected {want}")
     tokens = YI_TRAIN_BATCH * YI_TRAIN_SEQ
     warm = min(walls[1:])
-    print(f"train: yi-6b full width, {cfg.num_layers} of 32 layers "
-          f"({n_params / 1e9:.3f} B parameters), bf16, AdamW lr "
-          f"{TRAIN_LR:g}, {YI_TRAIN_BATCH} x {YI_TRAIN_SEQ} tokens from the "
-          f"TokenPipeline, {YI_TRAIN_STEPS} steps: loss "
-          + ", ".join(f"{v:.4f}" for v in losses)
+    print(f"train: {cfg.name} full width, {cfg.num_layers} of {full} layers "
+          f"({n_params / 1e9:.3f} B parameters"
+          + ("" if cfg.ssm is None else ", A/dt in Mamba2's published ranges")
+          + f"), bf16, AdamW lr {TRAIN_LR:g}, {YI_TRAIN_BATCH} x "
+          f"{YI_TRAIN_SEQ} tokens from the TokenPipeline, {YI_TRAIN_STEPS} "
+          "steps: loss " + ", ".join(f"{v:.4f}" for v in losses)
           + "; step wall " + ", ".join(f"{w * 1e3:.1f}" for w in walls)
           + f" ms ({tokens / warm:.0f} tokens/s after the first); peak mem "
-          f"{peak:.2f} GiB; launches a step {per_step[-1]} (K2 causal GQA "
-          f"at d={cfg.head_dim}); on {smi}", flush=True)
+          f"{peak:.2f} GiB; launches a step {per_step[-1]}; on {smi}",
+          flush=True)
     del model, opt
     torch.cuda.empty_cache()
+    return per_step[-1]
 
 
-def phase_train(smi: str) -> dict:
+def phase_train(smi: str) -> tuple[dict, dict]:
     """The training path on the card: (a) DIT_IMAGE at full width and
     depth through K1 and K2 forward and backward, (b) yi-6b at full
-    width through K2's causal GQA backward.  Returns the phase's launch
-    counts."""
+    width through K2's causal GQA backward, (c) mamba2-1.3b at full width
+    and depth and (d) zamba2-7b at 12 layers through K4's backward.
+    Returns the phase's launch counts, and the launches a step of (b),
+    (c) and (d) by model name."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     ops.reset_launches()
     _train_dit(smi)
-    _train_yi(smi)
+    steps = {cfg.name: _train_lm(smi, cfg, full) for cfg, full in (
+        (YI_TRAIN, YI.num_layers), (MAMBA, MAMBA.num_layers),
+        (ZAMBA_TRAIN, ZAMBA.num_layers))}
     counts = dict(ops.launches)
-    if min(counts[k] for k in BWD_KERNELS) <= 0 or counts["ssd"] or \
+    if min(counts[k] for k in BWD_KERNELS + ("ssd",)) <= 0 or \
             counts["splice_attention"]:
         raise AssertionError(f"train: launches {counts}")
     print(f"train: {time.perf_counter() - t_phase:.1f} s; launches "
           f"{counts}", flush=True)
-    return counts
+    return counts, steps
 
 
 def phase_train_cpu() -> None:
-    """(c) of the train phase: DIT_IMAGE.reduced() (livened) and
-    yi-6b.reduced() with the same weights and batch on the card (kernels,
-    backward kernels) and on the CPU (plain versions, closed-form
-    backward): one fp32 step's loss and gradient per parameter leaf.
-    (The updated weights are not compared: a first AdamW step moves each
-    weight by about lr * sign(g), so a weight whose gradient is near zero
-    may move by +-lr on the two sides.)  Then the ssm family must refuse
-    to train on the card."""
+    """(e) of the train phase: DIT_IMAGE.reduced() (livened),
+    yi-6b.reduced(), mamba2-1.3b.reduced() and zamba2-7b.reduced() (A
+    and dt in Mamba2's published ranges, 60 tokens: a ragged last chunk
+    of 16) with the same weights and batch on the card (kernels, backward
+    kernels) and on the CPU (plain versions, closed-form backward): one
+    fp32 step's loss and gradient per parameter leaf.  (The updated
+    weights are not compared: a first AdamW step moves each weight by
+    about lr * sign(g), so a weight whose gradient is near zero may move
+    by +-lr on the two sides.)  Then the reduced mamba2's
+    ``remat="full"`` gradients on the card, K4's forward recomputed in
+    the backward, must equal ``"none"``'s bit for bit."""
     t_phase = time.perf_counter()
-    errs = {}
-    for cfg in (DIT_IMAGE.reduced(), YI.reduced()):
+    errs, cards = {}, {}
+    for cfg in (DIT_IMAGE.reduced(), YI.reduced(), MAMBA.reduced(),
+                ZAMBA.reduced()):
         family = get_model(cfg)
         cpu = family.init(cfg, device="cpu")
         if cfg.family == "dit":
             dit.liven_adaln(cpu, cfg.d_model)
+        if cfg.ssm is not None:
+            ssm.init_published_a_dt(cpu, seed=3)
         card = family.init(cfg)
         card.load_state_dict(cpu.state_dict())
         batch = train_loop.synth_batch(
-            cfg, 2, 64, generator=torch.Generator().manual_seed(5))
+            cfg, 2, 64 if cfg.ssm is None else 60,
+            generator=torch.Generator().manual_seed(5))
         out = {}
         for name, model in (("cpu", cpu), ("card", card)):
             dev = next(model.parameters()).device
@@ -2452,6 +2605,7 @@ def phase_train_cpu() -> None:
         leaf = {k: rel_l2(gg[k], gc[k]) for k in gc}
         worst = max(leaf, key=leaf.get)
         errs[cfg.name] = (abs(lg - lc) / abs(lc), leaf[worst], worst)
+        cards[cfg.name] = (cfg, card, batch)
     print("train-cpu: .reduced() fp32 step, card vs CPU, loss rel err / "
           "worst gradient leaf rel-L2: "
           + ", ".join(f"{a} {e[0]:.2e} / {e[1]:.2e} ({e[2]})"
@@ -2459,19 +2613,25 @@ def phase_train_cpu() -> None:
           + f" (budget {GRAD_CPU_BUDGET:.0e})", flush=True)
     if not max(max(e[0], e[1]) for e in errs.values()) <= GRAD_CPU_BUDGET:
         raise AssertionError(f"train-cpu: card vs CPU {errs}")
-    cfg = MAMBA.reduced()
-    model = get_model(cfg).init(cfg)
-    step = train_loop.make_train_step(cfg, remat="none")
-    batch = train_loop.synth_batch(cfg, 1, 32, device="cuda")
-    try:
-        step(model, optimizer.adamw_init(dict(model.named_parameters())),
-             batch)
-    except NotImplementedError as e:
-        print(f"train-cpu: ssm refuses to train on the card: {e}; "
-              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    else:
-        raise AssertionError("train-cpu: the ssm family trained without "
-                             "K4's backward")
+    cfg, model, batch = cards[MAMBA.name]
+    batch = {k: v.cuda() for k, v in batch.items()}
+    got = {}
+    for remat in ("none", "full"):
+        before = dict(ops.launches)
+        loss, _, grads = train_loop.grads_of(model, batch, cfg, remat,
+                                             dtype=torch.float32)
+        got[remat] = (float(loss), grads, _step_launches(before))
+    (ln, gn, kn), (lf, gf, kf) = got["none"], got["full"]
+    differ = [k for k in gn if not torch.equal(gn[k], gf[k])]
+    print(f"train-cpu: reduced mamba2 on the card, remat=\"full\" vs "
+          f"\"none\": loss {lf!r} vs {ln!r}, gradient leaves differing "
+          f"{len(differ)} of {len(gn)} {differ[:4]} (bitwise equality "
+          f"required); launches {kf} vs {kn}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if differ or lf != ln or kf["ssd"] != 2 * kn["ssd"] or \
+            kf["ssd_bwd"] != kn["ssd_bwd"]:
+        raise AssertionError(f"train-cpu: mamba2 remat: {differ}, loss {lf}"
+                             f" vs {ln}, launches {kf} vs {kn}")
 
 
 def main() -> int:
@@ -2517,11 +2677,13 @@ def main() -> int:
     phase_hybrid_cpu()
     whisper = phase_zoo(smi)
     phase_zoo_cpu()
-    train = phase_train(smi)
+    train, train_steps = phase_train(smi)
     phase_train_cpu()
     counts.update({k: train[k] for k in BWD_KERNELS})
     lm_launches = {"zamba2-7b attention": zamba["forward"]["attention"],
                    "zamba2-7b ssd": zamba["prefill"]["ssd"],
+                   "zamba2-7b ssd_bwd":
+                       train_steps[ZAMBA_TRAIN.name]["ssd_bwd"],
                    "yi-6b attention": None}
     # whisper-medium's K2, counted at its sites: the fp32 entries from the
     # fp32 prefill + decode, the bf16 ones from the bf16 serve
@@ -2539,7 +2701,7 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "library_call_ms": r["library_call_ms"]})
-        if name in ("fused_adaln", "attention"):   # the train phase's
+        if name in ("fused_adaln", "attention", "ssd"):  # the train phase's
             kernels[-1]["train_launches"] = train[name]
         if name in BWD_KERNELS:
             kernels[-1]["note"] = ("backward kernel; the TPU kernel it "
@@ -2569,7 +2731,8 @@ def main() -> int:
                  "attention_bwd": [k for k in results if k.startswith(
                      "attention_bwd ") and k != "attention_bwd dit self"],
                  "fused_adaln_bwd": [k for k in results if k.startswith(
-                     "fused_adaln_bwd ")]}
+                     "fused_adaln_bwd ")],
+                 "ssd_bwd": ["ssd_bwd bf16", "zamba2-7b ssd_bwd bf16"]}
         for label in extra.get(name, ()):
             v = results[label]
             kernels[-1][label] = {k: v[k] for k in (

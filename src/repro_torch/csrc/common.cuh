@@ -40,6 +40,19 @@ cudaError_t allow_smem_once(size_t bytes, int device) {
   return err;
 }
 
+// Resident blocks of `threads` threads an SM and the dynamic shared bytes
+// of Kernel at `smem` bytes (its limit raised first), from the occupancy
+// calculator.
+template <auto Kernel>
+cudaError_t occupancy_of(size_t smem, int threads, int device,
+                         int* blocks_per_sm, int* smem_bytes) {
+  cudaError_t err = allow_smem_once<Kernel>(smem, device);
+  if (err != cudaSuccess) return err;
+  *smem_bytes = static_cast<int>(smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, Kernel,
+                                                       threads, smem);
+}
+
 // dtype codes shared with repro_torch/kernels/ops.py
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 

@@ -508,16 +508,6 @@ cudaError_t dispatch_ssd(const void* x, const void* dt, const void* A,
   return cudaErrorInvalidValue;
 }
 
-template <auto Kernel>
-cudaError_t occupancy_of(size_t smem, int device, int* blocks_per_sm,
-                         int* smem_bytes) {
-  cudaError_t err = allow_smem_once<Kernel>(smem, device);
-  if (err != cudaSuccess) return err;
-  *smem_bytes = static_cast<int>(smem);
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, Kernel,
-                                                       kSsdThreads, smem);
-}
-
 template <typename T, int P, int N, int CH>
 cudaError_t occupancy_ssd(int stage, int batch, int L, int H, int device,
                           int* blocks_per_sm, int* smem_bytes, int* grid) {
@@ -527,7 +517,7 @@ cudaError_t occupancy_ssd(int stage, int batch, int L, int H, int device,
     case 0:
       *grid = batch * nc * H;
       return occupancy_of<ssd_chunk_state<T, P, N, CH>>(
-          S::kStateSmem, device, blocks_per_sm, smem_bytes);
+          S::kStateSmem, kSsdThreads, device, blocks_per_sm, smem_bytes);
     case 1:
       *grid = batch * H * (N / S::R2);
       *smem_bytes = static_cast<int>(sizeof(float) * S::R2 * (P + 1));
@@ -535,12 +525,12 @@ cudaError_t occupancy_ssd(int stage, int batch, int L, int H, int device,
           blocks_per_sm, ssd_state_pass<P, N, CH>, kSsdThreads, 0);
     case 2:  // the blocks above the diagonal return at once
       *grid = batch * nc * S::NRT * S::NRT;
-      return occupancy_of<ssd_cb<T, N, CH>>(S::kCbSmem, device,
+      return occupancy_of<ssd_cb<T, N, CH>>(S::kCbSmem, kSsdThreads, device,
                                             blocks_per_sm, smem_bytes);
     case 3:
       *grid = batch * nc * H * S::NRT;
       return occupancy_of<ssd_chunk_scan<T, P, N, CH>>(
-          S::kScanSmem, device, blocks_per_sm, smem_bytes);
+          S::kScanSmem, kSsdThreads, device, blocks_per_sm, smem_bytes);
     default:
       return cudaErrorInvalidValue;
   }

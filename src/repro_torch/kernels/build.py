@@ -58,6 +58,13 @@ _SIGNATURES = {
     # stage, batch, L, H, P, N, chunk, dtype, device -> blocks per SM,
     # shared memory bytes, grid
     "gfdit_ssd_occupancy": [_I] * 9 + [_IP, _IP, _IP],
+    # x, dt, A, B, C, dy, dstate, cum, s_in, cbt, dx, ddt, dA, dB, dC,
+    # work, work floats, batch, L, H, P, N, chunk, dtype, device, stream
+    "gfdit_ssd_bwd": [_P] * 16 + [ctypes.c_longlong] + [_I] * 8 + [_P],
+    # batch, L, H, P, N, chunk -> floats of the backward's own scratch
+    "gfdit_ssd_bwd_scratch": [_I] * 6,
+    # as gfdit_ssd_occupancy, for the backward's four stage kernels
+    "gfdit_ssd_bwd_occupancy": [_I] * 9 + [_IP, _IP, _IP],
     # D, dtype, device -> blocks per SM, shared memory bytes
     "gfdit_attention_occupancy": [_I] * 3 + [_IP, _IP],
     # D, dtype, which (0 dK/dV, 1 dQ), device -> blocks per SM, shared
@@ -65,7 +72,8 @@ _SIGNATURES = {
     "gfdit_attention_bwd_occupancy": [_I] * 4 + [_IP, _IP],
 }
 
-_RESTYPES = {"gfdit_adaln_bwd_scratch": ctypes.c_longlong}
+_RESTYPES = {"gfdit_adaln_bwd_scratch": ctypes.c_longlong,
+             "gfdit_ssd_bwd_scratch": ctypes.c_longlong}
 
 
 def _nvcc() -> str:

@@ -10,15 +10,16 @@ nothing is padded: the kernels mask ragged sequence edges themselves.
 Each launch adds one to :data:`launches` under the wrapper's name, so a
 run can show that its path went through the kernels.
 
-Gradients.  ``attention`` and ``fused_adaln`` are differentiable: when
-grad mode is on and an operand requires grad they run through a
-``torch.autograd.Function`` whose backward is K2's or K1's backward
-kernel (:func:`attention_bwd`, :func:`fused_adaln_bwd`) on the card and
-its closed-form plain version in ``ref.py`` on the CPU; only then does
-K2's forward write the log-sum-exp its backward reads.  Otherwise (a
-serving call under ``inference_mode``, frozen weights) they launch what
-they always did.  ``splice_attention`` and ``ssd`` have no backward
-kernel yet and raise ``NotImplementedError`` rather than return an
+Gradients.  ``attention``, ``fused_adaln`` and ``ssd`` are
+differentiable: when grad mode is on and an operand requires grad they
+run through a ``torch.autograd.Function`` whose backward is K2's, K1's or
+K4's backward kernel (:func:`attention_bwd`, :func:`fused_adaln_bwd`,
+:func:`ssd_bwd`) on the card and its closed-form plain version in
+``ref.py`` on the CPU; only then does K2's forward write the log-sum-exp
+and K4's forward keep the scratch (cum, S_in, C B^T) their backward
+kernels read.  Otherwise (a serving call under ``inference_mode``, frozen
+weights) they launch what they always did.  ``splice_attention`` has no
+backward kernel and raises ``NotImplementedError`` rather than return an
 output without a gradient path.  The JAX package's Pallas kernels have
 no backward at all: it trains through its jnp path, which the port does
 not keep.
@@ -52,12 +53,16 @@ SSD_SHAPES = ((64, 128, 128), (16, 16, 16), (16, 16, 32), (32, 16, 64),
               (64, 32, 128), (64, 64, 128))
 #: the stage kernels one SSD call launches, in order
 SSD_STAGES = ("ssd_chunk_state", "ssd_state_pass", "ssd_cb", "ssd_chunk_scan")
+#: the stage kernels one SSD backward call launches, in order
+SSD_BWD_STAGES = ("ssd_bwd_chunk_dstate", "ssd_bwd_state_pass",
+                  "ssd_bwd_chunk", "ssd_bwd_sum")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _count_lock = threading.Lock()
 #: kernel launches per wrapper since the last :func:`reset_launches`
 launches = {"fused_adaln": 0, "attention": 0, "splice_attention": 0,
-            "ssd": 0, "attention_bwd": 0, "fused_adaln_bwd": 0}
+            "ssd": 0, "attention_bwd": 0, "fused_adaln_bwd": 0,
+            "ssd_bwd": 0}
 #: the library's C entry points by name, bound on first use
 _fns: dict = {}
 
@@ -441,13 +446,41 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
     card one call runs the four stage kernels of ``csrc/ssd.cu``
     (:data:`SSD_STAGES`) and counts one launch; their scratch is
     allocated here (``ref.ssd_chunked_ref`` computes the same stages).
-    No backward yet: raises when autograd would differentiate through it."""
-    _refuse_grad("ssd", "K4's backward (the SSD chunked-scan gradient) is "
-                 "the next slice of the port, so the ssm and hybrid "
-                 "families cannot train yet", x, dt, A, B, C)
-    if not (x.is_cuda or _on_card(x, dt, A, B, C)):
-        return ref.ssd_ref(x, dt, A, B, C, chunk=chunk)
-    name = "ssd"
+    Differentiable (see the module's note): the backward is
+    :func:`ssd_bwd`, which reads the forward's scratch."""
+    if _wants_grad(x, dt, A, B, C):
+        return _SSD.apply(x, dt, A, B, C, chunk)
+    return _ssd_fwd(x, dt, A, B, C, chunk)[:2]
+
+
+def ssd_for_grad(x, dt, A, B, C, *, chunk: int = 128):
+    """K4's forward as the autograd path runs it: (y, final_state,
+    scratch), the scratch the fp32 tensor that :func:`ssd_bwd` reads on
+    the card (cum, the chunk states overwritten with S_in, C B^T, C^T),
+    None on the CPU."""
+    return _ssd_fwd(x, dt, A, B, C, chunk)
+
+
+def _ssd_scratch_sizes(b, l, h, p, n, chunk):
+    """Floats of the forward's scratch parts: cum (b, nc, h, chunk), chunk
+    states (b, nc, h, n, p), C B^T (b, nc, chunk, chunk), C^T (b, nc, n,
+    chunk); every size a multiple of 16 floats, so each part is 16-byte
+    aligned."""
+    bnc = b * -(-l // chunk)
+    return (bnc * h * chunk, bnc * h * n * p, bnc * chunk * chunk,
+            bnc * n * chunk)
+
+
+def _parts(t, sizes) -> list:
+    """The data pointers of consecutive parts of ``sizes`` floats of ``t``."""
+    parts, at = [], t.data_ptr()
+    for size in sizes:
+        parts.append(at)
+        at += 4 * size
+    return parts
+
+
+def _ssd_shape(name, x, dt, A, B, C, chunk):
     b, l, h, p = x.shape
     n = B.shape[-1]
     dtype = _check(name, x, ("x", x, (b, l, h, p)), ("B", B, (b, l, n)),
@@ -459,27 +492,93 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
         raise ValueError(f"{name}: unsupported (p, n, chunk)={(p, n, chunk)} "
                          f"with b={b}, l={l}, h={h}; the kernel takes "
                          f"{SSD_SHAPES}")
+    return b, l, h, p, n, dtype
+
+
+def _ssd_fwd(x, dt, A, B, C, chunk: int):
+    if not (x.is_cuda or _on_card(x, dt, A, B, C)):
+        return (*ref.ssd_ref(x, dt, A, B, C, chunk=chunk), None)
+    name = "ssd"
+    b, l, h, p, n, dtype = _ssd_shape(name, x, dt, A, B, C, chunk)
     ptrs = dict(x=x.data_ptr(), B=B.data_ptr(), C=C.data_ptr())
     _aligned(name, **ptrs)
     fn = _fn("gfdit_ssd")
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    # scratch, fp32, one allocation: cum (b, nc, h, chunk), chunk states
-    # (b, nc, h, n, p), C B^T (b, nc, chunk, chunk), C^T (b, nc, n, chunk);
-    # every size a multiple of 16 floats, so each part is 16-byte aligned
-    bnc = b * -(-l // chunk)
-    sizes = (bnc * h * chunk, bnc * h * n * p, bnc * chunk * chunk,
-             bnc * n * chunk)
+    sizes = _ssd_scratch_sizes(b, l, h, p, n, chunk)
     scratch = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
-    parts, at = [], scratch.data_ptr()
-    for size in sizes:
-        parts.append(at)
-        at += 4 * size
     dev = x.get_device()
     _launch(name, fn, ptrs["x"], dt.data_ptr(), A.data_ptr(), ptrs["B"],
-            ptrs["C"], y.data_ptr(), state.data_ptr(), *parts, b, l, h, p, n,
-            chunk, dtype, dev, _stream(dev))
-    return y, state
+            ptrs["C"], y.data_ptr(), state.data_ptr(),
+            *_parts(scratch, sizes), b, l, h, p, n, chunk, dtype, dev,
+            _stream(dev))
+    return y, state, scratch
+
+
+def ssd_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 128,
+            scratch=None):
+    """K4's backward: (dx, ddt, dA, dB, dC) of :func:`ssd` for the output
+    gradient ``dy`` (x's shape and dtype) and the final state's
+    ``dstate`` ((b, h, p, n) fp32; None: the state is not used, and its
+    terms are skipped), each in its operand's shape and dtype.  On the
+    card ``scratch`` is the forward's, from :func:`ssd_for_grad` on the
+    same operands; one call runs the four stage kernels of
+    ``csrc/ssd_bwd.cu`` (:data:`SSD_BWD_STAGES`: the per-chunk state
+    gradients, their reverse pass across chunks, a chunk kernel per
+    (batch, chunk, head) and the sums over heads) and counts one launch;
+    their scratch is allocated here by the kernel's own rule
+    (``gfdit_ssd_bwd_scratch``).  Deterministic: no atomics.  The CPU
+    version is ``ref.ssd_bwd_ref`` (``scratch`` is not read)."""
+    given = [t for t in (x, dt, A, B, C, dy, dstate) if t is not None]
+    if not (x.is_cuda or _on_card(*given)):
+        return ref.ssd_bwd_ref(x, dt, A, B, C, dy, dstate, chunk=chunk)
+    name = "ssd_bwd"
+    b, l, h, p, n, dtype = _ssd_shape(name, x, dt, A, B, C, chunk)
+    _check(name, x, ("dy", dy, (b, l, h, p)))
+    if dstate is not None:
+        _check(name, A, ("dstate", dstate, (b, h, p, n)))
+    sizes = _ssd_scratch_sizes(b, l, h, p, n, chunk)
+    if scratch is None or scratch.dtype != torch.float32 or \
+            scratch.numel() != sum(sizes) or \
+            scratch.get_device() != x.get_device():
+        raise ValueError(f"{name}: scratch must be the forward's (from "
+                         f"ssd_for_grad on these operands): float32 of "
+                         f"{sum(sizes)} elements on {x.device}")
+    cum, s_in, cbt, _ = _parts(scratch, sizes)
+    dx, ddt, dA, dB, dC = (torch.empty_like(t) for t in (x, dt, A, B, C))
+    floats = _fn("gfdit_ssd_bwd_scratch")(b, l, h, p, n, chunk)
+    work = torch.empty(floats, dtype=torch.float32, device=x.device)
+    dev = x.get_device()
+    _launch(name, _fn("gfdit_ssd_bwd"), x.data_ptr(), dt.data_ptr(),
+            A.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
+            None if dstate is None else dstate.data_ptr(), cum, s_in, cbt,
+            dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), work.data_ptr(), floats, b, l, h, p, n, chunk,
+            dtype, dev, _stream(dev))
+    return dx, ddt, dA, dB, dC
+
+
+class _SSD(torch.autograd.Function):
+    """K4 with its backward kernel; the forward saves the operands and
+    its scratch (None on the CPU).  A final state that nothing uses (the
+    training path drops it) gives ``dstate = None``: no zeros are made."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        y, state, scratch = _ssd_fwd(x, dt, A, B, C, chunk)
+        ctx.save_for_backward(x, dt, A, B, C, scratch)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, B, C, scratch = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dstate is not None:
+            dstate = dstate.contiguous()
+        return (*ssd_bwd(x, dt, A, B, C, dy, dstate, chunk=ctx.chunk,
+                         scratch=scratch), None)
 
 
 def _occupancy(name: str, fn, *args, extra=()) -> tuple[int, int]:
@@ -529,6 +628,24 @@ def ssd_occupancy(b: int, l: int, h: int, p: int, n: int, chunk: int,
         grid = ctypes.c_int()
         blocks, smem = _occupancy("ssd_occupancy", fn, stage, b, l, h, p,
                                   n, chunk, _DTYPES[dtype], device,
+                                  extra=(ctypes.byref(grid),))
+        out[name] = (blocks, smem, grid.value)
+    return out
+
+
+def ssd_bwd_occupancy(b: int, l: int, h: int, p: int, n: int, chunk: int,
+                      dtype=torch.float32, device: int = 0) -> dict:
+    """As :func:`ssd_occupancy`, for the stage kernels of one
+    :func:`ssd_bwd` call (:data:`SSD_BWD_STAGES`)."""
+    if (p, n, chunk) not in SSD_SHAPES:
+        raise ValueError(f"ssd_bwd: unsupported (p, n, chunk)="
+                         f"{(p, n, chunk)}")
+    fn = _fn("gfdit_ssd_bwd_occupancy")
+    out = {}
+    for stage, name in enumerate(SSD_BWD_STAGES):
+        grid = ctypes.c_int()
+        blocks, smem = _occupancy("ssd_bwd_occupancy", fn, stage, b, l, h,
+                                  p, n, chunk, _DTYPES[dtype], device,
                                   extra=(ctypes.byref(grid),))
         out[name] = (blocks, smem, grid.value)
     return out

@@ -5,10 +5,11 @@ softmax and normalisation run in fp32 and the result is cast back to the
 input's dtype.  The wrappers in :mod:`repro_torch.kernels.ops` run these
 for CPU tensors only; on the card they are what the kernels are held to.
 
-The backward kernels of K2 and K1 have plain versions here too
-(:func:`attention_bwd_ref`, :func:`adaln_bwd_ref`): the closed-form
-gradients, in fp32, of :func:`attention_ref` and :func:`adaln_ref`, which
-is what ``jax.vjp`` of the JAX oracles computes.  The JAX package has no
+The backward kernels of K2, K1 and K4 have plain versions here too
+(:func:`attention_bwd_ref`, :func:`adaln_bwd_ref`, :func:`ssd_bwd_ref`):
+the closed-form gradients, in fp32, of :func:`attention_ref`,
+:func:`adaln_ref` and :func:`ssd_ref`, which is what ``jax.vjp`` of the
+JAX oracles computes.  The JAX package has no
 backward kernel (it trains through its jnp path).
 """
 from __future__ import annotations
@@ -169,6 +170,43 @@ def ssd_ref(x, dt, A, B, C, *, chunk: int = 0):
     return y.to(out_dtype), state
 
 
+def _ssd_chunks(x, dt, A, B, C, more, chunk: int):
+    """The start that the chunked plain versions share: the operands in
+    fp32, the sequence zero-filled past ``l`` to ``nc`` chunks (as the
+    kernels' masked loads: dt = x = B = C = 0 leaves ``cum`` and the state
+    as they are) and cut into them, then :func:`ssd_chunked_ref`'s stages
+    1-2.  ``more``: tensors of x's layout cut the same way.  Returns xc
+    (b, nc, c, h, p), dtc (b, nc, h, c), Bc and Cc (b, nc, c, n), ``more``
+    cut, cum (b, nc, h, c), S_in (b, nc, h, p, n) and the final state."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    nc = -(-l // chunk)
+    pad = nc * chunk - l
+    x, dt, A, B, C = (t.float() for t in (x, dt, A, B, C))
+    more = [t.float() for t in more]
+    if pad:
+        x, dt, B, C, *more = (
+            torch.cat([t, t.new_zeros((b, pad) + t.shape[2:])], 1)
+            for t in (x, dt, B, C, *more))
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, h).transpose(2, 3)        # (b, nc, h, c)
+    Bc, Cc = B.reshape(b, nc, chunk, n), C.reshape(b, nc, chunk, n)
+    more = [t.reshape(b, nc, chunk, h, p) for t in more]
+
+    # 1. cum and the chunk-local states
+    cum = torch.cumsum(dtc * A[:, None], dim=-1)              # (b, nc, h, c)
+    w = torch.exp(cum[..., -1:] - cum) * dtc
+    states = torch.einsum("bchj,bcjhp,bcjn->bchpn", w, xc, Bc)
+    # 2. the pass of states across chunks
+    s_in = torch.empty_like(states)
+    state = states.new_zeros((b, h, p, n))
+    for k in range(nc):
+        s_in[:, k] = state
+        state = torch.exp(cum[:, k, :, -1])[..., None, None] * state \
+            + states[:, k]
+    return xc, dtc, Bc, Cc, more, cum, s_in, state
+
+
 def ssd_chunked_ref(x, dt, A, B, C, *, chunk: int):
     """The chunk-parallel SSD of ``csrc/ssd.cu``, stage by stage, in fp32.
 
@@ -189,29 +227,8 @@ def ssd_chunked_ref(x, dt, A, B, C, *, chunk: int):
     algorithm and is a test oracle for it.
     """
     b, l, h, p = x.shape
-    n = B.shape[-1]
-    out_dtype = x.dtype
-    nc = -(-l // chunk)
-    pad = nc * chunk - l
-    x, dt, A, B, C = (t.float() for t in (x, dt, A, B, C))
-    if pad:
-        x, dt, B, C = (torch.cat([t, t.new_zeros((b, pad) + t.shape[2:])], 1)
-                       for t in (x, dt, B, C))
-    xc = x.reshape(b, nc, chunk, h, p)
-    dtc = dt.reshape(b, nc, chunk, h).transpose(2, 3)        # (b, nc, h, c)
-    Bc, Cc = B.reshape(b, nc, chunk, n), C.reshape(b, nc, chunk, n)
-
-    # 1. cum and the chunk-local states
-    cum = torch.cumsum(dtc * A[:, None], dim=-1)              # (b, nc, h, c)
-    w = torch.exp(cum[..., -1:] - cum) * dtc
-    states = torch.einsum("bchj,bcjhp,bcjn->bchpn", w, xc, Bc)
-    # 2. the pass of states across chunks
-    s_in = torch.empty_like(states)
-    state = states.new_zeros((b, h, p, n))
-    for k in range(nc):
-        s_in[:, k] = state
-        state = torch.exp(cum[:, k, :, -1])[..., None, None] * state \
-            + states[:, k]
+    xc, dtc, Bc, Cc, _, cum, s_in, state = _ssd_chunks(x, dt, A, B, C, (),
+                                                       chunk)
     # 3. C B^T once per (batch, chunk)
     cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
     # 4. the chunk scan
@@ -221,5 +238,92 @@ def ssd_chunked_ref(x, dt, A, B, C, *, chunk: int):
     decay = torch.exp(torch.where(causal, seg, torch.full_like(seg, -1e30)))
     y = torch.einsum("bcij,bchij,bchj,bcjhp->bcihp", cb, decay, dtc, xc)
     y = y + torch.einsum("bcin,bchi,bchpn->bcihp", Cc, torch.exp(cum), s_in)
-    y = y.reshape(b, nc * chunk, h, p)[:, :l]
-    return y.to(out_dtype), state
+    y = y.reshape(b, -1, h, p)[:, :l]
+    return y.to(x.dtype), state
+
+
+def ssd_bwd_ref(x, dt, A, B, C, dy, dstate=None, *, chunk: int):
+    """Gradients (dx, ddt, dA, dB, dC) of :func:`ssd_ref` for the output
+    gradient ``dy`` (b, l, h, p) and the final state's ``dstate`` (b, h,
+    p, n; None: zero), in closed form, in fp32, chunked as
+    :func:`ssd_chunked_ref` (the last chunk zero-filled past ``l``).
+    Each gradient comes back in its operand's shape and dtype.
+
+    Per (batch, chunk, head), with xb = x dt, cum the in-chunk cumulative
+    sum of dt A, L_ij = exp(cum_i - cum_j) for i >= j (the decay masked to
+    -1e30 before the exp, as the forward), S_in[c] the state entering
+    chunk c (:func:`ssd_chunked_ref`'s stages 1-2) and, as ``csrc/
+    ssd_bwd.cu`` computes them:
+      1. reverse state pass: G[nc] = dstate, G[c] = exp(cum_last,c)
+         G[c+1] + sum_{i in c} exp(cum_i) dy_i (x) C_i; G[c+1] is the
+         gradient of chunk c's outgoing state;
+      2. dxb_j = sum_{i>=j} (C_i . B_j) L_ij dy_i
+         + exp(cum_last - cum_j) G[c+1] B_j; dx = dxb dt, and ddt gets
+         x . dxb;
+      3. dC_i = sum_h [sum_{j<=i} L_ij (dy_i . xb_j) B_j
+         + exp(cum_i) S_in[c]^T dy_i],
+         dB_j = sum_h [sum_{i>=j} L_ij (dy_i . xb_j) C_i
+         + exp(cum_last - cum_j) G[c+1]^T xb_j]
+         (B and C are shared by every head);
+      4. dcum, from each exp: the intra terms T_ij = (C_i . B_j) L_ij
+         (dy_i . xb_j), +T_ij on cum_i and -T_ij on cum_j;
+         exp(cum_i) dy_i . (S_in C_i) on cum_i; W_j = exp(cum_last -
+         cum_j) xb_j . (G[c+1] B_j), -W_j on cum_j and +W_j on cum_last;
+         exp(cum_last) <S_in, G[c+1]> on cum_last;
+      5. da, dcum's reverse cumulative sum within the chunk (over the whole
+         padded chunk, so that the padded last row's cum_last reaches the
+         real rows); ddt += A da and dA = sum_{b, l} dt da.
+    """
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    dtypes = (x.dtype, dt.dtype, A.dtype, B.dtype, C.dtype)
+    # the forward's cum and S_in (stages 1-2 of ssd_chunked_ref)
+    xc, dtc, Bc, Cc, (dyc,), cum, s_in, _ = _ssd_chunks(x, dt, A, B, C,
+                                                        (dy,), chunk)
+    nc = cum.shape[1]
+    A = A.float()
+    xb = xc * dtc.transpose(2, 3)[..., None]                 # (b,nc,c,h,p)
+    ec = torch.exp(cum)
+    ed = torch.exp(cum[..., -1:] - cum)
+    # 1. the reverse state pass: gn[:, c] = G[c+1]
+    q = torch.einsum("bchi,bcihp,bcin->bchpn", ec, dyc, Cc)
+    gn = torch.empty_like(q)
+    g = q.new_zeros((b, h, p, n)) if dstate is None else dstate.float()
+    for k in reversed(range(nc)):
+        gn[:, k] = g
+        g = torch.exp(cum[:, k, :, -1])[..., None, None] * g + q[:, k]
+    # the intra-chunk products
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=cum.device).tril()
+    seg = cum[..., :, None] - cum[..., None, :]               # (b,nc,h,i,j)
+    decay = torch.exp(torch.where(causal, seg, torch.full_like(seg, -1e30)))
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    pm = decay * torch.einsum("bcihp,bcjhp->bchij", dyc, xb)  # L (dy . xb)
+    # 2. dxb, dx and ddt through xb
+    dxb_state = torch.einsum("bcjn,bchpn->bcjhp", Bc, gn)
+    dxb = torch.einsum("bcij,bchij,bcihp->bcjhp", cb, decay, dyc) \
+        + ed.transpose(2, 3)[..., None] * dxb_state
+    dx = dxb * dtc.transpose(2, 3)[..., None]
+    ddt = (xc * dxb).sum(-1).transpose(2, 3)                  # (b, nc, h, c)
+    # 3. dC and dB, summed over heads
+    dC_state = ec[..., None] * torch.einsum("bcihp,bchpn->bchin", dyc, s_in)
+    dC = torch.einsum("bchij,bcjn->bcin", pm, Bc) + dC_state.sum(2)
+    dB = torch.einsum("bchij,bcin->bcjn", pm, Cc) + torch.einsum(
+        "bchj,bcjhp,bchpn->bcjn", ed, xb, gn)
+    # 4. dcum
+    t = cb[:, :, None] * pm
+    w = ed * torch.einsum("bcjhp,bcjhp->bchj", xb, dxb_state)
+    dcum = t.sum(-1) - t.sum(-2) - w \
+        + torch.einsum("bchin,bcin->bchi", dC_state, Cc)
+    dcum[..., -1] += w.sum(-1) + torch.exp(cum[..., -1]) * (
+        s_in * gn).sum((-1, -2))
+    # 5. da, then ddt and dA through cum
+    da = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+    ddt = ddt + A[:, None] * da
+    dA = (dtc * da).sum((0, 1, 3))
+
+    def unchunk(t, *tail):
+        return t.reshape(b, -1, *tail)[:, :l]
+    grads = (unchunk(dx, h, p), unchunk(ddt.transpose(2, 3), h), dA,
+             unchunk(dB, n), unchunk(dC, n))
+    return tuple(g.to(d) for g, d in zip(grads, dtypes))

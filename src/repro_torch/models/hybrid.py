@@ -122,8 +122,8 @@ def forward(model: Hybrid, tokens, cfg: ModelConfig, *, remat: str = "none",
             dtype=torch.bfloat16):
     """Teacher-forced logits (b, s, vocab) in fp32, and the zero aux loss.
     ``remat="full"`` recomputes each group in the backward (JAX's
-    ``jax.checkpoint`` of the group); K4 has no backward yet, so a
-    differentiated forward raises in ``ops.ssd``."""
+    ``jax.checkpoint`` of the group), K4's and K2's forwards among it; the
+    SSD differentiates through K4's backward kernel (``ops.ssd_bwd``)."""
     x = L.embed(model.embed, tokens, cfg, dtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     fn = L.remat(_group, "full" if remat == "full" else "none")

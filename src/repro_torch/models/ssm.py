@@ -224,8 +224,8 @@ def forward(model: Mamba2, tokens, cfg: ModelConfig, *, remat: str = "none",
             dtype=torch.bfloat16):
     """Teacher-forced logits (b, s, vocab) in fp32, and the zero aux loss.
     ``remat="full"`` recomputes each layer in the backward (JAX's
-    ``jax.checkpoint`` of the scan body); K4 has no backward yet, so a
-    differentiated forward raises in ``ops.ssd``."""
+    ``jax.checkpoint`` of the scan body), K4's forward among it; the
+    SSD differentiates through K4's backward kernel (``ops.ssd_bwd``)."""
     x = L.embed(model.embed, tokens, cfg, dtype)
     fn = L.remat(_block, "full" if remat == "full" else "none")
     for blk in model.blocks:

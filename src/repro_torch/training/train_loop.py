@@ -6,10 +6,9 @@ compression.
 As the serve-loop steps do, the step takes the model module where JAX
 takes params.  It makes the parameters require grad for the step (and
 leaves them as it found them), takes the gradients of JAX's loss with
-``torch.autograd.grad`` (K2 and K1 differentiate through their backward
-kernels on the card), and updates the module in place with AdamW.  The
-``ssm`` and ``hybrid`` families raise there: K4 has no backward kernel
-yet (``ops.ssd`` refuses gradients).
+``torch.autograd.grad`` (K2, K1 and K4, the ``ssm`` and ``hybrid``
+families' SSD, differentiate through their backward kernels on the
+card), and updates the module in place with AdamW.
 """
 from __future__ import annotations
 

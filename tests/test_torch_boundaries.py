@@ -226,7 +226,7 @@ class _CudaLooking(torch.Tensor):
 
 
 @pytest.mark.parametrize("wrapper", ["attention", "splice_attention",
-                                     "fused_adaln", "ssd"])
+                                     "fused_adaln", "ssd", "ssd_bwd"])
 def test_cuda_tensor_without_kernels_raises(monkeypatch, tmp_path, wrapper):
     """With no kernel library and no nvcc, a CUDA tensor raises instead
     of being computed by the plain version."""
@@ -247,6 +247,10 @@ def test_cuda_tensor_without_kernels_raises(monkeypatch, tmp_path, wrapper):
         "fused_adaln": lambda: ops.fused_adaln(t(1, 8, 64)),
         "ssd": lambda: ops.ssd(t(1, 32, 2, 16), t(1, 32, 2), t(2),
                                t(1, 32, 16), t(1, 32, 16), chunk=16),
+        "ssd_bwd": lambda: ops.ssd_bwd(
+            t(1, 32, 2, 16), t(1, 32, 2), t(2), t(1, 32, 16), t(1, 32, 16),
+            t(1, 32, 2, 16), chunk=16, scratch=t(sum(
+                ops._ssd_scratch_sizes(1, 32, 2, 16, 16, 16)))),
     }
     before = dict(ops.launches)
     with pytest.raises(RuntimeError, match="nvcc"):

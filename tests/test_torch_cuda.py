@@ -8,7 +8,8 @@ Tolerance: max abs error over max abs reference, <= 1e-5 in fp32 and
 rel-L2 per output, with the same budgets; the SSD scan against its sequential
 plain version <= 1e-4 in fp32 (two summation orders over the sequence,
 the JAX package's own kernel vs sequential bound in
-``tests/test_kernels.py``).
+``tests/test_kernels.py``), and its backward against the closed form by
+rel-L2 with that budget.
 """
 import shutil
 import subprocess
@@ -550,8 +551,9 @@ def test_cuda_no_wrapper_drops_a_gradient(cuda_device, wrapper):
     """A backward() through each kernel wrapper on the card gives the
     plain versions' gradients (autograd of ``ref.py`` on the CPU, same
     inputs), or the wrapper raises: no operand that requires grad is
-    left without one.  K2 and K1 backpropagate through their backward
-    kernels; K3 and K4 have none yet and refuse."""
+    left without one.  K2, K1 and K4 backpropagate through their
+    backward kernels (K4 within its two-order budget: the plain version
+    is the sequential recurrence); K3 has none and refuses."""
     rng = np.random.default_rng(7)
 
     def leaf(*shape, scale=1.0):
@@ -563,12 +565,21 @@ def test_cuda_no_wrapper_drops_a_gradient(cuda_device, wrapper):
         with pytest.raises(NotImplementedError, match="no backward kernel"):
             ops.splice_attention(*args, offset=4)
         return
-    if wrapper == "ssd":
-        x, dt, B, C = (leaf(1, 32, 2, 16), leaf(1, 32, 2, scale=0.1),
-                       leaf(1, 32, 16), leaf(1, 32, 16))
-        A = -torch.ones(2, device=cuda_device)
-        with pytest.raises(NotImplementedError, match="next slice"):
-            ops.ssd(x, dt, A, B, C, chunk=16)
+    if wrapper == "ssd":       # y and the final state both carry one
+        gen = torch.Generator(device=cuda_device).manual_seed(7)
+        dt, A = ssm.sample_dt_a((1, 40, 2), 2, gen)
+        args = (leaf(1, 40, 2, 16), dt.requires_grad_(True),
+                A.requires_grad_(True), leaf(1, 40, 16), leaf(1, 40, 16))
+        outs = ops.ssd(*args, chunk=16)
+        grads = [torch.from_numpy(rng.standard_normal(o.shape).astype(
+            np.float32)).to(cuda_device) for o in outs]
+        torch.autograd.backward(outs, grads)
+        cpu = [a.detach().cpu().requires_grad_(True) for a in args]
+        torch.autograd.backward(ref.ssd_ref(*cpu), [g.cpu() for g in grads])
+        for a, c in zip(args, cpu):
+            assert a.grad is not None and a.grad.is_cuda
+            assert _rel_l2(a.grad, c.grad.to(cuda_device)) <= \
+                SSD_TOL["float32"]
         return
     if wrapper == "attention":
         args = (leaf(2, 40, 4, 64), leaf(2, 40, 2, 64), leaf(2, 40, 2, 64))
@@ -603,13 +614,22 @@ def test_cuda_serving_calls_launch_no_backward_path(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["dit-image", "yi-6b", "whisper-medium"])
+@pytest.mark.parametrize("arch", ["dit-image", "yi-6b", "whisper-medium",
+                                  "mamba2-1.3b", "zamba2-7b"])
 def test_cuda_reduced_train_step_matches_the_cpu(cuda_device, arch):
-    """One fp32 step of the reduced model on the card (K1/K2 and their
+    """One fp32 step of the reduced model on the card (K1/K2/K4 and their
     backward kernels) and on the CPU (plain versions, closed-form
     backward), same weights and batch: the loss and every parameter
     leaf's gradient within 1e-4 rel-L2 (the card-vs-CPU budget of the
-    LM checks), and the updated weights of a bf16 step within 3e-2."""
+    LM checks), and the updated weights of a bf16 step within 3e-2.  The
+    SSD families' A and dt in Mamba2's published ranges, 24 tokens over
+    two chunks of 16; their bf16 step is held by its update (new - old
+    weights) where the fp32 gradient is above a third of its leaf's RMS,
+    as ``tests/test_torch_training.py`` holds the bf16 step to JAX's: a
+    first AdamW step moves each weight by about lr * sign(g), and
+    zero-initialised leaves (the conv biases) hold nothing else, so where
+    g is near zero a bf16 rounding flips the whole weight on either side
+    (zamba2's ``conv_b`` moved 0.20 rel-L2 apart over the whole leaf)."""
     from repro_torch.models import dit, get_model
     from repro_torch.training import optimizer, train_loop
     cfg = get_config(arch).reduced()
@@ -617,8 +637,11 @@ def test_cuda_reduced_train_step_matches_the_cpu(cuda_device, arch):
     cpu = family.init(cfg, device="cpu")
     if cfg.family == "dit":
         dit.liven_adaln(cpu, cfg.d_model)
+    if cfg.ssm is not None:
+        ssm.init_published_a_dt(cpu, seed=3)
     card = family.init(cfg, device=cuda_device)
     card.load_state_dict(cpu.state_dict())
+    old = {k: v.clone() for k, v in cpu.state_dict().items()}
     batch = train_loop.synth_batch(cfg, 2, 24,
                                    generator=torch.Generator().manual_seed(3))
     if cfg.family == "dit":        # 16 x 16 latents: 64 tokens
@@ -641,19 +664,36 @@ def test_cuda_reduced_train_step_matches_the_cpu(cuda_device, arch):
                / gc[name].double().norm().clamp_min(1e-30)).item()
         assert err <= 1e-4, (name, err)
     for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
-        assert _rel_l2(p, q.to(cuda_device)) <= TOL["bfloat16"], name
+        if cfg.ssm is None:
+            assert _rel_l2(p, q.to(cuda_device)) <= TOL["bfloat16"], name
+            continue
+        g = gc[name].abs()
+        held = g > g.double().square().mean().sqrt() / 3
+        assert held.any(), name
+        was = old[name].to(cuda_device)
+        assert _rel_l2((p - was)[held.to(cuda_device)],
+                       (q.to(cuda_device) - was)[held.to(cuda_device)]) \
+            <= TOL["bfloat16"], name
 
 
 @pytest.mark.cuda
-def test_cuda_ssm_refuses_to_train(cuda_device):
-    from repro_torch.models import get_model
-    from repro_torch.training import optimizer, train_loop
-    cfg = get_config("mamba2-1.3b").reduced()
-    model = get_model(cfg).init(cfg, device=cuda_device)
-    step = train_loop.make_train_step(cfg, remat="none")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        step(model, optimizer.adamw_init(dict(model.named_parameters())),
-             train_loop.synth_batch(cfg, 1, 32, device=cuda_device))
+def test_cuda_ssd_grad_fn_launches_ssd_bwd(cuda_device):
+    """A CUDA ``ops.ssd`` under grad returns outputs with a grad_fn whose
+    backward launches K4's backward kernel once (and nothing else)."""
+    rng = np.random.default_rng(3)
+    x, dt, A, B, C = _ssd_inputs(rng, 1, 40, 2, 16, 16, "float32",
+                                 cuda_device)
+    x.requires_grad_(True)
+    y, state = ops.ssd(x, dt, A, B, C, chunk=16)
+    assert y.grad_fn is not None
+    before = dict(ops.launches)
+    y.sum().backward()
+    torch.cuda.synchronize()
+    after = dict(ops.launches)
+    assert after["ssd_bwd"] == before["ssd_bwd"] + 1
+    assert {k: v for k, v in after.items() if k != "ssd_bwd"} == \
+        {k: v for k, v in before.items() if k != "ssd_bwd"}
+    assert x.grad is not None and torch.isfinite(x.grad).all()
 
 
 @pytest.mark.cuda
@@ -792,6 +832,75 @@ def test_cuda_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         ops.ssd(x, dt.double(), A, B, C, chunk=16)
     with pytest.raises(ValueError, match="B is"):
         ops.ssd(x, dt, A, B.bfloat16(), C, chunk=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_dstate", [False, True],
+                         ids=["no-dstate", "dstate"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p,n,chunk", ops.SSD_SHAPES)
+@pytest.mark.parametrize("ragged", [False, True])
+def test_cuda_ssd_bwd_kernel(cuda_device, p, n, chunk, dtype, ragged,
+                             with_dstate):
+    """K4's backward (four stage kernels, one launch) against
+    ``ref.ssd_bwd_ref`` on the same inputs and output gradients, the
+    scratch from K4's forward: rel-L2 per output within the SSD's
+    budget (fp32 1e-4: the plain version sums in another order)."""
+    rng = np.random.default_rng(p + n + chunk + 1)
+    b, h = 2, 3
+    l = 3 * chunk + (chunk // 2 + 1 if ragged else 0)
+    x, dt, A, B, C = _ssd_inputs(rng, b, l, h, p, n, dtype, cuda_device)
+    dy = _card(rng, (b, l, h, p), dtype, cuda_device)
+    dstate = (_card(rng, (b, h, p, n), "float32", cuda_device)
+              if with_dstate else None)
+    _, _, scratch = ops.ssd_for_grad(x, dt, A, B, C, chunk=chunk)
+    before = ops.launches["ssd_bwd"]
+    got = ops.ssd_bwd(x, dt, A, B, C, dy, dstate, chunk=chunk,
+                      scratch=scratch)
+    assert ops.launches["ssd_bwd"] == before + 1
+    want = ref.ssd_bwd_ref(x, dt, A, B, C, dy, dstate, chunk=chunk)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert _rel_l2(g, w) <= SSD_TOL[dtype], (name, _rel_l2(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_bwd_is_deterministic(cuda_device, dtype):
+    """No atomics: two calls on the same inputs agree bit for bit (the
+    remat check of ``chip_smoke.py`` rests on it)."""
+    rng = np.random.default_rng(9)
+    x, dt, A, B, C = _ssd_inputs(rng, 2, 300, 4, 64, 128, dtype,
+                                 cuda_device)
+    dy = _card(rng, x.shape, dtype, cuda_device)
+    _, _, scratch = ops.ssd_for_grad(x, dt, A, B, C, chunk=128)
+    first = ops.ssd_bwd(x, dt, A, B, C, dy, chunk=128, scratch=scratch)
+    second = ops.ssd_bwd(x, dt, A, B, C, dy, chunk=128, scratch=scratch)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_bwd_needs_the_forwards_scratch(cuda_device, monkeypatch):
+    rng = np.random.default_rng(4)
+    x, dt, A, B, C = _ssd_inputs(rng, 1, 32, 2, 16, 16, "float32",
+                                 cuda_device)
+    with pytest.raises(ValueError, match="scratch"):
+        ops.ssd_bwd(x, dt, A, B, C, torch.ones_like(x), chunk=16)
+    _, _, scratch = ops.ssd_for_grad(x, dt, A, B, C, chunk=16)
+    with pytest.raises(ValueError, match="scratch"):
+        ops.ssd_bwd(x, dt, A, B, C, torch.ones_like(x), chunk=16,
+                    scratch=scratch[1:])
+    # its own scratch: the kernel's rule sizes it, and a float short of
+    # that rule is refused, not written past
+    rule = ops._fn("gfdit_ssd_bwd_scratch")
+    assert rule(1, 32, 2, 16, 16, 16) == 4 * (16 * 16 + 1 + 2 * 16 * 16 + 1)
+    assert rule(1, 32, 2, 16, 16, 48) == -1
+    short = {"gfdit_ssd_bwd_scratch": lambda *a: rule(*a) - 1}
+    real = ops._fn
+    monkeypatch.setattr(ops, "_fn", lambda name: short.get(name) or real(name))
+    with pytest.raises(RuntimeError, match="ssd_bwd: kernel launch"):
+        ops.ssd_bwd(x, dt, A, B, C, torch.ones_like(x), chunk=16,
+                    scratch=scratch)
 
 
 @pytest.mark.cuda

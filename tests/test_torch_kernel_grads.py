@@ -14,7 +14,8 @@ what that jnp training differentiates.  Here:
 * ``ref.adaln_bwd_ref`` (K1's backward) the same way, for every variant;
 * ``ops.attention`` / ``ops.fused_adaln`` backpropagating through their
   ``autograd.Function`` on CPU tensors (the closed forms), and
-  ``ops.splice_attention`` / ``ops.ssd`` refusing to;
+  ``ops.splice_attention`` refusing to (K4's backward has its own file,
+  ``tests/test_torch_ssd_grads.py``);
 * the rounding of K2's backward kernels in closed form: bf16 (P and dS
   rounded to bf16) and fp32 (split-TF32 products), each within its
   dtype's budget.
@@ -367,22 +368,13 @@ def test_wrappers_without_grad_build_no_graph():
     assert ops.fused_adaln(x).grad_fn is not None
 
 
-def test_splice_attention_and_ssd_refuse_gradients():
-    """K3 and K4 have no backward kernel: with grad on and an operand
-    that requires grad they raise (on the CPU too, so the CPU never
-    trains what the card cannot), and serve as before otherwise."""
+def test_splice_attention_refuses_gradients():
+    """K3 has no backward kernel: with grad on and an operand that
+    requires grad it raises (on the CPU too, so the CPU never trains what
+    the card cannot), and serves as before otherwise."""
     q = torch.randn(1, 4, 2, 16, requires_grad=True)
     kv = torch.randn(1, 8, 2, 16)
     with pytest.raises(NotImplementedError, match="no backward kernel"):
         ops.splice_attention(q, kv, kv, kv[:, :4], kv[:, :4], offset=2)
     with torch.no_grad():
         ops.splice_attention(q, kv, kv, kv[:, :4], kv[:, :4], offset=2)
-    x = torch.randn(1, 16, 2, 16, requires_grad=True)
-    dt = torch.full((1, 16, 2), 0.1)
-    a = -torch.ones(2)
-    bc = torch.randn(1, 16, 16)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ops.ssd(x, dt, a, bc, bc, chunk=16)
-    with torch.inference_mode():
-        y, state = ops.ssd(x, dt, a, bc, bc, chunk=16)
-    assert y.shape == x.shape and state.shape == (1, 2, 16, 16)

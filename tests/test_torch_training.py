@@ -7,7 +7,7 @@
   ``ResilientTrainer``'s crash/restart reproducing the uninterrupted run
   exactly; ``synth_batch`` of JAX's shapes and dtypes.
 * One step of reduced yi-6b (dense), mixtral-8x7b (MoE), whisper-medium
-  (encdec) and DIT_IMAGE: each package's ``forward(..., dtype=float32)``
+  (encdec), mamba2-1.3b (ssm), zamba2-7b (hybrid) and DIT_IMAGE: each package's ``forward(..., dtype=float32)``
   composed with ``cross_entropy`` (or the flow-matching loss), the loss
   and its gradient per parameter leaf against ``jax.value_and_grad`` on
   the same weights (``convert.load_jax_params``) and the same numpy
@@ -21,8 +21,13 @@
   against JAX's (3e-2), through ``dit_lr_witness.trajectories``.
 * ``dit.forward`` against JAX's ``dit.forward`` in fp32 (1e-5) and bf16
   (3e-2), ``remat`` none and full; remat's gradients equal none's.
-* The ``ssm`` and ``hybrid`` families raise in the train step: K4 has no
-  backward yet.
+* The ``ssm`` and ``hybrid`` families (reduced mamba2-1.3b and
+  zamba2-7b) in the same fp32 loss-and-gradient comparison, at the JAX
+  init and with A and dt in Mamba2's published ranges over three chunks;
+  in the bf16 step and the remat comparison.  The port's CPU SSD is the
+  sequential ``ssd_ref`` with the chunked closed-form ``ssd_bwd_ref`` as
+  its backward, JAX's the chunked ``ssd_chunked``: two summation orders,
+  within 1e-5 all the same (worst leaf 3.9e-6, zamba2 at the JAX init).
 """
 import types
 
@@ -258,6 +263,8 @@ LM_CASES = {
     "yi-6b": ("yi-6b", {}),
     "mixtral-8x7b": ("mixtral-8x7b", {}),
     "whisper-medium": ("whisper-medium", {}),
+    "mamba2-1.3b": ("mamba2-1.3b", {}),
+    "zamba2-7b": ("zamba2-7b", {}),
 }
 
 
@@ -385,6 +392,52 @@ def test_lm_loss_and_gradients_match_jax(case):
     _compare_grads(loss, grads, jloss, jgrads)
 
 
+def _liven_ssd(tree, seed=0):
+    """Every ``A_log`` and ``dt_bias`` leaf of a JAX tree redrawn in
+    Mamba2's published ranges (dt log-uniform in [1e-3, 1e-1] through the
+    inverse softplus, A = -U[1, 16]), so that the state carried across
+    chunks, and its gradient, are not ~0 as at the JAX init."""
+    rng = np.random.default_rng(seed)
+    for key, leaf in tree.items():
+        if isinstance(leaf, dict):
+            _liven_ssd(leaf, int(rng.integers(2**31)))
+        elif key == "dt_bias":
+            dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), leaf.shape))
+            tree[key] = (dt + np.log(-np.expm1(-dt))).astype(np.float32)
+        elif key == "A_log":
+            tree[key] = np.log(rng.uniform(1, 16, leaf.shape)).astype(
+                np.float32)
+    return tree
+
+
+@pytest.mark.parametrize("arch,overrides", [
+    ("mamba2-1.3b", {}), ("zamba2-7b", {"num_layers": 5})],
+    ids=["mamba2-1.3b", "zamba2-7b"])
+def test_ssd_families_with_published_a_dt_match_jax(arch, overrides):
+    """The ``ssm`` and ``hybrid`` families' loss and per-leaf gradients
+    against ``jax.value_and_grad`` with A and dt in Mamba2's published
+    ranges and 40 tokens, three chunks of 16 (the last ragged), so the
+    state pass and its gradient (K4's backward's reverse pass) carry; the
+    hybrid at five layers has two groups and a Mamba2 tail.  The port's
+    CPU forward is the sequential ``ssd_ref`` and its backward the
+    chunked ``ssd_bwd_ref``, JAX's both the chunked ``ssd_chunked``: two
+    summation orders, yet within the fp32 1e-5 (measured: worst leaf
+    rel-L2 2.96e-6, mamba2's ``A_log``; 3.30e-6, a zamba2 ``dt_bias``)."""
+    jcfg = jax_get_config(arch).reduced(**overrides)
+    cfg = get_config(arch).reduced(**overrides)
+    params, _ = jL.split_params(
+        jax_get_model(jcfg).init(jax.random.PRNGKey(0), jcfg))
+    tree = _liven_ssd(jax.tree.map(np.asarray, params))
+    model = get_model(cfg).init(cfg, device="cpu")
+    load_jax_params(model, tree)
+    batch = _lm_batch(cfg, s=40)
+    loss, grads = _port_grads(cfg, model, batch)
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: _jax_loss(jcfg, p, batch)))(jax.tree.map(jnp.asarray,
+                                                           tree))
+    _compare_grads(loss, grads, jloss, jgrads)
+
+
 @pytest.mark.parametrize("t", [[3.5, 90.0], [640.0, 999.0]],
                          ids=["small-t", "large-t"])
 def test_dit_loss_and_gradients_match_jax(t):
@@ -401,7 +454,8 @@ def test_dit_loss_and_gradients_match_jax(t):
     _compare_grads(loss, grads, jloss, jgrads)
 
 
-@pytest.mark.parametrize("case", ["yi-6b", "mixtral-8x7b", "dit-image"])
+@pytest.mark.parametrize("case", ["yi-6b", "mixtral-8x7b", "dit-image",
+                                  "mamba2-1.3b", "zamba2-7b"])
 def test_train_step_matches_jax_in_bf16(case):
     """The whole step (bf16 forward, as JAX's ``loss_fn`` runs it; AdamW)
     against JAX's ``make_train_step``: loss, ``grad_norm`` and each leaf's
@@ -473,7 +527,8 @@ def test_dit_forward_matches_jax(dtype, tol, remat):
 
 
 @pytest.mark.parametrize("arch,remats", [
-    ("dit-image", ("full",)), ("yi-6b", ("full", "selective"))])
+    ("dit-image", ("full",)), ("yi-6b", ("full", "selective")),
+    ("mamba2-1.3b", ("full",)), ("zamba2-7b", ("full",))])
 def test_remat_gives_the_same_gradients(arch, remats):
     cfg = get_config(arch).reduced()
     model = get_model(cfg).init(cfg, device="cpu")
@@ -492,20 +547,6 @@ def test_remat_gives_the_same_gradients(arch, remats):
                                   atol=1e-7), (remat, name)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b"])
-def test_ssm_and_hybrid_refuse_to_train(arch):
-    """K4 has no backward kernel yet: the step raises ``ops.ssd``'s
-    NotImplementedError instead of training without the SSD's gradient."""
-    cfg = get_config(arch).reduced()
-    model = get_model(cfg).init(cfg, device="cpu")
-    step = train_loop.make_train_step(cfg, remat="none")
-    opt = optimizer.adamw_init(dict(model.named_parameters()))
-    batch = train_loop.synth_batch(cfg, 1, 8)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        step(model, opt, batch)
-    assert not any(p.requires_grad for p in model.parameters())
-
-
 def _small_lm(arch):
     """A smaller LM than the trainer's own, so that the 200 steps random
     tokens need before the loss falls take seconds here."""
@@ -516,13 +557,15 @@ def _small_lm(arch):
 
 @pytest.mark.parametrize("arch,extra", [
     ("yi-6b", ["--steps", "200"]),
+    ("mamba2-1.3b", ["--steps", "200"]),
     ("dit-image", ["--steps", "5"])])
 def test_train_lm_runs_on_the_cpu(tmp_path, monkeypatch, capsys, arch,
                                   extra):
     """The port's command-line trainer on the CPU, its own check included
     (exit 0 only if the last loss is below the first, as the JAX
-    example asserts): 200 steps of a small LM, or 5 of the reduced DiT,
-    whose loss on its one batch falls at every step; checkpoints kept."""
+    example asserts): 200 steps of a small LM (dense, or Mamba2 through
+    the SSD's backward), or 5 of the reduced DiT, whose loss on its one
+    batch falls at every step; checkpoints kept."""
     if arch != "dit-image":
         monkeypatch.setattr(train_lm, "reduced_config", _small_lm)
     assert train_lm.main(["--device", "cpu", "--arch", arch, "--ckpt",
