@@ -15,7 +15,8 @@ Phases, one line each (any failure raises and exits non-zero):
    at 64 and 128; K1's backward row kernel's registers and spills at
    DIT_IMAGE's width, every variant, with its plan and blocks an SM; the
    registers and spills of K4's forward and backward stage kernels at
-   (p, n, chunk) = (64, 128, 128) and (64, 64, 128).
+   (p, n, chunk) = (64, 128, 128) and (64, 64, 128), and of K4's fp32
+   backward tensor-core kernels at every (p, n, chunk).
 3. kernels: each kernel against its plain PyTorch version on the card at
    its path's full-width shapes (DIT_IMAGE for K1-K3, the mamba2-1.3b
    prefill for K4, timed at batch 4 and 1; zamba2-7b's forward for K2
@@ -37,9 +38,10 @@ Phases, one line each (any failure raises and exits non-zero):
    plain-version and one-PyTorch-call times from CUDA events; K4's device
    time by stage kernel (``torch.profiler``) and each stage's occupancy;
    K4's backward at the mamba2-1.3b and zamba2-7b training shapes (2 x
-   2048 tokens), fp32 and bf16, rel-L2 per output (dx, ddt, dA, dB, dC)
-   against ``ref.ssd_bwd_ref``, timed as the other backward kernels
-   with its four stage kernels' device time and occupancy.
+   2048 tokens), fp32 (split-TF32 on the tensor cores, within 2e-5) and
+   bf16 (the CUDA cores), rel-L2 per output (dx, ddt, dA, dB, dC, each
+   printed) against ``ref.ssd_bwd_ref``, timed as the other backward
+   kernels with its four stage kernels' device time and occupancy.
 4. serve: ``ServingEngine(DIT_IMAGE, SP-4, cache_interval=2)`` at full
    width serves two 512 px and one 1024 px request; every request must
    finish with finite pixels, through K1-K3, with both §11 refresh and
@@ -120,9 +122,11 @@ Phases, one line each (any failure raises and exits non-zero):
    tokens from the TokenPipeline, K4 and its backward 48 times a step;
    (d) zamba2-7b at full width, 12 of 81 layers (two groups of six and
    the shared block), the same, K4 and its backward 12 times a step and
-   K2 causal forward and backward twice at d=112.  Prints the losses,
-   step walls, samples or tokens/s, peak memory and the launches a
-   step.
+   K2 causal forward and backward twice at d=112; (c) and (d) print the
+   dtype K4's backward ran at and their losses must stay within 3e-2 of
+   those of the CUDA-core backward (``CUDA_CORE_SSD_LOSSES``).  Prints
+   the losses, step walls, samples or tokens/s, peak memory and the
+   launches a step.
 16. train-cpu: DIT_IMAGE, yi-6b, mamba2-1.3b and zamba2-7b at
    ``.reduced()`` (the SSD families livened, 60 tokens: a ragged last
    chunk), one fp32 step on the same weights and batch on the card and
@@ -208,6 +212,12 @@ BUDGET = {torch.float32: 1e-5, torch.bfloat16: 3e-2}   # DESIGN.md §12
 # K4 vs the sequential recurrence: two summation orders over 2048 steps,
 # the JAX package's own kernel vs sequential bound (tests/test_kernels.py)
 SSD_BUDGET = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# K4's backward: fp32 tightened below the forward's 1e-4, since one TF32
+# product a product (not split) keeps dA within 9.9e-5 at mamba2-1.3b's
+# (p, n, chunk); split-TF32 keeps every output under 2.3e-6 (both in
+# closed form: tests/test_torch_ssd_grads.py, SSD_BWD_FP32_BUDGET)
+SSD_BWD_BUDGET = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+SSD_BWD_OUTPUTS = ("dx", "ddt", "dA", "dB", "dC")
 PIXEL_BUDGET = 1e-4                # rel-L2 on decoded pixels
 MAMBA = get_config("mamba2-1.3b")
 LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 32
@@ -258,6 +268,11 @@ ZAMBA_TRAIN = ZAMBA.with_(num_layers=12)
 # budget of these
 CUDA_CORE_DIT_LOSSES = (2.31661, 2.16704, 1.98995, 1.81137, 1.67245)
 LOSS_BUDGET = 3e-2
+# the three bf16 losses of mamba2-1.3b and of zamba2-7b at 12 layers with
+# K4's backward on the CUDA cores (PERF.md section 6); with the
+# split-TF32 kernels each must stay within LOSS_BUDGET of these
+CUDA_CORE_SSD_LOSSES = {"mamba2-1.3b": (11.3036, 11.3350, 11.3332),
+                        "zamba2-7b": (10.9003, 10.8589, 10.9267)}
 # one fp32 DIT_IMAGE gradient on the train phase's livened weights and
 # batch with K2's fp32 backward on the CUDA cores (``--fp32-grad --src``
 # of that tree, on an H100 80GB HBM3; PERF.md section 6): its loss, and by
@@ -478,8 +493,12 @@ def phase_build() -> None:
     _report_attention_bwd(report)
     _report_adaln_bwd(report)
     for f in sorted(report):      # K4 at (64, 128, 128) and (64, 64, 128)
-        m = re.match(r"_ZN5gfdit(\d+)", f)       # and its backward
-        name = f[m.end():m.end() + int(m[1])] if m else f
+        m = re.match(r"_ZN5gfdit(\d+)", f)       # and its backward; the
+        name = f[m.end():m.end() + int(m[1])] if m else f   # backward's
+        if name.endswith("_mma"):           # fp32 tensor-core kernels at
+            shape = tuple(int(v) for v in re.findall(r"Li(\d+)E", f))
+            print(f"  {name}<fp32, {shape}>: {report[f]}", flush=True)
+            continue                        # every (p, n, chunk)
         for n in (128, 64):
             if name.startswith("ssd") and f"Li{n}ELi128E" in f and (
                     f"Li64ELi{n}ELi128E" in f
@@ -562,15 +581,17 @@ def _rand(shape, dtype, gen, scale=1.0):
 
 
 def _check(label, kernel, plain, dtype, results, timing=None, budget=BUDGET,
-           l2=False):
+           l2=False, names=None):
     """Kernel against plain version: max abs error over max |plain| (or,
     with ``l2``, the rel-L2 error), per output (a kernel may return a
-    tuple; None entries must match), within ``budget[dtype]``."""
+    tuple; None entries must match), within ``budget[dtype]``; with
+    ``names`` (one a tuple output) each output's error is printed."""
     out_k, out_p = kernel(), plain()
     torch.cuda.synchronize()
     if not isinstance(out_k, tuple):
         out_k, out_p = (out_k,), (out_p,)
     diff = rel = 0.0
+    each = []
     for k_, p_ in zip(out_k, out_p):
         if k_ is None or p_ is None:
             if (k_ is None) != (p_ is None):
@@ -584,10 +605,14 @@ def _check(label, kernel, plain, dtype, results, timing=None, budget=BUDGET,
         else:
             r = d / max(p_.float().abs().max().item(), 1e-30)
         rel = max(rel, r)
-    ok = math.isfinite(rel) and rel <= budget[dtype]
+        each.append(r)
+    ok = all(math.isfinite(r) for r in each) and rel <= budget[dtype]
     line = (f"  {label} {str(dtype)[6:]}: {'rel-L2' if l2 else 'max rel'} "
             f"err {rel:.2e} (budget {budget[dtype]:.0e}) "
             f"{'ok' if ok else 'FAIL'}")
+    if names is not None:
+        line += " [" + ", ".join(f"{n_} {r:.2e}" for n_, r in
+                                 zip(names, each)) + "]"
     if timing is not None:
         # a kernel of tens of ms is timed over fewer calls
         depth = dict(iters=timing.get("iters", 20),
@@ -1240,7 +1265,8 @@ def _check_ssd_bwd(dtype, results) -> None:
         case = f"{cfg.name} b={b} l={l} h={h} (p, n, chunk)={(p, n, c)}"
         _check(f"ssd_bwd {case}", kernel,
                lambda: ref.ssd_bwd_ref(x, dt, A, B, C, dy, chunk=c),
-               dtype, results, timing, SSD_BUDGET, l2=True)
+               dtype, results, timing, SSD_BWD_BUDGET, l2=True,
+               names=SSD_BWD_OUTPUTS)
         if fp32:
             entry = results[label]
             cc_ms, cc_by = bound_ms(nbytes, flops)
@@ -1257,20 +1283,21 @@ def _check_ssd_bwd(dtype, results) -> None:
                    lambda: ops.ssd_bwd(x, dt, A, B, C, dy, ds, chunk=c,
                                        scratch=scratch),
                    lambda: ref.ssd_bwd_ref(x, dt, A, B, C, dy, ds, chunk=c),
-                   dtype, results, None, SSD_BUDGET, l2=True)
+                   dtype, results, None, SSD_BWD_BUDGET, l2=True,
+                   names=SSD_BWD_OUTPUTS)
             del ds
-        if fp32:
-            for name, (blocks, smem, grid) in ops.ssd_bwd_occupancy(
-                    b, l, h, p, n, c).items():
-                waves = grid / (blocks * sms)
-                results.setdefault("ssd_bwd_occupancy", {})[
-                    f"{label} {name}"] = {
-                    "blocks_per_sm": blocks, "smem_bytes": smem, "sms": sms,
-                    "grid": grid, "waves": waves}
-                print(f"  ssd_bwd occupancy {cfg.name} {name}: {grid} "
-                      f"blocks of 256 threads, {blocks} resident per SM "
-                      f"({smem / 1024:.1f} KB shared memory each), {sms} "
-                      f"SMs: {waves:.2f} waves", flush=True)
+        for name, (blocks, smem, grid, *threads) in ops.ssd_bwd_occupancy(
+                b, l, h, p, n, c, dtype).items():
+            threads = threads[0] if threads else 256     # an older checkout
+            waves = grid / (blocks * sms)
+            results.setdefault("ssd_bwd_occupancy", {})[
+                f"{label}{tag} {name}"] = {
+                "blocks_per_sm": blocks, "smem_bytes": smem, "sms": sms,
+                "grid": grid, "threads": threads, "waves": waves}
+            print(f"  ssd_bwd occupancy {cfg.name}{tag} {name}: {grid} "
+                  f"blocks of {threads} threads, {blocks} resident per SM "
+                  f"({smem / 1024:.1f} KB shared memory each), {sms} "
+                  f"SMs: {waves:.2f} waves", flush=True)
         del x, dt, A, B, C, dy, scratch
 
 
@@ -2482,6 +2509,23 @@ def _train_dit(smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def _ssd_bwd_dtypes():
+    """The operand dtypes of every call of K4's backward inside the block:
+    ``ops.ssd_bwd``, which ``ops.ssd``'s autograd Function calls, wrapped
+    (its launch counter is untouched)."""
+    seen, real = set(), ops.ssd_bwd
+
+    def spy(x, *args, **kwargs):
+        seen.add(str(x.dtype)[6:])
+        return real(x, *args, **kwargs)
+    ops.ssd_bwd = spy
+    try:
+        yield seen
+    finally:
+        ops.ssd_bwd = real
+
+
 def _train_lm(smi: str, cfg, full: int) -> dict:
     """(b)-(d) of the train phase: the decoder LM ``cfg`` (of ``full``
     layers at full depth) at full width, bf16, AdamW at TRAIN_LR,
@@ -2489,8 +2533,10 @@ def _train_lm(smi: str, cfg, full: int) -> dict:
     TokenPipeline; the SSD families with A and dt in Mamba2's published
     ranges.  Every step must launch K2 causal and its backward once an
     attention layer (yi-6b) or shared-block site (zamba2-7b), K4 and its
-    backward once a Mamba2 layer, and nothing else.  Returns the
-    launches a step."""
+    backward once a Mamba2 layer, and nothing else; the SSD families'
+    losses must stay within LOSS_BUDGET of CUDA_CORE_SSD_LOSSES, and the
+    dtype K4's backward ran at is printed.  Returns the launches a
+    step."""
     model = get_model(cfg).init(cfg, generator=torch.Generator(
         device="cuda").manual_seed(0))
     if cfg.ssm is not None:
@@ -2501,7 +2547,9 @@ def _train_lm(smi: str, cfg, full: int) -> dict:
     pipe = TokenPipeline(cfg, YI_TRAIN_BATCH, YI_TRAIN_SEQ, seed=0)
     torch.cuda.reset_peak_memory_stats()
     losses, walls, per_step = [], [], []
-    try:
+    with contextlib.ExitStack() as stack:
+        bwd_dtypes = stack.enter_context(_ssd_bwd_dtypes())
+        stack.callback(pipe.close)
         for _ in range(YI_TRAIN_STEPS):
             batch = {k: torch.from_numpy(v).cuda() for k, v in
                      next(pipe).items()}
@@ -2516,8 +2564,6 @@ def _train_lm(smi: str, cfg, full: int) -> dict:
             if not (math.isfinite(loss) and math.isfinite(gnorm)):
                 raise AssertionError(f"train: {cfg.name} loss {loss}, "
                                      f"grad_norm {gnorm}")
-    finally:
-        pipe.close()
     peak = torch.cuda.max_memory_allocated() / 2**30
     attn = (cfg.num_layers if cfg.family == "dense" else
             hybrid._group_plan(cfg)[1] if cfg.family == "hybrid" else 0)
@@ -2539,6 +2585,17 @@ def _train_lm(smi: str, cfg, full: int) -> dict:
           + f" ms ({tokens / warm:.0f} tokens/s after the first); peak mem "
           f"{peak:.2f} GiB; launches a step {per_step[-1]}; on {smi}",
           flush=True)
+    recorded = CUDA_CORE_SSD_LOSSES.get(cfg.name)
+    if recorded is not None:
+        drift = max(abs(a - b) / b for a, b in zip(losses, recorded))
+        print(f"train: {cfg.name} K4's backward ran in "
+              f"{', '.join(sorted(bwd_dtypes))}; losses vs the CUDA-core "
+              f"backward's " + ", ".join(f"{v:.4f}" for v in recorded)
+              + f": worst rel diff {drift:.2e} (budget {LOSS_BUDGET:.0e})",
+              flush=True)
+        if not drift <= LOSS_BUDGET:
+            raise AssertionError(f"train: {cfg.name} losses {losses} drift "
+                                 f"from {recorded}")
     del model, opt
     torch.cuda.empty_cache()
     return per_step[-1]

@@ -97,7 +97,7 @@
 //   * A warp whose keys all lie above the causal diagonal of a query step
 //     (dK/dV), or whose queries all lie below it (dQ), skips the step's
 //     products.
-#include "common.cuh"
+#include "mma.cuh"
 
 #include <type_traits>
 
@@ -159,134 +159,13 @@ struct BwdMmaShape {
   static constexpr size_t kSmemDq = sizeof(T) * (2 * BQ2 + 2 * BK2) * P;
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Four 8 x 16-byte matrices, thread i giving the address of row i % 8 of
-// matrix i / 8; register j gets matrix j's row lane/4, 32-bit word lane%4
-// (two bf16: columns 2 (lane%4), +1; or one fp32), or with .trans (bf16
-// only) its rows 2 (lane%4), +1 of column lane/4.
-__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
+// ldmatrix with .trans (bf16 only): see ldsm4 in mma.cuh.
 __device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const bf16* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
-}
-
-// c (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col).
-// Fragments, g = lane / 4, t = lane % 4: a {(g, 2t..), (g+8, 2t..),
-// (g, 2t+8..), (g+8, 2t+8..)}; b {(k 2t.., n g), (k 2t+8.., n g)};
-// c {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c (16 x 8, fp32) += a (16 x 8, tf32, row) * b (8 x 8, tf32, col).
-// Fragments: a {(g, t), (g+8, t), (g, t+4), (g+8, t+4)}; b {(k t, n g),
-// (k t+4, n g)}; c as for bf16.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x = hi + lo, each TF32 rounded to nearest (ties away from zero), to
-// ~2^-22 of x.  Done as CUTLASS's 3xTF32 does, on the fp32 bits: the
-// mma reads the top 19 bits of an operand and drops the rest, so
-// bits + 0x1000 (half a TF32 ulp) is x rounded; hi's dropped bits are
-// cleared, so that x - hi is exact.  cvt.rna.tf32.f32 computes the same
-// for finite x, but sm_90a runs it as a compare, an add and a select or
-// mask (for inf and NaN): with it the DIT_IMAGE self-attention backward
-// took 1.39 ms on an H100, with the add and the mask here 1.03 (both
-// with one k step a sum in mma_ab).  An inf or NaN operand gives a NaN
-// lo, so NaN still reaches the output.
-struct Tf32Split {
-  unsigned hi, lo;
-};
-__device__ __forceinline__ Tf32Split split_tf32(float x) {
-  const unsigned hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  return {hi, __float_as_uint(x - __uint_as_float(hi)) + 0x1000u};
-}
-__device__ __forceinline__ void split_a(unsigned (&hi)[4], unsigned (&lo)[4],
-                                        float a0, float a1, float a2,
-                                        float a3) {
-  const float a[4] = {a0, a1, a2, a3};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const Tf32Split s = split_tf32(a[i]);
-    hi[i] = s.hi;
-    lo[i] = s.lo;
-  }
-}
-
-// One fp32 product in split-TF32: c += a_lo b_hi + a_hi b_lo + a_hi b_hi,
-// the small terms first.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const unsigned (&ahi)[4],
-                                           const unsigned (&alo)[4],
-                                           Tf32Split b0, Tf32Split b1) {
-  mma_tf32(c, alo, b0.hi, b1.hi);
-  mma_tf32(c, ahi, b0.lo, b1.lo);
-  mma_tf32(c, ahi, b0.hi, b1.hi);
-}
-
-// acc (16 x 8 NT) += A B^T over K = D: A's 16 rows at `a` and B's 8 NT
-// rows at `b`, both row-major T in shared memory at pitch P (B read as
-// the col operand, untransposed).  One ldmatrix.x4 a k step of 16 bytes
-// a row: k = 16 bf16 (one m16n8k16), or 8 fp32 (one m16n8k8 in
-// split-TF32, each operand split after its load).
-template <int NT, int D, int P, typename T>
-__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const T* a,
-                                        const T* b, int lane) {
-  static_assert(NT % 2 == 0, "mma_abt: n tiles in pairs");
-  constexpr int E = 16 / sizeof(T);      // elements a 16-byte unit
-  const T* pa = a + (lane & 15) * P + (lane >> 4) * E;
-  const T* pb = b + ((lane & 7) + ((lane >> 4) << 3)) * P +
-                ((lane >> 3) & 1) * E;
-#pragma unroll
-  for (int ks = 0; ks < D / (2 * E); ++ks) {
-    unsigned af[4];
-    ldsm4(af, pa + ks * 2 * E);
-    if constexpr (std::is_same_v<T, bf16>) {
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        unsigned bfr[4];
-        ldsm4(bfr, pb + np * 16 * P + ks * 16);
-        mma_bf16(acc[2 * np], af, bfr[0], bfr[1]);
-        mma_bf16(acc[2 * np + 1], af, bfr[2], bfr[3]);
-      }
-    } else {
-      unsigned ahi[4], alo[4];
-      split_a(ahi, alo, __uint_as_float(af[0]), __uint_as_float(af[1]),
-              __uint_as_float(af[2]), __uint_as_float(af[3]));
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        unsigned bfr[4];
-        ldsm4(bfr, pb + np * 16 * P + ks * 8);
-        mma_3xtf32(acc[2 * np], ahi, alo, split_tf32(__uint_as_float(bfr[0])),
-                   split_tf32(__uint_as_float(bfr[1])));
-        mma_3xtf32(acc[2 * np + 1], ahi, alo,
-                   split_tf32(__uint_as_float(bfr[2])),
-                   split_tf32(__uint_as_float(bfr[3])));
-      }
-    }
-  }
 }
 
 // acc (16 x 8 NT) += A B over K = 16 KS: A in registers as KS fragments,
@@ -320,15 +199,9 @@ __device__ __forceinline__ void mma_ab(float (&acc)[NT][4],
 // 8 columns g fill them: no conflict.
 //
 // These products sum over the sequence (dV and dK over the GQA group's
-// queries, dQ over the keys): thousands of mma steps an element.  The
-// tensor cores do not round their fp32 sum to nearest (they truncate the
-// aligned addends), so an accumulator carried through them all drifts
-// one way: 1.8e-5 rel-L2 on dK at 8 heads x 300 queries, over the 1e-5
-// budget.  So the products of kSumSteps k steps go to a fresh
-// accumulator, which the CUDA cores add to `acc`, rounding to nearest
-// (on an H100, DIT_IMAGE's self-attention backward took 1.03, 0.99 and
-// 0.96 ms with 1, 2 and 4 k steps a sum, at ~1.6e-6 rel-L2 each).
-constexpr int kSumSteps = 4;
+// queries, dQ over the keys): thousands of mma steps an element, so the
+// products of kSumSteps k steps go to a fresh accumulator, which the
+// CUDA cores add to `acc` (see kSumSteps in mma.cuh).
 template <int NT, int KS, int P>
 __device__ __forceinline__ void mma_ab(float (&acc)[NT][4],
                                        const float (&c)[KS][4],

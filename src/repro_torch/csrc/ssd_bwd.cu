@@ -50,32 +50,96 @@
 // each fp32 one at 495 TFLOP/s; 0.307 ms at the 67 TFLOP/s CUDA-core
 // rate), against 0.21 GB of operands and gradients (0.063 ms at 3.35
 // TB/s); bf16 operands are bound by their 0.107 GB (0.032 ms), the 989
-// TFLOP/s bf16 rate taking 0.021 ms.  These kernels do 41.9 GFLOP there,
-// 2.04x the need: dB and dC a head, and every product over whole tiles,
-// the masked triangle included.
+// TFLOP/s bf16 rate taking 0.021 ms.  The bf16 kernels do 41.9 GFLOP
+// there, 2.04x the need: dB and dC a head, and every product over whole
+// tiles, the masked triangle included; the fp32 ones 35.4 (below).
 //
-// Design, simple first: fp32 on the CUDA cores, as K2's first backward
-// was; the tensor cores (split-TF32, as csrc/attention_bwd.cu) wait.
-// Every stage is a 256-thread block, a 16 x 16 thread grid (ty, tx); each
-// product is a register-blocked outer product over shared memory
-// (block_mma) in which a thread owns rows ty + 16a and columns tx + 16e of
-// the output, and each operand is read with the strides of its stored
-// layout: every pitch is odd or the stride along tx is 1, so the 16
-// column lanes of a warp hit 16 banks and its 2 row lanes 2.  Stage 3
-// keeps dy, xb (c x (p+1)) and P^T (c x (c+1)) in shared memory for the
-// whole chunk and streams every other operand through one tile buffer in
-// 32-row tiles (plain loads, one barrier before and after each tile):
-// 165.5 KiB at (64, 128, 128), one block an SM.  The products run over
-// whole tiles, the masked triangle included; the decay is masked to
-// -1e30 BEFORE the exp in every orientation (the upper triangle's cum_i -
-// cum_j > 0 reaches ~200 at Mamba2's published dt and A: inf * 0 = NaN).
-// dB and dC are written per head (b*nc*h*c*n floats each, 134 MB at the
-// training shape) and summed by stage 4 in head order.  A ragged last
-// chunk is masked as in the forward: rows past l load dt = x = B = C = dy
-// = 0 and are not written; the padded rows' dcum (cum_last's terms among
-// them) reaches the real rows through the reverse cumulative sum over
-// the whole chunk.
-#include "common.cuh"
+// Design.  Both dtypes keep the four stages and their scratch; stages 2
+// and 4 are the same kernels.  Stages 1 and 3 are two hand-written kernel
+// pairs, chosen by the operands' type:
+//
+// fp32 (every caller today: the ssm and hybrid families cast x, B and C
+// to config.ssm.intra_dtype, float32 by default, so their bf16 train
+// steps run this): ssd_bwd_dstate_mma and ssd_bwd_chunk_mma run every
+// product on the tensor cores as split-TF32 mma.sync m16n8k8, as K2's
+// fp32 backward (csrc/attention_bwd.cu; the fragment helpers are shared
+// in mma.cuh): each fp32 operand splits in registers into hi = tf32(x)
+// and lo = tf32(x - hi), and each product is three TF32 ones, a_lo b_hi
+// + a_hi b_lo + a_hi b_hi.  One TF32 product keeps ~5e-4 of an operand;
+// the budget is 2e-5 rel-L2 per output (chip_smoke.py), which one TF32
+// product fails by 5x on dA and 15x on the rest (tests/
+// test_torch_ssd_grads.py, in closed form).  Operands go to shared
+// memory as fp32 rows by 16-byte cp.async (rows past l zero-filled);
+// whatever is read as rows of the k axis uses ldmatrix (a row-major fp32
+// tile is the TF32 fragment: row lane/4, word lane%4) at a pitch of an
+// odd number of 16-byte units; whatever is read along the other axis
+// uses 32-bit loads at a pitch that puts the lanes' rows in distinct
+// banks: P + 8 = 8 (mod 32) words for rows t and t + 4, N + 4 or P + 4 =
+// 4 (mod 16) for rows 2t and 2t + 1.
+//   * Stage 1, a block per (batch, chunk > 0, head), a warp per 16 rows
+//     of n (N / 16 warps): Q = (exp(cum) C)^T dy, A from C's rows t,
+//     t + 4 (32-bit loads), scaled by exp(cum) after its load, B = dy;
+//     the chunk in strips of 32 rows, double-buffered (the next strip's
+//     cp.async in flight during this one's products), each strip's 4 k
+//     steps into a fresh accumulator that the CUDA cores add to the sum
+//     (kSumSteps, mma.cuh).
+//   * Stage 3, a block per (batch, chunk, head) of CH / 16 warps (256
+//     threads at chunk 128); warp w owns rows [16w, 16w + 16).  dy and xb
+//     = x dt stay in shared memory for the whole block, fp32 at pitch
+//     P + 4 (ldmatrix for either as A or as the "n" side of Z, 32-bit row
+//     pairs for dy as the B of M^T dy).  Three passes, each a product
+//     family with its accumulators in registers:
+//     1. rows j: Z_ji = xb_j . dy_i (A = xb, B^T = dy, both ldmatrix) for
+//        the tiles i >= j only; M_ij = (C B^T)_ij L_ij is built straight
+//        into A fragments from the forward's C B^T (read only where j <=
+//        i: the forward never writes the rest) and the masked decay;
+//        T = M Z gives dcum's row sums (quad shuffles) and column sums
+//        (shuffles over the 8 row groups, then the warps' partials
+//        through shared memory, in warp order); dxb += M^T dy, the
+//        accumulator layout's columns 2t, 2t + 1 serving as k slots t,
+//        t + 4 and dy read as row pairs; with G, first dxb = exp(cum_last
+//        - cum) (B G), A = B by ldmatrix from column tiles of 32, B = G
+//        rows t, t + 4.
+//     2. rows j: the head's dB = exp(cum_last - cum) (xb G^T) (G as
+//        ldmatrix rows) + P^T C, Z recomputed a tile at a time and P^T =
+//        L Z built into A fragments; C streamed in strips of 64 rows.
+//     3. rows i: the head's dC = exp(cum) (dy S_in^T) + P B, Z^T = dy
+//        xb^T recomputed for this orientation; B streamed in strips.
+//        dcum's S_in term from C's rows in global memory.
+//     The decay is masked to -1e30 BEFORE the exp in every orientation
+//     (the upper triangle's cum_i - cum_j reaches ~200 at Mamba2's
+//     published dt and A: inf * 0 = NaN).  A 16 x 16 tile wholly above
+//     the diagonal is never computed; only the diagonal tiles are masked.
+//     The chunk's sums (K at most 128: 16 k steps) stay on the tensor
+//     cores.  Then the one-thread reverse cumulative sum as before.
+//   * Executed: 35.4 GFLOP of fp32 products (106 of TF32) at mamba2-
+//     1.3b's training shape, 1.72x the 20.6 needed (Z three times, dB and
+//     dC a head, the diagonal tiles whole); zamba2-7b's (h = 112, n = 64)
+//     39.5 against 21.7 (1.82x).  Against the CUDA-core kernels' 41.9:
+//     the triangles above the diagonal are skipped.
+//   * Shared memory a block: 110 KiB at (64, 128, 128) (dy and xb 68 KiB,
+//     a 34 KiB tile buffer, 8 KiB of row vectors and column partials),
+//     103 KiB at (64, 64, 128); the launch bounds hold the registers to
+//     128 a thread, so 2 blocks (16 warps) fit an SM.  ptxas's registers
+//     and spills for every instantiation: chip_smoke.py's build phase.
+//
+// bf16 (no caller yet): ssd_bwd_chunk_dstate and ssd_bwd_chunk, the first
+// CUDA-core kernels, unchanged: every stage a 256-thread block, a 16 x 16
+// thread grid; each product a register-blocked outer product over shared
+// memory (block_mma), whole tiles, the masked triangle included; stage 3
+// keeps dy, xb (c x (p+1)) and P^T (c x (c+1)) in shared memory and
+// streams every other operand in 32-row tiles: 165.5 KiB at (64, 128,
+// 128), one block an SM.  Its tensor-core version (m16n8k16) is queued.
+//
+// Both: dB and dC are written per head (b*nc*h*c*n floats each, 134 MB
+// at the training shape) and summed by stage 4 in head order.  A ragged
+// last chunk is masked as in the forward: rows past l load dt = x = B = C
+// = dy = 0 and are not written; the padded rows' dcum (cum_last's terms
+// among them) reaches the real rows through the reverse cumulative sum
+// over the whole chunk.
+#include "mma.cuh"
+
+#include <type_traits>
 
 namespace gfdit {
 
@@ -150,7 +214,8 @@ __device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
     for (int e = 0; e < TN; ++e) acc[i][e] = 0.f;
 }
 
-// Stage 1: Q_c = sum_i exp(cum_i) C_i (x) dy_i, (n x p), chunks c > 0.
+// Stage 1, bf16 (CUDA cores): Q_c = sum_i exp(cum_i) C_i (x) dy_i, (n x p),
+// chunks c > 0.
 template <typename T, int P, int N, int CH>
 __global__ void __launch_bounds__(kBwdThreads)
     ssd_bwd_chunk_dstate(const T* __restrict__ dy, const T* __restrict__ Cm,
@@ -252,8 +317,8 @@ __global__ void __launch_bounds__(kBwdThreads)
   }
 }
 
-// Stage 3: one (batch, chunk, head): dx, ddt, the head's dB and dC rows
-// (into scratch) and its dA partial.
+// Stage 3, bf16 (CUDA cores): one (batch, chunk, head): dx, ddt, the
+// head's dB and dC rows (into scratch) and its dA partial.
 template <typename T, int P, int N, int CH>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     ssd_bwd_chunk(const T* __restrict__ x, const float* __restrict__ dt,
@@ -531,6 +596,541 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32: stages 1 and 3 in split-TF32 on the tensor cores
+// ---------------------------------------------------------------------------
+
+template <int P, int N, int CH>
+struct SsdBwdMma {
+  static_assert(P % 16 == 0 && N % 16 == 0 && CH % 16 == 0 && P <= 64 &&
+                    N <= 128 && CH <= 128,
+                "ssd_bwd: p, n and chunk must be multiples of 16, p at most "
+                "64, n and chunk at most 128");
+  static constexpr int W = CH / 16;              // stage 3: 16 rows a warp
+  static constexpr int kThreads = 32 * W;
+  static constexpr int WD = N / 16;              // stage 1: 16 n-rows a warp
+  static constexpr int kDstateThreads = 32 * WD;
+  static constexpr int YP = P + 4;   // dy, xb, G, S_in rows: ldmatrix, and
+                                     // dy's row pairs
+  static constexpr int KT = CH < 64 ? CH : 64;   // rows of a B or C strip
+  static constexpr int KN = N < 32 ? N : 32;     // B G: n columns a tile
+  static constexpr int SP = N + 4;   // B, C strip rows (row pairs 2t, 2t+1)
+  static constexpr int GP = P + 8;   // G rows read as rows t, t + 4
+  static constexpr int BP = KN + 4;  // B column tile rows (ldmatrix)
+    static constexpr int BUF = cmax(CH * BP + KN * GP, cmax(N * YP, KT * SP));
+  // dy, xb, the tile buffer, eight row vectors, T's column sums a warp
+  static constexpr size_t kChunkSmem =
+      sizeof(float) * (2 * CH * YP + BUF + 8 * CH + W * CH);
+  // stage 1: C and dy strips of KD rows, read as rows t, t + 4; two of
+  // each (double-buffered) and exp(cum)
+  static constexpr int KD = CH < 32 ? CH : 32;
+  static constexpr int KS = KD / 8 < kSumSteps ? KD / 8 : kSumSteps;
+  static constexpr int DCP = N + 8, DYP = P + 8;
+  static constexpr size_t kDstateSmem =
+      sizeof(float) * (2 * KD * (DCP + DYP) + CH);
+  // two blocks an SM at (64, 128, 128): 128 registers a thread
+  static constexpr int kMinBlocks = 2;
+};
+
+// Rows [l0, l0 + ROWS) of a row-strided fp32 matrix (row l at src + l *
+// stride, COLS floats from a 16-byte boundary) into a ROWS x PITCH shared
+// tile by 16-byte cp.async; rows at or past L are zero-filled.  The
+// caller commits and waits.
+template <int ROWS, int COLS, int PITCH, int NTH>
+__device__ __forceinline__ void stage_tile(float* dst,
+                                           const float* __restrict__ src,
+                                           long long stride, int l0, int L) {
+  constexpr int CPR = COLS / 4;
+  for (int q = threadIdx.x; q < ROWS * CPR; q += NTH) {
+    const int r = q / CPR, c4 = 4 * (q % CPR), l = l0 + r;
+    cp_async16(dst + r * PITCH + c4, src + min(l, L - 1) * stride + c4,
+               l < L);
+  }
+}
+
+// Waits for all but the most recent cp.async group.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// The sum over the four lanes of a quad (one accumulator row), in a
+// fixed order; every lane gets it
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The A fragment (16 x 8) at k columns k0.. of the 16 rows at `a`, a
+// row-major fp32 shared tile at pitch PA, by ldmatrix, split.
+template <int PA>
+__device__ __forceinline__ void frag_a(unsigned (&hi)[4], unsigned (&lo)[4],
+                                       const float* a, int k0, int lane) {
+  unsigned r[4];
+  ldsm4(r, a + (lane & 15) * PA + (lane >> 4) * 4 + k0);
+  split_a(hi, lo, __uint_as_float(r[0]), __uint_as_float(r[1]),
+          __uint_as_float(r[2]), __uint_as_float(r[3]));
+}
+
+// acc (16 x 8 NT) += A B over one k step of 8, A given as the values of
+// the accumulator layout (rows g, g + 8; columns 2t, 2t + 1 serve as k
+// slots t, t + 4) and B's rows k0 + 2t (b0) and k0 + 2t + 1 (b1) at `b`
+// (already at row k0, column g), row-major fp32 at pitch PB.  With PB =
+// 4 (mod 16) words the rows 2t lie 8 banks apart and the 8 columns g fill
+// them: no conflict.
+template <int NT, int PB>
+__device__ __forceinline__ void mma_pairs(float (&acc)[NT][4], float a0,
+                                          float a1, float a2, float a3,
+                                          const float* b) {
+  static_assert(PB % 16 == 4, "mma_pairs: the pitch of row pairs");
+  unsigned ahi[4], alo[4];
+  split_a(ahi, alo, a0, a2, a1, a3);
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    mma_3xtf32(acc[n], ahi, alo, split_tf32(b[8 * n]),
+               split_tf32(b[PB + 8 * n]));
+}
+
+// Stage 1, fp32: Q_c = sum_i exp(cum_i) C_i (x) dy_i, (n x p), chunks
+// c > 0; a warp a 16-row tile of n, every column.  The chunk in strips of
+// KD rows, double-buffered: the next strip's copy is in flight while this
+// one's products run.
+template <int P, int N, int CH>
+__global__ void __launch_bounds__(SsdBwdMma<P, N, CH>::kDstateThreads)
+    ssd_bwd_dstate_mma(const float* __restrict__ dy,
+                       const float* __restrict__ Cm,
+                       const float* __restrict__ cum_in,
+                       float* __restrict__ g, int L, int H, int nc) {
+  using S = SsdBwdMma<P, N, CH>;
+  constexpr int NTH = S::kDstateThreads, KD = S::KD, KS = S::KS;
+  constexpr int DCP = S::DCP, DYP = S::DYP, NTP = P / 8;
+  constexpr int STRIP = KD * (DCP + DYP);  // C rows, then dy rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* strips = reinterpret_cast<float*>(smem_raw);  // 2 x STRIP
+  float* ec = strips + 2 * STRIP;                      // exp(cum_i)
+
+  const int tid = threadIdx.x, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * (tid >> 5);
+  const int bch = blockIdx.x, h = bch % H, bc = bch / H;
+  const int c = bc % nc, b = bc / nc, l0 = c * CH;
+  if (c == 0) return;  // the gradient entering chunk 0 is not needed
+  const float* cb = Cm + (long long)b * L * N;
+  const float* dyh = dy + ((long long)b * L * H + h) * P;
+  auto stage = [&](float* at, int i0) {
+    stage_tile<KD, N, DCP, NTH>(at, cb, N, l0 + i0, L);
+    stage_tile<KD, P, DYP, NTH>(at + KD * DCP, dyh, (long long)H * P,
+                                l0 + i0, L);
+    cp_async_commit();
+  };
+  stage(strips, 0);
+  for (int i = tid; i < CH; i += NTH)
+    ec[i] = expf(cum_in[(long long)bch * CH + i]);
+  float acc[NTP][4];
+  zero(acc);
+  for (int i0 = 0, q = 0; i0 < CH; i0 += KD, q ^= 1) {
+    if (i0 + KD < CH) {
+      stage(strips + (q ^ 1) * STRIP, i0 + KD);
+      cp_async_wait_one();            // this strip's group landed
+    } else {
+      cp_async_wait_all();
+    }
+    __syncthreads();                  // ... for every thread; ec written
+    const float* cs = strips + q * STRIP;
+    const float* ys = cs + KD * DCP;
+    // A = exp(cum) C^T (n rows, k = i) from C's rows t, t + 4, scaled
+    // after the load (an A fragment serves every column tile); B = dy
+    // (k = i rows); KS k steps into a fresh accumulator, which the CUDA
+    // cores add to acc
+#pragma unroll
+    for (int k0 = 0; k0 < KD; k0 += 8 * KS) {
+      unsigned ahi[KS][4], alo[KS][4];
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        const int r = k0 + 8 * j + tq;
+        const float* ca = cs + r * DCP + m0 + gq;
+        const float e0 = ec[i0 + r], e4 = ec[i0 + r + 4];
+        split_a(ahi[j], alo[j], ca[0] * e0, ca[8] * e0, ca[4 * DCP] * e4,
+                ca[4 * DCP + 8] * e4);
+      }
+#pragma unroll
+      for (int n = 0; n < NTP; ++n) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < KS; ++j) {
+          const float* yb = ys + (k0 + 8 * j + tq) * DYP + 8 * n + gq;
+          mma_3xtf32(part, ahi[j], alo[j], split_tf32(yb[0]),
+                     split_tf32(yb[4 * DYP]));
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+      }
+    }
+    __syncthreads();                  // the strip consumed: its buffer is
+  }                                   // the one after next's
+  float* out = g + (long long)bch * N * P + (m0 + gq) * P + 2 * tq;
+#pragma unroll
+  for (int n = 0; n < NTP; ++n) {
+    store_vec<2>(out + 8 * n, acc[n]);
+    store_vec<2>(out + 8 * P + 8 * n, acc[n] + 2);
+  }
+}
+
+// Stage 3, fp32: one (batch, chunk, head): dx, ddt, the head's dB and dC
+// rows (into scratch) and its dA partial.  Warp w owns rows [16w, 16w +
+// 16) of the chunk: as j in the dxb and dB products, as i in dC's.
+template <int P, int N, int CH>
+__global__ void __launch_bounds__(SsdBwdMma<P, N, CH>::kThreads,
+                                  SsdBwdMma<P, N, CH>::kMinBlocks)
+    ssd_bwd_chunk_mma(const float* __restrict__ x,
+                      const float* __restrict__ dt,
+                      const float* __restrict__ A,
+                      const float* __restrict__ Bm,
+                      const float* __restrict__ Cm,
+                      const float* __restrict__ dy,
+                      const float* __restrict__ cum_in,
+                      const float* __restrict__ s_in,
+                      const float* __restrict__ cbt,
+                      const float* __restrict__ g,
+                      const float* __restrict__ sg, float* __restrict__ dx,
+                      float* __restrict__ ddt, float* __restrict__ dbh,
+                      float* __restrict__ dch, float* __restrict__ dap, int L,
+                      int H, int nc, int has_dstate) {
+  using S = SsdBwdMma<P, N, CH>;
+  constexpr int NTH = S::kThreads, YP = S::YP, KT = S::KT, KN = S::KN;
+  constexpr int SP = S::SP, GP = S::GP, BP = S::BP;
+  constexpr int NTP = P / 8, NTN = N / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ys = reinterpret_cast<float*>(smem_raw);  // CH x YP: dy
+  float* xs = ys + CH * YP;                        // CH x YP: xb = x dt
+  float* buf = xs + CH * YP;                       // streamed tiles
+  float* cum = buf + S::BUF;
+  float* ec = cum + CH;     // exp(cum_i)
+  float* ed = ec + CH;      // exp(cum_last - cum_j)
+  float* dts = ed + CH;
+  float* dcum = dts + CH;   // -(T's row sums), then dcum, then da
+  float* ddts = dcum + CH;  // ddt through xb
+  float* wrow = ddts + CH;  // W_j
+  float* dcs = wrow + CH;   // exp(cum_i) dy_i . (S_in C_i)
+  float* colp = dcs + CH;   // W x CH: T's column sums over a warp's rows
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int r0 = 16 * warp, ra = r0 + gq, rb = ra + 8;  // the thread's rows
+  const int bch = blockIdx.x, h = bch % H, bc = bch / H;
+  const int c = bc % nc, b = bc / nc, l0 = c * CH;
+  const int la = l0 + ra, lb = l0 + rb;
+  const bool has_g = c < nc - 1 || has_dstate;  // G of this chunk nonzero
+  const bool has_s = c > 0;                     // S_in nonzero
+  const float* gc = g + (long long)bch * N * P;
+  const float* sc = s_in + (long long)bch * N * P;
+  const float* cbc = cbt + (long long)bc * CH * CH;
+  const long long xstride = (long long)H * P;   // x, dy: row l
+  const long long xoff = ((long long)b * L * H + h) * P;
+  const float* Bb = Bm + (long long)b * L * N;
+  const float* Cb = Cm + (long long)b * L * N;
+
+  stage_tile<CH, P, YP, NTH>(ys, dy + xoff, xstride, l0, L);
+  stage_tile<CH, P, YP, NTH>(xs, x + xoff, xstride, l0, L);
+  cp_async_commit();
+  for (int j = tid; j < CH; j += NTH) {
+    const int l = l0 + j;
+    cum[j] = cum_in[(long long)bch * CH + j];
+    dts[j] = l < L ? dt[((long long)b * L + l) * H + h] : 0.f;
+    wrow[j] = dcs[j] = 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  for (int j = tid; j < CH; j += NTH) {
+    ec[j] = expf(cum[j]);
+    ed[j] = expf(cum[CH - 1] - cum[j]);
+  }
+  for (int q = tid; q < CH * P; q += NTH) xs[(q / P) * YP + q % P] *= dts[q / P];
+  __syncthreads();
+
+  // 1. dxb_j = exp(cum_last - cum_j) (B G)_j + sum_{i>=j} M_ij dy_i with
+  //    M_ij = (C_i . B_j) L_ij; W_j = xb_j . (its first term); dx, ddt;
+  //    Z_ji = xb_j . dy_i for T_ij = M_ij Z_ji: -T on cum_j (row sums),
+  //    +T on cum_i (column sums)
+  {
+    float d[NTP][4];
+    zero(d);
+    if (has_g) {
+      float* bt = buf;               // CH x BP: B's columns k0.. a row
+      float* gt = buf + CH * BP;     // KN x GP: G's rows k0..
+      for (int k0 = 0; k0 < N; k0 += KN) {
+        __syncthreads();             // the previous tile consumed
+        stage_tile<CH, KN, BP, NTH>(bt, Bb + k0, N, l0, L);
+        stage_tile<KN, P, GP, NTH>(gt, gc + (long long)k0 * P, P, 0, KN);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+#pragma unroll
+        for (int ks = 0; ks < KN; ks += 8) {
+          unsigned ahi[4], alo[4];
+          frag_a<BP>(ahi, alo, bt + r0 * BP, ks, lane);
+          const float* gr = gt + (ks + tq) * GP + gq;
+#pragma unroll
+          for (int n = 0; n < NTP; ++n)
+            mma_3xtf32(d[n], ahi, alo, split_tf32(gr[8 * n]),
+                       split_tf32(gr[4 * GP + 8 * n]));
+        }
+      }
+      const float ea = ed[ra], eb = ed[rb];
+      float wa = 0.f, wb = 0.f;
+#pragma unroll
+      for (int n = 0; n < NTP; ++n) {
+        const int col = 8 * n + 2 * tq;
+        d[n][0] *= ea;
+        d[n][1] *= ea;
+        d[n][2] *= eb;
+        d[n][3] *= eb;
+        wa = fmaf(xs[ra * YP + col], d[n][0], wa);
+        wa = fmaf(xs[ra * YP + col + 1], d[n][1], wa);
+        wb = fmaf(xs[rb * YP + col], d[n][2], wb);
+        wb = fmaf(xs[rb * YP + col + 1], d[n][3], wb);
+      }
+      wa = quad_sum(wa);
+      wb = quad_sum(wb);
+      if (tq == 0) {
+        wrow[ra] = wa;
+        wrow[rb] = wb;
+      }
+    }
+    float ta = 0.f, tb = 0.f;        // T's row sums of rows ra, rb
+    for (int i0 = r0; i0 < CH; i0 += 16) {  // the tiles on or below
+      float z[2][4];                         // the diagonal
+      zero(z);
+      mma_abt<2, P, YP>(z, xs + r0 * YP, ys + i0 * YP, lane);
+      const bool diag = i0 == r0;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int i = i0 + 8 * half + 2 * tq;  // columns i, i + 1
+        float m[4];                            // (ra, i), (ra, i+1), (rb, ..)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = e < 2 ? ra : rb, ii = i + (e & 1);
+          const bool low = !diag || ii >= j;   // C B^T written only there
+          const float dec = expf(low ? cum[ii] - cum[j] : kBwdMask);
+          m[e] = low ? cbc[j * CH + ii] * dec : 0.f;
+        }
+        const float t0 = m[0] * z[half][0], t1 = m[1] * z[half][1];
+        const float t2 = m[2] * z[half][2], t3 = m[3] * z[half][3];
+        ta += t0 + t1;
+        tb += t2 + t3;
+        float c0 = t0 + t2, c1 = t1 + t3;      // over the 8 row groups
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          c0 += __shfl_xor_sync(0xffffffffu, c0, o);
+          c1 += __shfl_xor_sync(0xffffffffu, c1, o);
+        }
+        if (gq == 0) {
+          colp[warp * CH + i] = c0;
+          colp[warp * CH + i + 1] = c1;
+        }
+        mma_pairs<NTP, YP>(d, m[0], m[1], m[2], m[3], ys + i * YP + gq);
+      }
+    }
+    ta = quad_sum(ta);
+    tb = quad_sum(tb);
+    float sa = 0.f, sb = 0.f;        // x . dxb
+    const float* xa = x + xoff + la * xstride;
+    const float* xb_ = x + xoff + lb * xstride;
+    float* dxa = dx + xoff + la * xstride;
+    float* dxb_ = dx + xoff + lb * xstride;
+#pragma unroll
+    for (int n = 0; n < NTP; ++n) {
+      const int col = 8 * n + 2 * tq;
+      if (la < L) {
+        const float2 xv = ld2(xa + col);
+        sa = fmaf(xv.x, d[n][0], sa);
+        sa = fmaf(xv.y, d[n][1], sa);
+        const float v[2] = {d[n][0] * dts[ra], d[n][1] * dts[ra]};
+        store_vec<2>(dxa + col, v);
+      }
+      if (lb < L) {
+        const float2 xv = ld2(xb_ + col);
+        sb = fmaf(xv.x, d[n][2], sb);
+        sb = fmaf(xv.y, d[n][3], sb);
+        const float v[2] = {d[n][2] * dts[rb], d[n][3] * dts[rb]};
+        store_vec<2>(dxb_ + col, v);
+      }
+    }
+    sa = quad_sum(sa);
+    sb = quad_sum(sb);
+    if (tq == 0) {
+      dcum[ra] = -ta;
+      dcum[rb] = -tb;
+      ddts[ra] = sa;
+      ddts[rb] = sb;
+    }
+  }
+
+  // 2. the head's dB_j = exp(cum_last - cum_j) (xb G^T)_j + sum_{i>=j}
+  //    P_ij C_i, P^T recomputed from Z, C streamed in strips of KT rows
+  {
+    float e[NTN][4];
+    zero(e);
+    if (has_g) {
+      __syncthreads();               // phase 1's tiles consumed
+      stage_tile<N, P, YP, NTH>(buf, gc, P, 0, N);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      mma_abt<NTN, P, YP>(e, xs + r0 * YP, buf, lane);
+      const float ea = ed[ra], eb = ed[rb];
+#pragma unroll
+      for (int n = 0; n < NTN; ++n) {
+        e[n][0] *= ea;
+        e[n][1] *= ea;
+        e[n][2] *= eb;
+        e[n][3] *= eb;
+      }
+    }
+    for (int s0 = 0; s0 < CH; s0 += KT) {
+      __syncthreads();
+      stage_tile<KT, N, SP, NTH>(buf, Cb, N, l0 + s0, L);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      for (int i0 = max(s0, r0); i0 < s0 + KT; i0 += 16) {  // none above
+        float z[2][4];                                       // the diagonal
+        zero(z);
+        mma_abt<2, P, YP>(z, xs + r0 * YP, ys + i0 * YP, lane);
+        const bool diag = i0 == r0;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = i0 + 8 * half + 2 * tq;
+          float pv[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int j = q < 2 ? ra : rb, ii = i + (q & 1);
+            const bool low = !diag || ii >= j;
+            pv[q] = expf(low ? cum[ii] - cum[j] : kBwdMask) * z[half][q];
+          }
+          mma_pairs<NTN, SP>(e, pv[0], pv[1], pv[2], pv[3],
+                             buf + (i - s0) * SP + gq);
+        }
+      }
+    }
+    float* out = dbh + (long long)bch * CH * N + ra * N + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < NTN; ++n) {
+      store_vec<2>(out + 8 * n, e[n]);
+      store_vec<2>(out + 8 * N + 8 * n, e[n] + 2);
+    }
+  }
+
+  // 3. the head's dC_i = exp(cum_i) (dy S_in^T)_i + sum_{j<=i} P_ij B_j;
+  //    the first term's C_i . (it) is dcum's exp(cum_i) dy_i . (S_in C_i);
+  //    P recomputed from Z^T, B streamed in strips of KT rows
+  {
+    float f[NTN][4];
+    zero(f);
+    if (has_s) {
+      __syncthreads();               // the last strip consumed
+      stage_tile<N, P, YP, NTH>(buf, sc, P, 0, N);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      mma_abt<NTN, P, YP>(f, ys + r0 * YP, buf, lane);
+      const float ea = ec[ra], eb = ec[rb];
+      float sa = 0.f, sb = 0.f;
+#pragma unroll
+      for (int n = 0; n < NTN; ++n) {
+        const int col = 8 * n + 2 * tq;
+        f[n][0] *= ea;
+        f[n][1] *= ea;
+        f[n][2] *= eb;
+        f[n][3] *= eb;
+        if (la < L) {
+          const float2 cv = ld2(Cb + (long long)la * N + col);
+          sa = fmaf(cv.x, f[n][0], sa);
+          sa = fmaf(cv.y, f[n][1], sa);
+        }
+        if (lb < L) {
+          const float2 cv = ld2(Cb + (long long)lb * N + col);
+          sb = fmaf(cv.x, f[n][2], sb);
+          sb = fmaf(cv.y, f[n][3], sb);
+        }
+      }
+      sa = quad_sum(sa);
+      sb = quad_sum(sb);
+      if (tq == 0) {
+        dcs[ra] = sa;
+        dcs[rb] = sb;
+      }
+    }
+    for (int s0 = 0; s0 < CH; s0 += KT) {
+      __syncthreads();
+      stage_tile<KT, N, SP, NTH>(buf, Bb, N, l0 + s0, L);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      for (int j0 = s0; j0 < s0 + KT && j0 <= r0; j0 += 16) {  // none above
+        float z[2][4];                                          // the diagonal
+        zero(z);
+        mma_abt<2, P, YP>(z, ys + r0 * YP, xs + j0 * YP, lane);
+        const bool diag = j0 == r0;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int j = j0 + 8 * half + 2 * tq;
+          float pv[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int i = q < 2 ? ra : rb, jj = j + (q & 1);
+            const bool low = !diag || jj <= i;
+            pv[q] = expf(low ? cum[i] - cum[jj] : kBwdMask) * z[half][q];
+          }
+          mma_pairs<NTN, SP>(f, pv[0], pv[1], pv[2], pv[3],
+                             buf + (j - s0) * SP + gq);
+        }
+      }
+    }
+    float* out = dch + (long long)bch * CH * N + ra * N + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < NTN; ++n) {
+      store_vec<2>(out + 8 * n, f[n]);
+      store_vec<2>(out + 8 * N + 8 * n, f[n] + 2);
+    }
+  }
+  __syncthreads();  // dcum, colp, wrow, ddts, dcs complete
+
+  // 4. dcum_i: T's column sums over the warps of rows j <= i, in warp
+  //    order, and the S_in term
+  for (int i = tid; i < CH; i += NTH) {
+    float s = 0.f;
+    for (int w = 0; w <= i / 16; ++w) s += colp[w * CH + i];
+    dcum[i] += s + dcs[i];
+  }
+  __syncthreads();
+
+  // 5. cum_last's terms, da (dcum's reverse cumulative sum), ddt, the dA
+  //    partial: one thread, in row order
+  if (tid == 0) {
+    float extra = 0.f;
+    for (int j = 0; j < CH; ++j) extra += wrow[j];
+    if (has_s) {
+      const float* p = sg + ((long long)(b * H + h) * nc + c) *
+                                SsdBwdShape<P, N, CH>::NT2;
+      float dot = 0.f;
+      for (int t = 0; t < SsdBwdShape<P, N, CH>::NT2; ++t) dot += p[t];
+      extra = fmaf(expf(cum[CH - 1]), dot, extra);
+    }
+    float run = 0.f, da_sum = 0.f;
+    for (int j = CH - 1; j >= 0; --j) {
+      run += dcum[j] - wrow[j] + (j == CH - 1 ? extra : 0.f);
+      dcum[j] = run;
+      da_sum = fmaf(dts[j], run, da_sum);
+    }
+    dap[bch] = da_sum;
+  }
+  __syncthreads();
+  const float a_h = A[h];
+  for (int j = tid; j < CH; j += NTH) {
+    const int l = l0 + j;
+    if (l < L) ddt[((long long)b * L + l) * H + h] = fmaf(a_h, dcum[j], ddts[j]);
+  }
+}
+
 // Stage 4: dB, dC (b, l, n) summed over the heads, dA over (batch, chunk),
 // in order; blockIdx.y: 0 dB, 1 dC, 2 dA (its first block only).
 template <typename T, int N, int CH>
@@ -597,11 +1197,6 @@ cudaError_t launch_ssd_bwd(const void* x, const void* dt, const void* A,
   }
   if (work_floats < at) return cudaErrorInvalidValue;
   cudaError_t err;
-  if ((err = allow_smem_once<ssd_bwd_chunk_dstate<T, P, N, CH>>(
-           S::kDstateSmem, device)) != cudaSuccess ||
-      (err = allow_smem_once<ssd_bwd_chunk<T, P, N, CH>>(
-           S::kChunkSmem, device)) != cudaSuccess)
-    return err;
   const int nc = (L + CH - 1) / CH;
   const T *xp = static_cast<const T*>(x), *bp = static_cast<const T*>(B),
           *cp = static_cast<const T*>(C), *dyp = static_cast<const T*>(dy);
@@ -609,20 +1204,47 @@ cudaError_t launch_ssd_bwd(const void* x, const void* dt, const void* A,
               *sp = static_cast<const float*>(s_in);
   float *gp = part[0], *sgp = part[1], *dbhp = part[2], *dchp = part[3],
         *dapp = part[4];
-  ssd_bwd_chunk_dstate<T, P, N, CH><<<batch * nc * H, kBwdThreads,
-                                      S::kDstateSmem, stream>>>(
-      dyp, cp, cump, gp, L, H, nc);
+  if constexpr (std::is_same_v<T, float>) {  // the tensor cores
+    using M = SsdBwdMma<P, N, CH>;
+    if ((err = allow_smem_once<ssd_bwd_dstate_mma<P, N, CH>>(
+             M::kDstateSmem, device)) != cudaSuccess ||
+        (err = allow_smem_once<ssd_bwd_chunk_mma<P, N, CH>>(
+             M::kChunkSmem, device)) != cudaSuccess)
+      return err;
+    ssd_bwd_dstate_mma<P, N, CH><<<batch * nc * H, M::kDstateThreads,
+                                   M::kDstateSmem, stream>>>(
+        dyp, cp, cump, gp, L, H, nc);
+  } else {                                   // the CUDA cores
+    if ((err = allow_smem_once<ssd_bwd_chunk_dstate<T, P, N, CH>>(
+             S::kDstateSmem, device)) != cudaSuccess ||
+        (err = allow_smem_once<ssd_bwd_chunk<T, P, N, CH>>(
+             S::kChunkSmem, device)) != cudaSuccess)
+      return err;
+    ssd_bwd_chunk_dstate<T, P, N, CH><<<batch * nc * H, kBwdThreads,
+                                        S::kDstateSmem, stream>>>(
+        dyp, cp, cump, gp, L, H, nc);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   ssd_bwd_state_pass<P, N, CH><<<dim3(batch * H, S::NT2), kBwdThreads, 0,
                                  stream>>>(
       cump, sp, static_cast<const float*>(dstate), gp, sgp, H, nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ssd_bwd_chunk<T, P, N, CH><<<batch * nc * H, kBwdThreads, S::kChunkSmem,
-                               stream>>>(
-      xp, static_cast<const float*>(dt), static_cast<const float*>(A), bp,
-      cp, dyp, cump, sp, static_cast<const float*>(cbt), gp, sgp,
-      static_cast<T*>(dx), static_cast<float*>(ddt), dbhp, dchp, dapp, L, H,
-      nc, dstate != nullptr);
+  if constexpr (std::is_same_v<T, float>) {
+    using M = SsdBwdMma<P, N, CH>;
+    ssd_bwd_chunk_mma<P, N, CH><<<batch * nc * H, M::kThreads, M::kChunkSmem,
+                                  stream>>>(
+        xp, static_cast<const float*>(dt), static_cast<const float*>(A), bp,
+        cp, dyp, cump, sp, static_cast<const float*>(cbt), gp, sgp,
+        static_cast<float*>(dx), static_cast<float*>(ddt), dbhp, dchp, dapp,
+        L, H, nc, dstate != nullptr);
+  } else {
+    ssd_bwd_chunk<T, P, N, CH><<<batch * nc * H, kBwdThreads, S::kChunkSmem,
+                                 stream>>>(
+        xp, static_cast<const float*>(dt), static_cast<const float*>(A), bp,
+        cp, dyp, cump, sp, static_cast<const float*>(cbt), gp, sgp,
+        static_cast<T*>(dx), static_cast<float*>(ddt), dbhp, dchp, dapp, L,
+        H, nc, dstate != nullptr);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long elems = (long long)batch * L * N;
   ssd_bwd_sum<T, N, CH><<<dim3((elems + kBwdThreads - 1) / kBwdThreads, 3),
@@ -678,15 +1300,25 @@ inline long long ssd_bwd_scratch(int batch, int L, int H, int P, int N,
 
 template <typename T, int P, int N, int CH>
 cudaError_t occupancy_ssd_bwd(int stage, int batch, int L, int H, int device,
-                              int* blocks_per_sm, int* smem_bytes,
-                              int* grid) {
+                              int* blocks_per_sm, int* smem_bytes, int* grid,
+                              int* threads) {
   using S = SsdBwdShape<P, N, CH>;
+  using M = SsdBwdMma<P, N, CH>;
+  constexpr bool kMma = std::is_same_v<T, float>;
   const int nc = (L + CH - 1) / CH;
+  *threads = kBwdThreads;
   switch (stage) {
     case 0:  // the chunk-0 blocks return at once
       *grid = batch * nc * H;
-      return occupancy_of<ssd_bwd_chunk_dstate<T, P, N, CH>>(
-          S::kDstateSmem, kBwdThreads, device, blocks_per_sm, smem_bytes);
+      if constexpr (kMma) {
+        *threads = M::kDstateThreads;
+        return occupancy_of<ssd_bwd_dstate_mma<P, N, CH>>(
+            M::kDstateSmem, M::kDstateThreads, device, blocks_per_sm,
+            smem_bytes);
+      } else {
+        return occupancy_of<ssd_bwd_chunk_dstate<T, P, N, CH>>(
+            S::kDstateSmem, kBwdThreads, device, blocks_per_sm, smem_bytes);
+      }
     case 1:
       *grid = batch * H * S::NT2;
       *smem_bytes = static_cast<int>(sizeof(float) * kBwdThreads / 32);
@@ -694,8 +1326,14 @@ cudaError_t occupancy_ssd_bwd(int stage, int batch, int L, int H, int device,
           blocks_per_sm, ssd_bwd_state_pass<P, N, CH>, kBwdThreads, 0);
     case 2:
       *grid = batch * nc * H;
-      return occupancy_of<ssd_bwd_chunk<T, P, N, CH>>(
-          S::kChunkSmem, kBwdThreads, device, blocks_per_sm, smem_bytes);
+      if constexpr (kMma) {
+        *threads = M::kThreads;
+        return occupancy_of<ssd_bwd_chunk_mma<P, N, CH>>(
+            M::kChunkSmem, M::kThreads, device, blocks_per_sm, smem_bytes);
+      } else {
+        return occupancy_of<ssd_bwd_chunk<T, P, N, CH>>(
+            S::kChunkSmem, kBwdThreads, device, blocks_per_sm, smem_bytes);
+      }
     case 3:
       *grid = static_cast<int>(2 * (((long long)batch * L * N + kBwdThreads -
                                      1) / kBwdThreads) + 1);
@@ -711,11 +1349,12 @@ template <typename T>
 cudaError_t dispatch_bwd_occupancy(int stage, int batch, int L, int H, int P,
                                    int N, int chunk, int device,
                                    int* blocks_per_sm, int* smem_bytes,
-                                   int* grid) {
+                                   int* grid, int* threads) {
 #define GFDIT_SSD_BWD_CASE(p, n, c) \
   if (P == p && N == n && chunk == c) \
     return occupancy_ssd_bwd<T, p, n, c>(stage, batch, L, H, device, \
-                                         blocks_per_sm, smem_bytes, grid);
+                                         blocks_per_sm, smem_bytes, grid, \
+                                         threads);
   GFDIT_SSD_BWD_SHAPES(GFDIT_SSD_BWD_CASE)
 #undef GFDIT_SSD_BWD_CASE
   return cudaErrorInvalidValue;
@@ -738,7 +1377,7 @@ extern "C" long long gfdit_ssd_bwd_scratch(int batch, int L, int H, int P,
 // nc = ceil(L / chunk): cum (batch, nc, H, chunk), s_in (batch, nc, H, N,
 // P) and cbt (batch, nc, chunk, chunk).  work: fp32 scratch of
 // work_floats, at least gfdit_ssd_bwd_scratch's.  work and s_in 16-byte
-// aligned (float4 loads).
+// aligned (float4 loads), and x, B, C and dy (16-byte cp.async in fp32).
 extern "C" int gfdit_ssd_bwd(const void* x, const void* dt, const void* A,
                              const void* B, const void* C, const void* dy,
                              const void* dstate, const void* cum,
@@ -750,7 +1389,7 @@ extern "C" int gfdit_ssd_bwd(const void* x, const void* dt, const void* A,
   using namespace gfdit;
   if (batch <= 0 || L <= 0 || H <= 0 || work == nullptr)
     return cudaErrorInvalidValue;
-  const void* vec[] = {work, s_in};
+  const void* vec[] = {work, s_in, x, B, C, dy};
   for (const void* p : vec)
     if (reinterpret_cast<unsigned long long>(p) & 15)
       return cudaErrorInvalidValue;
@@ -769,13 +1408,16 @@ extern "C" int gfdit_ssd_bwd(const void* x, const void* dt, const void* A,
 }
 
 // Occupancy of one stage kernel of the (P, N, chunk) instantiation (0
-// ssd_bwd_chunk_dstate, 1 ssd_bwd_state_pass, 2 ssd_bwd_chunk, 3
-// ssd_bwd_sum) at (batch, L, H): resident 256-thread blocks per SM,
-// shared-memory bytes a block and the launch's grid.
+// the chunk states Q, 1 ssd_bwd_state_pass, 2 the chunk kernel, 3
+// ssd_bwd_sum; stages 0 and 2 run ssd_bwd_dstate_mma and
+// ssd_bwd_chunk_mma in fp32, ssd_bwd_chunk_dstate and ssd_bwd_chunk in
+// bf16) at (batch, L, H): resident blocks per SM, shared-memory bytes a
+// block, the launch's grid and its threads a block.
 extern "C" int gfdit_ssd_bwd_occupancy(int stage, int batch, int L, int H,
                                        int P, int N, int chunk, int dtype,
                                        int device, int* blocks_per_sm,
-                                       int* smem_bytes, int* grid) {
+                                       int* smem_bytes, int* grid,
+                                       int* threads) {
   using namespace gfdit;
   if (batch <= 0 || L <= 0 || H <= 0) return cudaErrorInvalidValue;
   cudaError_t err = use_device(device);
@@ -783,10 +1425,10 @@ extern "C" int gfdit_ssd_bwd_occupancy(int stage, int batch, int L, int H,
   if (dtype == kFloat32)
     return dispatch_bwd_occupancy<float>(stage, batch, L, H, P, N, chunk,
                                          device, blocks_per_sm, smem_bytes,
-                                         grid);
+                                         grid, threads);
   if (dtype == kBFloat16)
     return dispatch_bwd_occupancy<__nv_bfloat16>(
         stage, batch, L, H, P, N, chunk, device, blocks_per_sm, smem_bytes,
-        grid);
+        grid, threads);
   return cudaErrorInvalidValue;
 }

@@ -63,8 +63,9 @@ _SIGNATURES = {
     "gfdit_ssd_bwd": [_P] * 16 + [ctypes.c_longlong] + [_I] * 8 + [_P],
     # batch, L, H, P, N, chunk -> floats of the backward's own scratch
     "gfdit_ssd_bwd_scratch": [_I] * 6,
-    # as gfdit_ssd_occupancy, for the backward's four stage kernels
-    "gfdit_ssd_bwd_occupancy": [_I] * 9 + [_IP, _IP, _IP],
+    # as gfdit_ssd_occupancy, for the backward's four stage kernels, and
+    # their threads a block
+    "gfdit_ssd_bwd_occupancy": [_I] * 9 + [_IP] * 4,
     # D, dtype, device -> blocks per SM, shared memory bytes
     "gfdit_attention_occupancy": [_I] * 3 + [_IP, _IP],
     # D, dtype, which (0 dK/dV, 1 dQ), device -> blocks per SM, shared

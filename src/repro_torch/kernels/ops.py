@@ -525,10 +525,12 @@ def ssd_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 128,
     same operands; one call runs the four stage kernels of
     ``csrc/ssd_bwd.cu`` (:data:`SSD_BWD_STAGES`: the per-chunk state
     gradients, their reverse pass across chunks, a chunk kernel per
-    (batch, chunk, head) and the sums over heads) and counts one launch;
-    their scratch is allocated here by the kernel's own rule
-    (``gfdit_ssd_bwd_scratch``).  Deterministic: no atomics.  The CPU
-    version is ``ref.ssd_bwd_ref`` (``scratch`` is not read)."""
+    (batch, chunk, head) and the sums over heads; fp32 runs the products
+    of the first and third in split-TF32 on the tensor cores, bf16 on the
+    CUDA cores) and counts one launch; their scratch is allocated here by
+    the kernel's own rule (``gfdit_ssd_bwd_scratch``).  x, B, C and dy
+    16-byte aligned.  Deterministic: no atomics.  The CPU version is
+    ``ref.ssd_bwd_ref`` (``scratch`` is not read)."""
     given = [t for t in (x, dt, A, B, C, dy, dstate) if t is not None]
     if not (x.is_cuda or _on_card(*given)):
         return ref.ssd_bwd_ref(x, dt, A, B, C, dy, dstate, chunk=chunk)
@@ -544,6 +546,8 @@ def ssd_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 128,
         raise ValueError(f"{name}: scratch must be the forward's (from "
                          f"ssd_for_grad on these operands): float32 of "
                          f"{sum(sizes)} elements on {x.device}")
+    _aligned(name, x=x.data_ptr(), B=B.data_ptr(), C=C.data_ptr(),
+             dy=dy.data_ptr())
     cum, s_in, cbt, _ = _parts(scratch, sizes)
     dx, ddt, dA, dB, dC = (torch.empty_like(t) for t in (x, dt, A, B, C))
     floats = _fn("gfdit_ssd_bwd_scratch")(b, l, h, p, n, chunk)
@@ -636,16 +640,19 @@ def ssd_occupancy(b: int, l: int, h: int, p: int, n: int, chunk: int,
 def ssd_bwd_occupancy(b: int, l: int, h: int, p: int, n: int, chunk: int,
                       dtype=torch.float32, device: int = 0) -> dict:
     """As :func:`ssd_occupancy`, for the stage kernels of one
-    :func:`ssd_bwd` call (:data:`SSD_BWD_STAGES`)."""
+    :func:`ssd_bwd` call (:data:`SSD_BWD_STAGES`; in fp32 the first and
+    third are the tensor-core kernels), each with its threads a block:
+    ``{name: (blocks per SM, shared bytes, grid, threads)}``."""
     if (p, n, chunk) not in SSD_SHAPES:
         raise ValueError(f"ssd_bwd: unsupported (p, n, chunk)="
                          f"{(p, n, chunk)}")
     fn = _fn("gfdit_ssd_bwd_occupancy")
     out = {}
     for stage, name in enumerate(SSD_BWD_STAGES):
-        grid = ctypes.c_int()
+        grid, threads = ctypes.c_int(), ctypes.c_int()
         blocks, smem = _occupancy("ssd_bwd_occupancy", fn, stage, b, l, h,
                                   p, n, chunk, _DTYPES[dtype], device,
-                                  extra=(ctypes.byref(grid),))
-        out[name] = (blocks, smem, grid.value)
+                                  extra=(ctypes.byref(grid),
+                                         ctypes.byref(threads)))
+        out[name] = (blocks, smem, grid.value, threads.value)
     return out

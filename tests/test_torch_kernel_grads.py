@@ -34,6 +34,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from torch_tf32 import tf32_product  # noqa: E402
 
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 ATTN_CASES = [
@@ -185,27 +186,6 @@ def test_attention_bwd_bf16_rounding_within_budget(case):
         assert _rel(_np(g), j) <= TOL["bfloat16"], name
 
 
-def _tf32(x):
-    """fp32 ``x`` rounded to TF32 as the kernels round it: to nearest on
-    the bits (ties away from zero), the 13 low mantissa bits cleared."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _tf32_product(eq, a, b, passes):
-    """``torch.einsum(eq, a, b)`` of fp32 operands as the kernels' tensor
-    cores compute it, each operand split as x = hi + lo with hi = tf32(x)
-    and lo = tf32(x - hi): split-TF32 (``passes=3``) sums a_lo b_hi +
-    a_hi b_lo + a_hi b_hi; one TF32 product (``passes=1``) is a_hi b_hi.
-    Products of TF32 values are exact in fp32, so only the sums round."""
-    ah, bh = _tf32(a), _tf32(b)
-    out = torch.einsum(eq, ah, bh)
-    if passes == 3:
-        al, bl = _tf32(a - ah), _tf32(b - bh)
-        out = torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + out
-    return out
-
-
 @pytest.mark.parametrize("passes", [3, 1], ids=["3xTF32", "1xTF32"])
 @pytest.mark.parametrize("case", ATTN_CASES + [YI_GQA_CASE], ids=str)
 def test_attention_bwd_split_tf32_within_budget(case, passes):
@@ -221,7 +201,7 @@ def test_attention_bwd_split_tf32_within_budget(case, passes):
     # the fp32 kernels' products, P and dS split like every other operand
     got = _attention_bwd_rounded(
         tq, tk, tv, o, lse, tdo, causal,
-        product=lambda eq, a, b: _tf32_product(eq, a, b, passes))
+        product=lambda eq, a, b: tf32_product(eq, a, b, passes))
     want = ref.attention_bwd_ref(tq, tk, tv, o, lse, tdo, causal=causal)
     _, vjp = jax.vjp(lambda a, b_, c: jref.attention_ref(
         a, b_, c, causal=causal), jnp.asarray(q), jnp.asarray(k),
