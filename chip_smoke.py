@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch port serves DiT-image, DiT-video and
-the LM zoo (Mamba2, Zamba2, Whisper, Mixtral, DeepSeek-V2), and trains
-DiT-image, yi-6b, mamba2-1.3b and zamba2-7b, on one NVIDIA GPU.
+the LM zoo (Mamba2, Zamba2, Whisper, Mixtral, DeepSeek-V2), trains
+DiT-image, yi-6b, mamba2-1.3b and zamba2-7b, and runs GF-DiT's
+group-free collectives and sequence-parallel decoding, on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -133,6 +135,20 @@ Phases, one line each (any failure raises and exits non-zero):
    the CPU: loss and every gradient leaf within 1e-4 rel-L2; then the
    reduced mamba2's ``remat="full"`` gradients equal to ``"none"``'s bit
    for bit on the card.
+17. gfc: the group-free collective realizations and the sharding layer:
+   the group-setup twin's table (``repro_torch.benchmarks.group_setup``:
+   cold capture, hit bind, GFC registration p50/p99, warm call, and
+   ``dist.new_group([0])`` + the first all_reduce under nccl at world
+   size 1); the executable cache's every op at group sizes 2, 4 and 8 on
+   (1024,) fp32 and DIT_IMAGE's K/V shard (1, 1024, 24, 64) in fp32 and
+   bf16, each a captured CUDA graph held to a loop over the shards
+   (gather and all-to-all exact, reduce within 1e-6 rel-L2 in fp32 and
+   one ulp in bf16); the grouped ops at world 8 over 50 memberships, one
+   capture per op; ``flash_decode`` on 4 gloo processes sharing the card
+   at yi-6b's width (cache (4, 32768, 4, 128) fp32) against the
+   unsharded plain decode within 1e-5, cache shards equal; one
+   ``make_serve_step(sp_decode=True)`` step of yi-6b (4 of 32 layers,
+   fp32) under a 1x1 mesh against the plain step within 1e-5.
 
 Kernel times (phase 3): ``ms`` is device time, from CUDA-event timing of
 replays of a CUDA graph that holds ``iters`` calls, so it leaves out the
@@ -172,13 +188,16 @@ import inspect
 import json
 import math
 import re
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 
@@ -192,13 +211,20 @@ def _src_dir() -> Path:
 
 sys.path.insert(0, str(_src_dir()))
 
+from repro_torch.benchmarks import group_setup  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.dit_models import DIT_IMAGE, DIT_VIDEO  # noqa: E402
+from repro_torch.core.executable_cache import (  # noqa: E402
+    ExecutableCache, dtype_name)
+from repro_torch.core.gfc import GroupFreeComm  # noqa: E402
+from repro_torch.core.grouped import build_grouped_ops  # noqa: E402
 from repro_torch.core.scheduler import Decision, Policy  # noqa: E402
 from repro_torch.core.trajectory import ExecutionLayout, Request  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.models import dit, get_model, hybrid, layers, ssm  # noqa: E402
 from repro_torch.serving import serve_loop  # noqa: E402
+from repro_torch.sharding import SERVE_RULES, activation_sharding  # noqa: E402
 from repro_torch.training import optimizer, train_loop  # noqa: E402
 from repro_torch.training.data import TokenPipeline  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
@@ -2691,6 +2717,341 @@ def phase_train_cpu() -> None:
                              f" vs {ln}, launches {kf} vs {kn}")
 
 
+# the gfc phase: GF-DiT's group-free collective realizations and the
+# sharding layer on the card
+GFC_OPS = ("all_gather", "all_reduce", "all_to_all")
+# the reduce against the plain fp32 sum over the shards: fp32 within 1e-6
+# rel-L2; bf16 within one bf16 ulp (2^-8), the rounding of that sum
+GFC_REDUCE_BUDGET = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -8}
+GROUPED_WORLD = 8
+GROUPED_MEMBERSHIPS = 50
+FD_WORLD = 4
+# yi-6b's decode shape: q (4, 1, 32, 128), a cache of (4, 32768, 4, 128)
+FD_BATCH, FD_SEQ = 4, 32768
+# the write position: in shard 0, a middle shard, on a shard's last row
+# and in the last shard (shards of 8192 rows)
+FD_POSITIONS = {"shard0": 100, "middle": 13192, "last_row": 24575,
+                "last_shard": 32760}
+FD_BUDGET = 1e-5                   # rel-L2, fp32, against the plain decode
+YI_SP = YI.with_(num_layers=4)
+SP_PROMPT = (4, 512)
+
+_FD_RANK = r"""
+import json, sys, time
+import torch, torch.distributed as dist
+rank, world, store, out_dir = int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:5]
+c = json.loads(sys.argv[5])
+dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
+                        world_size=world)
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.sharding.sp import flash_decode
+mesh = make_local_mesh(1, world)
+gen = torch.Generator(device="cuda").manual_seed(c["seed"])
+shapes = [(c["b"], 1, c["h"], c["hd"])] + [(c["b"], 1, c["kv"], c["hd"])] * 2 \
+    + [(c["b"], c["s"], c["kv"], c["hd"])] * 2
+q, k_new, v_new, cache_k, cache_v = (
+    torch.randn(sh, generator=gen, device="cuda") for sh in shapes)
+s_loc = c["s"] // world
+mine = slice(rank * s_loc, (rank + 1) * s_loc)
+for case, pos in c["positions"].items():
+    lens = torch.full((c["b"],), pos, dtype=torch.int32, device="cuda")
+    ck, cv = cache_k[:, mine].clone(), cache_v[:, mine].clone()
+    out, ck2, cv2 = flash_decode(q, k_new, v_new, ck, cv, lens, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        flash_decode(q, k_new, v_new, ck, cv, lens, mesh=mesh)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    equal = ck2 is ck and cv2 is cv
+    for got, full, new in ((ck, cache_k, k_new), (cv, cache_v, v_new)):
+        want = full[:, mine].clone()
+        if mine.start <= pos < mine.stop:
+            want[:, pos - mine.start] = new[:, 0]
+        equal = equal and torch.equal(got, want)
+    torch.save({"out": out.cpu(), "cache_equal": equal, "ms": ms},
+               f"{out_dir}/rank{rank}-{case}.pt")
+dist.destroy_process_group()
+"""
+
+
+def _plain_collective(op: str, size: int, x):
+    """The group collective by a loop over the shards (sums in fp32)."""
+    shards = list(x.chunk(size))
+    if op == "all_gather":
+        return torch.cat([s.clone() for s in shards])
+    if op == "all_reduce":
+        acc = shards[0].float()
+        for s in shards[1:]:
+            acc = acc + s.float()
+        return acc.to(x.dtype)
+    parts = [s.chunk(size) for s in shards]
+    return torch.cat([parts[i][j] for j in range(size) for i in range(size)])
+
+
+def _plain_grouped(x, gids):
+    """Grouped all-reduce and all-gather by loops over the ranks."""
+    g = gids[:, 0].tolist()
+    w = len(g)
+    red = torch.stack([sum(x[s].double() for s in range(w) if g[s] == g[r])
+                       .to(x.dtype) for r in range(w)])
+    gat = torch.stack([torch.stack([x[s] if g[s] == g[r] else
+                                    torch.zeros_like(x[s])
+                                    for s in range(w)]) for r in range(w)])
+    return red, gat
+
+
+def _gfc_cache(comm) -> None:
+    """Every op at group sizes 2, 4 and 8 for each of the twin's
+    payloads: a cold capture (a new key), a hit bind of a same-size group
+    of other members, the replay against the plain version (exact for
+    the gather and the all-to-all, GFC_REDUCE_BUDGET for the reduce;
+    after a later call, so the result is not overwritten) and a warm
+    call by CUDA events.  An all-to-all whose shard rows do not split
+    over the group must be refused, as JAX refuses it."""
+    cache = ExecutableCache()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for shape, dtype in group_setup.PAYLOADS.values():
+        for op in GFC_OPS:
+            for size in group_setup.SIZES:
+                label = (f"{op} size {size} shard {tuple(shape)} "
+                         f"{dtype_name(dtype)}")
+                if op == "all_to_all" and shape[0] % size:
+                    try:
+                        cache.get(op, size, shape, dtype)
+                    except ValueError:
+                        print(f"gfc: {label}: refused (a shard of "
+                              f"{shape[0]} row(s) does not split over "
+                              f"{size} ranks)", flush=True)
+                        continue
+                    raise AssertionError(f"gfc: {label} was accepted")
+                compiles = cache.stats["compiles"]
+                t0 = time.perf_counter()
+                cache.bind(op, comm.register_group(tuple(range(size))),
+                           shape, dtype)
+                cold = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                run = cache.bind(op, comm.register_group(tuple(
+                    range(GROUPED_WORLD - size, GROUPED_WORLD))), shape,
+                    dtype)
+                hit = (time.perf_counter() - t0) * 1e6
+                prog = cache.get(op, size, shape, dtype)
+                if cache.stats["compiles"] != compiles + 1 or \
+                        not isinstance(prog.graph, torch.cuda.CUDAGraph):
+                    raise AssertionError(f"gfc: {label}: {cache.stats}")
+                x = torch.randn((size * shape[0],) + tuple(shape[1:]),
+                                generator=gen, device="cuda").to(dtype)
+                got = run(x)
+                run(torch.zeros_like(x))
+                want = _plain_collective(op, size, x)
+                if op == "all_reduce":
+                    err = rel_l2(got.float().cpu(), want.float().cpu())
+                    ok = err <= GFC_REDUCE_BUDGET[dtype]
+                    check = f"rel-L2 {err:.2e} (budget " \
+                            f"{GFC_REDUCE_BUDGET[dtype]:.1e})"
+                else:
+                    ok = torch.equal(got, want)
+                    check = "equal" if ok else "DIFFERS"
+                warm = group_setup.warm_us(run, x)
+                print(f"gfc: {label}: capture {cold:.3f} ms, hit bind "
+                      f"{hit:.2f} us, warm call {warm:.2f} us, {check}",
+                      flush=True)
+                if not ok:
+                    raise AssertionError(f"gfc: {label}: {check}")
+
+
+def _gfc_grouped() -> None:
+    """Membership-as-data at world 8: 50 random memberships, each op's
+    result equal to the plain loops (int32 exactly; fp32 reduce within
+    1e-6 rel-L2), one capture per op."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for dtype in (torch.int32, torch.float32):
+        grouped = build_grouped_ops(GROUPED_WORLD)
+        x = (torch.randint(-1000, 1000, (GROUPED_WORLD, 1024), generator=gen,
+                           device="cuda", dtype=dtype)
+             if dtype == torch.int32 else
+             torch.randn((GROUPED_WORLD, 1024), generator=gen, device="cuda"))
+        worst = 0.0
+        for _ in range(GROUPED_MEMBERSHIPS):
+            gids = torch.randint(0, GROUPED_WORLD, (GROUPED_WORLD, 1),
+                                 generator=gen, device="cuda",
+                                 dtype=torch.int32)
+            red = grouped["all_reduce"](x, gids)
+            gat = grouped["all_gather"](x, gids)
+            want_red, want_gat = _plain_grouped(x, gids)
+            err = 0.0 if torch.equal(red, want_red) else rel_l2(
+                red.double().cpu(), want_red.double().cpu())
+            worst = max(worst, err)
+            if not torch.equal(gat, want_gat) or (
+                    err > (0 if dtype == torch.int32 else 1e-6)):
+                raise AssertionError(f"gfc: grouped {dtype}: gather equal "
+                                     f"{torch.equal(gat, want_gat)}, reduce "
+                                     f"rel-L2 {err}")
+        us = {op: group_setup.warm_us(grouped[op], x, gids)
+              for op in ("all_reduce", "all_gather")}
+        caps = {op: grouped["stats"][op]["captures"] for op in us}
+        print(f"gfc: grouped ops, world {GROUPED_WORLD}, "
+              f"{dtype_name(dtype)} x (8, 1024), {GROUPED_MEMBERSHIPS} "
+              f"memberships: gather equal, reduce worst rel-L2 {worst:.2e}; "
+              f"captures {caps}; warm call all_reduce "
+              f"{us['all_reduce']:.2f} us, all_gather "
+              f"{us['all_gather']:.2f} us", flush=True)
+        if caps != {"all_reduce": 1, "all_gather": 1}:
+            raise AssertionError(f"gfc: grouped captures {caps}")
+
+
+def _gfc_flash_decode() -> None:
+    """flash_decode at yi-6b's full width on FD_WORLD processes sharing
+    the card (gloo, whose all-reduce takes CUDA tensors), each holding
+    its 8192-row shard of the (4, 32768, 4, 128) fp32 cache, against the
+    unsharded plain decode (``layers.sdpa`` over the whole cache with the
+    new row written): every rank's output within FD_BUDGET, every rank's
+    cache shard equal to the plain update's."""
+    c = {"seed": 21, "b": FD_BATCH, "s": FD_SEQ, "h": YI.num_heads,
+         "kv": YI.num_kv_heads, "hd": YI.head_dim,
+         "positions": FD_POSITIONS}
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(_src_dir()))
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _FD_RANK, str(r), str(FD_WORLD),
+             f"{tmp}/store", tmp, json.dumps(c)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(FD_WORLD)]
+        errors = []
+        try:
+            for r, p in enumerate(procs):
+                _, err = p.communicate(timeout=240)
+                if p.returncode:
+                    errors.append(f"rank {r}: {err[-1500:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if errors:
+            raise AssertionError(f"gfc: flash_decode ranks failed: {errors}")
+        results = {(r, case): torch.load(f"{tmp}/rank{r}-{case}.pt")
+                   for r in range(FD_WORLD) for case in FD_POSITIONS}
+    wall = time.perf_counter() - t_start
+    gen = torch.Generator(device="cuda").manual_seed(c["seed"])
+    shapes = [(FD_BATCH, 1, c["h"], c["hd"])] + \
+        [(FD_BATCH, 1, c["kv"], c["hd"])] * 2 + \
+        [(FD_BATCH, FD_SEQ, c["kv"], c["hd"])] * 2
+    q, k_new, v_new, cache_k, cache_v = (
+        torch.randn(sh, generator=gen, device="cuda") for sh in shapes)
+    for case, pos in FD_POSITIONS.items():
+        fk, fv = cache_k.clone(), cache_v.clone()
+        fk[:, pos], fv[:, pos] = k_new[:, 0], v_new[:, 0]
+        lens = torch.full((FD_BATCH,), pos, dtype=torch.int32, device="cuda")
+        want = layers.sdpa(q, fk, fv, causal=True, q_offset=pos,
+                           kv_len=lens + 1).cpu()
+        del fk, fv
+        errs = [rel_l2(results[r, case]["out"], want)
+                for r in range(FD_WORLD)]
+        equal = all(results[r, case]["cache_equal"] for r in range(FD_WORLD))
+        print(f"gfc: flash_decode yi-6b q {tuple(q.shape)}, cache "
+              f"{tuple(cache_k.shape)} fp32 over {FD_WORLD} gloo ranks on "
+              f"one card, write at {pos} ({case}): out rel-L2 per rank "
+              + ", ".join(f"{e:.2e}" for e in errs)
+              + f" (budget {FD_BUDGET:.0e}), cache shards equal {equal}, "
+              f"rank 0 {results[0, case]['ms']:.2f} ms a call", flush=True)
+        if not (max(errs) <= FD_BUDGET and equal):
+            raise AssertionError(f"gfc: flash_decode {case}: {errs}, cache "
+                                 f"equal {equal}")
+    print(f"gfc: flash_decode: {wall:.1f} s for the {FD_WORLD} processes",
+          flush=True)
+
+
+def _gfc_sp_step() -> None:
+    """One ``make_serve_step(sp_decode=True)`` step of yi-6b at full
+    width, 4 of 32 layers, fp32, after a 4 x 512 prefill, under a 1x1
+    mesh (nccl, world size 1): flash_decode once a layer, the logits and
+    the caches within FD_BUDGET rel-L2 of the plain decode step's on the
+    same cache, the first layer's new rows and the lengths equal."""
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            f"{tmp}/store", 1), rank=0, world_size=1)
+        try:
+            mesh = make_local_mesh(1, 1)
+            model = get_model(YI_SP).init(YI_SP, generator=torch.Generator(
+                device="cuda").manual_seed(0))
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            toks = torch.randint(0, YI_SP.vocab_size, (SP_PROMPT[0],
+                                 SP_PROMPT[1] + 1), generator=gen,
+                                 device="cuda")
+            cache = get_model(YI_SP).init_cache(YI_SP, SP_PROMPT[0], 1024,
+                                                dtype=torch.float32)
+            _, cache = serve_loop.make_prefill_step(
+                YI_SP, dtype=torch.float32)(model, toks[:, :-1], cache)
+            plain_cache = {"blocks": {"pos0": {
+                k: v.clone() for k, v in cache["blocks"]["pos0"].items()}}}
+            pos = torch.full((SP_PROMPT[0],), SP_PROMPT[1], device="cuda")
+            calls = []
+            real = layers.flash_decode
+
+            def counted(*args, **kw):
+                calls.append(1)
+                return real(*args, **kw)
+            layers.flash_decode = counted
+            try:
+                with activation_sharding(mesh, SERVE_RULES):
+                    lg, cache = serve_loop.make_serve_step(
+                        YI_SP, dtype=torch.float32, sp_decode=True)(
+                        model, toks[:, -1:], cache, pos)
+            finally:
+                layers.flash_decode = real
+            want, plain_cache = serve_loop.make_serve_step(
+                YI_SP, dtype=torch.float32)(model, toks[:, -1:],
+                                            plain_cache, pos)
+            err = rel_l2(lg.cpu(), want.cpu())
+            got, ref_ = cache["blocks"]["pos0"], plain_cache["blocks"]["pos0"]
+            # the first layer's rows are written from the same input; a
+            # later layer's input carries the attention's last bits
+            equal = torch.equal(got["len"], ref_["len"]) and all(
+                torch.equal(got[k][0], ref_[k][0]) for k in ("k", "v"))
+            cache_err = max(rel_l2(got[k].cpu(), ref_[k].cpu())
+                            for k in ("k", "v"))
+        finally:
+            dist.destroy_process_group()
+    print(f"gfc: yi-6b {YI_SP.num_layers} of {YI.num_layers} layers, fp32, "
+          f"{SP_PROMPT[0]} x {SP_PROMPT[1]} prefill, make_serve_step("
+          f"sp_decode=True) under a 1x1 mesh: flash_decode {len(calls)} "
+          f"times, logits rel-L2 {err:.2e} vs the plain step, caches "
+          f"rel-L2 {cache_err:.2e} (budget {FD_BUDGET:.0e}), the first "
+          f"layer's rows and len equal {equal}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    if len(calls) != YI_SP.num_layers or not max(err, cache_err) <= \
+            FD_BUDGET or not equal:
+        raise AssertionError(f"gfc: sp_decode step: {len(calls)} calls, "
+                             f"rel-L2 {err}, {cache_err}, equal {equal}")
+
+
+def phase_gfc(smi: str) -> None:
+    """The group-free collective realizations and the sharding layer on
+    the card: the group-setup twin's table, the executable cache and the
+    grouped ops against their plain versions, flash decoding over a
+    sequence-sharded cache on four processes, and one sp_decode serve
+    step."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    before = dict(ops.launches)
+    data = group_setup.run("cuda")
+    print(f"gfc: group_setup on {smi}:", flush=True)
+    for name, us, note in group_setup.rows(data):
+        print(f"gfc:   {name},{us:.3f},{note}", flush=True)
+    comm = GroupFreeComm(GROUPED_WORLD)
+    _gfc_cache(comm)
+    _gfc_grouped()
+    _gfc_flash_decode()
+    _gfc_sp_step()
+    launched = {k: v - before.get(k, 0) for k, v in ops.launches.items()
+                if v != before.get(k, 0)}
+    print(f"gfc: {time.perf_counter() - t_phase:.1f} s; kernel launches "
+          f"{launched}", flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -2736,6 +3097,7 @@ def main() -> int:
     phase_zoo_cpu()
     train, train_steps = phase_train(smi)
     phase_train_cpu()
+    phase_gfc(smi)
     counts.update({k: train[k] for k in BWD_KERNELS})
     lm_launches = {"zamba2-7b attention": zamba["forward"]["attention"],
                    "zamba2-7b ssd": zamba["prefill"]["ssd"],

@@ -578,7 +578,14 @@ class _SSD(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dstate):
         x, dt, A, B, C, scratch = ctx.saved_tensors
-        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dy is None:
+            dy = torch.zeros_like(x)
+        else:
+            # the kernel reads dy in 16-byte chunks; an incoming gradient
+            # may be a contiguous view at any offset
+            dy = dy.contiguous()
+            if dy.data_ptr() % 16:
+                dy = dy.clone()
         if dstate is not None:
             dstate = dstate.contiguous()
         return (*ssd_bwd(x, dt, A, B, C, dy, dstate, chunk=ctx.chunk,

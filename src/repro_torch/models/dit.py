@@ -28,6 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.layers import pspec, pzeros, resolve_device
+from repro_torch.sharding import constrain
 
 # ---------------------------------------------------------------------------
 # Embeddings
@@ -97,8 +98,8 @@ class DiTBlock(nn.Module):
         self.cross = L.Attention(cfg, generator=generator, device=device)
         self.mlp = L.SwiGLU(d, cfg.d_ff, generator=generator, device=device)
         # adaLN-Zero: 6*d modulation from conditioning; zero-init output
-        self.ada_w = pzeros((d, 6 * d), device)
-        self.ada_b = pzeros((6 * d,), device)
+        self.ada_w = pzeros((d, 6 * d), ("embed", "mlp"), device)
+        self.ada_b = pzeros((6 * d,), (None,), device)
 
 
 class DiT(nn.Module):
@@ -109,16 +110,18 @@ class DiT(nn.Module):
         dc = cfg.dit
         d = cfg.d_model
         patch_in = dc.patch_size * dc.patch_size * dc.in_channels
-        self.x_embed = pspec((patch_in, d), generator, device)
-        self.t_mlp1 = pspec((256, d), generator, device)
-        self.t_mlp2 = pspec((d, d), generator, device)
-        self.txt_proj = pspec((dc.cond_dim, d), generator, device)
+        self.x_embed = pspec((patch_in, d), (None, "embed"), generator,
+                             device)
+        self.t_mlp1 = pspec((256, d), (None, "embed"), generator, device)
+        self.t_mlp2 = pspec((d, d), ("embed", "embed"), generator, device)
+        self.txt_proj = pspec((dc.cond_dim, d), (None, "embed"), generator,
+                              device)
         self.blocks = nn.ModuleList(
             DiTBlock(cfg, generator=generator, device=device)
             for _ in range(cfg.num_layers))
-        self.final_ada_w = pzeros((d, 2 * d), device)
-        self.final_ada_b = pzeros((2 * d,), device)
-        self.final_out = pzeros((d, patch_in), device)
+        self.final_ada_w = pzeros((d, 2 * d), ("embed", "mlp"), device)
+        self.final_ada_b = pzeros((2 * d,), (None,), device)
+        self.final_out = pzeros((d, patch_in), ("embed", None), device)
         # on the device with the weights: copying them from pageable
         # memory at every forward would wait for the stream that every
         # rank thread shares
@@ -197,6 +200,7 @@ def forward(model: DiT, latents, t, txt_embeds, cfg: ModelConfig, *,
 
     block = L.remat(dit_block_apply, "full" if remat == "full" else "none")
     for blk in model.blocks:
+        x = constrain(x, "act_batch", "act_seq", None)
         x = block(blk, x, c, txt, cfg)
 
     sh, sc = _split_mods(c, model.final_ada_w, model.final_ada_b, 2)

@@ -30,6 +30,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import resolve_device
+from repro_torch.sharding import constrain
 
 
 class EncBlock(nn.Module):
@@ -131,6 +132,7 @@ def _scan_dec(model: EncDec, caches, x, enc_out, cfg: ModelConfig, positions,
     Returns (x, new_caches)."""
     lens = []
     for i, p in enumerate(model.dec_blocks):
+        x = constrain(x, "act_batch", "act_seq", None)
         c = None
         if caches is not None:
             c = {"self": _layer(caches["self"], i),

@@ -27,6 +27,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import resolve_device
+from repro_torch.sharding import constrain
 
 
 def _group_plan(cfg: ModelConfig):
@@ -81,6 +82,7 @@ def _scan_groups(model: Hybrid, caches, x, cfg: ModelConfig, positions):
     caches.  Returns (x, (new Mamba2 caches, new shared K/V caches))."""
     m_new, a_lens = [], []
     for g, group in enumerate(model.mamba_groups):
+        x = constrain(x, "act_batch", "act_seq", None)
         m_new.append([])
         for j, blk in enumerate(group):
             c = {key: v[g, j] for key, v in caches["mamba_groups"].items()}
@@ -112,6 +114,7 @@ def _apply_tail(model: Hybrid, caches, x, cfg: ModelConfig):
 
 def _group(model: Hybrid, g: int, x, cfg: ModelConfig, positions):
     """One group's Mamba2 layers, then the shared block, uncached."""
+    x = constrain(x, "act_batch", "act_seq", None)
     for blk in model.mamba_groups[g]:
         x, _ = S.ssd_block_apply(blk, x, cfg)
     return T.block_apply(model.shared_attn, x, cfg, window=0,

@@ -6,7 +6,11 @@ and every LM family.
 Parameters are ``nn.Module`` attributes named after the JAX tree keys and
 kept in the JAX einsum layouts (``wq`` is (d, H, hd), ``wo`` is
 (H, hd, d)), so :func:`repro_torch.convert.load_jax_params` copies a JAX
-tree in without reshaping.  Full (uncached, unwindowed) attention always
+tree in without reshaping.  Each carries the JAX ``pspec``'s logical
+sharding axes (``pspec``, ``pzeros``, ``pones`` take them beside the
+shape; :func:`repro_torch.sharding.specs.param_axes` reads them), less
+the leading ``"layers"`` axes of the JAX stacks, which the port
+unrolls.  Full (uncached, unwindowed) attention always
 goes through the flash-attention kernel wrapper
 (:func:`repro_torch.kernels.ops.attention`); windowed and cached
 attention run :func:`sdpa`'s plain tensor ops, as the JAX package runs
@@ -30,6 +34,9 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.sharding.ctx import current_mesh
+from repro_torch.sharding.sp import flash_decode
+from repro_torch.sharding.specs import with_axes
 
 
 def resolve_device(device) -> torch.device:
@@ -78,22 +85,25 @@ def remat(fn, mode: str):
 # ---------------------------------------------------------------------------
 
 
-def pspec(shape, generator, device, scale=None) -> nn.Parameter:
-    """Normal(0, scale) draw; scale defaults to fan_in ** -0.5 with the
-    JAX package's fan-in rule (all leading axes)."""
+def pspec(shape, axes, generator, device, scale=None) -> nn.Parameter:
+    """Normal(0, scale) draw with logical sharding ``axes`` (one per
+    dim); scale defaults to fan_in ** -0.5 with the JAX package's fan-in
+    rule (all leading axes)."""
     if scale is None:
         fan_in = shape[0] if len(shape) == 1 else math.prod(shape[:-1])
         scale = max(fan_in, 1) ** -0.5
     val = torch.randn(shape, generator=generator, device=device)
-    return nn.Parameter(scale * val, requires_grad=False)
+    return with_axes(nn.Parameter(scale * val, requires_grad=False), axes)
 
 
-def pzeros(shape, device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape, device=device), requires_grad=False)
+def pzeros(shape, axes, device) -> nn.Parameter:
+    return with_axes(nn.Parameter(torch.zeros(shape, device=device),
+                                  requires_grad=False), axes)
 
 
-def pones(shape, device) -> nn.Parameter:
-    return nn.Parameter(torch.ones(shape, device=device), requires_grad=False)
+def pones(shape, axes, device) -> nn.Parameter:
+    return with_axes(nn.Parameter(torch.ones(shape, device=device),
+                                  requires_grad=False), axes)
 
 
 def stacked(one: dict, lead: tuple) -> dict:
@@ -107,7 +117,7 @@ def stacked(one: dict, lead: tuple) -> dict:
 # ---------------------------------------------------------------------------
 
 def rmsnorm_init(d: int, device) -> nn.Parameter:
-    return pones((d,), device)
+    return pones((d,), ("embed",), device)
 
 
 def rmsnorm(w, x, eps: float = 1e-6):
@@ -156,10 +166,14 @@ class Attention(nn.Module):
         super().__init__()
         d = d_model or cfg.d_model
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        self.wq = pspec((d, h, hd), generator, device)
-        self.wk = pspec((d, kv, hd), generator, device)
-        self.wv = pspec((d, kv, hd), generator, device)
-        self.wo = pspec((h, hd, d), generator, device)
+        self.wq = pspec((d, h, hd), ("embed", "heads", "head_dim"),
+                        generator, device)
+        self.wk = pspec((d, kv, hd), ("embed", "kv_heads", "head_dim"),
+                        generator, device)
+        self.wv = pspec((d, kv, hd), ("embed", "kv_heads", "head_dim"),
+                        generator, device)
+        self.wo = pspec((h, hd, d), ("heads", "head_dim", "embed"),
+                        generator, device)
 
 
 def repeat_kv(k, n_rep: int):
@@ -213,6 +227,16 @@ def _full_attention(q, k, v, *, causal: bool):
                          causal=causal)
 
 
+def _sp_decode_ok(cache) -> bool:
+    """Flash decoding needs an activation-sharding mesh with a "model"
+    axis.  JAX also asks the cache's sequence to divide over that axis;
+    the port's cache under such a mesh is the rank's shard of
+    ``cache["k"].shape[1]`` rows, so the sequence, that many rows on
+    each of the axis's ranks, always divides."""
+    mesh = current_mesh()
+    return mesh is not None and "model" in mesh.mesh_dim_names
+
+
 def _cache_write(cache, rows, k, v):
     """Store k/v (B, s, KV, hd) into the cache's rows ``rows`` (a device
     index tensor, so no host sync), in place."""
@@ -231,6 +255,11 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *, causal=True,
     SWA ring buffer: a prefill installs its last ``window`` keys at slots
     ``pos % window``, a decode step writes one slot and attends to the
     ``min(len + 1, window)`` valid ones.
+    ``sp_decode``: a one-token decode step without a window, under
+    :func:`repro_torch.sharding.activation_sharding` with a ``"model"``
+    axis, runs :func:`repro_torch.sharding.sp.flash_decode` over the
+    rank's sequence shard of the cache; otherwise the plain cached
+    decode, as in JAX.
     Cross-attention: ``kv_x`` provides the key/value sequence; a
     ``cache`` that holds ``"k"`` is the precomputed cross-kv and is used
     in place of ``kv_x``'s.  Returns ``{"k", "v"}`` for the caller to
@@ -281,11 +310,13 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *, causal=True,
                 # pre-rotated at absolute positions so scores stay correct.
                 valid = torch.clamp(cache_len + s, max=window)
                 out = sdpa(q, k_all, v_all, causal=False, kv_len=valid)
-        elif sp_decode and s == 1 and not window:
-            raise NotImplementedError(
-                "sp_decode (flash decoding over a sequence-sharded cache) "
-                "needs a device mesh: the port of repro.sharding is a later "
-                "slice")
+        elif sp_decode and s == 1 and not window and _sp_decode_ok(cache):
+            # flash-decoding over the sequence-sharded cache: local partial
+            # softmax per shard + max/sum all-reduce combine, the cache
+            # never gathered
+            out, k_all, v_all = flash_decode(
+                q, k_new, v_new, k_all, v_all, cache_len,
+                mesh=current_mesh())
         else:
             _cache_write(cache, cache_len[0] + rows, k_new, v_new)
             out = sdpa(q, k_all, v_all, causal=True, q_offset=cache_len[0],
@@ -310,17 +341,22 @@ class MLA(nn.Module):
         m, d, h = cfg.mla, cfg.d_model, cfg.num_heads
         qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
         kw = dict(generator=generator, device=device)
-        self.w_dkv = pspec((d, m.kv_lora_rank + m.qk_rope_head_dim), **kw)
-        self.w_uk = pspec((m.kv_lora_rank, h, m.qk_nope_head_dim), **kw)
-        self.w_uv = pspec((m.kv_lora_rank, h, m.v_head_dim), **kw)
-        self.wo = pspec((h, m.v_head_dim, d), **kw)
+        heads = (None, "heads", "head_dim")
+        self.w_dkv = pspec((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                           ("embed", None), **kw)
+        self.w_uk = pspec((m.kv_lora_rank, h, m.qk_nope_head_dim), heads,
+                          **kw)
+        self.w_uv = pspec((m.kv_lora_rank, h, m.v_head_dim), heads, **kw)
+        self.wo = pspec((h, m.v_head_dim, d), ("heads", "head_dim", "embed"),
+                        **kw)
         self.kv_norm = rmsnorm_init(m.kv_lora_rank, device)
         if m.q_lora_rank:
-            self.w_dq = pspec((d, m.q_lora_rank), **kw)
+            self.w_dq = pspec((d, m.q_lora_rank), ("embed", None), **kw)
             self.q_norm = rmsnorm_init(m.q_lora_rank, device)
-            self.w_uq = pspec((m.q_lora_rank, h, qk_hd), **kw)
+            self.w_uq = pspec((m.q_lora_rank, h, qk_hd), heads, **kw)
         else:
-            self.w_uq = pspec((d, h, qk_hd), **kw)
+            self.w_uq = pspec((d, h, qk_hd), ("embed", "heads", "head_dim"),
+                              **kw)
 
 
 def mla_apply(p: MLA, x, cfg: ModelConfig, *, positions=None, cache=None,
@@ -423,9 +459,9 @@ class SwiGLU(nn.Module):
 
     def __init__(self, d: int, dff: int, *, generator, device):
         super().__init__()
-        self.w_gate = pspec((d, dff), generator, device)
-        self.w_up = pspec((d, dff), generator, device)
-        self.w_down = pspec((dff, d), generator, device)
+        self.w_gate = pspec((d, dff), ("embed", "mlp"), generator, device)
+        self.w_up = pspec((d, dff), ("embed", "mlp"), generator, device)
+        self.w_down = pspec((dff, d), ("mlp", "embed"), generator, device)
 
 
 def swiglu_apply(p: SwiGLU, x):
@@ -444,10 +480,13 @@ class MoE(nn.Module):
         m, d = cfg.moe, cfg.d_model
         eff = m.expert_d_ff or cfg.d_ff
         kw = dict(generator=generator, device=device)
-        self.router = pspec((d, m.num_experts), **kw)
-        self.w_gate = pspec((m.num_experts, d, eff), **kw)
-        self.w_up = pspec((m.num_experts, d, eff), **kw)
-        self.w_down = pspec((m.num_experts, eff, d), **kw)
+        self.router = pspec((d, m.num_experts), ("embed", None), **kw)
+        self.w_gate = pspec((m.num_experts, d, eff),
+                            ("experts", "embed", "mlp"), **kw)
+        self.w_up = pspec((m.num_experts, d, eff),
+                          ("experts", "embed", "mlp"), **kw)
+        self.w_down = pspec((m.num_experts, eff, d),
+                            ("experts", "mlp", "embed"), **kw)
         if m.num_shared_experts:
             self.shared = SwiGLU(d, eff * m.num_shared_experts, **kw)
 
@@ -547,11 +586,11 @@ class Embedding(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, generator, device):
         super().__init__()
-        self.tok = pspec((cfg.vocab_size, cfg.d_model), generator, device,
-                         scale=1.0)
+        self.tok = pspec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                         generator, device, scale=1.0)
         if not cfg.tie_embeddings:
-            self.unembed = pspec((cfg.d_model, cfg.vocab_size), generator,
-                                 device)
+            self.unembed = pspec((cfg.d_model, cfg.vocab_size),
+                                 ("embed", "vocab"), generator, device)
 
 
 def embed(p: Embedding, tokens, cfg: ModelConfig, dtype):

@@ -26,6 +26,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.layers import (pones, pspec, pzeros,
                                        resolve_device)
+from repro_torch.sharding import constrain
 
 _INTRA_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -48,15 +49,17 @@ class SSDBlock(nn.Module):
         d_inner, nheads, conv_dim = ssm_dims(cfg)
         proj_out = 2 * d_inner + 2 * s.state_dim + nheads   # z, x, B, C, dt
         self.ln = L.rmsnorm_init(d, device)
-        self.in_proj = pspec((d, proj_out), generator, device)
-        self.conv_w = pspec((s.conv_kernel, conv_dim), generator, device,
-                            scale=s.conv_kernel ** -0.5)
-        self.conv_b = pzeros((conv_dim,), device)
-        self.A_log = pzeros((nheads,), device)              # A = -exp(A_log)
-        self.dt_bias = pzeros((nheads,), device)
-        self.D = pones((nheads,), device)
+        self.in_proj = pspec((d, proj_out), ("embed", "ssm_inner"),
+                             generator, device)
+        self.conv_w = pspec((s.conv_kernel, conv_dim), (None, "ssm_inner"),
+                            generator, device, scale=s.conv_kernel ** -0.5)
+        self.conv_b = pzeros((conv_dim,), ("ssm_inner",), device)
+        self.A_log = pzeros((nheads,), (None,), device)     # A = -exp(A_log)
+        self.dt_bias = pzeros((nheads,), (None,), device)
+        self.D = pones((nheads,), (None,), device)
         self.norm = L.rmsnorm_init(d_inner, device)
-        self.out_proj = pspec((d_inner, d), generator, device)
+        self.out_proj = pspec((d_inner, d), ("ssm_inner", "embed"),
+                              generator, device)
 
 
 def _split_proj(zxbcdt, cfg: ModelConfig):
@@ -211,6 +214,7 @@ def _scan(model: Mamba2, caches, x, cfg: ModelConfig):
     new = []
     for i, blk in enumerate(model.blocks):
         c_l = {k: v[i] for k, v in caches["blocks"].items()}
+        x = constrain(x, "act_batch", "act_seq", None)
         x, nc = ssd_block_apply(blk, x, cfg, cache=c_l)
         new.append(nc)
     return x, {k: torch.stack([c[k] for c in new]) for k in new[0]}
@@ -229,6 +233,7 @@ def forward(model: Mamba2, tokens, cfg: ModelConfig, *, remat: str = "none",
     x = L.embed(model.embed, tokens, cfg, dtype)
     fn = L.remat(_block, "full" if remat == "full" else "none")
     for blk in model.blocks:
+        x = constrain(x, "act_batch", "act_seq", None)
         x = fn(blk, x, cfg)
     x = L.rmsnorm(model.ln_final, x, cfg.norm_eps)
     return L.unembed(model.embed, x, cfg), torch.zeros((), device=x.device)

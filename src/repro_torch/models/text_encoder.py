@@ -10,7 +10,6 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.layers import pones
 
 
 def encoder_config(cond_dim: int, vocab: int = 32000) -> ModelConfig:
@@ -23,9 +22,9 @@ def encoder_config(cond_dim: int, vocab: int = 32000) -> ModelConfig:
 class EncoderBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, *, generator, device):
         super().__init__()
-        self.ln_attn = pones((cfg.d_model,), device)
+        self.ln_attn = L.rmsnorm_init(cfg.d_model, device)
         self.attn = L.Attention(cfg, generator=generator, device=device)
-        self.ln_mlp = pones((cfg.d_model,), device)
+        self.ln_mlp = L.rmsnorm_init(cfg.d_model, device)
         self.mlp = L.SwiGLU(cfg.d_model, cfg.d_ff, generator=generator,
                             device=device)
 
@@ -39,7 +38,7 @@ class TextEncoder(nn.Module):
         self.blocks = nn.ModuleList(
             EncoderBlock(cfg, generator=generator, device=device)
             for _ in range(cfg.num_layers))
-        self.ln_final = pones((cfg.d_model,), device)
+        self.ln_final = L.rmsnorm_init(cfg.d_model, device)
 
 
 def encode(model: TextEncoder, tokens, cfg: ModelConfig,

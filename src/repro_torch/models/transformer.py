@@ -19,9 +19,9 @@ kernel (causal); windowed layers, MLA (plain einsums in both packages),
 prefill and decode run plain tensor ops, as the JAX model does.  Decode
 steps run the MoE with exact capacity (no drops).  The forward takes
 JAX's ``remat`` (``"none"``, ``"full"`` or ``"selective"``, per
-super-block; :func:`repro_torch.models.layers.remat`).  The sharding
-constraints (``repro.sharding.ctx.constrain``, no effect without a mesh)
-are a later slice.
+super-block; :func:`repro_torch.models.layers.remat`).  Each super-block
+starts with the JAX model's sharding constraint
+(:func:`repro_torch.sharding.constrain`: ``x`` itself without a mesh).
 
 Entry points build on the card unless given ``device="cpu"``.
 """
@@ -35,6 +35,7 @@ from torch import nn
 from repro_torch.configs.base import MLA, SWA, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import resolve_device
+from repro_torch.sharding import constrain
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +182,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def _super_block(sup, x, cfg: ModelConfig, plan, positions):
     """One uncached super-block. Returns (x, aux)."""
     aux = torch.zeros((), device=x.device)
+    x = constrain(x, "act_batch", "act_seq", None)
     for pos in range(plan["period"]):
         x, _, a = block_apply(sup[f"pos{pos}"], x, cfg,
                               window=plan["windows"][pos], positions=positions)
@@ -204,6 +206,7 @@ def _scan_blocks(model: Transformer, caches, x, cfg: ModelConfig, plan,
         return x, None, aux
     lens = {f"pos{pos}": [] for pos in range(plan["period"])}
     for i, sup in enumerate(model.blocks):
+        x = constrain(x, "act_batch", "act_seq", None)
         for pos in range(plan["period"]):
             key = f"pos{pos}"
             c = {k: v[i] for k, v in caches["blocks"][key].items()}

@@ -23,10 +23,14 @@ class VAE(nn.Module):
         c_in = cfg.dit.in_channels
         # each stage: 3x3 conv (as unfold-matmul) producing 4x channels
         # for 2x pixel-shuffle upsample
-        self.in_proj = pspec((c_in, hidden), generator, device)
-        self.up1 = pspec((9 * hidden, 4 * hidden), generator, device)
-        self.up2 = pspec((9 * hidden, 4 * hidden), generator, device)
-        self.up3 = pspec((9 * hidden, 4 * 3), generator, device)
+        self.in_proj = pspec((c_in, hidden), (None, "mlp"), generator,
+                             device)
+        self.up1 = pspec((9 * hidden, 4 * hidden), (None, "mlp"), generator,
+                         device)
+        self.up2 = pspec((9 * hidden, 4 * hidden), (None, "mlp"), generator,
+                         device)
+        self.up3 = pspec((9 * hidden, 4 * 3), (None, None), generator,
+                         device)
 
 
 def _conv3x3(x, w):

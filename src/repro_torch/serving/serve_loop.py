@@ -6,11 +6,12 @@ request is served by ``repro_torch.serving.engine.ServingEngine``).  The steps t
 the model module where the JAX steps take ``params``, and run under
 ``torch.inference_mode()``.  ``dtype`` is the activation dtype (bf16,
 the JAX default).  ``mla_absorbed`` picks MLA's absorbed decode
-(``dense``/``moe``/``vlm``).  ``sp_decode`` (flash decoding over a
-sharded cache) raises in a decode step: it needs the port of
-``sharding/``.  The
-dry-run ``ShapeDtypeStruct`` spec functions (``input_specs``,
-``cache_specs``) wait for the port of ``launch/``.
+(``dense``/``moe``/``vlm``), and ``sp_decode`` flash decoding over a
+sequence-sharded cache under
+:func:`repro_torch.sharding.activation_sharding` with a ``"model"``
+axis (without one, the plain cached decode, as in JAX).  The dry-run
+``ShapeDtypeStruct`` spec functions (``input_specs``, ``cache_specs``)
+wait for the port of ``launch/dryrun.py``.
 """
 from __future__ import annotations
 

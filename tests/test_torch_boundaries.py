@@ -44,8 +44,10 @@ def _env():
 
 
 def test_importing_every_module_loads_no_jax():
+    """... and sets up no process group and no CUDA state."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "import torch, torch.distributed as dist\n"
         "import repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    repro_torch.__path__, 'repro_torch.')]\n"
@@ -53,10 +55,13 @@ def test_importing_every_module_loads_no_jax():
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes')\n"
         "             or m == 'repro' or m.startswith(('jax.', 'repro.')))\n"
+        "print(dist.is_initialized(), torch.cuda.is_initialized())\n"
         "print(len(names), bad)\n")
-    out = subprocess.run([sys.executable, "-c", code], env=_env(),
-                         capture_output=True, text=True, timeout=120,
-                         check=True).stdout.split(maxsplit=1)
+    state, out = subprocess.run(
+        [sys.executable, "-c", code], env=_env(), capture_output=True,
+        text=True, timeout=120, check=True).stdout.split("\n", 1)
+    out = out.split(maxsplit=1)
+    assert state.split() == ["False", "False"]
     assert int(out[0]) >= 20            # every module of the slice
     assert out[1].strip() == "[]"
 

@@ -826,6 +826,36 @@ def test_cuda_ssd_rejects_misaligned_operands(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_backward_takes_a_misaligned_incoming_gradient(cuda_device,
+                                                                dtype):
+    """A contiguous output gradient at an odd storage offset: ``ops.ssd_bwd``
+    refuses it (its kernels read dy in 16-byte chunks), so ``_SSD.backward``
+    copies it into an aligned buffer, and the gradients equal those of
+    the same dy aligned, bit for bit."""
+    rng = np.random.default_rng(4)
+    x, dt, A, B, C = _ssd_inputs(rng, 1, 40, 2, 16, 16, dtype, cuda_device)
+    dy = _card(rng, x.shape, dtype, cuda_device)
+    odd = torch.empty(dy.numel() + 1, dtype=dy.dtype,
+                      device=cuda_device)[1:].view(dy.shape)
+    odd.copy_(dy)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    _, _, scratch = ops.ssd_for_grad(x, dt, A, B, C, chunk=16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.ssd_bwd(x, dt, A, B, C, odd, None, chunk=16, scratch=scratch)
+    grads = []
+    for g in (dy, odd):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (x, dt, B, C)]
+        y, _ = ops.ssd(leaves[0], leaves[1], A, leaves[2], leaves[3],
+                       chunk=16)
+        y.backward(g)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_cuda_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     rng = np.random.default_rng(0)
     x, dt, A, B, C = _ssd_inputs(rng, 1, 32, 2, 16, 16, "float32",

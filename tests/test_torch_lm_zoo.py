@@ -39,6 +39,7 @@ from repro.kernels.ssd import ssd_scan  # noqa: E402
 from repro.models import get_model as jax_get_model  # noqa: E402
 from repro.models import layers as jL  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
+from repro.serving import serve_loop as jax_serve_loop  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import load_jax_params  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -366,8 +367,8 @@ def test_ssd_plain_versions_at_zamba2_shape_match_jax():
 
 
 # ---------------------------------------------------------------------------
-# conversion, dispatch and what is not ported yet (sp_decode; the MoE,
-# MLA and encdec families are tests/test_torch_moe_mla_encdec.py's)
+# conversion, dispatch and sp_decode without a mesh (the MoE, MLA and
+# encdec families are tests/test_torch_moe_mla_encdec.py's)
 # ---------------------------------------------------------------------------
 
 def test_load_jax_params_fills_groups_super_blocks_and_tail(live_hybrid):
@@ -399,15 +400,41 @@ def test_vlm_prefill_takes_patches():
         [cfg.frontend_seq + 4]] * cfg.num_layers
 
 
-def test_sp_decode_raises():
-    """Flash decoding over a sequence-sharded cache needs a device mesh:
-    the port raises instead of computing another way."""
-    _, model, _, cfg = _pair("yi-6b")
-    cache = T.init_cache(cfg, 1, 16, dtype=torch.float32, device="cpu")
-    _, cache = serve_loop.make_prefill_step(cfg, dtype=torch.float32)(
-        model, torch.zeros((1, 4), dtype=torch.long), cache)
-    step = serve_loop.make_serve_step(cfg, dtype=torch.float32,
-                                      sp_decode=True)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        step(model, torch.zeros((1, 1), dtype=torch.long), cache,
-             torch.tensor([4]))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sp_decode_without_a_mesh_is_the_plain_decode(dtype):
+    """``sp_decode=True`` without a mesh runs the plain cached decode in
+    both packages: a prefill of 8 tokens, then 4 decode steps of
+    yi-6b.reduced().  fp32 through ``decode_step`` (JAX's
+    ``make_serve_step`` has no dtype) within 1e-5; bf16 through both
+    packages' ``make_serve_step(sp_decode=True)`` within 3e-2, DESIGN.md
+    §12's bf16 budget.  Logits and the caches' k, v and len."""
+    tree, model, jcfg, cfg = _pair("yi-6b")
+    toks = _tokens(cfg, 12, seed=2)
+    jm = jax_get_model(jcfg)
+    if dtype == "float32":
+        jdt, tdt, tol = jnp.float32, torch.float32, TOL
+        jpre = _jit(jm.prefill)
+        jstep = jax.jit(lambda p, t, c, pos: jm.decode_step(
+            p, t, c, pos, jcfg, dtype=jnp.float32, sp_decode=True))
+    else:
+        jdt, tdt, tol = jnp.bfloat16, torch.bfloat16, 3e-2
+        jpre = jax.jit(lambda p, t, c, cfg, dtype: jax_serve_loop
+                       .make_prefill_step(cfg)(p, t, c),
+                       static_argnames=("cfg", "dtype"))
+        jstep = jax.jit(jax_serve_loop.make_serve_step(jcfg, sp_decode=True))
+    jcache = jm.init_cache(jcfg, 2, 16, dtype=jdt)
+    _, jcache = jpre(tree, jnp.asarray(toks[:, :8]), jcache, jcfg,
+                     dtype=jdt)
+    cache = T.init_cache(cfg, 2, 16, dtype=tdt, device="cpu")
+    _, cache = serve_loop.make_prefill_step(cfg, dtype=tdt)(
+        model, torch.from_numpy(toks[:, :8]), cache)
+    step = serve_loop.make_serve_step(cfg, dtype=tdt, sp_decode=True)
+    for i in range(8, 12):
+        jlg, jcache = jstep(tree, jnp.asarray(toks[:, i:i + 1]), jcache,
+                            jnp.array([i, i]))
+        lg, cache = step(model, torch.from_numpy(toks[:, i:i + 1]), cache,
+                         torch.tensor([i, i]))
+        _close(lg, np.asarray(jlg, np.float32), tol)
+    for key in ("k", "v", "len"):
+        _close(cache["blocks"]["pos0"][key].float(),
+               np.asarray(jcache["blocks"]["pos0"][key], np.float32), tol)
