@@ -149,6 +149,24 @@ Phases, one line each (any failure raises and exits non-zero):
    unsharded plain decode within 1e-5, cache shards equal; one
    ``make_serve_step(sp_decode=True)`` step of yi-6b (4 of 32 layers,
    fp32) under a 1x1 mesh against the plain step within 1e-5.
+18. dryrun: the multi-pod dry run (``python -m
+   repro_torch.launch.dryrun``, CPU processes, eight at a time, each a
+   ``FakeStore`` process group of its mesh: nothing on the card): (a)
+   every live arch x shape cell at 16x16 without extraction, each must
+   trace ``ok``; its per-rank peak is printed beside the card's
+   ``total_memory`` (a prediction, not a measurement); (b) the JAX
+   harness's two cells, yi-6b train_4k and mixtral-8x7b decode_32k, at
+   16x16 and 2x16x16 with extraction: the train cell's 16x16 FLOPs above
+   1e15 and its collectives present, the decode cell's peak above 0;
+   (c) at a 1x1 mesh the dry run predicts the peak of three steps that
+   then run on the card (mamba2-1.3b train at full depth, yi-6b train at
+   4 of 32 layers, both bf16 AdamW on 2 x 2048 tokens without remat;
+   mamba2-1.3b's bf16 prefill of 4 x 2048): each prediction within 10%
+   of ``torch.cuda.max_memory_allocated()`` over the step less what was
+   allocated before its model was built, the ratio printed; (d) K4's
+   backward scratch, ``ops.ssd_bwd_scratch``, equal to the library's
+   ``gfdit_ssd_bwd_scratch`` at every K4 shape of the kernels phase.
+   Each dry-run process's JSON is left in ``build/dryrun/``.
 
 Kernel times (phase 3): ``ms`` is device time, from CUDA-event timing of
 replays of a CUDA graph that holds ``iters`` calls, so it leaves out the
@@ -184,6 +202,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import importlib.util
 import inspect
 import json
 import math
@@ -212,7 +231,7 @@ def _src_dir() -> Path:
 sys.path.insert(0, str(_src_dir()))
 
 from repro_torch.benchmarks import group_setup  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ASSIGNED_ARCHS, get_config  # noqa: E402
 from repro_torch.configs.dit_models import DIT_IMAGE, DIT_VIDEO  # noqa: E402
 from repro_torch.core.executable_cache import (  # noqa: E402
     ExecutableCache, dtype_name)
@@ -228,6 +247,19 @@ from repro_torch.sharding import SERVE_RULES, activation_sharding  # noqa: E402
 from repro_torch.training import optimizer, train_loop  # noqa: E402
 from repro_torch.training.data import TokenPipeline  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
+
+def _own_module(name: str, rel: str):
+    """A module of this script's own checkout, loaded by path: ``--src``
+    may name an older checkout that lacks it."""
+    path = Path(__file__).resolve().parent / rel
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+#: the kernels' operation and byte counts (repro_torch.kernels.cost)
+cost = _own_module("gfdit_cost", "src/repro_torch/kernels/cost.py")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -706,12 +738,10 @@ def phase_kernels() -> dict:
             for vname, kw in variants.items():
                 timing = None
                 if n == 1024 or vname == "mod_norm":
-                    rows = 2 + ("residual" in kw)       # x, out, residual
-                    mod_rows = len({"shift", "scale", "gate"} & set(kw))
-                    timing = {"bytes": (rows * n + mod_rows) * d_model * es,
-                              "flops": {"mod_norm": 8, "ln": 6,
-                                        "gated_residual": 2,
-                                        "full": 10}[vname] * n * d_model}
+                    flops, nbytes = cost.adaln(
+                        1, n, d_model, ln=kw.get("ln", True),
+                        mod="shift" in kw, gated="gate" in kw, es=es)
+                    timing = {"bytes": nbytes, "flops": flops}
                     if vname == "mod_norm":
                         w, b = (1.0 + sc[0]).contiguous(), sh[0].contiguous()
                         timing["library"] = (
@@ -753,13 +783,12 @@ def phase_kernels() -> dict:
         for label, qs, ks, causal in cases:
             q, k, v = (_rand(s, dtype, gen) for s in (qs, ks, ks))
             b, sq, h, d = qs
-            sk = ks[1]
-            pairs = sq * (sq + 1) // 2 if causal else sq * sk
             timing = None
             if label in ("self", "cross Lt=77", "text-encoder d=256"):
+                flops, nbytes = cost.attention(b, sq, ks[1], h, ks[2], d,
+                                               causal, es)
                 timing = {
-                    "bytes": (2 * q.numel() + k.numel() + v.numel()) * es,
-                    "flops": 4 * b * h * d * pairs, "host_calls": 200,
+                    "bytes": nbytes, "flops": flops, "host_calls": 200,
                     "library": lambda q=q, k=k, v=v:
                         F.scaled_dot_product_attention(
                             q.transpose(1, 2), k.transpose(1, 2),
@@ -780,10 +809,9 @@ def phase_kernels() -> dict:
         for offset in (0, 2048, 3072):
             timing = None
             if offset == 2048:
-                timing = {"bytes": (2 * q.numel() + ks_.numel()
-                                    + vs_.numel()) * es,
-                          "flops": 4 * heads * hd * 1024 * 4096,
-                          "host_calls": 200}
+                flops, nbytes = cost.splice_attention(1, 1024, 4096, heads,
+                                                      heads, hd, es)
+                timing = {"bytes": nbytes, "flops": flops, "host_calls": 200}
                 if fp32:
                     timing["summary"] = "splice_attention"
             _check(f"splice offset={offset} q(1,1024) stale(1,4096)",
@@ -851,9 +879,8 @@ def _check_backward(dtype, results, gen) -> None:
     if fp32:     # the forward with lse, beside the serving self case
         q = _rand((1, 1024, heads, hd), dtype, gen)
         k, v = (_rand((1, 4096, heads, hd), dtype, gen) for _ in range(2))
-        timing = _attn_timing(q, k, v, 1024, 4096, host_calls=200,
+        timing = _attn_timing(q, k, v, 1024, 4096, lse=True, host_calls=200,
                               summary="attention with lse")
-        timing["bytes"] += 4 * heads * 1024
         _check(f"attention self with lse q{tuple(q.shape)} kv"
                f"{tuple(k.shape)}",
                lambda: ops.attention_lse(q, k, v),
@@ -882,10 +909,9 @@ def _check_backward(dtype, results, gen) -> None:
                lambda: ops.attention_lse(q, k, v, causal=causal),
                lambda: (o_ref, lse_ref), dtype, results)
         o, lse = ops.attention_lse(q, k, v, causal=causal)
-        pairs = bb * h * (sq * (sq + 1) // 2 if causal else sq * sk)
         both, fwd = _sdpa_backward(q, k, v, do, causal)
-        nbytes = 4 * (q.numel() + k.numel()) * es + 4 * lse.numel()
-        timing = dict(bytes=nbytes, flops=passes * 10 * d * pairs,
+        flops, nbytes = cost.attention_bwd(bb, sq, sk, h, kv, d, causal, es)
+        timing = dict(bytes=nbytes, flops=passes * flops,
                       flops_per_s=peak, iters=10, replays=5, host_calls=50,
                       plain_iters=3, library=both, library_fwd=fwd)
         timing["summary"] = f"attention_bwd {label}{tag}"
@@ -897,7 +923,7 @@ def _check_backward(dtype, results, gen) -> None:
                dtype, results, timing, l2=True)
         if fp32:
             entry = results[timing["summary"]]
-            cc_ms, cc_by = bound_ms(nbytes, 10 * d * pairs)
+            cc_ms, cc_by = bound_ms(nbytes, flops)
             print(f"    bounds: 3xTF32 {entry['bound_ms']:.4f} ms "
                   f"({entry['bound_by']}; the kernel at "
                   f"{entry['bound_ms'] / entry['ms']:.3f} of it), CUDA-core "
@@ -917,18 +943,17 @@ def _check_backward(dtype, results, gen) -> None:
     def norm(mod):
         y = F.layer_norm(xt, (d_model,), eps=1e-6)
         return y * (1.0 + sct[:, None]) + sht[:, None] if mod else y
-    # variant: (kernel's keywords, library forward and its leaves, the
-    # (B, D) rows read (and as many written), flops an element)
+    # variant: (kernel's keywords, library forward and its leaves)
     variants = {
         "mod_norm": (dict(shift=sh, scale=sc), lambda: norm(True),
-                     (xt, sht, sct), 2, 12),
-        "ln": (dict(), lambda: norm(False), (xt,), 0, 10),
+                     (xt, sht, sct)),
+        "ln": (dict(), lambda: norm(False), (xt,)),
         "gated_residual": (dict(gate=g, ln=False),
-                           lambda: rt + gt[:, None] * xt, (xt, gt, rt), 1, 4),
+                           lambda: rt + gt[:, None] * xt, (xt, gt, rt)),
         "full": (dict(shift=sh, scale=sc, gate=g),
                  lambda: rt + gt[:, None] * norm(True),
-                 (xt, sht, sct, gt, rt), 3, 16)}
-    for vname, (kw, lib_fwd, leaves, mod_rows, per_elem) in variants.items():
+                 (xt, sht, sct, gt, rt))}
+    for vname, (kw, lib_fwd, leaves) in variants.items():
         def lib_both(lib_fwd=lib_fwd, leaves=leaves):
             return torch.autograd.grad(lib_fwd(), leaves, dy)
         # x and dy read, dx written, the (B, D) rows read and their
@@ -937,8 +962,10 @@ def _check_backward(dtype, results, gen) -> None:
                                      else f" {vname}") + tag
         # 200 calls of two launches stay within the launch queue, so the
         # host time is the host's
-        timing = {"bytes": (3 * b * n + 2 * mod_rows * b) * d_model * es,
-                  "flops": per_elem * b * n * d_model, "host_calls": 200,
+        flops, nbytes = cost.adaln_bwd(b, n, d_model, ln=kw.get("ln", True),
+                                       mod="shift" in kw, gated="gate" in kw,
+                                       es=es)
+        timing = {"bytes": nbytes, "flops": flops, "host_calls": 200,
                   "library": lib_both, "library_fwd": lib_fwd,
                   "summary": label}
         kernel = (lambda kw=kw: ops.fused_adaln_bwd(x, dy=dy, **kw))
@@ -972,9 +999,9 @@ def _check_lm_attention(dtype, results, gen) -> None:
         k, v = (_rand((b, sq, kv, d), dtype, gen) for _ in range(2))
         timing = None
         if dtype == torch.float32:
+            flops, nbytes = cost.attention(b, sq, sq, h, kv, d, True, es)
             timing = {
-                "bytes": (2 * q.numel() + k.numel() + v.numel()) * es,
-                "flops": 4 * b * h * d * sq * (sq + 1) // 2,
+                "bytes": nbytes, "flops": flops,
                 "iters": 10, "replays": 5, "host_calls": 50,
                 "plain_iters": 3, "summary": f"{model} attention",
                 "library": lambda q=q, k=k, v=v, g=h != kv:
@@ -1019,14 +1046,15 @@ def _check_whisper_attention(dtype, results, gen) -> None:
                             summary=f"whisper-medium {label}{tag} attention"))
 
 
-def _attn_timing(q, k, v, sq, sk, **extra) -> dict:
+def _attn_timing(q, k, v, sq, sk, lse=False, **extra) -> dict:
     """Timing of an attention case: bytes and operations of the
-    function, and SDPA (heads first) on the same inputs as the library
-    call; bf16 inputs are bound by the bf16 peak."""
+    function (the log-sum-exp written too with ``lse``), and SDPA (heads
+    first) on the same inputs as the library call; bf16 inputs are bound
+    by the bf16 peak."""
     b, _, h, d = q.shape
-    return dict(bytes=(2 * q.numel() + k.numel() + v.numel())
-                * q.element_size(),
-                flops=4 * b * h * d * sq * sk,
+    flops, nbytes = cost.attention(b, sq, sk, h, k.shape[2], d, False,
+                                   q.element_size(), lse)
+    return dict(bytes=nbytes, flops=flops,
                 flops_per_s=(BF16_FLOPS_PER_S if q.dtype == torch.bfloat16
                              else FP32_FLOPS_PER_S),
                 library=lambda: F.scaled_dot_product_attention(
@@ -1054,11 +1082,10 @@ def _check_video(results, gen) -> None:
             "mod_norm": dict(shift=sh, scale=sc), "ln": dict(),
             "gated_residual": dict(gate=g, residual=res, ln=False),
             "full": dict(shift=sh, scale=sc, gate=g, residual=res)}.items():
-        rows = 2 + ("residual" in kw)
-        mod_rows = len({"shift", "scale", "gate"} & set(kw))
-        timing = {"bytes": (rows * shard + mod_rows) * d_model * 4,
-                  "flops": {"mod_norm": 8, "ln": 6, "gated_residual": 2,
-                            "full": 10}[vname] * shard * d_model}
+        flops, nbytes = cost.adaln(1, shard, d_model, ln=kw.get("ln", True),
+                                   mod="shift" in kw, gated="gate" in kw,
+                                   es=4)
+        timing = {"bytes": nbytes, "flops": flops}
         if vname == "mod_norm":
             w, b = (1.0 + sc[0]).contiguous(), sh[0].contiguous()
             timing["library"] = lambda w=w, b=b: F.layer_norm(
@@ -1115,20 +1142,6 @@ def ssd_inputs(b, l, h, p, n, dtype, gen):
     return x, dt, A, B, C
 
 
-def ssd_flops(b, l, h, p, n, c) -> int:
-    """Operations the SSD function needs, two per multiply-add: per
-    (batch, chunk) of r rows the causal C·Bᵀ once (B and C have one
-    group), r(r+1)/2 · n; per head the causal scores·xb, r(r+1)/2 · p,
-    C·state, r·p·n (none in the first chunk, whose state is zero), and
-    the state update, r·p·n."""
-    total = 0
-    for k, l0 in enumerate(range(0, l, c)):
-        r = min(c, l - l0)
-        tri = r * (r + 1) // 2
-        total += tri * n + h * (tri * p + (2 if k else 1) * r * p * n)
-    return 2 * b * total
-
-
 def kernel_split_ms(fn, label: str, family: str, calls: int = 10) -> dict:
     """Device ms a call of each kernel of ``csrc`` whose name holds
     ``family`` (K4's four stages, K2's three backward kernels), over
@@ -1177,10 +1190,9 @@ def _check_ssd(dtype, results) -> None:
         x, dt, A, B, C = ssd_inputs(b, l, h, p, n, dtype, gen)
         timing = None
         if (l == LM_PROMPT and dtype == torch.float32) or case == zamba:
+            flops, nbytes = cost.ssd(b, l, h, p, n, c, es)
             timing = {
-                "bytes": (2 * x.numel() + 2 * B.numel()) * es
-                + (dt.numel() + h + b * h * p * n) * 4,
-                "flops": ssd_flops(b, l, h, p, n, c),
+                "bytes": nbytes, "flops": flops,
                 "flops_per_s": (BF16_FLOPS_PER_S if dtype == torch.bfloat16
                                 else FP32_FLOPS_PER_S),
                 "plain_iters": 3, "host_calls": 200}
@@ -1228,25 +1240,6 @@ def _check_ssd(dtype, results) -> None:
         results["ssd_occupancy"] = occ
 
 
-def ssd_bwd_flops(b, l, h, p, n, c, dstate: bool = False) -> int:
-    """Operations K4's backward needs, two per multiply-add: per (batch,
-    chunk) of r rows, the causal triangles of the dB and dC products once,
-    2 r(r+1)/2 n (B and C have one group, so each head's L (dy . xb) is
-    summed over the heads first); per head the triangles of dy . xb and
-    of the dxb product, 2 r(r+1)/2 p, and r p n for each of the chunk's
-    state gradient Q and S_in^T dy (neither in the first chunk: nothing
-    needs the gradient entering it, and its S_in is zero) and G B and
-    G^T xb (not in the last chunk without ``dstate``: G is zero there)."""
-    nc = -(-l // c)
-    total = 0
-    for k, l0 in enumerate(range(0, l, c)):
-        r = min(c, l - l0)
-        tri = r * (r + 1) // 2
-        states = 2 * (k > 0) + 2 * (k < nc - 1 or dstate)
-        total += 2 * tri * n + h * (2 * tri * p + states * r * p * n)
-    return 2 * b * total
-
-
 def _check_ssd_bwd(dtype, results) -> None:
     """K4's backward at the train phase's shapes: mamba2-1.3b's (b=2,
     l=2048, h=64, p=64, n=128, chunk 128) and zamba2-7b's (h=112, n=64),
@@ -1254,7 +1247,7 @@ def _check_ssd_bwd(dtype, results) -> None:
     a final-state gradient (the training path drops the state), timed;
     in fp32 also mamba2's with one, untimed.  rel-L2 per output (dx, ddt,
     dA, dB, dC) against ``ref.ssd_bwd_ref`` within the SSD's budget; the
-    bound is operations (``ssd_bwd_flops``) at the card's peak for the
+    bound is operations (``cost.ssd_bwd_flops``) at the card's peak for the
     operands' type (bf16: the bf16 tensor-core rate; fp32: three TF32
     products for each fp32 one, as K2's fp32 backward, with the CUDA-core
     bound printed beside it) or bytes (x, dy, B, C, dt and A read once,
@@ -1279,9 +1272,7 @@ def _check_ssd_bwd(dtype, results) -> None:
         dy = _rand((b, l, h, p), dtype, gen)
         _, _, scratch = ops.ssd_for_grad(x, dt, A, B, C, chunk=c)
         label = "ssd_bwd" if cfg is MAMBA else f"{cfg.name} ssd_bwd"
-        nbytes = (3 * x.numel() + 4 * B.numel()) * es \
-            + 2 * (dt.numel() + h) * 4
-        flops = ssd_bwd_flops(b, l, h, p, n, c)
+        flops, nbytes = cost.ssd_bwd(b, l, h, p, n, c, es)
         timing = dict(bytes=nbytes, flops=passes * flops, flops_per_s=peak,
                       iters=10, replays=5, host_calls=50, plain_iters=2,
                       summary=label + tag)
@@ -2675,7 +2666,7 @@ def phase_train_cpu() -> None:
         card = family.init(cfg)
         card.load_state_dict(cpu.state_dict())
         batch = train_loop.synth_batch(
-            cfg, 2, 64 if cfg.ssm is None else 60,
+            cfg, 2, 64 if cfg.ssm is None else 60, device="cpu",
             generator=torch.Generator().manual_seed(5))
         out = {}
         for name, model in (("cpu", cpu), ("card", card)):
@@ -3052,6 +3043,197 @@ def phase_gfc(smi: str) -> None:
           f"{launched}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the dry run
+# ---------------------------------------------------------------------------
+
+DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "dryrun"
+DRYRUN_WORKERS = 8                 # dry-run processes at a time (CPU only)
+DRYRUN_TIMEOUT = 900               # seconds, a process
+DRYRUN_HARNESS = (("yi-6b", "train_4k"), ("mixtral-8x7b", "decode_32k"))
+MEMORY_BUDGET = 0.10               # predicted peak vs measured, relative
+# (label, arch, layers (0: all), kind, batch, sequence): steps that the
+# train and lm phases run and measure
+MEMORY_CASES = (("mamba2-1.3b train", "mamba2-1.3b", 0, "train", 2, 2048),
+                ("yi-6b train", "yi-6b", 4, "train", 2, 2048),
+                ("mamba2-1.3b prefill", "mamba2-1.3b", 0, "prefill", 4,
+                 2048))
+
+_DRYRUN_PEAKS = r"""
+import dataclasses, json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeCell
+from repro_torch.launch import dryrun
+out = {}
+for label, arch, layers, kind, b, s in json.loads(sys.argv[1]):
+    cfg = get_config(arch)
+    cfg = cfg.with_(num_layers=layers) if layers else cfg
+    r = dryrun.run_cell(arch, label, False, remat="none", extrapolate=False,
+                        mesh_shape=(1, 1), cfg=cfg,
+                        cell=ShapeCell(label, s, b, kind))
+    out[label] = dataclasses.asdict(r)
+print(json.dumps(out))
+"""
+
+
+def _dryrun_job(name: str, cmd: list) -> tuple:
+    """(return code, seconds, stdout) of one dry-run process; its output
+    is also kept in ``build/dryrun/<name>.log``."""
+    env = dict(os.environ, PYTHONPATH=str(_src_dir()))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=DRYRUN_TIMEOUT)
+    (DRYRUN_DIR / f"{name}.log").write_text(proc.stdout + proc.stderr)
+    return proc.returncode, time.perf_counter() - t0, proc.stdout
+
+
+def _measured_peak(case) -> int:
+    """Bytes the caching allocator held at most over one step of ``case``
+    on the card, less what was allocated before its model was built."""
+    _, arch, layers, kind, b, s = case
+    cfg = get_config(arch)
+    cfg = cfg.with_(num_layers=layers) if layers else cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    family = get_model(cfg)
+    model = family.init(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    if cfg.ssm is not None:
+        ssm.init_published_a_dt(model)
+    if kind == "train":
+        step = train_loop.make_train_step(cfg, remat="none", lr=TRAIN_LR)
+        args = (model, optimizer.adamw_init(dict(model.named_parameters())),
+                train_loop.synth_batch(cfg, b, s, device="cuda"))
+    else:
+        step = serve_loop.make_prefill_step(cfg)
+        args = (model, torch.randint(0, cfg.vocab_size, (b, s),
+                                     dtype=torch.int32, device="cuda"),
+                family.init_cache(cfg, b, s, dtype=torch.bfloat16,
+                                  device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del model, args, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peak
+
+
+def _ssd_bwd_scratch_check() -> int:
+    """(d): K4's backward scratch formula against the library's at every
+    K4 shape of the kernels phase; returns the shapes checked."""
+    _, mh, _ = ssm.ssm_dims(MAMBA)
+    _, zh, _ = ssm.ssm_dims(ZAMBA)
+    m = (mh, MAMBA.ssm.head_dim, MAMBA.ssm.state_dim, MAMBA.ssm.chunk)
+    z = (zh, ZAMBA.ssm.head_dim, ZAMBA.ssm.state_dim, ZAMBA.ssm.chunk)
+    shapes = [(LM_BATCH, LM_PROMPT) + m, (1, LM_PROMPT) + m,
+              (LM_BATCH, LM_PROMPT + LM_DECODE) + m, (LM_BATCH, LM_PROMPT) + z,
+              (YI_TRAIN_BATCH, YI_TRAIN_SEQ) + m,
+              (YI_TRAIN_BATCH, YI_TRAIN_SEQ) + z, (2, 40, 16, 16, 16, 16)]
+    shapes += [(2, 300, 4) + shape for shape in ops.SSD_SHAPES]
+    for shape in shapes:
+        py = ops.ssd_bwd_scratch(*shape)
+        lib = ops._fn("gfdit_ssd_bwd_scratch")(*shape)
+        if py != lib:
+            raise AssertionError(f"dryrun: K4 backward scratch at {shape}: "
+                                 f"formula {py}, library {lib}")
+    return len(shapes)
+
+
+def phase_dryrun(smi: str) -> None:
+    """The multi-pod dry run in CPU processes beside two checks on the
+    card: the dry run's predicted peaks against the allocator's, and K4's
+    backward scratch formula against the library's."""
+    from concurrent.futures import ThreadPoolExecutor
+    t_phase = time.perf_counter()
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    module = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    jobs = {f"cells {arch}": module + [
+        "--all", "--arch", arch, "--no-extract",
+        "--out", str(DRYRUN_DIR / f"cells-{arch}.json")]
+        for arch in ASSIGNED_ARCHS}
+    for arch, shape in DRYRUN_HARNESS:
+        jobs[f"harness {arch}"] = module + [
+            "--arch", arch, "--shape", shape, "--multi-pod", "both",
+            "--out", str(DRYRUN_DIR / f"harness-{arch}.json")]
+    jobs["peaks"] = [sys.executable, "-c", _DRYRUN_PEAKS,
+                     json.dumps(MEMORY_CASES)]
+    first = ("peaks", "cells deepseek-v2-236b", "cells mistral-large-123b",
+             "harness yi-6b")           # the longest first
+    order = sorted(jobs, key=lambda n: (first.index(n) if n in first
+                                        else len(first), n))
+    with ThreadPoolExecutor(DRYRUN_WORKERS) as pool:
+        futures = {name: pool.submit(_dryrun_job, name.replace(" ", "-"),
+                                     jobs[name]) for name in order}
+        # meanwhile, on the card
+        n_shapes = _ssd_bwd_scratch_check()
+        print(f"dryrun: (d) K4's backward scratch formula equals "
+              f"gfdit_ssd_bwd_scratch at {n_shapes} shapes", flush=True)
+        measured = {case[0]: _measured_peak(case) for case in MEMORY_CASES}
+        done = {name: f.result() for name, f in futures.items()}
+    failed = [n for n, (rc, _, _) in done.items() if rc != 0]
+    total = torch.cuda.get_device_properties(0).total_memory
+    rows = [r for arch in ASSIGNED_ARCHS
+            if (DRYRUN_DIR / f"cells-{arch}.json").exists()
+            for r in json.loads((DRYRUN_DIR / f"cells-{arch}.json")
+                                .read_text())]
+    print(f"dryrun: (a) {len(rows)} live cells at 16x16, per-rank peak "
+          f"predicted by the dry run beside the card's total_memory "
+          f"{total / 2**30:.2f} GiB ({smi}):", flush=True)
+    for r in rows:
+        peak = r["per_device_memory_bytes"]
+        print(f"dryrun:   {r['arch']} x {r['shape']} x {r['mesh']}: "
+              f"{'ok' if r['ok'] else 'FAIL ' + r['error'][:200]}, peak "
+              f"{peak / 2**30:.2f} GiB ({peak / total:.2f} of the card), "
+              f"flops {r['flops']:.4g}, trace {r['compile_s']:.1f} s",
+              flush=True)
+    problems = []               # raised after every part has printed
+    if failed:
+        problems.append(f"processes failed: {failed} (logs in {DRYRUN_DIR})")
+    if len(rows) != 34 or not all(r["ok"] for r in rows):
+        problems.append("(a) a live cell failed to trace")
+    for arch, shape in DRYRUN_HARNESS:
+        path = DRYRUN_DIR / f"harness-{arch}.json"
+        got = json.loads(path.read_text()) if path.exists() else []
+        for r in got:
+            print(f"dryrun: (b) {arch} x {shape} x {r['mesh']}: ok "
+                  f"{r['ok']}, flops {r['flops']:.4g}, hlo_bytes "
+                  f"{r['hlo_bytes']:.4g}, collectives "
+                  f"{r['collective_bytes']}, peak "
+                  f"{r['per_device_memory_bytes'] / 2**30:.2f} GiB, output "
+                  f"{r['output_bytes'] / 2**30:.2f} GiB, trace "
+                  f"{r['compile_s']:.1f} s", flush=True)
+        single = [r for r in got if r["mesh"] == "16x16"]
+        if len(got) != 2 or not all(r["ok"] for r in got) or (
+                shape == "train_4k" and not (
+                    single[0]["flops"] > 1e15
+                    and all(r["collective_bytes"] for r in got))) or (
+                shape == "decode_32k" and not all(
+                    r["per_device_memory_bytes"] > 0 for r in got)):
+            problems.append(f"(b) {arch} x {shape}: {got}")
+    predicted = json.loads(done["peaks"][2].strip().splitlines()[-1])
+    worst = 0.0
+    for label, meas in measured.items():
+        r = predicted[label]
+        ratio = r["per_device_memory_bytes"] / meas
+        worst = max(worst, abs(ratio - 1))
+        print(f"dryrun: (c) {label} at 1x1: predicted peak "
+              f"{r['per_device_memory_bytes'] / 2**30:.3f} GiB, measured "
+              f"{meas / 2**30:.3f} GiB, ratio {ratio:.4f} (budget "
+              f"{MEMORY_BUDGET:.0%}); on {smi}", flush=True)
+        if not (r["ok"] and abs(ratio - 1) <= MEMORY_BUDGET):
+            problems.append(f"(c) {label}: predicted "
+                            f"{r['per_device_memory_bytes']}, measured {meas}")
+    walls = {name: round(sec, 1) for name, (_, sec, _) in done.items()}
+    print(f"dryrun: {time.perf_counter() - t_phase:.1f} s; process walls "
+          f"{walls}; worst (c) miss {worst:.2%}", flush=True)
+    if problems:
+        raise AssertionError("dryrun: " + "; ".join(problems))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -3098,6 +3280,7 @@ def main() -> int:
     train, train_steps = phase_train(smi)
     phase_train_cpu()
     phase_gfc(smi)
+    phase_dryrun(smi)
     counts.update({k: train[k] for k in BWD_KERNELS})
     lm_launches = {"zamba2-7b attention": zamba["forward"]["attention"],
                    "zamba2-7b ssd": zamba["prefill"]["ssd"],

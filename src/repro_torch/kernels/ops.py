@@ -31,18 +31,43 @@ up once and kept in :data:`_fns`; the stream is the raw current-stream
 handle (no ``torch.cuda.Stream`` object is built); and all the checks of
 one call run in one pass over its operands (shape, dtype, device index
 and contiguity, each raising ``ValueError`` as before).
+
+The dry run (:mod:`repro_torch.launch.dryrun`).  Two more kinds of
+operand reach the wrappers there, and neither launches anything:
+
+* all on ``meta`` (each rank's shard in a trace that allocates no
+  memory): the shape-only branch runs the card path's shape and dtype
+  checks, returns empty ``meta`` outputs, allocates the card path's
+  scratch on ``meta`` too (K4's forward scratch, its backward's work
+  buffer, K2's backward's row sums), so that a trace's memory counts
+  it, and appends the kernel's operations and bytes
+  (:mod:`repro_torch.kernels.cost`) to :data:`shape_only`.  A CPU or
+  CUDA operand never takes it: a mix with ``meta`` is refused as any
+  other mix is;
+* ``DTensor``: the wrapper runs on each rank's local tensors through
+  ``local_map`` (``redistribute_inputs=True``) with the kernel's
+  placement rule, so that DTensor moves the operands as the kernel
+  needs: K2 and K3 take q, k and v sharded on batch or heads (KV heads
+  for k and v, where they divide), the sequence replicated; K1 rows
+  sharded (batch or sequence), the features replicated; K4 batch or
+  heads sharded, the sequence replicated.  Each backward follows its
+  forward's rule; a gradient summed over a sharded dimension comes back
+  ``Partial``.  Only the first operand (q or x) is looked at.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 import threading
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
+from repro_torch.sharding.ctx import per_rank, placements_of
 
 #: head dims the attention kernels are instantiated for
 HEAD_DIMS = (16, 32, 64, 112, 128, 256)
@@ -65,6 +90,9 @@ launches = {"fused_adaln": 0, "attention": 0, "splice_attention": 0,
             "ssd_bwd": 0}
 #: the library's C entry points by name, bound on first use
 _fns: dict = {}
+#: (wrapper, operations, bytes) of every call the shape-only branch took
+#: since it was last cleared; the dry run reads and clears it
+shape_only: list = []
 
 
 def reset_launches() -> None:
@@ -94,6 +122,83 @@ def _on_card(*tensors) -> bool:
         return False
     raise ValueError("kernel operands must all lie on the CPU or all on "
                      f"CUDA, got {[str(t.device) for t in tensors]}")
+
+
+def _all_meta(name: str, *tensors) -> None:
+    """The shape-only branch's entry check: every operand on ``meta``
+    (a mix is refused, as :func:`_on_card` refuses one)."""
+    if not all(t.is_meta for t in tensors):
+        raise ValueError(f"{name}: kernel operands must all lie on the CPU, "
+                         f"all on CUDA or all on meta, got "
+                         f"{[str(t.device) for t in tensors]}")
+
+
+def _traced(name: str, counts: tuple[int, int]) -> None:
+    shape_only.append((name, *counts))
+
+
+def _per_rank(fn, outs, ins, *args):
+    """``fn(*args)`` on each rank's local tensors of the ``DTensor``
+    operands, redistributed to ``ins`` (one entry an argument, None for
+    an absent operand or a number); each output a ``DTensor`` of its
+    entry of ``outs`` (one entry an output, None for an absent one)."""
+    mesh = next(a for a in args if isinstance(a, DTensor)).device_mesh
+    return per_rank(fn, outs, ins, mesh)(*args)
+
+
+def attention_rule(q, k) -> tuple:
+    """(q's, k's and v's, the log-sum-exp's) placements: on each mesh
+    dim, batch sharded where q's is, heads where q's are and the KV heads
+    divide the same way, else replicated (the sequence is gathered)."""
+    mesh, qt, kt, lt = q.device_mesh, [], [], []
+    for i, pl in enumerate(placements_of(q)):
+        if pl.is_shard(0):
+            dims = (0, 0, 0)
+        elif pl.is_shard(2) and k.shape[2] % mesh.size(i) == 0:
+            dims = (2, 2, 1)
+        else:
+            dims = (None,) * 3
+        for out, d in zip((qt, kt, lt), dims):
+            out.append(Replicate() if d is None else Shard(d))
+    return tuple(qt), tuple(kt), tuple(lt)
+
+
+def _adaln_rule(x) -> tuple:
+    """(x's, the (B, D) rows', the rows' gradients') placements: rows
+    sharded where x's batch (dim 0) or sequence (dim 1) is, the features
+    replicated.  A row gradient is a sum over the sequence: ``Partial``
+    where the sequence is sharded."""
+    xt, rt, gt = [], [], []
+    for pl in placements_of(x):
+        if pl.is_shard(0):
+            got = (Shard(0), Shard(0), Shard(0))
+        elif pl.is_shard(1):
+            got = (Shard(1), Replicate(), Partial())
+        else:
+            got = (Replicate(),) * 3
+        for out, g in zip((xt, rt, gt), got):
+            out.append(g)
+    return tuple(xt), tuple(rt), tuple(gt)
+
+
+def _ssd_rule(x) -> tuple:
+    """(x's and dt's, A's, B's and C's, the final state's, A's
+    gradient's, B's and C's gradients') placements: batch or heads
+    sharded where x's are, the sequence and the head dim replicated.  A
+    gradient summed over a sharded dimension (dA over batch, dB and dC
+    over heads) is ``Partial``."""
+    cols = ([], [], [], [], [], [])
+    for pl in placements_of(x):
+        r = Replicate()
+        if pl.is_shard(0):
+            got = (Shard(0), r, Shard(0), Shard(0), Partial(), Shard(0))
+        elif pl.is_shard(2):
+            got = (Shard(2), Shard(0), r, Shard(1), Shard(0), Partial())
+        else:
+            got = (r,) * 6
+        for out, g in zip(cols, got):
+            out.append(g)
+    return tuple(tuple(c) for c in cols)
 
 
 def _check(name: str, like, *specs) -> int:
@@ -170,6 +275,10 @@ def attention(q, k, v, *, causal: bool = False):
     """Flash attention.  q: (B, Sq, H, d); k/v: (B, Sk, KV, d) with
     H % KV == 0; causal needs Sq == Sk.  Every operand 16-byte aligned.
     Returns (B, Sq, H, d).  Differentiable (see the module's note)."""
+    if isinstance(q, DTensor):
+        qt, kt, _ = attention_rule(q, k)
+        return _per_rank(functools.partial(attention, causal=causal),
+                         (qt,), (qt, kt, kt), q, k, v)
     if _wants_grad(q, k, v):
         return _Attention.apply(q, k, v, causal)
     return _attention_fwd(q, k, v, causal, False)[0]
@@ -178,26 +287,46 @@ def attention(q, k, v, *, causal: bool = False):
 def attention_lse(q, k, v, *, causal: bool = False):
     """K2's forward as the autograd path runs it: (out, lse), lse the
     (B, H, Sq) fp32 log-sum-exp of each row's scaled scores."""
+    if isinstance(q, DTensor):
+        qt, kt, lt = attention_rule(q, k)
+        return _per_rank(functools.partial(attention_lse, causal=causal),
+                         (qt, lt), (qt, kt, kt), q, k, v)
     return _attention_fwd(q, k, v, causal, True)
 
 
+def _attention_shape(name, q, k, v, causal, *more) -> int:
+    """K2's checks: q (B, Sq, H, d), k and v (B, Sk, KV, d) and each of
+    ``more`` (what, tensor) of q's shape; returns the dtype code."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    dtype = _check(name, q, ("q", q, (b, sq, h, d)), ("k", k, (b, sk, kv, d)),
+                   ("v", v, (b, sk, kv, d)),
+                   *((what, t, (b, sq, h, d)) for what, t in more))
+    if d not in HEAD_DIMS or h % kv or (causal and sq != sk):
+        raise ValueError(f"{name}: unsupported head_dim={d}, H={h}, KV={kv}, "
+                         f"causal={causal} with Sq={sq}, Sk={sk}")
+    return dtype
+
+
 def _attention_fwd(q, k, v, causal: bool, want_lse: bool):
-    if not (q.is_cuda or _on_card(q, k, v)):
+    if not (q.is_cuda or q.is_meta or _on_card(q, k, v)):
         out = ref.attention_ref(q, k, v, causal=causal)
         return out, (ref.attention_lse_ref(q, k, causal=causal)
                      if want_lse else None)
     name = "attention"
+    if q.is_meta:
+        _all_meta(name, q, k, v)
+    dtype = _attention_shape(name, q, k, v, causal)
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    dtype = _check(name, q, ("q", q, (b, sq, h, d)), ("k", k, (b, sk, kv, d)),
-                   ("v", v, (b, sk, kv, d)))
-    if d not in HEAD_DIMS or h % kv or (causal and sq != sk):
-        raise ValueError(f"{name}: unsupported head_dim={d}, H={h}, KV={kv}, "
-                         f"causal={causal} with Sq={sq}, Sk={sk}")
-    fn = _fn("gfdit_attention")
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
+    if q.is_meta:
+        _traced(name, cost.attention(b, sq, sk, h, kv, d, causal,
+                                     q.element_size(), want_lse))
+        return out, lse
+    fn = _fn("gfdit_attention")
     pq, pk, pv = q.data_ptr(), k.data_ptr(), v.data_ptr()
     _aligned(name, q=pq, k=pk, v=pv)
     dev = q.get_device()
@@ -216,24 +345,30 @@ def attention_bwd(q, k, v, o, lse, do, *, causal: bool = False):
     products each) and counts one launch; q, k, v and ``do`` must be
     16-byte aligned (the kernels stage them by 16-byte copies).  The CPU
     version is ``ref.attention_bwd_ref``."""
-    if not (q.is_cuda or _on_card(q, k, v, o, lse, do)):
+    if isinstance(q, DTensor):
+        qt, kt, lt = attention_rule(q, k)
+        return _per_rank(functools.partial(attention_bwd, causal=causal),
+                         (qt, kt, kt), (qt, kt, kt, qt, lt, qt),
+                         q, k, v, o, lse, do)
+    if not (q.is_cuda or q.is_meta or _on_card(q, k, v, o, lse, do)):
         return ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
     name = "attention_bwd"
+    if q.is_meta:
+        _all_meta(name, q, k, v, o, lse, do)
+    dtype = _attention_shape(name, q, k, v, causal, ("o", o), ("do", do))
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    dtype = _check(name, q, ("q", q, (b, sq, h, d)), ("k", k, (b, sk, kv, d)),
-                   ("v", v, (b, sk, kv, d)), ("o", o, (b, sq, h, d)),
-                   ("do", do, (b, sq, h, d)))
     _check(name, lse, ("lse", lse, (b, h, sq)))
     if lse.dtype != torch.float32 or lse.get_device() != q.get_device():
         raise ValueError(f"{name}: lse must be float32 on {q.device}, got "
                          f"{lse.dtype} on {lse.device}")
-    if d not in HEAD_DIMS or h % kv or (causal and sq != sk):
-        raise ValueError(f"{name}: unsupported head_dim={d}, H={h}, KV={kv}, "
-                         f"causal={causal} with Sq={sq}, Sk={sk}")
-    fn = _fn("gfdit_attention_bwd")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if q.is_meta:
+        _traced(name, cost.attention_bwd(b, sq, sk, h, kv, d, causal,
+                                         q.element_size()))
+        return dq, dk, dv
+    fn = _fn("gfdit_attention_bwd")
     _aligned(name, q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
              do=do.data_ptr())
     dev = q.get_device()
@@ -269,13 +404,21 @@ def splice_attention(q, k_stale, v_stale, k_fresh, v_fresh, *, offset: int):
     snapshot and [offset, offset+L) from the fresh shard; the spliced
     tensor never exists.  The CPU version materializes it.  No backward:
     raises when autograd would differentiate through it."""
+    if isinstance(q, DTensor):
+        qt, kt, _ = attention_rule(q, k_stale)
+        return _per_rank(functools.partial(splice_attention, offset=offset),
+                         (qt,), (qt, kt, kt, kt, kt), q, k_stale, v_stale,
+                         k_fresh, v_fresh)
     _refuse_grad("splice_attention", "the §11 hit path only serves, and "
                  "no training path reaches it", q, k_stale, v_stale, k_fresh,
                  v_fresh)
-    if not (q.is_cuda or _on_card(q, k_stale, v_stale, k_fresh, v_fresh)):
+    if not (q.is_cuda or q.is_meta or
+            _on_card(q, k_stale, v_stale, k_fresh, v_fresh)):
         return ref.splice_attention_ref(q, k_stale, v_stale, k_fresh,
                                         v_fresh, offset=offset)
     name = "splice_attention"
+    if q.is_meta:
+        _all_meta(name, q, k_stale, v_stale, k_fresh, v_fresh)
     b, sq, h, d = q.shape
     sk, kv = k_stale.shape[1], k_stale.shape[2]
     n = k_fresh.shape[1]
@@ -288,8 +431,12 @@ def splice_attention(q, k_stale, v_stale, k_fresh, v_fresh, *, offset: int):
     if d not in HEAD_DIMS or h % kv or n == 0 or not 0 <= offset <= sk - n:
         raise ValueError(f"{name}: unsupported head_dim={d}, H={h}, KV={kv}, "
                          f"offset={offset}, L={n}, Sk={sk}")
-    fn = _fn("gfdit_splice_attention")
     out = torch.empty_like(q)
+    if q.is_meta:
+        _traced(name, cost.splice_attention(b, sq, sk, h, kv, d,
+                                            q.element_size()))
+        return out
+    fn = _fn("gfdit_splice_attention")
     ptrs = dict(q=q.data_ptr(), k_stale=k_stale.data_ptr(),
                 v_stale=v_stale.data_ptr(), k_fresh=k_fresh.data_ptr(),
                 v_fresh=v_fresh.data_ptr())
@@ -318,16 +465,30 @@ def fused_adaln(x, shift=None, scale=None, gate=None, residual=None, *,
         raise ValueError("fused_adaln: gate and residual go together")
     if not (ln or shift is not None or gate is not None):
         raise ValueError("fused_adaln: identity fusion requested")
+    if isinstance(x, DTensor):
+        xt, rt, _ = _adaln_rule(x)
+        args = (x, shift, scale, gate, residual)
+        return _per_rank(functools.partial(fused_adaln, ln=ln),
+                         (xt,), _like(args, (xt, rt, rt, rt, xt)), *args)
     if _wants_grad(x, shift, scale, gate, residual):
         return _AdaLN.apply(x, shift, scale, gate, residual, ln)
     return _adaln_fwd(x, shift, scale, gate, residual, ln)
 
 
+def _like(args, placements) -> tuple:
+    """``placements`` with None where the argument is absent."""
+    return tuple(None if a is None else pl
+                 for a, pl in zip(args, placements))
+
+
 def _adaln_fwd(x, shift, scale, gate, residual, ln: bool):
-    if not x.is_cuda and not _on_card(
+    if not (x.is_cuda or x.is_meta) and not _on_card(
             *(t for t in (x, shift, scale, gate, residual) if t is not None)):
         return ref.adaln_ref(x, shift, scale, gate, residual, ln=ln)
     name = "fused_adaln"
+    if x.is_meta:
+        _all_meta(name, *(t for t in (x, shift, scale, gate, residual)
+                          if t is not None))
     b, n, d = x.shape
     specs = [("x", x, (b, n, d))]
     if shift is not None:
@@ -337,8 +498,13 @@ def _adaln_fwd(x, shift, scale, gate, residual, ln: bool):
     dtype = _check(name, x, *specs)
     if not 0 < d <= MAX_ADALN_DIM or b * n == 0:
         raise ValueError(f"{name}: unsupported shape {tuple(x.shape)}")
-    fn = _fn("gfdit_adaln")
     out = torch.empty_like(x)
+    if x.is_meta:
+        _traced(name, cost.adaln(b, n, d, ln=ln, mod=shift is not None,
+                                 gated=gate is not None,
+                                 es=x.element_size()))
+        return out
+    fn = _fn("gfdit_adaln")
     dev = x.get_device()
     _launch(name, fn, x.data_ptr(),
             None if shift is None else shift.data_ptr(),
@@ -360,11 +526,21 @@ def fused_adaln_bwd(x, shift=None, scale=None, gate=None, dy=None, *,
     (dshift, dscale, dgate as present) into scratch sized by the kernel's
     own rule (``gfdit_adaln_bwd_scratch``); a second launch sums the
     partials in a fixed order (deterministic, no atomics).  One call
-    counts one launch.  The CPU version is ``ref.adaln_bwd_ref``."""
+    counts one launch.  The CPU version is ``ref.adaln_bwd_ref``.  The
+    shape-only branch allocates no partials: their size is the card's
+    occupancy, a few rows of d floats a block."""
+    if isinstance(x, DTensor):
+        xt, rt, gt = _adaln_rule(x)
+        args = (x, shift, scale, gate, dy)
+        outs = _like((x, shift, scale, gate, gate), (xt, gt, gt, gt, xt))
+        return _per_rank(functools.partial(fused_adaln_bwd, ln=ln),
+                         outs, _like(args, (xt, rt, rt, rt, xt)), *args)
     given = [t for t in (x, shift, scale, gate, dy) if t is not None]
-    if not x.is_cuda and not _on_card(*given):
+    if not (x.is_cuda or x.is_meta or _on_card(*given)):
         return ref.adaln_bwd_ref(x, shift, scale, gate, dy, ln=ln)
     name = "fused_adaln_bwd"
+    if x.is_meta:
+        _all_meta(name, *given)
     b, n, d = x.shape
     specs = [("x", x, (b, n, d)), ("dy", dy, (b, n, d))]
     if shift is not None:
@@ -374,7 +550,6 @@ def fused_adaln_bwd(x, shift=None, scale=None, gate=None, dy=None, *,
     dtype = _check(name, x, *specs)
     if not 0 < d <= MAX_ADALN_DIM or b * n == 0:
         raise ValueError(f"{name}: unsupported shape {tuple(x.shape)}")
-    dev = x.get_device()
     dx = torch.empty_like(x)
     dshift = dscale = dgate = partial = None
     floats = 0
@@ -382,6 +557,13 @@ def fused_adaln_bwd(x, shift=None, scale=None, gate=None, dy=None, *,
         dshift, dscale = torch.empty_like(shift), torch.empty_like(scale)
     if gate is not None:
         dgate = torch.empty_like(gate)
+    dres = None if gate is None else dy
+    if x.is_meta:
+        _traced(name, cost.adaln_bwd(b, n, d, ln=ln, mod=shift is not None,
+                                     gated=gate is not None,
+                                     es=x.element_size()))
+        return dx, dshift, dscale, dgate, dres
+    dev = x.get_device()
     if shift is not None or gate is not None:
         floats = _fn("gfdit_adaln_bwd_scratch")(
             b, n, d, int(shift is not None), int(gate is not None), dev)
@@ -393,7 +575,7 @@ def fused_adaln_bwd(x, shift=None, scale=None, gate=None, dy=None, *,
             ptr(scale), ptr(gate), dy.data_ptr(), dx.data_ptr(), ptr(dshift),
             ptr(dscale), ptr(dgate), ptr(partial), floats, b, n, d, int(ln),
             dtype, dev, _stream(dev))
-    return dx, dshift, dscale, dgate, None if gate is None else dy
+    return dx, dshift, dscale, dgate, dres
 
 
 def adaln_bwd_plan(b: int, n: int, d: int, *, ln: bool = True,
@@ -448,6 +630,10 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
     allocated here (``ref.ssd_chunked_ref`` computes the same stages).
     Differentiable (see the module's note): the backward is
     :func:`ssd_bwd`, which reads the forward's scratch."""
+    if isinstance(x, DTensor):
+        xt, at, bt, st, _, _ = _ssd_rule(x)
+        return _per_rank(functools.partial(ssd, chunk=chunk),
+                         (xt, st), (xt, xt, at, bt, bt), x, dt, A, B, C)
     if _wants_grad(x, dt, A, B, C):
         return _SSD.apply(x, dt, A, B, C, chunk)
     return _ssd_fwd(x, dt, A, B, C, chunk)[:2]
@@ -457,7 +643,7 @@ def ssd_for_grad(x, dt, A, B, C, *, chunk: int = 128):
     """K4's forward as the autograd path runs it: (y, final_state,
     scratch), the scratch the fp32 tensor that :func:`ssd_bwd` reads on
     the card (cum, the chunk states overwritten with S_in, C B^T, C^T),
-    None on the CPU."""
+    None on the CPU.  Local tensors only: a scratch is one rank's."""
     return _ssd_fwd(x, dt, A, B, C, chunk)
 
 
@@ -469,6 +655,22 @@ def _ssd_scratch_sizes(b, l, h, p, n, chunk):
     bnc = b * -(-l // chunk)
     return (bnc * h * chunk, bnc * h * n * p, bnc * chunk * chunk,
             bnc * n * chunk)
+
+
+def ssd_bwd_scratch(b: int, l: int, h: int, p: int, n: int,
+                    chunk: int) -> int:
+    """Floats of K4's backward's own scratch at (b, l, h, p, n, chunk),
+    the rule of ``csrc/ssd_bwd.cu`` (``ssd_bwd_parts``, which the library
+    answers as ``gfdit_ssd_bwd_scratch``): per (batch, chunk, head) the
+    state gradient G (n x p), one partial dot a stage-2 block (n / R2 of
+    them, R2 = min(n, 4 x 256 threads / p) state rows a block), the
+    per-head dB and dC rows (chunk x n each) and one dA partial."""
+    if (p, n, chunk) not in SSD_SHAPES:
+        raise ValueError(f"ssd_bwd: unsupported (p, n, chunk)="
+                         f"{(p, n, chunk)}; the kernel takes {SSD_SHAPES}")
+    bnch = b * -(-l // chunk) * h
+    r2 = min(n, 4 * 256 // p)
+    return bnch * (n * p + n // r2 + 2 * chunk * n + 1)
 
 
 def _parts(t, sizes) -> list:
@@ -496,17 +698,22 @@ def _ssd_shape(name, x, dt, A, B, C, chunk):
 
 
 def _ssd_fwd(x, dt, A, B, C, chunk: int):
-    if not (x.is_cuda or _on_card(x, dt, A, B, C)):
+    if not (x.is_cuda or x.is_meta or _on_card(x, dt, A, B, C)):
         return (*ref.ssd_ref(x, dt, A, B, C, chunk=chunk), None)
     name = "ssd"
+    if x.is_meta:
+        _all_meta(name, x, dt, A, B, C)
     b, l, h, p, n, dtype = _ssd_shape(name, x, dt, A, B, C, chunk)
-    ptrs = dict(x=x.data_ptr(), B=B.data_ptr(), C=C.data_ptr())
-    _aligned(name, **ptrs)
-    fn = _fn("gfdit_ssd")
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     sizes = _ssd_scratch_sizes(b, l, h, p, n, chunk)
     scratch = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    if x.is_meta:
+        _traced(name, cost.ssd(b, l, h, p, n, chunk, x.element_size()))
+        return y, state, scratch
+    ptrs = dict(x=x.data_ptr(), B=B.data_ptr(), C=C.data_ptr())
+    _aligned(name, **ptrs)
+    fn = _fn("gfdit_ssd")
     dev = x.get_device()
     _launch(name, fn, ptrs["x"], dt.data_ptr(), A.data_ptr(), ptrs["B"],
             ptrs["C"], y.data_ptr(), state.data_ptr(),
@@ -522,19 +729,30 @@ def ssd_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 128,
     ``dstate`` ((b, h, p, n) fp32; None: the state is not used, and its
     terms are skipped), each in its operand's shape and dtype.  On the
     card ``scratch`` is the forward's, from :func:`ssd_for_grad` on the
-    same operands; one call runs the four stage kernels of
+    same operands (for ``DTensor`` operands, the rank's own); one call
+    runs the four stage kernels of
     ``csrc/ssd_bwd.cu`` (:data:`SSD_BWD_STAGES`: the per-chunk state
     gradients, their reverse pass across chunks, a chunk kernel per
     (batch, chunk, head) and the sums over heads; fp32 runs the products
     of the first and third in split-TF32 on the tensor cores, bf16 on the
     CUDA cores) and counts one launch; their scratch is allocated here by
-    the kernel's own rule (``gfdit_ssd_bwd_scratch``).  x, B, C and dy
+    the kernel's own rule (``gfdit_ssd_bwd_scratch``;
+    :func:`ssd_bwd_scratch` is its Python twin).  x, B, C and dy
     16-byte aligned.  Deterministic: no atomics.  The CPU version is
     ``ref.ssd_bwd_ref`` (``scratch`` is not read)."""
+    if isinstance(x, DTensor):
+        xt, at, bt, st, gat, gbt = _ssd_rule(x)
+        args = (x, dt, A, B, C, dy, dstate)
+        return _per_rank(
+            functools.partial(ssd_bwd, chunk=chunk, scratch=scratch),
+            (xt, xt, gat, gbt, gbt),
+            _like(args, (xt, xt, at, bt, bt, xt, st)), *args)
     given = [t for t in (x, dt, A, B, C, dy, dstate) if t is not None]
-    if not (x.is_cuda or _on_card(*given)):
+    if not (x.is_cuda or x.is_meta or _on_card(*given)):
         return ref.ssd_bwd_ref(x, dt, A, B, C, dy, dstate, chunk=chunk)
     name = "ssd_bwd"
+    if x.is_meta:
+        _all_meta(name, *given)
     b, l, h, p, n, dtype = _ssd_shape(name, x, dt, A, B, C, chunk)
     _check(name, x, ("dy", dy, (b, l, h, p)))
     if dstate is not None:
@@ -546,12 +764,18 @@ def ssd_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 128,
         raise ValueError(f"{name}: scratch must be the forward's (from "
                          f"ssd_for_grad on these operands): float32 of "
                          f"{sum(sizes)} elements on {x.device}")
+    dx, ddt, dA, dB, dC = (torch.empty_like(t) for t in (x, dt, A, B, C))
+    # the work buffer: the library's size on the card, its formula here
+    floats = ssd_bwd_scratch(b, l, h, p, n, chunk) if x.is_meta else \
+        _fn("gfdit_ssd_bwd_scratch")(b, l, h, p, n, chunk)
+    work = torch.empty(floats, dtype=torch.float32, device=x.device)
+    if x.is_meta:
+        _traced(name, cost.ssd_bwd(b, l, h, p, n, chunk, x.element_size(),
+                                   dstate is not None))
+        return dx, ddt, dA, dB, dC
     _aligned(name, x=x.data_ptr(), B=B.data_ptr(), C=C.data_ptr(),
              dy=dy.data_ptr())
     cum, s_in, cbt, _ = _parts(scratch, sizes)
-    dx, ddt, dA, dB, dC = (torch.empty_like(t) for t in (x, dt, A, B, C))
-    floats = _fn("gfdit_ssd_bwd_scratch")(b, l, h, p, n, chunk)
-    work = torch.empty(floats, dtype=torch.float32, device=x.device)
     dev = x.get_device()
     _launch(name, _fn("gfdit_ssd_bwd"), x.data_ptr(), dt.data_ptr(),
             A.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),

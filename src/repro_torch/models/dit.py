@@ -154,7 +154,7 @@ def init(cfg: ModelConfig, *, generator=None, device=None) -> DiT:
     default), weights from ``generator`` (seed 0 by default)."""
     device = resolve_device(device)
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
+        generator = L.default_generator(device)
     return DiT(cfg, generator=generator, device=device)
 
 

@@ -69,7 +69,7 @@ class EncDec(nn.Module):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
+            generator = L.default_generator(device)
         kw = dict(generator=generator, device=device)
         self.embed = L.Embedding(cfg, **kw)
         self.enc_blocks = nn.ModuleList(

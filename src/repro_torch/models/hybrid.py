@@ -46,7 +46,7 @@ class Hybrid(nn.Module):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
+            generator = L.default_generator(device)
         k, n_groups, tail = _group_plan(cfg)
         kw = dict(generator=generator, device=device)
         self.embed = L.Embedding(cfg, **kw)

@@ -31,10 +31,15 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.sharding.ctx import current_mesh
+from repro_torch.sharding.ctx import (current_mesh, grad_gathered,
+                                     index_read, index_write, lookup,
+                                     merged, per_rank, product, settled,
+                                     split_last, split_ready, take,
+                                     write_rows)
 from repro_torch.sharding.sp import flash_decode
 from repro_torch.sharding.specs import with_axes
 
@@ -48,6 +53,16 @@ def resolve_device(device) -> torch.device:
                            "the model on the CPU (the kernels' plain "
                            "versions)")
     return device
+
+
+def default_generator(device: torch.device):
+    """The seed-0 generator that a family's ``init`` draws its weights
+    from by default, on ``device``; None on ``meta``, which has no
+    generator (its tensors hold no values: the dry run's abstract
+    model)."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(0)
 
 
 def _matmul_policy(ctx, op, *args, **kwargs):
@@ -149,13 +164,15 @@ def apply_rope(x, positions, theta: float = 10000.0):
 
 def project(x, w):
     """(B, S, d) x (d, H, hd) -> contiguous (B, S, H, hd)."""
-    return (x @ w.to(x.dtype).reshape(w.shape[0], -1)).unflatten(-1,
-                                                                 w.shape[1:])
+    w2 = merged(w.to(x.dtype).reshape(w.shape[0], -1), 1, w.shape[1])
+    return split_last(product(x, w2), w.shape[1:])
 
 
 def project_out(a, w):
     """(B, S, H, hd) x (H, hd, d) -> (B, S, d)."""
-    return a.flatten(-2) @ w.to(a.dtype).reshape(-1, w.shape[-1])
+    return product(merged(a.flatten(-2), -1, a.shape[-2]),
+                   merged(w.to(a.dtype).reshape(-1, w.shape[-1]), 0,
+                           w.shape[0]))
 
 
 class Attention(nn.Module):
@@ -185,6 +202,15 @@ def repeat_kv(k, n_rep: int):
         .reshape(b, s, kv * n_rep, hd)
 
 
+def _mask_scores(scores, masked):
+    """``scores`` with -1e30 where ``masked``: in place, but out of place
+    for a ``DTensor``, whose in-place ops keep their placements (a
+    partial sum must be reduced before it is masked)."""
+    if isinstance(scores, DTensor):
+        return scores.masked_fill(masked, -1e30)
+    return scores.masked_fill_(masked, -1e30)
+
+
 def sdpa(q, k, v, *, causal: bool, window: int = 0, q_offset=0,
          kv_len=None, bias=None):
     """Scaled dot-product attention over (B, S, H, hd) tensors, as plain
@@ -196,6 +222,10 @@ def sdpa(q, k, v, *, causal: bool, window: int = 0, q_offset=0,
     ``q_offset``     -> absolute position of q[0] (an int or a 0-d tensor).
     ``kv_len``       -> optional (B,) valid key lengths (decode caches).
     """
+    if isinstance(q, DTensor):
+        return per_rank_attention(
+            functools.partial(sdpa, causal=causal, window=window), q, k, v,
+            q_offset=q_offset, kv_len=kv_len, bias=bias)
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     n_rep = h // k.shape[2]
@@ -206,17 +236,40 @@ def sdpa(q, k, v, *, causal: bool, window: int = 0, q_offset=0,
     kpos = torch.arange(sk, device=q.device)                     # (sk,)
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
-        mask &= kpos[None, :] <= qpos[:, None]
+        mask = torch.logical_and(mask, kpos[None, :] <= qpos[:, None])
     if window:
-        mask &= kpos[None, :] > qpos[:, None] - window
-    scores.masked_fill_(~mask[None, None], -1e30)
+        mask = torch.logical_and(mask, kpos[None, :] > qpos[:, None] - window)
+    scores = _mask_scores(scores, ~mask[None, None])
     if kv_len is not None:
         valid = kpos[None, :] < kv_len[:, None]                  # (B, sk)
-        scores.masked_fill_(~valid[:, None, None], -1e30)
+        scores = _mask_scores(scores, ~valid[:, None, None])
     if bias is not None:
         scores = scores + bias
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(q.dtype))
+
+
+def per_rank_attention(fn, q, k, v, **rest):
+    """``fn(q, k, v, **rest)`` (an attention written in plain tensor ops)
+    on each rank's local tensors of ``DTensor`` operands, placed by K2's
+    rule (``ops.attention_rule``: batch or heads sharded, the sequences
+    whole); each ``rest`` tensor of the batch's length follows q's batch,
+    any other is replicated.  DTensor itself would flatten (batch, heads)
+    for the product and leave a strided shard, which torch 2.11 refuses.
+    """
+    qt, kt, _ = ops.attention_rule(q, k)
+    batch = tuple(p if p.is_shard(0) else Replicate() for p in qt)
+    whole = (Replicate(),) * len(qt)
+    names = list(rest)
+    ins = [qt, kt, kt] + [
+        None if not isinstance(rest[n], DTensor) else
+        batch if rest[n].ndim and rest[n].shape[0] == q.shape[0] else whole
+        for n in names]
+
+    def body(q, k, v, *vals):
+        return fn(q, k, v, **dict(zip(names, vals)))
+    return per_rank(body, (qt,), tuple(ins), q.device_mesh)(
+        q, k, v, *(rest[n] for n in names))
 
 
 def _full_attention(q, k, v, *, causal: bool):
@@ -238,10 +291,10 @@ def _sp_decode_ok(cache) -> bool:
 
 
 def _cache_write(cache, rows, k, v):
-    """Store k/v (B, s, KV, hd) into the cache's rows ``rows`` (a device
-    index tensor, so no host sync), in place."""
-    cache["k"].index_copy_(1, rows, k.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, rows, v.to(cache["v"].dtype))
+    """Store k/v (B, s, KV, hd) into the cache's rows ``rows``, in
+    place."""
+    write_rows(cache["k"], rows, k)
+    write_rows(cache["v"], rows, v)
 
 
 def attention_apply(p: Attention, x, cfg: ModelConfig, *, causal=True,
@@ -380,7 +433,8 @@ def mla_apply(p: MLA, x, cfg: ModelConfig, *, positions=None, cache=None,
 
     # --- queries
     if hasattr(p, "w_dq"):
-        q = project(rmsnorm(p.q_norm, x @ p.w_dq.to(dt), cfg.norm_eps),
+        q = project(rmsnorm(p.q_norm, product(x, p.w_dq.to(dt)),
+                            cfg.norm_eps),
                     p.w_uq)
     else:
         q = project(x, p.w_uq)
@@ -388,7 +442,7 @@ def mla_apply(p: MLA, x, cfg: ModelConfig, *, positions=None, cache=None,
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
     # --- compressed kv latent (+ shared rope key)
-    c_lat, k_rope = (x @ p.w_dkv.to(dt)).split(
+    c_lat, k_rope = product(x, p.w_dkv.to(dt)).split(
         [m.kv_lora_rank, m.qk_rope_head_dim], -1)
     c_lat = rmsnorm(p.kv_norm, c_lat, cfg.norm_eps)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
@@ -397,8 +451,8 @@ def mla_apply(p: MLA, x, cfg: ModelConfig, *, positions=None, cache=None,
         cache_len = cache["len"]
         q_offset = cache_len[0]
         rows = q_offset + torch.arange(s, device=x.device)
-        cache["c"].index_copy_(1, rows, c_lat.to(cache["c"].dtype))
-        cache["kr"].index_copy_(1, rows, k_rope.to(cache["kr"].dtype))
+        write_rows(cache["c"], rows, c_lat)
+        write_rows(cache["kr"], rows, k_rope)
         c_lat, k_rope = cache["c"], cache["kr"]
         kv_len = cache_len + s
         new_cache = {"c": c_lat, "kr": k_rope, "len": kv_len}
@@ -419,17 +473,31 @@ def mla_apply(p: MLA, x, cfg: ModelConfig, *, positions=None, cache=None,
         ctx_lat = torch.einsum("bhst,btr->bshr", probs, c_lat)
         out = torch.einsum("bshr,rhv->bshv", ctx_lat, p.w_uv.to(dt))
     else:
+        # the latent's sequence whole before it is expanded (the attention
+        # needs it whole; a no-op for plain tensors)
+        c_lat, k_rope = settled(c_lat, gather=1), settled(k_rope, gather=1)
         k_nope = torch.einsum("btr,rhk->bthk", c_lat, p.w_uk.to(dt))
         v = torch.einsum("btr,rhv->bthv", c_lat, p.w_uv.to(dt))
         k = torch.cat([k_nope, k_rope.expand(b, sk, h, m.qk_rope_head_dim)],
                       -1)
         q_full = torch.cat([q_nope, q_rope], -1)
-        scores = torch.einsum("bshk,bthk->bhst", q_full.float(),
-                              k.float()) * scale
-        scores = _causal_len_mask(scores, s, sk, kv_len, q_offset)
-        probs = torch.softmax(scores, dim=-1).to(dt)
-        out = torch.einsum("bhst,bthv->bshv", probs, v)
+        attend = functools.partial(_mla_attend, scale=scale)
+        if isinstance(q_full, DTensor):
+            out = per_rank_attention(attend, q_full, k, v, kv_len=kv_len,
+                                     q_offset=q_offset)
+        else:
+            out = attend(q_full, k, v, kv_len=kv_len, q_offset=q_offset)
     return project_out(out, p.wo), new_cache
+
+
+def _mla_attend(q, k, v, *, kv_len, q_offset, scale):
+    """MLA's naive attention: fp32 scores of q (B, S, H, k) against k (B,
+    T, H, k), masked, softmax, probabilities in q's dtype against v."""
+    scores = torch.einsum("bshk,bthk->bhst", q.float(), k.float()) * scale
+    scores = _causal_len_mask(scores, q.shape[1], k.shape[1], kv_len,
+                              q_offset)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhst,bthv->bshv", probs, v)
 
 
 def _causal_len_mask(scores, sq, sk, kv_len, q_offset=0):
@@ -465,9 +533,9 @@ class SwiGLU(nn.Module):
 
 
 def swiglu_apply(p: SwiGLU, x):
-    g = x @ p.w_gate.to(x.dtype)
-    u = x @ p.w_up.to(x.dtype)
-    return (F.silu(g) * u) @ p.w_down.to(x.dtype)
+    g = product(x, p.w_gate.to(x.dtype))
+    u = product(x, p.w_up.to(x.dtype))
+    return product(F.silu(g) * u, p.w_down.to(x.dtype))
 
 
 class MoE(nn.Module):
@@ -489,6 +557,13 @@ class MoE(nn.Module):
                             ("experts", "mlp", "embed"), **kw)
         if m.num_shared_experts:
             self.shared = SwiGLU(d, eff * m.num_shared_experts, **kw)
+
+
+def one_hot(idx, n: int):
+    """``F.one_hot(idx, n)`` (int64) for ids known to lie in [0, n), as a
+    comparison: ``F.one_hot`` checks its ids on the device, which
+    ``DTensor`` cannot do under inference mode."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
 
 
 def top_k(probs, k: int):
@@ -513,7 +588,8 @@ def moe_route(p: MoE, xt, cfg: ModelConfig, exact: bool = False):
     """
     m = cfg.moe
     n_g, tg, _ = xt.shape
-    probs = torch.softmax((xt @ p.router.to(xt.dtype)).float(), dim=-1)
+    probs = torch.softmax(product(xt, p.router.to(xt.dtype)).float(),
+                          dim=-1)
     gate_w, gate_i = top_k(probs, m.top_k)                 # (g, tg, k)
     gate_w = (gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)).to(
         xt.dtype)
@@ -523,7 +599,7 @@ def moe_route(p: MoE, xt, cfg: ModelConfig, exact: bool = False):
         cap = int(max(4, round(tg * m.top_k / m.num_experts
                                * m.capacity_factor)))
     flat_e = gate_i.reshape(n_g, tg * m.top_k)             # (g, tg*k)
-    onehot = F.one_hot(flat_e, m.num_experts)
+    onehot = one_hot(flat_e, m.num_experts)
     slot = (onehot.cumsum(1) - onehot).gather(2, flat_e[..., None])[..., 0]
     keep = slot < cap
     return probs, gate_w, gate_i, torch.where(keep, slot, cap), keep, cap
@@ -537,6 +613,7 @@ def moe_apply(p: MoE, x, cfg: ModelConfig, exact: bool = False):
     token drops.  Returns (out (B, S, d), the load-balance loss).
     """
     m = cfg.moe
+    x = settled(x, gather=1)        # (b, s) flattens into the tokens
     b, s, d = x.shape
     t = b * s
     n_g = max(1, min(m.num_groups, t))
@@ -551,27 +628,32 @@ def moe_apply(p: MoE, x, cfg: ModelConfig, exact: bool = False):
     buf = x.new_zeros((n_g, m.num_experts, cap + 1, d))
     tok_idx = torch.arange(tg, device=x.device).repeat_interleave(m.top_k)
     g_idx = torch.arange(n_g, device=x.device)[:, None]
-    buf[g_idx, flat_e, slot] = xt[:, tok_idx]
-    h = F.silu(buf @ p.w_gate.to(dt)) * (buf @ p.w_up.to(dt))
+    buf = index_write(buf, (g_idx, flat_e, slot), take(xt, 1, tok_idx))
+    h = F.silu(product(buf, p.w_gate.to(dt))) * product(buf,
+                                                         p.w_up.to(dt))
     del buf                  # the largest buffer, before the down product
-    y = h @ p.w_down.to(dt)
+    y = product(h, p.w_down.to(dt))
     del h
 
-    gathered = y[g_idx, flat_e, slot].masked_fill(~keep[..., None], 0.0)
-    out = (gathered * gate_w.reshape(n_g, -1)[..., None]) \
+    gathered = index_read(y, (g_idx, flat_e, slot)).masked_fill(
+        ~keep[..., None], 0.0)
+    out = split_ready(gathered * gate_w.reshape(n_g, -1)[..., None], 1, tg) \
         .reshape(n_g, tg, m.top_k, d).sum(dim=2)
     if hasattr(p, "shared"):
         out = out + swiglu_apply(p.shared, xt)
     aux = _load_balance_loss(probs.reshape(t, -1), gate_i.reshape(t, -1),
                              m.num_experts)
-    return out.reshape(b, s, d), aux
+    # its backward flattens (b, s) again: the gradient's sequence whole
+    return grad_gathered(split_ready(out, 1, b).reshape(b, s, d), 1), aux
 
 
 def _load_balance_loss(probs, gate_i, num_experts: int):
-    """Switch-style load-balancing auxiliary loss."""
+    """Switch-style load-balancing auxiliary loss.  The expert counts are
+    a sum of one-hot rows, the same integers as ``torch.bincount``'s,
+    which ``DTensor`` cannot shard."""
     t = probs.shape[0]
     me = probs.mean(dim=0)                                 # mean router prob
-    ce = torch.bincount(gate_i.reshape(-1), minlength=num_experts).float() \
+    ce = one_hot(gate_i.reshape(-1), num_experts).sum(0).float() \
         / (t * gate_i.shape[-1])
     return num_experts * (me * ce).sum()
 
@@ -594,7 +676,7 @@ class Embedding(nn.Module):
 
 
 def embed(p: Embedding, tokens, cfg: ModelConfig, dtype):
-    out = p.tok.to(dtype)[tokens]
+    out = lookup(p.tok.to(dtype), tokens)
     if cfg.tie_embeddings:
         out = out * (cfg.d_model ** 0.5)
     return out
@@ -605,4 +687,4 @@ def unembed(p: Embedding, x, cfg: ModelConfig):
     accumulated and returned in fp32, as JAX's ``preferred_element_type``
     does (a bf16 x bf16 product is exact in fp32)."""
     w = p.unembed if hasattr(p, "unembed") else p.tok.T
-    return x.float() @ w.to(x.dtype).float()
+    return product(x.float(), w.to(x.dtype).float())

@@ -27,6 +27,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.layers import (pones, pspec, pzeros,
                                        resolve_device)
 from repro_torch.sharding import constrain
+from repro_torch.sharding.ctx import product
 
 _INTRA_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -101,7 +102,7 @@ def ssd_block_apply(p: SSDBlock, x_in, cfg: ModelConfig, cache=None):
     s = cfg.ssm
     d_inner, nheads, _ = ssm_dims(cfg)
     h = L.rmsnorm(p.ln, x_in, cfg.norm_eps)
-    zxbcdt = h @ p.in_proj.to(h.dtype)
+    zxbcdt = product(h, p.in_proj.to(h.dtype))
     z, x, B, C, dt = _split_proj(zxbcdt, cfg)
     conv_in = torch.cat([x, B, C], dim=-1)
     conv_state = cache["conv"] if cache is not None else None
@@ -126,7 +127,7 @@ def ssd_block_apply(p: SSDBlock, x_in, cfg: ModelConfig, cache=None):
     y = y + x.float() * p.D.float()[None, None, :, None]
     y = y.reshape(b, l, d_inner).to(x_in.dtype)
     y = L.rmsnorm(p.norm, y * F.silu(z), cfg.norm_eps)
-    out = y @ p.out_proj.to(x_in.dtype)
+    out = product(y, p.out_proj.to(x_in.dtype))
     new_cache = None
     if cache is not None:
         new_cache = {"conv": new_conv_state.to(cache["conv"].dtype),
@@ -161,7 +162,7 @@ class Mamba2(nn.Module):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
+            generator = L.default_generator(device)
         self.embed = L.Embedding(cfg, generator=generator, device=device)
         self.blocks = nn.ModuleList(
             SSDBlock(cfg, generator=generator, device=device)

@@ -117,7 +117,7 @@ class Transformer(nn.Module):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
+            generator = L.default_generator(device)
         plan = _stack_plan(cfg)
         kw = dict(generator=generator, device=device)
         self.embed = L.Embedding(cfg, **kw)

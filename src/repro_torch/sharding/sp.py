@@ -11,13 +11,18 @@ JAX runs the body under ``shard_map`` on global arrays.  The port runs
 it in each rank's process (``torch.distributed``) on the rank's own
 tensors: its S/n shard of the cache and, over the mesh's batch axes, its
 part of the batch.  The cache update is local and in place: only the
-rank that owns position ``len`` writes the new K/V.
+rank that owns position ``len`` writes the new K/V.  Given ``DTensor``
+operands (the dry run's), it runs on each rank's local tensors through
+``local_map``, with JAX's ``shard_map`` specs as placements.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.sharding.ctx import per_rank
 
 
 def flash_decode(q, k_new, v_new, cache_k, cache_v, cache_len, *,
@@ -31,6 +36,9 @@ def flash_decode(q, k_new, v_new, cache_k, cache_v, cache_len, *,
     Returns (out (B, 1, H, hd), cache_k, cache_v): the output is the same
     on every rank of ``axis``.
     """
+    if isinstance(q, DTensor):
+        return _flash_decode_sharded(q, k_new, v_new, cache_k, cache_v,
+                                     cache_len, mesh=mesh, axis=axis)
     b, _, h, hd = q.shape
     s_loc, kv = cache_k.shape[1], cache_k.shape[2]
     rep = h // kv
@@ -77,3 +85,24 @@ def flash_decode(q, k_new, v_new, cache_k, cache_v, cache_len, *,
     dist.all_reduce(o, dist.ReduceOp.SUM, group=group)
     out = o / l.clamp_min(1e-30).transpose(1, 2)[..., None].to(o_loc.dtype)
     return out, cache_k, cache_v
+
+
+def _flash_decode_sharded(q, k_new, v_new, cache_k, cache_v, cache_len, *,
+                          mesh: DeviceMesh, axis: str):
+    """:func:`flash_decode` on ``DTensor`` operands: JAX's ``shard_map``
+    specs as placements (the batch over the mesh's batch axes where it
+    divides, the cache's sequence over ``axis``, the rest replicated),
+    the body on each rank's local tensors."""
+    names = mesh.mesh_dim_names
+    batch = [n in ("pod", "data") for n in names]
+    n_batch = 1
+    for n, b in zip(names, batch):
+        n_batch *= mesh.size(names.index(n)) if b else 1
+    split = q.shape[0] % n_batch == 0
+    act = tuple(Shard(0) if b and split else Replicate() for b in batch)
+    seq = tuple(Shard(1) if n == axis else pl for n, pl in zip(names, act))
+
+    def body(*local):
+        return flash_decode(*local, mesh=mesh, axis=axis)
+    return per_rank(body, (act, seq, seq), (act, act, act, seq, seq, act),
+                    mesh)(q, k_new, v_new, cache_k, cache_v, cache_len)

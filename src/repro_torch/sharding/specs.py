@@ -13,10 +13,11 @@ silently falls back while heads=96 shards fine).
 :class:`P` is the port's stand-in for JAX's ``PartitionSpec``: a tuple
 with one entry per tensor dim, each ``None``, a mesh axis name or a
 tuple of them.  :func:`placements` turns it into ``DTensor``
-placements.
+placements; :class:`NamedSharding` pairs it with a mesh, as JAX's does.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Union
 
 from torch import nn
@@ -34,6 +35,19 @@ class P(tuple):
 
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a :class:`P`, JAX's ``NamedSharding``: where each
+    dimension of a tensor lies on ``mesh``."""
+    mesh: DeviceMesh
+    spec: P
+
+    @property
+    def placements(self) -> tuple:
+        """The ``DTensor`` placements of :attr:`spec` on :attr:`mesh`."""
+        return tuple(placements(self.spec, self.mesh))
 
 
 # ---------------------------------------------------------------------------

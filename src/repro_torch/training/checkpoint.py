@@ -9,7 +9,8 @@ other's snapshots:
   mid-write never corrupts the restore point, and a ``LATEST`` naming a
   step that is gone falls back to the newest complete one;
 * one ``.npy`` file per leaf, named by its flattened tree path (``a/b``
-  -> ``a__b.npy``), plus ``meta.json`` (step, extra, keys);
+  -> ``a__b.npy``), plus ``meta.json`` (step, extra, keys); a ``DTensor``
+  leaf is saved whole (its global array, as JAX saves a sharded array);
 * async mode: serialization runs on a background thread (the
   device->host copy happens at ``save()``; disk I/O overlaps what
   follows), one save in flight at a time;
@@ -30,6 +31,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 
 def _paths(tree, prefix: tuple = ()):
@@ -47,6 +49,8 @@ def _paths(tree, prefix: tuple = ()):
 
 
 def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, DTensor):           # the global array, as JAX's
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
@@ -148,21 +152,32 @@ class CheckpointManager:
         return step
 
     # ------------------------------------------------------------------
-    def restore(self, template: Any,
-                step: Optional[int] = None) -> tuple[Any, dict]:
+    def restore(self, template: Any, step: Optional[int] = None,
+                shardings: Any = None) -> tuple[Any, dict]:
         """Restore into the structure of `template`: numpy arrays, or
         tensors on the template leaf's device where the leaf is a
-        tensor.  The JAX package's ``shardings=`` (re-shard onto another
-        mesh) has no counterpart until the port has a sharding layer."""
+        tensor.  ``shardings``, a tree of the template's structure with
+        :class:`repro_torch.sharding.NamedSharding` leaves (None for a
+        leaf to leave whole), re-shards onto its mesh (an elastic restart
+        onto another mesh, JAX's ``device_put``): each such leaf comes
+        back a ``DTensor`` of the saved global shape, every rank slicing
+        its own shard from the file it reads (no communication)."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
         d = self.dir / f"step_{step}"
         meta = json.loads((d / "meta.json").read_text())
+        shard_of = dict(_paths(shardings))
 
         def load(key, leaf):
             arr = np.load(d / (key.replace("/", "__") + ".npy"))
+            sharding = shard_of.get(key)
+            if sharding is not None:
+                full = torch.from_numpy(arr).to(sharding.mesh.device_type)
+                return distribute_tensor(full, sharding.mesh,
+                                         sharding.placements,
+                                         src_data_rank=None)
             if isinstance(leaf, torch.Tensor):
                 return torch.from_numpy(arr).to(leaf.device)
             return arr

@@ -7,8 +7,11 @@
   exact stream.  The state is ``(module, opt_state)``: the step updates
   the module's parameters in place, so ``init_state`` must build a fresh
   one each call.  A checkpoint holds ``(parameters by name, opt_state)``.
-  The JAX package's ``shardings=`` (re-shard onto a surviving mesh) has
-  no counterpart until the port has a sharding layer.
+  ``run(..., shardings=)`` restores onto a mesh (an elastic restart onto
+  the surviving ranks): a tree of that structure with
+  :class:`repro_torch.sharding.NamedSharding` leaves, as
+  :meth:`CheckpointManager.restore` takes it; the restored ``DTensor``
+  values are copied into the fresh state's ``DTensor`` parameters.
 * ``StragglerMonitor`` implements cost-model-based timeout + skip-and-
   rescale: a data-parallel gradient bucket that misses the deadline is
   dropped and the remaining gradients are averaged over the workers that
@@ -84,14 +87,15 @@ class ResilientTrainer:
 
     # ------------------------------------------------------------------
     def run(self, pipeline, num_steps: int, *,
-            crash_at: Optional[int] = None) -> dict:
+            crash_at: Optional[int] = None, shardings: Any = None) -> dict:
         """Train for `num_steps`; optionally simulate a crash (raises) to
         exercise the restart path.  Returns final state + metrics."""
         state = self.init_state()
         start = 0
         latest = self.mgr.latest_step()
         if latest is not None:
-            (params, opt), meta = self.mgr.restore(_tree(state), latest)
+            (params, opt), meta = self.mgr.restore(_tree(state), latest,
+                                                   shardings=shardings)
             named = dict(state[0].named_parameters())
             with torch.no_grad():
                 for name, value in params.items():

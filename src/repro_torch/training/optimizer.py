@@ -33,8 +33,11 @@ class AdamWState(NamedTuple):
 
 def adamw_init(params: dict) -> AdamWState:
     """Zero moments for ``params`` (name -> tensor, e.g.
-    ``dict(module.named_parameters())``), fp32 on each one's device."""
-    m = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    ``dict(module.named_parameters())``), fp32, each like its parameter:
+    on its device, and a ``DTensor`` of its placements for a
+    ``DTensor`` parameter."""
+    m = {n: torch.zeros_like(p, dtype=torch.float32,
+                             memory_format=torch.contiguous_format)
          for n, p in params.items()}
     v = {n: torch.zeros_like(t) for n, t in m.items()}
     return AdamWState(torch.zeros((), dtype=torch.int32), m, v)

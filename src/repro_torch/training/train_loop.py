@@ -16,9 +16,14 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import get_model
+from repro_torch.models.layers import resolve_device
+from repro_torch.sharding.ctx import per_rank, placements_of
 from repro_torch.training import optimizer as opt
 from repro_torch.training.compression import compress_decompress
 
@@ -28,9 +33,34 @@ def cross_entropy(logits, labels):
     mask = labels >= 0
     safe = torch.where(mask, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    gold = _gold_logit(logits, safe)
     nll = (logz - gold) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1)
+
+
+def _gold_logit(logits, idx):
+    """``logits[b, s, idx[b, s]]``.  For ``DTensor`` logits each rank
+    gathers from its own vocab shard (zero where the id lies in another)
+    and the result is their partial sum, so that the gather's backward
+    stays the size of a rank's shard (DTensor's own strategy makes the
+    backward's zeros of the global shape)."""
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, idx[..., None])[..., 0]
+    mesh, v = logits.device_mesh, logits.ndim - 1
+    pl = tuple(Replicate() if p.is_partial() else p
+               for p in placements_of(logits))
+    vocab = [p.is_shard(v) for p in pl]
+    start = compute_local_shape_and_global_offset(logits.shape, mesh,
+                                                  pl)[1][v]
+    idx_pl = tuple(Replicate() if hit else p for p, hit in zip(pl, vocab))
+    out_pl = tuple(Partial() if hit else p for p, hit in zip(pl, vocab))
+
+    def body(lg, i):
+        local = i - start
+        hit = (local >= 0) & (local < lg.shape[-1])
+        got = torch.gather(lg, -1, local.clamp(0, lg.shape[-1] - 1)[..., None])
+        return torch.where(hit, got[..., 0], 0.0)
+    return per_rank(body, (out_pl,), (pl, idx_pl), mesh)(logits, idx)
 
 
 def loss_fn(module, batch, cfg: ModelConfig, remat: str,
@@ -117,10 +147,11 @@ def make_train_step(cfg: ModelConfig, *, remat: str = "full",
 
 def synth_batch(cfg: ModelConfig, batch: int, seq: int, generator=None,
                 as_specs: bool = False, device=None):
-    """Synthetic training batch of JAX's shapes and dtypes, drawn from
-    ``generator`` (a ``torch.Generator`` on ``device``; seed 0 by
-    default); with ``as_specs`` meta-device tensors of those shapes."""
-    device = torch.device("meta" if as_specs else (device or "cpu"))
+    """Synthetic training batch of JAX's shapes and dtypes on ``device``
+    (the card by default), drawn from ``generator`` (a
+    ``torch.Generator`` on ``device``; seed 0 by default); with
+    ``as_specs`` meta-device tensors of those shapes."""
+    device = torch.device("meta") if as_specs else resolve_device(device)
     if generator is None and not as_specs:
         generator = torch.Generator(device=device).manual_seed(0)
 

@@ -646,7 +646,7 @@ def test_cuda_reduced_train_step_matches_the_cpu(cuda_device, arch):
     card = family.init(cfg, device=cuda_device)
     card.load_state_dict(cpu.state_dict())
     old = {k: v.clone() for k, v in cpu.state_dict().items()}
-    batch = train_loop.synth_batch(cfg, 2, 24,
+    batch = train_loop.synth_batch(cfg, 2, 24, device="cpu",
                                    generator=torch.Generator().manual_seed(3))
     if cfg.family == "dit":        # 16 x 16 latents: 64 tokens
         batch = {k: v[:, :, :16, :16] if v.ndim == 5 else v

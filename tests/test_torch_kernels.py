@@ -150,9 +150,15 @@ def test_adaln_rejects_malformed_variants(kwargs, msg):
 
 
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():
+    """Operands on more than one device are refused.  All on ``meta`` is
+    the dry run's shape-only branch (``tests/test_torch_dryrun.py``);
+    ``meta`` beside the CPU is refused either way round."""
     q = torch.zeros(1, 4, 2, 32, device="meta")
+    c = torch.zeros(1, 4, 2, 32)
     with pytest.raises(ValueError, match="CPU or all on CUDA"):
-        ops.attention(q, q, q)
+        ops.attention(c, q, q)
+    with pytest.raises(ValueError, match="all on CUDA or all on meta"):
+        ops.attention(q, c, c)
 
 
 @pytest.mark.parametrize("fault,msg", [

@@ -243,7 +243,7 @@ def test_crash_restart_resumes_exact_stream(tmp_path):
                                   "paligemma-3b"])
 def test_synth_batch_has_jax_shapes_and_dtypes(arch):
     cfg, jcfg = get_config(arch).reduced(), jax_get_config(arch).reduced()
-    got = train_loop.synth_batch(cfg, 2, 12)
+    got = train_loop.synth_batch(cfg, 2, 12, device="cpu")
     want = jtl.synth_batch(jcfg, 2, 12, as_specs=True)
     specs = train_loop.synth_batch(cfg, 2, 12, as_specs=True)
     assert got.keys() == want.keys() == specs.keys()
