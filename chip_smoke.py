@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch port serves DiT-image, DiT-video and
 the LM zoo (Mamba2, Zamba2, Whisper, Mixtral, DeepSeek-V2), trains
-DiT-image, yi-6b, mamba2-1.3b and zamba2-7b, and runs GF-DiT's
-group-free collectives and sequence-parallel decoding, on one NVIDIA
-GPU.
+DiT-image, yi-6b, mamba2-1.3b, zamba2-7b, whisper-medium and
+mixtral-8x7b, runs GF-DiT's group-free collectives and
+sequence-parallel decoding, and runs the twins of ``benchmarks/``, on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -126,15 +127,29 @@ Phases, one line each (any failure raises and exits non-zero):
    the shared block), the same, K4 and its backward 12 times a step and
    K2 causal forward and backward twice at d=112; (c) and (d) print the
    dtype K4's backward ran at and their losses must stay within 3e-2 of
-   those of the CUDA-core backward (``CUDA_CORE_SSD_LOSSES``).  Prints
-   the losses, step walls, samples or tokens/s, peak memory and the
-   launches a step.
-16. train-cpu: DIT_IMAGE, yi-6b, mamba2-1.3b and zamba2-7b at
-   ``.reduced()`` (the SSD families livened, 60 tokens: a ragged last
-   chunk), one fp32 step on the same weights and batch on the card and
-   the CPU: loss and every gradient leaf within 1e-4 rel-L2; then the
-   reduced mamba2's ``remat="full"`` gradients equal to ``"none"``'s bit
-   for bit on the card.
+   those of the CUDA-core backward (``CUDA_CORE_SSD_LOSSES``); (f)
+   whisper-medium at full width and depth, 3 bf16 steps of 2 x (2048
+   tokens + 1500 frames), K2 and its backward 72 times a step, counted
+   by site (encoder self, causal decoder self, cross: 24 each); (g)
+   mixtral-8x7b at full width, 2 of 32 layers (MIXTRAL_TRAIN: the most
+   whose dry-run peak at a 1x1 mesh stays under 70 GiB), the same
+   steps, no kernel (SWA and the MoE are plain ops, as in JAX), its
+   peak held within 10% of the dry run's prediction, which a CPU
+   process makes meanwhile for 2 and 3 layers.  Prints the losses, step
+   walls, samples or tokens/s, peak memory and the launches a step.
+16. train-cpu: DIT_IMAGE, yi-6b, mamba2-1.3b, zamba2-7b,
+   whisper-medium and deepseek-v2-236b at ``.reduced()`` (the SSD
+   families livened, 60 tokens: a ragged last chunk), one fp32 step on
+   the same weights and batch on the card and the CPU: loss and every
+   gradient leaf within 1e-4 rel-L2; then on the card the reduced
+   mamba2's ``remat="full"`` and the reduced yi-6b's and DIT_IMAGE's
+   ``remat="selective"`` gradients equal to ``"none"``'s bit for bit;
+   ``training/compression.py`` (int8, topk) on the reduced yi-6b's
+   gradients, card vs CPU: equal payload bytes, leaves within 1e-4
+   rel-L2 (each side's own gradients: the elements flipped across an
+   int8 rounding or the top-k threshold counted and printed, the rest
+   held); ``ResilientTrainer``'s crash at step 5 of 8 and restart,
+   weights and AdamW moments equal to the uninterrupted run's.
 17. gfc: the group-free collective realizations and the sharding layer:
    the group-setup twin's table (``repro_torch.benchmarks.group_setup``:
    cold capture, hit bind, GFC registration p50/p99, warm call, and
@@ -167,6 +182,18 @@ Phases, one line each (any failure raises and exits non-zero):
    backward scratch, ``ops.ssd_bwd_scratch``, equal to the library's
    ``gfdit_ssd_bwd_scratch`` at every K4 shape of the kernels phase.
    Each dry-run process's JSON is left in ``build/dryrun/``.
+19. bench: the twins of ``benchmarks/`` (``repro_torch.benchmarks``),
+   results in ``build/bench/``: (a) ``sim_fidelity``'s Fig. 11 leg at
+   DIT_IMAGE's full width and depth, 12 requests of 4 steps (classes S
+   and M at 512 and 1024 px) on one rank under fcfs-sp1, srtf-sp1 and
+   edf, stage costs measured on the card, then replayed on the simulator
+   with the costs the real run calibrated: every request completes on
+   both, K1 and K2 launch; SLO attainment, its gap in pp and mean
+   latencies printed; (b) ``policies_e2e``'s cache slice with its pixel
+   probe on the card (K1-K3), held to ``check_cache``; (c) ``roofline``
+   over the dryrun phase's 34 cells with the H100's constants; (d) the
+   six host-only twins, each in a process of its own during (b) and (c).
+   Every row prints with the card's name and power limit.
 
 Kernel times (phase 3): ``ms`` is device time, from CUDA-event timing of
 replays of a CUDA graph that holds ``iters`` calls, so it leaves out the
@@ -195,6 +222,12 @@ runs phases 1-2 and the train phase's fp32 DIT_IMAGE gradient through
 DIR's kernels; it prints the values it gates before it gates them, so
 run on the tree whose fp32 backward ran on the CUDA cores it records
 ``CUDA_CORE_DIT_FP32``, and thereafter reproduces it.
+
+    python3 chip_smoke.py --phase bench [--phase train ...]
+
+runs phases 1-2 and the named ones (train, train-cpu, gfc, dryrun,
+bench), in the order given, and prints neither the kernels line nor the
+last line.
 """
 from __future__ import annotations
 
@@ -244,7 +277,8 @@ from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.models import dit, get_model, hybrid, layers, ssm  # noqa: E402
 from repro_torch.serving import serve_loop  # noqa: E402
 from repro_torch.sharding import SERVE_RULES, activation_sharding  # noqa: E402
-from repro_torch.training import optimizer, train_loop  # noqa: E402
+from repro_torch.training import (compression, fault_tolerance,  # noqa: E402
+                                  optimizer, train_loop)
 from repro_torch.training.data import TokenPipeline  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
@@ -320,6 +354,22 @@ YI_TRAIN_BATCH, YI_TRAIN_SEQ, YI_TRAIN_STEPS = 2, 2048, 3
 # the shared block's gradient sums two sites), cut as yi-6b so that fp32
 # weights, gradients and AdamW's moments fit the card's 80 GB
 ZAMBA_TRAIN = ZAMBA.with_(num_layers=12)
+# the train paths the card had not run: whisper-medium at full width and
+# depth (YI_TRAIN_BATCH x YI_TRAIN_SEQ decoder tokens from the
+# TokenPipeline, each sequence with its 1500 frames); mixtral-8x7b at full
+# width with the most layers whose dry-run peak at a 1x1 mesh stays under
+# TRAIN_PEAK_LIMIT (launch/dryrun.py: 52.7 GiB at 2 layers, 74.3 GiB at 3;
+# fp32 AdamW holds 16 bytes a parameter, ~1.41 B a layer in experts)
+TRAIN_PEAK_LIMIT = 70 * 2**30
+MIXTRAL_TRAIN = get_config("mixtral-8x7b").with_(num_layers=2)
+# the dry run's predicted peaks for MIXTRAL_TRAIN and one layer more
+# (the _DRYRUN_PEAKS cases)
+MIXTRAL_PEAK_CASES = tuple(
+    (f"mixtral-8x7b train {n} layers", "mixtral-8x7b", n, "train",
+     YI_TRAIN_BATCH, YI_TRAIN_SEQ)
+    for n in (MIXTRAL_TRAIN.num_layers, MIXTRAL_TRAIN.num_layers + 1))
+COMPRESSIONS = ("int8", "topk")    # training/compression.py's methods
+CRASH_STEPS, CRASH_AT, CRASH_SAVE_EVERY = 8, 5, 2   # ResilientTrainer leg
 # the five DIT_IMAGE losses with K2's backward on the CUDA cores (fp32
 # arithmetic on bf16 operands; PERF.md section 6); with the tensor-core
 # kernels, which round P and dS to bf16, each must stay within the bf16
@@ -2543,17 +2593,36 @@ def _ssd_bwd_dtypes():
         ops.ssd_bwd = real
 
 
+def _train_attention(cfg) -> int:
+    """K2's launches (forward, and backward) a train step of ``cfg``:
+    causal once an attention layer (dense) or shared-block site (hybrid);
+    whisper's encoder self-attention, decoder self-attention and
+    cross-attention once a layer each; none for the moe family, whose
+    SWA and MLA run the plain attention, as the JAX package's do."""
+    if cfg.family == "dense":
+        return cfg.num_layers
+    if cfg.family == "hybrid":
+        return hybrid._group_plan(cfg)[1]
+    if cfg.family == "encdec":
+        return cfg.num_encoder_layers + 2 * cfg.num_layers
+    return 0
+
+
 def _train_lm(smi: str, cfg, full: int) -> dict:
-    """(b)-(d) of the train phase: the decoder LM ``cfg`` (of ``full``
-    layers at full depth) at full width, bf16, AdamW at TRAIN_LR,
-    YI_TRAIN_STEPS steps of YI_TRAIN_BATCH x YI_TRAIN_SEQ tokens from the
-    TokenPipeline; the SSD families with A and dt in Mamba2's published
-    ranges.  Every step must launch K2 causal and its backward once an
-    attention layer (yi-6b) or shared-block site (zamba2-7b), K4 and its
-    backward once a Mamba2 layer, and nothing else; the SSD families'
-    losses must stay within LOSS_BUDGET of CUDA_CORE_SSD_LOSSES, and the
-    dtype K4's backward ran at is printed.  Returns the launches a
-    step."""
+    """(b)-(d), (f) and (g) of the train phase: the LM ``cfg`` (of
+    ``full`` layers at full depth) at full width, bf16, AdamW at
+    TRAIN_LR, YI_TRAIN_STEPS steps of YI_TRAIN_BATCH x YI_TRAIN_SEQ
+    tokens from the TokenPipeline (whisper's with their frames); the SSD
+    families with A and dt in Mamba2's published ranges.  Every step
+    must launch K2 and its backward ``_train_attention(cfg)`` times, K4
+    and its backward once a Mamba2 layer, and nothing else; the SSD
+    families' losses must stay within LOSS_BUDGET of
+    CUDA_CORE_SSD_LOSSES, and the dtype K4's backward ran at is printed.
+    Returns the launches a step, and (under "peak") the allocator's peak
+    over the steps less what was allocated before the model was built."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
     model = get_model(cfg).init(cfg, generator=torch.Generator(
         device="cuda").manual_seed(0))
     if cfg.ssm is not None:
@@ -2563,45 +2632,59 @@ def _train_lm(smi: str, cfg, full: int) -> dict:
     step = train_loop.make_train_step(cfg, remat="none", lr=TRAIN_LR)
     pipe = TokenPipeline(cfg, YI_TRAIN_BATCH, YI_TRAIN_SEQ, seed=0)
     torch.cuda.reset_peak_memory_stats()
-    losses, walls, per_step = [], [], []
+    losses, walls, per_step, sites = [], [], [], []
     with contextlib.ExitStack() as stack:
         bwd_dtypes = stack.enter_context(_ssd_bwd_dtypes())
+        stack.enter_context(_k2_sites())
         stack.callback(pipe.close)
         for _ in range(YI_TRAIN_STEPS):
             batch = {k: torch.from_numpy(v).cuda() for k, v in
                      next(pipe).items()}
             before = dict(ops.launches)
+            K2_SITES.update(dict.fromkeys(K2_SITES, 0))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             model, opt, m = step(model, opt, batch)
             loss, gnorm = float(m["loss"]), float(m["grad_norm"])
             walls.append(time.perf_counter() - t0)
             per_step.append(_step_launches(before))
+            sites.append(dict(K2_SITES))
             losses.append(loss)
             if not (math.isfinite(loss) and math.isfinite(gnorm)):
                 raise AssertionError(f"train: {cfg.name} loss {loss}, "
                                      f"grad_norm {gnorm}")
+    peak_bytes = torch.cuda.max_memory_allocated() - base
     peak = torch.cuda.max_memory_allocated() / 2**30
-    attn = (cfg.num_layers if cfg.family == "dense" else
-            hybrid._group_plan(cfg)[1] if cfg.family == "hybrid" else 0)
+    attn = _train_attention(cfg)
     mamba = 0 if cfg.ssm is None else cfg.num_layers
     want = {"fused_adaln": 0, "attention": attn, "ssd": mamba,
             "attention_bwd": attn, "fused_adaln_bwd": 0, "ssd_bwd": mamba}
-    if any(p != want for p in per_step):
+    # K2 by site: whisper's encoder self (non-causal), decoder self
+    # (causal) and cross-attention once a layer each, the others causal
+    want_sites = ({"self": cfg.num_encoder_layers, "causal": cfg.num_layers,
+                   "cross": cfg.num_layers} if cfg.family == "encdec" else
+                  {"self": 0, "causal": attn, "cross": 0})
+    if any(p != want for p in per_step) or any(
+            k != want_sites for k in sites):
         raise AssertionError(f"train: {cfg.name} launches a step "
-                             f"{per_step}, expected {want}")
+                             f"{per_step}, K2 by site {sites}, expected "
+                             f"{want}, {want_sites}")
     tokens = YI_TRAIN_BATCH * YI_TRAIN_SEQ
     warm = min(walls[1:])
     print(f"train: {cfg.name} full width, {cfg.num_layers} of {full} layers "
           f"({n_params / 1e9:.3f} B parameters"
           + ("" if cfg.ssm is None else ", A/dt in Mamba2's published ranges")
           + f"), bf16, AdamW lr {TRAIN_LR:g}, {YI_TRAIN_BATCH} x "
-          f"{YI_TRAIN_SEQ} tokens from the TokenPipeline, {YI_TRAIN_STEPS} "
+          f"{YI_TRAIN_SEQ} tokens"
+          + (f" + {cfg.frontend_seq} frames" if cfg.family == "encdec"
+             else "")
+          + f" from the TokenPipeline, {YI_TRAIN_STEPS} "
           "steps: loss " + ", ".join(f"{v:.4f}" for v in losses)
           + "; step wall " + ", ".join(f"{w * 1e3:.1f}" for w in walls)
           + f" ms ({tokens / warm:.0f} tokens/s after the first); peak mem "
-          f"{peak:.2f} GiB; launches a step {per_step[-1]}; on {smi}",
-          flush=True)
+          f"{peak:.2f} GiB ({peak_bytes / 2**30:.3f} GiB over what was "
+          f"allocated before the model); launches a step {per_step[-1]}, "
+          f"K2 by site {sites[-1]}; on {smi}", flush=True)
     recorded = CUDA_CORE_SSD_LOSSES.get(cfg.name)
     if recorded is not None:
         drift = max(abs(a - b) / b for a, b in zip(losses, recorded))
@@ -2615,23 +2698,68 @@ def _train_lm(smi: str, cfg, full: int) -> dict:
                                  f"from {recorded}")
     del model, opt
     torch.cuda.empty_cache()
-    return per_step[-1]
+    return {**per_step[-1], "peak": peak_bytes}
+
+
+def _mixtral_peaks(predicted: dict, measured: int, smi: str) -> None:
+    """(g)'s memory check: the dry run's predicted peak at a 1x1 mesh for
+    MIXTRAL_TRAIN under TRAIN_PEAK_LIMIT and for one layer more over it
+    (so the depth is the most that fits), and the prediction within
+    MEMORY_BUDGET of the allocator's peak over the steps."""
+    fit, over = (predicted[case[0]] for case in MIXTRAL_PEAK_CASES)
+    ratio = fit["per_device_memory_bytes"] / measured
+    print(f"train: mixtral-8x7b dry-run peak at 1x1: "
+          f"{fit['per_device_memory_bytes'] / 2**30:.3f} GiB at "
+          f"{MIXTRAL_TRAIN.num_layers} layers, "
+          f"{over['per_device_memory_bytes'] / 2**30:.3f} GiB at "
+          f"{MIXTRAL_TRAIN.num_layers + 1} (limit "
+          f"{TRAIN_PEAK_LIMIT / 2**30:.0f} GiB); measured "
+          f"{measured / 2**30:.3f} GiB at {MIXTRAL_TRAIN.num_layers}, "
+          f"predicted / measured {ratio:.4f} (budget {MEMORY_BUDGET:.0%}); "
+          f"on {smi}", flush=True)
+    if not (fit["ok"] and over["ok"]
+            and fit["per_device_memory_bytes"] < TRAIN_PEAK_LIMIT
+            <= over["per_device_memory_bytes"]
+            and abs(ratio - 1) <= MEMORY_BUDGET):
+        raise AssertionError(f"train: mixtral peaks {predicted}, measured "
+                             f"{measured}")
 
 
 def phase_train(smi: str) -> tuple[dict, dict]:
     """The training path on the card: (a) DIT_IMAGE at full width and
     depth through K1 and K2 forward and backward, (b) yi-6b at full
     width through K2's causal GQA backward, (c) mamba2-1.3b at full width
-    and depth and (d) zamba2-7b at 12 layers through K4's backward.
-    Returns the phase's launch counts, and the launches a step of (b),
-    (c) and (d) by model name."""
+    and depth and (d) zamba2-7b at 12 layers through K4's backward, (f)
+    whisper-medium at full width and depth through K2's backward at its
+    three sites, (g) mixtral-8x7b at full width and MIXTRAL_TRAIN's
+    depth, its dry-run peak against the allocator's.  Returns the
+    phase's launch counts, and the launches a step of (b)-(g) by model
+    name."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     ops.reset_launches()
-    _train_dit(smi)
-    steps = {cfg.name: _train_lm(smi, cfg, full) for cfg, full in (
-        (YI_TRAIN, YI.num_layers), (MAMBA, MAMBA.num_layers),
-        (ZAMBA_TRAIN, ZAMBA.num_layers))}
+    # the dry run's predictions for (g), in a CPU process meanwhile
+    peaks = subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_PEAKS,
+         json.dumps(MIXTRAL_PEAK_CASES)],
+        env=dict(os.environ, PYTHONPATH=str(_src_dir())),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        _train_dit(smi)
+        steps = {cfg.name: _train_lm(smi, cfg, full) for cfg, full in (
+            (YI_TRAIN, YI.num_layers), (MAMBA, MAMBA.num_layers),
+            (ZAMBA_TRAIN, ZAMBA.num_layers),
+            (WHISPER, WHISPER.num_layers),
+            (MIXTRAL_TRAIN, get_config("mixtral-8x7b").num_layers))}
+        out, err = peaks.communicate(timeout=DRYRUN_TIMEOUT)
+    finally:
+        if peaks.poll() is None:
+            peaks.kill()
+            peaks.wait()
+    if peaks.returncode:
+        raise AssertionError(f"train: mixtral dry run failed: {err[-2000:]}")
+    _mixtral_peaks(json.loads(out.strip().splitlines()[-1]),
+                   steps[MIXTRAL_TRAIN.name]["peak"], smi)
     counts = dict(ops.launches)
     if min(counts[k] for k in BWD_KERNELS + ("ssd",)) <= 0 or \
             counts["splice_attention"]:
@@ -2641,22 +2769,190 @@ def phase_train(smi: str) -> tuple[dict, dict]:
     return counts, steps
 
 
+def _remat_selective(cards: dict) -> None:
+    """(e): on the card, ``remat="selective"`` gradients of the reduced
+    yi-6b and DIT_IMAGE equal ``"none"``'s bit for bit, as
+    ``remat="full"``'s are held."""
+    report = {}
+    for name in (YI.name, DIT_IMAGE.name):
+        cfg, model, batch = cards[name]
+        batch = {k: v.cuda() for k, v in batch.items()}
+        got = {}
+        for remat in ("none", "selective"):
+            before = dict(ops.launches)
+            loss, _, grads = train_loop.grads_of(model, batch, cfg, remat,
+                                                 dtype=torch.float32)
+            got[remat] = (float(loss), grads, _step_launches(before))
+        (ln, gn, kn), (ls, gs, ks) = got["none"], got["selective"]
+        differ = [k for k in gn if not torch.equal(gn[k], gs[k])]
+        report[name] = (ls == ln, len(differ), len(gn), ks, kn)
+        if differ or ls != ln or ks["attention_bwd"] != kn["attention_bwd"]:
+            raise AssertionError(f"train-cpu: {name} selective remat: "
+                                 f"{differ[:4]}, loss {ls} vs {ln}, "
+                                 f"launches {ks} vs {kn}")
+    print("train-cpu: reduced yi-6b and DIT_IMAGE on the card, "
+          "remat=\"selective\" vs \"none\" (loss equal, gradient leaves "
+          "differing of all, launches selective / none): " + "; ".join(
+              f"{n} {r[0]}, {r[1]} of {r[2]}, {r[3]} / {r[4]}"
+              for n, r in report.items()) + " (bitwise equality required)",
+          flush=True)
+
+
+def _compression(grads_cpu: dict, grads_card: dict) -> None:
+    """(e): ``training/compression.py`` on reduced yi-6b's fp32 gradients
+    of one step, card against CPU, ``compressed_bytes`` equal and every
+    compressed leaf within GRAD_CPU_BUDGET rel-L2: the card compresses
+    the CPU's gradients (the same inputs), and each side its own.  Own
+    gradients 1e-6 apart may cross an int8 rounding boundary or the
+    top-k threshold, and such a flip moves its element by a whole
+    quantum (3.3e-4 of a leaf's norm on the card, more than the budget):
+    the flips are counted and printed, and the rest of each leaf is held
+    to the budget."""
+    same = {k: g.cuda() for k, g in grads_cpu.items()}
+    problems = []
+    for method in COMPRESSIONS:
+        cpu = compression.compress_decompress(grads_cpu, method)
+        legs = {"same gradients": compression.compress_decompress(
+                    same, method),
+                "own gradients": compression.compress_decompress(
+                    grads_card, method)}
+        for leg, card in legs.items():
+            card = {k: g.cpu() for k, g in card.items()}
+            flipped = {k: _flipped(card[k], cpu[k], method) for k in cpu}
+            leaf = {k: rel_l2(card[k], cpu[k]) for k in cpu}
+            kept = {k: rel_l2(card[k][~flipped[k]], cpu[k][~flipped[k]])
+                    for k in cpu}
+            worst, worst_kept = (max(d, key=d.get) for d in (leaf, kept))
+            flips = {k: int(f.sum()) for k, f in flipped.items() if f.any()}
+            nbytes = (compression.compressed_bytes(card, method),
+                      compression.compressed_bytes(cpu, method))
+            print(f"train-cpu: reduced yi-6b gradients, {method}, {leg}, "
+                  f"card vs CPU: compressed bytes {nbytes[0]} vs "
+                  f"{nbytes[1]}; elements flipped {sum(flips.values())} of "
+                  f"{sum(g.numel() for g in cpu.values())} {flips}; worst "
+                  f"leaf rel-L2 {leaf[worst]:.2e} ({worst}), without the "
+                  f"flipped elements {kept[worst_kept]:.2e} ({worst_kept}; "
+                  f"budget {GRAD_CPU_BUDGET:.0e})", flush=True)
+            if nbytes[0] != nbytes[1] or not (
+                    kept[worst_kept] <= GRAD_CPU_BUDGET and (
+                        leg == "own gradients"
+                        or leaf[worst] <= GRAD_CPU_BUDGET)):
+                problems.append(f"{method} ({leg}): bytes {nbytes}, "
+                                f"{worst} {leaf[worst]:.2e}, flips {flips}")
+    if problems:
+        raise AssertionError("train-cpu: compression: " + "; ".join(problems))
+
+
+def _flipped(card, cpu, method: str):
+    """Elements of two compressed leaves on either side of a boundary: an
+    int8 code (``compression._int8_qdq``'s) that differs, or a top-k
+    membership that differs."""
+    if method == "topk":
+        return (card != 0) != (cpu != 0)
+    if card.ndim == 0:
+        return torch.zeros((), dtype=torch.bool)
+
+    def codes(q):
+        scale = q.abs().max() / 127.0
+        return torch.round(q / scale) if scale > 0 else q
+    return codes(card) != codes(cpu)
+
+
+def _resilient_trainer() -> None:
+    """(e): ``ResilientTrainer`` on the card, the crash/restart scenario
+    of tests/test_torch_training.py with reduced yi-6b: a crash at step
+    CRASH_AT of CRASH_STEPS, a restart from the last snapshot and the data
+    cursor; the final weights and AdamW moments equal the uninterrupted
+    run's bit for bit."""
+    cfg = YI.reduced()
+    step_fn = train_loop.make_train_step(cfg, remat="none", lr=1e-3)
+
+    def init_state():
+        m = get_model(cfg).init(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(0))
+        return m, optimizer.adamw_init(dict(m.named_parameters()))
+
+    class Batches:                    # the TokenPipeline's batches on the card
+        def __init__(self):
+            self.p = TokenPipeline(cfg, 2, 16, seed=9)
+
+        def __next__(self):
+            return {k: torch.from_numpy(v).cuda()
+                    for k, v in next(self.p).items()}
+
+        def seek(self, s):
+            self.p.seek(s)
+
+        def cursor(self):
+            return self.p.cursor()
+
+        def close(self):
+            self.p.close()
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        def trainer(sub, save_every):
+            return fault_tolerance.ResilientTrainer(
+                Path(tmp) / sub, step_fn, init_state,
+                save_every=save_every, async_save=False)
+        runs = []
+        for sub, save_every, crash_at in (("ref", 100, None),
+                                          ("crash", CRASH_SAVE_EVERY,
+                                           CRASH_AT),
+                                          ("crash", CRASH_SAVE_EVERY, None)):
+            batches = Batches()
+            try:
+                runs.append(trainer(sub, save_every).run(
+                    batches, CRASH_STEPS, crash_at=crash_at))
+            except RuntimeError as e:
+                if "simulated crash" not in str(e):
+                    raise
+                runs.append(None)
+            finally:
+                batches.close()
+    ref, crashed, out = runs
+    (m1, o1), (m2, o2) = ref["state"], out["state"]
+    p1, p2 = dict(m1.named_parameters()), dict(m2.named_parameters())
+    differ = [n for n in p1 if not (torch.equal(p1[n], p2[n])
+                                    and torch.equal(o1.m[n], o2.m[n])
+                                    and torch.equal(o1.v[n], o2.v[n]))]
+    on_card = all(p.is_cuda for p in p2.values())
+    loss1, loss2 = (float(r["metrics"]["loss"]) for r in (ref, out))
+    print(f"train-cpu: ResilientTrainer on the card, reduced yi-6b, crash "
+          f"at step {CRASH_AT} of {CRASH_STEPS} (snapshot every "
+          f"{CRASH_SAVE_EVERY}), restart: crashed {crashed is None}; final "
+          f"step {int(o2.step)}; leaves whose weight or moments differ from "
+          f"the uninterrupted run {len(differ)} of {len(p1)} {differ[:4]} "
+          f"(bitwise equality required); last loss {loss2!r} vs {loss1!r}; "
+          f"weights on the card {on_card}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if crashed is not None or differ or not on_card or loss1 != loss2 or \
+            not int(o1.step) == int(o2.step) == CRASH_STEPS:
+        raise AssertionError(f"train-cpu: ResilientTrainer restart: "
+                             f"{differ}, losses {loss1} vs {loss2}")
+
+
 def phase_train_cpu() -> None:
     """(e) of the train phase: DIT_IMAGE.reduced() (livened),
-    yi-6b.reduced(), mamba2-1.3b.reduced() and zamba2-7b.reduced() (A
-    and dt in Mamba2's published ranges, 60 tokens: a ragged last chunk
-    of 16) with the same weights and batch on the card (kernels, backward
+    yi-6b.reduced(), mamba2-1.3b.reduced(), zamba2-7b.reduced() (A and dt
+    in Mamba2's published ranges, 60 tokens: a ragged last chunk of 16),
+    whisper-medium.reduced() and deepseek-v2-236b.reduced() (MLA and its
+    MoE) with the same weights and batch on the card (kernels, backward
     kernels) and on the CPU (plain versions, closed-form backward): one
     fp32 step's loss and gradient per parameter leaf.  (The updated
     weights are not compared: a first AdamW step moves each weight by
     about lr * sign(g), so a weight whose gradient is near zero may move
-    by +-lr on the two sides.)  Then the reduced mamba2's
-    ``remat="full"`` gradients on the card, K4's forward recomputed in
-    the backward, must equal ``"none"``'s bit for bit."""
+    by +-lr on the two sides.)  Then on the card: the reduced mamba2's
+    ``remat="full"`` gradients, K4's forward recomputed in the backward,
+    and the reduced yi-6b's and DIT_IMAGE's ``remat="selective"`` ones
+    must equal ``"none"``'s bit for bit; ``training/compression.py`` on
+    the yi-6b gradients, card against CPU; and ``ResilientTrainer``'s
+    crash/restart."""
     t_phase = time.perf_counter()
-    errs, cards = {}, {}
+    errs, cards, yi_grads = {}, {}, None
     for cfg in (DIT_IMAGE.reduced(), YI.reduced(), MAMBA.reduced(),
-                ZAMBA.reduced()):
+                ZAMBA.reduced(), WHISPER.reduced(),
+                get_config("deepseek-v2-236b").reduced()):
         family = get_model(cfg)
         cpu = family.init(cfg, device="cpu")
         if cfg.family == "dit":
@@ -2674,12 +2970,14 @@ def phase_train_cpu() -> None:
             loss, _, grads = train_loop.grads_of(
                 model, {k: v.to(dev) for k, v in batch.items()}, cfg,
                 "none", dtype=torch.float32)
-            out[name] = (float(loss), {k: g.cpu() for k, g in grads.items()})
+            out[name] = (float(loss), grads)
         (lc, gc), (lg, gg) = out["cpu"], out["card"]
-        leaf = {k: rel_l2(gg[k], gc[k]) for k in gc}
+        leaf = {k: rel_l2(gg[k].cpu(), gc[k]) for k in gc}
         worst = max(leaf, key=leaf.get)
         errs[cfg.name] = (abs(lg - lc) / abs(lc), leaf[worst], worst)
         cards[cfg.name] = (cfg, card, batch)
+        if cfg.name == YI.name:
+            yi_grads = (gc, gg)
     print("train-cpu: .reduced() fp32 step, card vs CPU, loss rel err / "
           "worst gradient leaf rel-L2: "
           + ", ".join(f"{a} {e[0]:.2e} / {e[1]:.2e} ({e[2]})"
@@ -2700,12 +2998,16 @@ def phase_train_cpu() -> None:
     print(f"train-cpu: reduced mamba2 on the card, remat=\"full\" vs "
           f"\"none\": loss {lf!r} vs {ln!r}, gradient leaves differing "
           f"{len(differ)} of {len(gn)} {differ[:4]} (bitwise equality "
-          f"required); launches {kf} vs {kn}; "
-          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+          f"required); launches {kf} vs {kn}", flush=True)
     if differ or lf != ln or kf["ssd"] != 2 * kn["ssd"] or \
             kf["ssd_bwd"] != kn["ssd_bwd"]:
         raise AssertionError(f"train-cpu: mamba2 remat: {differ}, loss {lf}"
                              f" vs {ln}, launches {kf} vs {kn}")
+    del got, gn, gf
+    _remat_selective(cards)
+    _compression(*yi_grads)
+    _resilient_trainer()
+    print(f"train-cpu: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 # the gfc phase: GF-DiT's group-free collective realizations and the
@@ -3234,6 +3536,128 @@ def phase_dryrun(smi: str) -> None:
         raise AssertionError("dryrun: " + "; ".join(problems))
 
 
+# the bench phase: the twins of benchmarks/ (repro_torch.benchmarks)
+BENCH_DIR = Path(__file__).resolve().parent / "build" / "bench"
+# the simulator-only twins and the two that time GFC's host plane: each
+# in a process of its own on the host, beside the cache slice
+BENCH_HOST = ("arrival_scaling", "overhead_fcfs_sp4", "stage_scaling",
+              "telemetry_scale", "gfc_collectives", "migration_overhead")
+BENCH_TIMEOUT = 600                # seconds, a host suite's process
+
+
+def _bench_rows(rows, smi: str) -> None:
+    for name, us, derived in rows:
+        print(f"bench: {name},{us:.1f},{derived} (on {smi})", flush=True)
+
+
+def phase_bench(smi: str) -> dict:
+    """The twins of ``benchmarks/`` on the card and its host, results in
+    ``build/bench/``: (a) ``sim_fidelity``'s real-runtime leg at
+    DIT_IMAGE's full width and depth under fcfs-sp1, srtf-sp1 and edf
+    (12 requests of 4 steps, one rank), replayed on the simulator with
+    the costs the real run calibrated; every request must complete on
+    both, K1 and K2 launch, and the card's stage costs print beside the
+    analytical model's; (b) ``policies_e2e``'s cache slice, its pixel
+    probe on the card through K1-K3, held to the slice's own gate
+    (``check_cache``: cached >= 1.2x throughput, stale-reuse error within
+    5e-2, ``interval1_exact``); (c) ``roofline`` over the dryrun phase's
+    34 cells with the H100's constants, and its kernel-traffic gate; (d)
+    the host suites (BENCH_HOST), each in a process of its own during
+    (b) and (c).  Any suite that raises fails the phase.  Returns the
+    kernels' launches over (a) and (b)."""
+    import importlib
+    mods = {name: importlib.import_module(f"repro_torch.benchmarks.{name}")
+            for name in ("sim_fidelity", "policies_e2e", "roofline")}
+    t_phase = time.perf_counter()
+    BENCH_DIR.mkdir(parents=True, exist_ok=True)
+    problems, walls = [], {}
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    fid = mods["sim_fidelity"].run("cuda", BENCH_DIR, demos=False)
+    walls["sim_fidelity"] = time.perf_counter() - t0
+    a_launches = dict(ops.launches)
+    _bench_rows(mods["sim_fidelity"].rows(fid), smi)
+    for cls, stages in fid["stage_costs"].items():
+        print(f"bench: (a) class {cls} ({stages['tokens']} tokens) stage "
+              f"costs on the card vs the analytical model: " + ", ".join(
+                  f"{k} {stages[k]['measured_s'] * 1e3:.3f} ms vs "
+                  f"{stages[k]['analytic_s'] * 1e3:.3f} ms"
+                  for k in mods["sim_fidelity"].STAGES)
+              + f" (on {smi})", flush=True)
+    for pol in mods["sim_fidelity"].POLICIES:
+        m = fid[pol]
+        print(f"bench: (a) {pol}: SLO attainment real {m['real_slo']:.4f} "
+              f"sim {m['sim_slo']:.4f}, gap {m['gap_pp']:.2f} pp (paper <= "
+              f"4.7); mean latency real {m['real_mean_lat']:.4f} s sim "
+              f"{m['sim_mean_lat']:.4f} s; completed real "
+              f"{m['real_completed']} sim {m['sim_completed']} of "
+              f"{m['requests']}; calibrated stage costs (s) "
+              f"{m['calibrated_s']} (on {smi})", flush=True)
+        if not m["real_completed"] == m["sim_completed"] == m["requests"]:
+            problems.append(f"(a) {pol}: completed {m['real_completed']} "
+                            f"real, {m['sim_completed']} sim of "
+                            f"{m['requests']}")
+    if min(a_launches[k] for k in ("fused_adaln", "attention")) <= 0:
+        problems.append(f"(a) launches {a_launches}")
+    env = dict(os.environ, PYTHONPATH=str(_src_dir()))
+    host = {name: subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.benchmarks.{name}", "--out",
+         str(BENCH_DIR)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name in BENCH_HOST}
+    t_host = time.perf_counter()
+    try:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        pe = mods["policies_e2e"].run(only="cache", device="cuda",
+                                      out_dir=BENCH_DIR)
+        walls["policies_e2e cache"] = time.perf_counter() - t0
+        b_launches = dict(ops.launches)
+        _bench_rows(mods["policies_e2e"].cache_rows(pe), smi)
+        err = pe["cache|error"]
+        print(f"bench: (b) cache probe on the card (DIT_IMAGE.reduced(), "
+              f"interval {err['cache_interval']}): hits {err['hits']}, "
+              f"refreshes {err['refreshes']}, stale-reuse rel-L2 "
+              f"{err['rel_l2_err']:.3e}, interval-1 within the pixel budget "
+              f"{err['interval1_exact']} (rel-L2 "
+              f"{err['interval1_rel_l2']:.3e}, bit-equal "
+              f"{err['interval1_bitexact']}); launches {b_launches}",
+              flush=True)
+        problems += [f"(b) {p}" for p in mods["policies_e2e"].check_cache(pe)]
+        if min(b_launches[k] for k in DIT_KERNELS) <= 0:
+            problems.append(f"(b) launches {b_launches}")
+        t0 = time.perf_counter()
+        rf = mods["roofline"].run(out_dir=BENCH_DIR, cells=DRYRUN_DIR)
+        walls["roofline"] = time.perf_counter() - t0
+        _bench_rows(mods["roofline"].rows(rf), smi)
+        if len(rf["table"]) != 34:
+            problems.append(f"(c) roofline over {len(rf['table'])} cells "
+                            f"of {DRYRUN_DIR}, not the 34 live ones")
+        for name, proc in host.items():
+            out, err = proc.communicate(timeout=BENCH_TIMEOUT)
+            walls[name] = time.perf_counter() - t_host
+            for line in out.splitlines():
+                print(f"bench: {line} (host; on {smi})", flush=True)
+            if proc.returncode:
+                problems.append(f"(d) {name} exited {proc.returncode}: "
+                                f"{err[-2000:]}")
+    finally:
+        for proc in host.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"bench: {time.perf_counter() - t_phase:.1f} s; suite walls (s, "
+          f"the host suites' from their start) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()), flush=True)
+    if problems:
+        raise AssertionError("bench: " + "; ".join(problems))
+    return {k: a_launches[k] + b_launches[k] for k in DIT_KERNELS}
+
+
+#: the phases ``--phase`` runs after the device and build phases
+PHASES = {"train": phase_train, "train-cpu": lambda smi: phase_train_cpu(),
+          "gfc": phase_gfc, "dryrun": phase_dryrun, "bench": phase_bench}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -3244,6 +3668,10 @@ def main() -> int:
     parser.add_argument("--fp32-grad", action="store_true",
                         help="run the device and build phases and the "
                         "train phase's fp32 DIT_IMAGE gradient")
+    parser.add_argument("--phase", action="append", choices=PHASES,
+                        help="run the device and build phases and this one "
+                        "(repeatable, in the order given); prints neither "
+                        "the kernels line nor the last line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -3253,6 +3681,11 @@ def main() -> int:
     phase_build()
     if args.fp32_grad:
         _dit_fp32_grad(*_dit_train_setup(), smi)
+        return 0
+    if args.phase:
+        for name in args.phase:
+            PHASES[name](smi)
+        print(f"chip_smoke: phases {args.phase} passed", flush=True)
         return 0
     results = phase_kernels()
     if args.json:
@@ -3281,6 +3714,7 @@ def main() -> int:
     phase_train_cpu()
     phase_gfc(smi)
     phase_dryrun(smi)
+    bench = phase_bench(smi)
     counts.update({k: train[k] for k in BWD_KERNELS})
     lm_launches = {"zamba2-7b attention": zamba["forward"]["attention"],
                    "zamba2-7b ssd": zamba["prefill"]["ssd"],
@@ -3305,6 +3739,11 @@ def main() -> int:
                         "library_call_ms": r["library_call_ms"]})
         if name in ("fused_adaln", "attention", "ssd"):  # the train phase's
             kernels[-1]["train_launches"] = train[name]
+        if name in ("attention", "attention_bwd"):   # a whisper train step's
+            kernels[-1]["whisper-medium train_launches_a_step"] = \
+                train_steps[WHISPER.name][name]
+        if name in bench:                            # the bench phase's
+            kernels[-1]["bench_launches"] = bench[name]
         if name in BWD_KERNELS:
             kernels[-1]["note"] = ("backward kernel; the TPU kernel it "
                                    "differentiates has none")

@@ -34,7 +34,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -43,6 +42,7 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
+from repro_torch.benchmarks.common import card
 from repro_torch.core.executable_cache import ExecutableCache, resolve_device
 from repro_torch.core.gfc import GroupFreeComm
 from repro_torch.core.telemetry import Telemetry
@@ -127,17 +127,6 @@ def nccl_world1_cold(device: torch.device) -> dict:
             dist.destroy_process_group()
     return {"nccl_world1_new_group_ms": (t1 - t0) * 1e3,
             "nccl_world1_first_collective_ms": (t2 - t1) * 1e3}
-
-
-def card() -> str:
-    """The card's name and power limit (``nvidia-smi``)."""
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=30, check=True).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return "nvidia-smi not available"
 
 
 def run(device=None) -> dict:

@@ -36,7 +36,9 @@ The wall leg additionally validates the cache's numerics:
 card unless ``device="cpu"`` is passed.  The JAX demo's ``use_pallas``
 leg (kernels on vs off, same trace) has no counterpart: the port always
 runs its kernels, so that leg would repeat the wall leg.  Used by
-tests/test_torch_scenario_cache.py and ``chip_smoke.py``.
+tests/test_torch_scenario_cache.py, ``chip_smoke.py`` and
+``repro_torch.benchmarks`` (``sim_fidelity``'s cache leg and
+``policies_e2e``'s cache probe, :func:`pixel_error_report`).
 """
 from __future__ import annotations
 
@@ -210,4 +212,38 @@ def run_demo(cfg=None, device=None) -> dict:
             px is not None and stay["pixels"][rid] is not None
             and np.array_equal(px, stay["pixels"][rid])),
         "sim_migrated_bytes": sim["migrated_bytes"],
+    }
+
+
+def pixel_error_report(cfg=None, interval: int = CACHE_INTERVAL,
+                       device=None) -> dict:
+    """Small wall-clock error probe for benchmarks: serve the scripted
+    scenario cached (``interval``) and uncached, report the relative-L2
+    pixel error and whether ``cache_interval=1`` matches the non-cached
+    runtime (``interval1_exact``: within ``PIXEL_BUDGET``, as
+    :func:`run_demo` holds it; ``interval1_bitexact`` says whether the
+    pixels are also bit-equal)."""
+    if cfg is None:
+        from repro_torch.configs.dit_models import DIT_IMAGE
+        cfg = DIT_IMAGE.reduced()
+    reqs = scenario_requests()
+    exact = run_wall(cfg, reqs, cache_interval=None, device=device)
+    exact1 = run_wall(cfg, reqs, cache_interval=1, device=device)
+    cached = run_wall(cfg, reqs, cache_interval=interval, device=device)
+    rid = reqs[0].id
+    px_exact, px = exact["pixels"][rid], cached["pixels"][rid]
+    interval1 = compare_pixels(exact1["pixels"], exact["pixels"])
+    # a timed-out leg reports a failed measurement, not a traceback
+    ok = px_exact is not None
+    return {
+        "cache_interval": interval,
+        "rel_l2_err": (rel_l2(px, px_exact)
+                       if ok and px is not None else float("inf")),
+        "interval1_exact": interval1["match"],
+        "interval1_rel_l2": interval1["rel_l2"],
+        "interval1_bitexact": interval1["bitexact"],
+        "hits": sum(1 for _, m in cached["modes"]
+                    if m and m.startswith("hit")),
+        "refreshes": sum(1 for _, m in cached["modes"]
+                         if m == "refresh"),
     }

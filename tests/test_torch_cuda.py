@@ -1203,3 +1203,163 @@ def test_cuda_reduced_video_request_is_served(cuda_device):
     assert np.isfinite(px).all()
     assert all(ops.launches[k] > 0 for k in
                ("fused_adaln", "attention", "splice_attention"))
+
+
+@pytest.mark.cuda
+def test_cuda_sim_fidelity_leg_serves_every_request(cuda_device, tmp_path,
+                                                    monkeypatch):
+    """``repro_torch.benchmarks.sim_fidelity``'s real-runtime leg on the
+    card at DIT_IMAGE.reduced() (one policy): all 12 requests complete
+    on the thread runtime and on the simulator replay, through K1 and
+    K2, and the calibrated table is written."""
+    from repro_torch.benchmarks import common, sim_fidelity
+    from repro_torch.configs.dit_models import DIT_IMAGE
+    monkeypatch.setattr(sim_fidelity, "POLICIES", ["edf"])
+    monkeypatch.setattr(common, "serving_config",
+                        lambda device: DIT_IMAGE.reduced())
+    ops.reset_launches()
+    got = sim_fidelity.run(cuda_device, tmp_path, demos=False)
+    m = got["edf"]
+    assert m["real_completed"] == m["sim_completed"] == m["requests"] == 12
+    assert ops.launches["fused_adaln"] > 0 and ops.launches["attention"] > 0
+    assert (tmp_path / "cost_table_h100.json").exists()
+
+
+def _reduced_pair(arch, device):
+    """``arch``'s reduced model on the CPU and a copy on ``device``, with
+    a seeded batch of 2 x 24 tokens."""
+    from repro_torch.models import dit, get_model
+    from repro_torch.training import train_loop
+    cfg = get_config(arch).reduced()
+    cpu = get_model(cfg).init(cfg, device="cpu")
+    if cfg.family == "dit":
+        dit.liven_adaln(cpu, cfg.d_model)
+    card = get_model(cfg).init(cfg, device=device)
+    card.load_state_dict(cpu.state_dict())
+    batch = train_loop.synth_batch(cfg, 2, 24, device="cpu",
+                                   generator=torch.Generator().manual_seed(3))
+    if cfg.family == "dit":        # 16 x 16 latents: 64 tokens
+        batch = {k: v[:, :, :16, :16] if v.ndim == 5 else v
+                 for k, v in batch.items()}
+    return cfg, cpu, card, batch
+
+
+def _grads(model, batch, cfg, remat="none"):
+    from repro_torch.training import train_loop
+    dev = next(model.parameters()).device
+    loss, _, grads = train_loop.grads_of(
+        model, {k: v.to(dev) for k, v in batch.items()}, cfg, remat,
+        dtype=torch.float32)
+    return float(loss), grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-medium", "deepseek-v2-236b"])
+def test_cuda_encdec_and_mla_moe_gradients_match_the_cpu(cuda_device, arch):
+    """whisper (K2's backward at its three sites) and deepseek (MLA and
+    the MoE, plain ops): one fp32 loss and every gradient leaf of the
+    reduced model, card against CPU, within 1e-4 rel-L2."""
+    cfg, cpu, card, batch = _reduced_pair(arch, cuda_device)
+    (lc, gc), (lg, gg) = (_grads(m, batch, cfg) for m in (cpu, card))
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for name in gc:
+        assert _rel_l2(gg[name], gc[name].to(cuda_device)) <= 1e-4, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi-6b", "dit-image"])
+def test_cuda_selective_remat_gradients_are_bitwise(cuda_device, arch):
+    cfg, _, card, batch = _reduced_pair(arch, cuda_device)
+    ln, gn = _grads(card, batch, cfg, "none")
+    ls, gs = _grads(card, batch, cfg, "selective")
+    assert ls == ln
+    assert [k for k in gn if not torch.equal(gn[k], gs[k])] == []
+
+
+def _flipped(got, want, method):
+    """Elements of two compressed leaves on either side of a boundary: an
+    int8 code that differs, or a top-k membership that differs."""
+    if method == "topk":
+        return (got != 0) != (want != 0)
+    if got.ndim == 0:
+        return torch.zeros((), dtype=torch.bool)
+
+    def codes(q):
+        return torch.round(q / (q.abs().max() / 127.0))
+    return codes(got) != codes(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["int8", "topk"])
+def test_cuda_compression_matches_the_cpu(cuda_device, method):
+    """``training/compression.py`` on the card against the CPU on the
+    same reduced yi-6b gradients: equal payload bytes, and every leaf
+    within 1e-4 rel-L2 but for the elements on either side of an int8
+    rounding or the top-k threshold (a flip moves its element by a whole
+    quantum); those must be rare (at most 1e-4 of the elements)."""
+    from repro_torch.training import compression
+    cfg, cpu, _, batch = _reduced_pair("yi-6b", cuda_device)
+    _, grads = _grads(cpu, batch, cfg)
+    want = compression.compress_decompress(grads, method)
+    got = compression.compress_decompress(
+        {k: g.to(cuda_device) for k, g in grads.items()}, method)
+    got = {k: g.cpu() for k, g in got.items()}
+    flips = 0
+    for name in want:
+        flipped = _flipped(got[name], want[name], method)
+        flips += int(flipped.sum())
+        assert _rel_l2(got[name][~flipped], want[name][~flipped]) <= 1e-4, \
+            name
+    assert flips <= 1e-4 * sum(g.numel() for g in want.values()), flips
+    assert compression.compressed_bytes(got, method) == \
+        compression.compressed_bytes(want, method)
+
+
+@pytest.mark.cuda
+def test_cuda_resilient_trainer_restart_is_bitwise(cuda_device, tmp_path):
+    """The crash/restart of tests/test_torch_training.py on the card with
+    reduced yi-6b: a crash at step 5 of 8 and a restart from the step-4
+    snapshot and the data cursor give the uninterrupted run's weights
+    and AdamW moments bit for bit."""
+    from repro_torch.models import get_model
+    from repro_torch.training import (data, fault_tolerance, optimizer,
+                                      train_loop)
+    cfg = get_config("yi-6b").reduced()
+    step_fn = train_loop.make_train_step(cfg, remat="none", lr=1e-3)
+
+    def init_state():
+        m = get_model(cfg).init(cfg, device=cuda_device,
+                                generator=torch.Generator(
+                                    device=cuda_device).manual_seed(0))
+        return m, optimizer.adamw_init(dict(m.named_parameters()))
+
+    class Batches:
+        def __init__(self):
+            self.p = data.TokenPipeline(cfg, batch=2, seq=16, seed=9)
+
+        def __next__(self):
+            return {k: torch.from_numpy(v).to(cuda_device)
+                    for k, v in next(self.p).items()}
+
+        def seek(self, s):
+            self.p.seek(s)
+
+        def cursor(self):
+            return self.p.cursor()
+
+    def trainer(sub, every):
+        return fault_tolerance.ResilientTrainer(
+            tmp_path / sub, step_fn, init_state, save_every=every,
+            async_save=False)
+    ref = trainer("ref", 100).run(Batches(), num_steps=8)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        trainer("crash", 2).run(Batches(), num_steps=8, crash_at=5)
+    out = trainer("crash", 2).run(Batches(), num_steps=8)
+    (m1, o1), (m2, o2) = ref["state"], out["state"]
+    assert int(o1.step) == int(o2.step) == 8
+    p1, p2 = dict(m1.named_parameters()), dict(m2.named_parameters())
+    for name in p1:
+        assert p2[name].is_cuda
+        assert torch.equal(p1[name], p2[name]), name
+        assert torch.equal(o1.m[name], o2.m[name]), name
+        assert torch.equal(o1.v[name], o2.v[name]), name
