@@ -13,9 +13,11 @@ Phases, one line each (any failure raises and exits non-zero):
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: the CUDA kernels of ``src/repro_torch/csrc`` with nvcc, before
    any engine starts (a first-use build inside a rank thread would
-   outlast GFC's collective timeout); K2's backward kernels' registers,
-   spills, shared memory and blocks an SM: fp32 at every head dim, bf16
-   at 64 and 128; K1's backward row kernel's registers and spills at
+   outlast GFC's collective timeout); K2's bf16 forward kernels
+   (the tensor-core tile kernel at every head dim, the split-key
+   combine) and its backward kernels: registers, spills, shared memory
+   and blocks an SM (backward: fp32 at every head dim, bf16 at 64 and
+   128); K1's backward row kernel's registers and spills at
    DIT_IMAGE's width, every variant, with its plan and blocks an SM; the
    registers and spills of K4's forward and backward stage kernels at
    (p, n, chunk) = (64, 128, 128) and (64, 64, 128), and of K4's fp32
@@ -26,8 +28,10 @@ Phases, one line each (any failure raises and exits non-zero):
    causal at head dim 112 and its prefill for K4 at (p, n, chunk) =
    (64, 64, 128); yi-6b's causal GQA forward for K2; whisper-medium's
    encoder self-attention over 1500 frames and its cross-attention of a
-   4-token prefill and of a decode step to them, at batch 4), fp32 and
-   bf16; the backward kernels of K2 (DIT_IMAGE's self and cross
+   4-token prefill and of a decode step to them, at batch 4, with the
+   bf16 kernel's occupancy and the key pieces it splits each case into),
+   fp32 and bf16 (each bound at its dtype's peak: bf16 at the tensor
+   cores' 989 TFLOP/s); the backward kernels of K2 (DIT_IMAGE's self and cross
    attention at batch 2, yi-6b's causal GQA at 2 x 2048, whisper's
    encoder self; on the tensor cores, bf16 products or fp32 ones as
    three TF32 products, each with its three kernels' device time; fp32
@@ -94,7 +98,9 @@ Phases, one line each (any failure raises and exits non-zero):
    the teacher-forced forward (within 5e-4 of the largest logit):
    whisper-medium at full width and depth (24 + 24 layers, 1.01 B
    parameters; 4 x (1500 frames + 4 tokens); K2 48 times a prefill, 24 a
-   decode step, 72 a forward); mixtral-8x7b at full width, 4 of 32 layers
+   decode step, 72 a forward; the bf16 serve's encoder self-attention on
+   K2's tensor-core tile kernel, its cross-attention on split keys, each
+   launch counted by route); mixtral-8x7b at full width, 4 of 32 layers
    (4 x 2048 tokens; SWA and MoE launch no kernel, as in the JAX package;
    fp32 check at 1000 + 32 tokens, where the MoE's capacity is exact);
    deepseek-v2-236b at full width, the dense prefix layer + 2 MoE layers
@@ -206,7 +212,12 @@ The line before the last is the ``kernels`` JSON summary (K1-K3 carry
 their DIT_VIDEO case and its launches under ``video``, K2, K4 and K4's
 backward their LM cases under the model's name; the backward kernels'
 launches are the train phase's, K1's, K2's and K4's forward launches
-there ``train_launches``);
+there ``train_launches``; K2's bf16 forward is listed by route,
+``attention bf16`` (the tensor-core tile kernel, timed at DIT_IMAGE's
+self-attention) and ``attention bf16 split`` (split keys and the combine,
+timed at whisper's decode step), launches from whisper's bf16 serve in
+the zoo phase, counted by ``ops.kernel_launches``; the script fails if
+any listed kernel was never launched);
 the last line
 is ``{"ok": true, "device": {...}}``.  Exits 2 without CUDA.
 
@@ -225,8 +236,8 @@ run on the tree whose fp32 backward ran on the CUDA cores it records
 
     python3 chip_smoke.py --phase bench [--phase train ...]
 
-runs phases 1-2 and the named ones (train, train-cpu, gfc, dryrun,
-bench), in the order given, and prints neither the kernels line nor the
+runs phases 1-2 and the named ones (zoo, train, train-cpu, gfc,
+dryrun, bench), in the order given, and prints neither the kernels line nor the
 last line.
 """
 from __future__ import annotations
@@ -398,6 +409,8 @@ CUDA_CORE_DIT_FP32 = dict(loss=2.3167552947998047, probes={
 FP32_PROBES = 8
 GRAD_CPU_BUDGET = 1e-4             # rel-L2 per gradient leaf, card vs CPU
 BWD_KERNELS = ("attention_bwd", "fused_adaln_bwd", "ssd_bwd")
+#: K2's bf16 forward routes (ops.kernel_launches)
+BF16_ROUTES = ("attention bf16", "attention bf16 split")
 SOURCES = {
     "fused_adaln": ("src/repro_torch/csrc/adaln.cu",
                     "src/repro/kernels/adaln.py:66"),
@@ -405,6 +418,13 @@ SOURCES = {
                   "src/repro/kernels/flash_attention.py:82"),
     "splice_attention": ("src/repro_torch/csrc/attention.cu",
                          "src/repro/kernels/splice.py:78"),
+    # K2's (and K3's) bf16 forward on the tensor cores: the tile kernel
+    # alone, and split keys (the tile kernel over key pieces + the
+    # combine); their launches are ops.kernel_launches' routes
+    "attention bf16": ("src/repro_torch/csrc/attention.cu",
+                       "src/repro/kernels/flash_attention.py:82"),
+    "attention bf16 split": ("src/repro_torch/csrc/attention.cu",
+                             "src/repro/kernels/flash_attention.py:82"),
     "ssd": ("src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd.py:65"),
     # the backward kernels of K2, K1 and K4 (the TPU kernels have none)
     "attention_bwd": ("src/repro_torch/csrc/attention_bwd.cu",
@@ -551,8 +571,6 @@ def phase_device() -> str:
 # dim 64, DIT_VIDEO's 3072 and 128), by their mangled-name prefixes
 WATCHED = {"attn_kernel<float, 64>": "_ZN5gfdit11attn_kernelIfLi64E",
            "attn_kernel<float, 112>": "_ZN5gfdit11attn_kernelIfLi112E",
-           "attn_kernel<bf16, 112>":
-               "_ZN5gfdit11attn_kernelI13__nv_bfloat16Li112E",
            "attn_kernel<float, 128>": "_ZN5gfdit11attn_kernelIfLi128E",
            "adaln_kernel<float, float4 x 12>":
                "_ZN5gfdit12adaln_kernelIfLi4ELi12E",
@@ -598,6 +616,7 @@ def phase_build() -> None:
             spill = max(r["spill_bytes"] for r in hits)
             print(f"  {label}: {len(hits)} instantiation(s), registers "
                   f"{regs}, spill bytes {spill}", flush=True)
+    _report_attention_fwd(report)
     _report_attention_bwd(report)
     _report_adaln_bwd(report)
     for f in sorted(report):      # K4 at (64, 128, 128) and (64, 64, 128)
@@ -613,6 +632,29 @@ def phase_build() -> None:
                     or name in ("ssd_cb", "ssd_bwd_sum")):
                 print(f"  {name}<{'bf16' if 'bfloat' in f else 'fp32'}, "
                       f"(64,) {n}, 128>: {report[f]}", flush=True)
+
+
+def _report_attention_fwd(report: dict) -> None:
+    """K2's bf16 forward kernels: the tensor-core tile kernel at every
+    head dim (registers and spill bytes from ptxas, shared bytes and
+    resident blocks an SM from the occupancy calculator) and the
+    split-key combine kernel (registers, spill bytes)."""
+    if not hasattr(ops, "attention_splits"):    # an older checkout
+        return
+    for d in ops.HEAD_DIMS:
+        blocks, smem = ops.attention_occupancy(d, torch.bfloat16)
+        r = next((r for f, r in report.items() if f.startswith(
+            f"_ZN5gfdit15attn_mma_kernelILi{d}E")), None)
+        regs = "?" if r is None else r["registers"]
+        spill = "?" if r is None else r["spill_bytes"]
+        print(f"  attn_mma_kernel<bf16, {d}>: {regs} registers, spill bytes "
+              f"{spill}, {smem / 1024:.2f} KiB shared, {blocks} blocks an "
+              f"SM", flush=True)
+    r = next((r for f, r in report.items()
+              if f.startswith("_ZN5gfdit19attn_combine_kernel")), None)
+    print(f"  attn_combine_kernel: {'?' if r is None else r['registers']} "
+          f"registers, spill bytes {'?' if r is None else r['spill_bytes']}",
+          flush=True)
 
 
 def _report_attention_bwd(report: dict) -> None:
@@ -818,16 +860,18 @@ def phase_kernels() -> dict:
             ("causal", (1, 1024, heads, hd), (1, 1024, heads, hd), True),
             ("gqa H=24 KV=6", (1, 1000, heads, hd), (1, 1000, 6, hd), False),
         ]
-        if fp32 and hasattr(ops, "attention_occupancy"):
-            blocks, smem = ops.attention_occupancy(hd)
+        if hasattr(ops, "attention_occupancy") and (
+                fp32 or hasattr(ops, "attention_splits")):
+            blocks, smem = ops.attention_occupancy(hd, dtype)
             sms = torch.cuda.get_device_properties(0).multi_processor_count
-            bq = 64 if hd <= 128 else 32
+            bq = 64 if hd <= 128 or not fp32 else 32
             grid = -(-1024 // bq) * heads
-            print(f"  attention occupancy d={hd}: {grid} blocks of 128 "
-                  f"threads at Sq=1024, {blocks} resident per SM "
-                  f"({smem / 1024:.1f} KB shared memory each), {sms} SMs: "
-                  f"{grid / (blocks * sms):.2f} waves", flush=True)
-            results["attention_occupancy"] = {
+            print(f"  attention{'' if fp32 else ' bf16'} occupancy d={hd}: "
+                  f"{grid} blocks of 128 threads at Sq=1024, {blocks} "
+                  f"resident per SM ({smem / 1024:.1f} KB shared memory "
+                  f"each), {sms} SMs: {grid / (blocks * sms):.2f} waves",
+                  flush=True)
+            results["attention_occupancy" + ("" if fp32 else " bf16")] = {
                 "blocks_per_sm": blocks, "smem_bytes": smem, "sms": sms,
                 "grid": grid}
         for label, qs, ks, causal in cases:
@@ -835,16 +879,11 @@ def phase_kernels() -> dict:
             b, sq, h, d = qs
             timing = None
             if label in ("self", "cross Lt=77", "text-encoder d=256"):
-                flops, nbytes = cost.attention(b, sq, ks[1], h, ks[2], d,
-                                               causal, es)
-                timing = {
-                    "bytes": nbytes, "flops": flops, "host_calls": 200,
-                    "library": lambda q=q, k=k, v=v:
-                        F.scaled_dot_product_attention(
-                            q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2))}
-                if fp32 and label == "self":
-                    timing["summary"] = "attention"
+                # bound at the dtype's peak (bf16: the tensor cores')
+                timing = _attn_timing(q, k, v, sq, ks[1], host_calls=200)
+                if label == "self":
+                    timing["summary"] = "attention" + ("" if fp32
+                                                       else " bf16")
             _check(f"attention {label} q{qs} kv{ks}",
                    lambda q=q, k=k, v=v, c=causal: ops.attention(
                        q, k, v, causal=c),
@@ -861,7 +900,9 @@ def phase_kernels() -> dict:
             if offset == 2048:
                 flops, nbytes = cost.splice_attention(1, 1024, 4096, heads,
                                                       heads, hd, es)
-                timing = {"bytes": nbytes, "flops": flops, "host_calls": 200}
+                timing = {"bytes": nbytes, "flops": flops, "host_calls": 200,
+                          "flops_per_s": (FP32_FLOPS_PER_S if fp32
+                                          else BF16_FLOPS_PER_S)}
                 if fp32:
                     timing["summary"] = "splice_attention"
             _check(f"splice offset={offset} q(1,1024) stale(1,4096)",
@@ -1033,8 +1074,9 @@ def _check_lm_attention(dtype, results, gen) -> None:
     """K2 causal at the decoder LMs' full-width forward shapes: zamba2-7b's
     shared block (q = k = v (4, 2080, 32, 112), the hybrid phase's
     forward) and yi-6b's causal GQA (1, 2048, 32 q / 4 kv heads, 128),
-    each with fp32 SDPA (``is_causal=True``) timed beside it; the plain
-    version's (2080 x 2080) score matrices fit the card whole."""
+    each with SDPA (``is_causal=True``) in ``dtype`` timed beside it and
+    bound at the dtype's peak; the plain version's (2080 x 2080) score
+    matrices fit the card whole."""
     zb, zs = LM_BATCH, LM_PROMPT + LM_DECODE
     cases = [("zamba2-7b", (zb, zs, ZAMBA.num_heads, ZAMBA.head_dim),
               ZAMBA.num_kv_heads),
@@ -1047,17 +1089,18 @@ def _check_lm_attention(dtype, results, gen) -> None:
             continue
         q = _rand((b, sq, h, d), dtype, gen)
         k, v = (_rand((b, sq, kv, d), dtype, gen) for _ in range(2))
-        timing = None
-        if dtype == torch.float32:
-            flops, nbytes = cost.attention(b, sq, sq, h, kv, d, True, es)
-            timing = {
-                "bytes": nbytes, "flops": flops,
-                "iters": 10, "replays": 5, "host_calls": 50,
-                "plain_iters": 3, "summary": f"{model} attention",
-                "library": lambda q=q, k=k, v=v, g=h != kv:
-                    F.scaled_dot_product_attention(
-                        q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), is_causal=True, enable_gqa=g)}
+        flops, nbytes = cost.attention(b, sq, sq, h, kv, d, True, es)
+        timing = {
+            "bytes": nbytes, "flops": flops,
+            "flops_per_s": (FP32_FLOPS_PER_S if dtype == torch.float32
+                            else BF16_FLOPS_PER_S),
+            "iters": 10, "replays": 5, "host_calls": 50,
+            "plain_iters": 3, "summary": f"{model} attention"
+            + ("" if dtype == torch.float32 else " bf16"),
+            "library": lambda q=q, k=k, v=v, g=h != kv:
+                F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2),
+                    v.transpose(1, 2), is_causal=True, enable_gqa=g)}
         _check(f"attention {model} causal q{(b, sq, h, d)} kv{(b, sq, kv, d)}",
                lambda q=q, k=k, v=v: ops.attention(q, k, v, causal=True),
                lambda q=q, k=k, v=v: ref.attention_ref(q, k, v, causal=True),
@@ -1087,6 +1130,21 @@ def _check_whisper_attention(dtype, results, gen) -> None:
         WHISPER.frontend_seq
     k, v = (_rand((b, f, h, d), dtype, gen) for _ in range(2))
     tag = "" if dtype == torch.float32 else " bf16"
+    if dtype == torch.bfloat16 and hasattr(ops, "attention_splits"):
+        blocks, smem = ops.attention_occupancy(d, dtype)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        splits = {label: ops.attention_splits(b, sq, f, h, d) for label, sq
+                  in (("self", f), ("cross", ZOO_PROMPT), ("decode", 1))}
+        # the pieces' fp32 scratch, written once and read once: traffic
+        # beside the bound, not counted in the function's bytes
+        scratch = {label: 2 * 4 * n * b * sq * h * (d + 2) if n > 1 else 0
+                   for (label, n), sq in zip(splits.items(),
+                                             (f, ZOO_PROMPT, 1))}
+        print(f"  attention bf16 occupancy d={d}: {blocks} resident blocks "
+              f"per SM ({smem / 1024:.1f} KB shared memory each), {sms} SMs;"
+              f" whisper-medium key pieces (1: the tile kernel alone) "
+              f"{splits}, their scratch traffic in bytes {scratch}",
+              flush=True)
     for label, sq in (("self", f), ("cross", ZOO_PROMPT), ("decode", 1)):
         q = _rand((b, sq, h, d), dtype, gen)
         _check(f"attention whisper-medium {label} q{(b, sq, h, d)} kv"
@@ -1094,6 +1152,9 @@ def _check_whisper_attention(dtype, results, gen) -> None:
                lambda q=q: ref.attention_ref(q, k, v), dtype, results,
                _attn_timing(q, k, v, sq, f, host_calls=200,
                             summary=f"whisper-medium {label}{tag} attention"))
+        if tag and label == "decode":   # the split path's summary
+            results["attention bf16 split"] = \
+                results[f"whisper-medium {label}{tag} attention"]
 
 
 def _attn_timing(q, k, v, sq, sk, lse=False, **extra) -> dict:
@@ -2250,6 +2311,24 @@ def _whisper_k2(run) -> dict:
     return got
 
 
+def _whisper_routes(sites: dict, routes: dict) -> dict:
+    """The routes K2's bf16 kernel took in whisper's bf16 serve: each
+    site's launches on the route its shape calls for (the encoder's 1500
+    queries on the tile kernel; the cross-attention of the 4-token prompt
+    and of each decode step to the 1500 frames on split keys, where its
+    64 tiles cannot fill the SMs).  Fails on any other count."""
+    b, h, d, f = ZOO_BATCH, WHISPER.num_heads, WHISPER.head_dim, \
+        WHISPER.frontend_seq
+    want = dict.fromkeys(BF16_ROUTES, 0)
+    for site, sq in (("self", f), ("cross", ZOO_PROMPT), ("decode", 1)):
+        split = ops.attention_splits(b, sq, f, h, d) > 1
+        want[BF16_ROUTES[split]] += sites[site]
+    if routes != want:
+        raise AssertionError(f"zoo: whisper bf16 routes {routes}, expected "
+                             f"{want}")
+    return routes
+
+
 def phase_zoo(smi: str) -> dict:
     """The rest of the LM zoo on the card, one model live at a time:
     whisper-medium at full width and depth through K2 (encoder self,
@@ -2278,11 +2357,14 @@ def phase_zoo(smi: str) -> dict:
           flush=True)
     with _k2_sites():
         run = _zoo_serve(model, cfg, prompt, (frames,))
+        routes = dict(getattr(ops, "kernel_launches", {}))
         others = {k: run["prefill_launches"][k] + run["decode_launches"][k]
                   for k in ops.launches if k != "attention"}
         if any(others.values()):
             raise AssertionError(f"zoo: whisper launched {others}")
         whisper = {"bf16": _whisper_k2(run)}
+        if routes:
+            whisper["routes"] = _whisper_routes(whisper["bf16"], routes)
         err, exact, fwd = _zoo_exact(model, cfg, prompt, run["fed"],
                                      (frames,))
         whisper["fp32"] = _whisper_k2(exact)
@@ -2349,7 +2431,8 @@ def phase_zoo(smi: str) -> dict:
         del model, steps, prompt, feed
         torch.cuda.empty_cache()
     print(f"zoo: {time.perf_counter() - t_phase:.1f} s; whisper K2 launches "
-          f"{whisper}; on {smi}", flush=True)
+          f"{whisper} (routes: the bf16 serve's, by kernel); on {smi}",
+          flush=True)
     return whisper
 
 
@@ -2760,9 +2843,9 @@ def phase_train(smi: str) -> tuple[dict, dict]:
         raise AssertionError(f"train: mixtral dry run failed: {err[-2000:]}")
     _mixtral_peaks(json.loads(out.strip().splitlines()[-1]),
                    steps[MIXTRAL_TRAIN.name]["peak"], smi)
-    counts = dict(ops.launches)
+    counts = {**ops.launches, **getattr(ops, "kernel_launches", {})}
     if min(counts[k] for k in BWD_KERNELS + ("ssd",)) <= 0 or \
-            counts["splice_attention"]:
+            counts["splice_attention"] or counts.get("attention bf16") == 0:
         raise AssertionError(f"train: launches {counts}")
     print(f"train: {time.perf_counter() - t_phase:.1f} s; launches "
           f"{counts}", flush=True)
@@ -3654,7 +3737,8 @@ def phase_bench(smi: str) -> dict:
 
 
 #: the phases ``--phase`` runs after the device and build phases
-PHASES = {"train": phase_train, "train-cpu": lambda smi: phase_train_cpu(),
+PHASES = {"zoo": phase_zoo, "train": phase_train,
+          "train-cpu": lambda smi: phase_train_cpu(),
           "gfc": phase_gfc, "dryrun": phase_dryrun, "bench": phase_bench}
 
 
@@ -3716,6 +3800,7 @@ def main() -> int:
     phase_dryrun(smi)
     bench = phase_bench(smi)
     counts.update({k: train[k] for k in BWD_KERNELS})
+    counts.update(whisper.get("routes", {}))
     lm_launches = {"zamba2-7b attention": zamba["forward"]["attention"],
                    "zamba2-7b ssd": zamba["prefill"]["ssd"],
                    "zamba2-7b ssd_bwd":
@@ -3737,8 +3822,8 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "library_call_ms": r["library_call_ms"]})
-        if name in ("fused_adaln", "attention", "ssd"):  # the train phase's
-            kernels[-1]["train_launches"] = train[name]
+        if name in ("fused_adaln", "attention", "ssd") + BF16_ROUTES:
+            kernels[-1]["train_launches"] = train[name]   # the train phase's
         if name in ("attention", "attention_bwd"):   # a whisper train step's
             kernels[-1]["whisper-medium train_launches_a_step"] = \
                 train_steps[WHISPER.name][name]
@@ -3780,6 +3865,9 @@ def main() -> int:
                 "case", "dtype", "max_abs_err", "ms", "call_ms", "host_us",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
                 if k in v}
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels the main path never launched: {idle}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

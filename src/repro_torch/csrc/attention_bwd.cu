@@ -133,7 +133,6 @@ __global__ void __launch_bounds__(kBwdThreads)
 // the tensor-core kernels: bf16 m16n8k16, fp32 as split-TF32 m16n8k8
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = 32 * kMmaWarps;
 
@@ -158,36 +157,6 @@ struct BwdMmaShape {
   // Q and dO tiles, K and V tiles
   static constexpr size_t kSmemDq = sizeof(T) * (2 * BQ2 + 2 * BK2) * P;
 };
-
-// ldmatrix with .trans (bf16 only): see ldsm4 in mma.cuh.
-__device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// acc (16 x 8 NT) += A B over K = 16 KS: A in registers as KS fragments,
-// B's 16 KS rows (k) of 8 NT columns (n) at `b`, row-major bf16 in
-// shared memory at pitch P (read by ldmatrix.trans).
-template <int NT, int KS, int P>
-__device__ __forceinline__ void mma_ab(float (&acc)[NT][4],
-                                       const unsigned (&a)[KS][4],
-                                       const bf16* b, int lane) {
-  static_assert(NT % 2 == 0, "mma_ab: n tiles in pairs");
-  const bf16* pb = b + ((lane & 7) + ((lane >> 3) & 1) * 8) * P +
-                   (lane >> 4) * 8;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      unsigned bfr[4];
-      ldsm4_t(bfr, pb + ks * 16 * P + np * 16);
-      mma_bf16(acc[2 * np], a[ks], bfr[0], bfr[1]);
-      mma_bf16(acc[2 * np + 1], a[ks], bfr[2], bfr[3]);
-    }
-}
 
 // acc (16 x 8 NT) += A B over K = 8 KS in split-TF32: A is the KS
 // accumulator tiles c of the previous product (16 x 8 fp32 each), B's
@@ -228,20 +197,6 @@ __device__ __forceinline__ void mma_ab(float (&acc)[NT][4],
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
     }
-  }
-}
-
-// The accumulators of 16 x 8 NT, rounded to bf16, as the A fragments of
-// a product over K = 8 NT: tiles 2m and 2m + 1 make k step m.
-template <int NT>
-__device__ __forceinline__ void to_a_frags(unsigned (&a)[NT / 2][4],
-                                           const float (&c)[NT][4]) {
-#pragma unroll
-  for (int m = 0; m < NT / 2; ++m) {
-    a[m][0] = bf16x2_bits(c[2 * m][0], c[2 * m][1]);
-    a[m][1] = bf16x2_bits(c[2 * m][2], c[2 * m][3]);
-    a[m][2] = bf16x2_bits(c[2 * m + 1][0], c[2 * m + 1][1]);
-    a[m][3] = bf16x2_bits(c[2 * m + 1][2], c[2 * m + 1][3]);
   }
 }
 

@@ -1,7 +1,10 @@
-// Tensor-core fragment helpers shared by csrc/attention_bwd.cu and
-// csrc/ssd_bwd.cu: ldmatrix, mma.sync (m16n8k8 on TF32 operands,
-// m16n8k16 on bf16), the split of an fp32 operand into two TF32 ones,
-// and mma_abt, the product A B^T of two row-major shared tiles.
+// Tensor-core fragment helpers shared by csrc/attention.cu (K2's bf16
+// forward), csrc/attention_bwd.cu and csrc/ssd_bwd.cu: ldmatrix (and
+// its .trans), mma.sync (m16n8k8 on TF32 operands, m16n8k16 on bf16),
+// the split of an fp32 operand into two TF32 ones, mma_abt, the product
+// A B^T of two row-major shared tiles, and mma_ab, the bf16 product A B
+// of register fragments and a row-major shared tile, with to_a_frags,
+// which rounds fp32 accumulators to bf16 A fragments.
 //
 // Fragments of m16n8k8, g = lane / 4, t = lane % 4: a (16 x 8, row)
 // {(g, t), (g+8, t), (g, t+4), (g+8, t+4)}; b (8 x 8, col) {(k t, n g),
@@ -135,6 +138,52 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const T* a,
                    split_tf32(__uint_as_float(bfr[3])));
       }
     }
+  }
+}
+
+using bf16 = __nv_bfloat16;
+
+// ldmatrix with .trans (bf16 only): see ldsm4.
+__device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// acc (16 x 8 NT) += A B over K = 16 KS: A in registers as KS fragments,
+// B's 16 KS rows (k) of 8 NT columns (n) at `b`, row-major bf16 in
+// shared memory at pitch P (read by ldmatrix.trans).
+template <int NT, int KS, int P>
+__device__ __forceinline__ void mma_ab(float (&acc)[NT][4],
+                                       const unsigned (&a)[KS][4],
+                                       const bf16* b, int lane) {
+  static_assert(NT % 2 == 0, "mma_ab: n tiles in pairs");
+  const bf16* pb = b + ((lane & 7) + ((lane >> 3) & 1) * 8) * P +
+                   (lane >> 4) * 8;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      unsigned bfr[4];
+      ldsm4_t(bfr, pb + ks * 16 * P + np * 16);
+      mma_bf16(acc[2 * np], a[ks], bfr[0], bfr[1]);
+      mma_bf16(acc[2 * np + 1], a[ks], bfr[2], bfr[3]);
+    }
+}
+
+// The accumulators of 16 x 8 NT, rounded to bf16, as the A fragments of
+// a product over K = 8 NT: tiles 2m and 2m + 1 make k step m.
+template <int NT>
+__device__ __forceinline__ void to_a_frags(unsigned (&a)[NT / 2][4],
+                                           const float (&c)[NT][4]) {
+#pragma unroll
+  for (int m = 0; m < NT / 2; ++m) {
+    a[m][0] = bf16x2_bits(c[2 * m][0], c[2 * m][1]);
+    a[m][1] = bf16x2_bits(c[2 * m][2], c[2 * m][3]);
+    a[m][2] = bf16x2_bits(c[2 * m + 1][0], c[2 * m + 1][1]);
+    a[m][3] = bf16x2_bits(c[2 * m + 1][2], c[2 * m + 1][3]);
   }
 }
 

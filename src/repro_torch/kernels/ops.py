@@ -40,8 +40,10 @@ operand reach the wrappers there, and neither launches anything:
   checks, returns empty ``meta`` outputs, allocates the card path's
   scratch on ``meta`` too (K4's forward scratch, its backward's work
   buffer, K2's backward's row sums), so that a trace's memory counts
-  it, and appends the kernel's operations and bytes
-  (:mod:`repro_torch.kernels.cost`) to :data:`shape_only`.  A CPU or
+  it (not K2's and K3's bf16 split-key pieces, whose number follows the
+  card's SM count: a few rows of floats a piece), and appends the
+  kernel's operations and bytes (:mod:`repro_torch.kernels.cost`) to
+  :data:`shape_only`.  A CPU or
   CUDA operand never takes it: a mix with ``meta`` is refused as any
   other mix is;
 * ``DTensor``: the wrapper runs on each rank's local tensors through
@@ -88,6 +90,11 @@ _count_lock = threading.Lock()
 launches = {"fused_adaln": 0, "attention": 0, "splice_attention": 0,
             "ssd": 0, "attention_bwd": 0, "fused_adaln_bwd": 0,
             "ssd_bwd": 0}
+#: launches of K2's and K3's bf16 kernels by route, one a wrapper call
+#: (also counted under the wrapper's name in :data:`launches`): the
+#: tensor-core tile kernel alone, or split keys (the tile kernel over its
+#: key pieces, then the combine kernel)
+kernel_launches = {"attention bf16": 0, "attention bf16 split": 0}
 #: the library's C entry points by name, bound on first use
 _fns: dict = {}
 #: (wrapper, operations, bytes) of every call the shape-only branch took
@@ -99,6 +106,8 @@ def reset_launches() -> None:
     with _count_lock:
         for name in launches:
             launches[name] = 0
+        for name in kernel_launches:
+            kernel_launches[name] = 0
 
 
 @dataclasses.dataclass
@@ -232,13 +241,15 @@ def _fn(name: str):
     return fn
 
 
-def _launch(name: str, fn, *args) -> None:
+def _launch(name: str, fn, *args, route: str | None = None) -> None:
     err = fn(*args)
     if err != 0:
         msg = _fn("gfdit_error_string")(err).decode()
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({err})")
     with _count_lock:        # rank threads launch concurrently
         launches[name] += 1
+        if route is not None:
+            kernel_launches[route] += 1
 
 
 def _stream(device: int) -> int:
@@ -274,7 +285,17 @@ def _aligned(name: str, **ptrs) -> None:
 def attention(q, k, v, *, causal: bool = False):
     """Flash attention.  q: (B, Sq, H, d); k/v: (B, Sk, KV, d) with
     H % KV == 0; causal needs Sq == Sk.  Every operand 16-byte aligned.
-    Returns (B, Sq, H, d).  Differentiable (see the module's note)."""
+    Returns (B, Sq, H, d).  Differentiable (see the module's note).
+
+    On the card, fp32 runs the CUDA-core kernel (fp32 arithmetic
+    throughout, within 1e-5 of the plain version) and bf16 the
+    tensor-core kernel (``mma.sync`` on bf16 operands, fp32 softmax and
+    accumulators, P rounded to bf16 before P V as FlashAttention-2
+    rounds it).  A bf16 grid of query tiles too small to fill the card's
+    SMs also splits the keys into pieces whose fp32 partial outputs a
+    second kernel merges by log-sum-exp (:func:`attention_splits` says
+    how many; the wrapper allocates their scratch).  Nothing falls back:
+    a CUDA operand launches a kernel or raises."""
     if isinstance(q, DTensor):
         qt, kt, _ = attention_rule(q, k)
         return _per_rank(functools.partial(attention, causal=causal),
@@ -308,6 +329,45 @@ def _attention_shape(name, q, k, v, causal, *more) -> int:
     return dtype
 
 
+@functools.lru_cache(maxsize=None)
+def _splits(b: int, sq: int, sk: int, h: int, d: int, dtype: int,
+            device: int) -> int:
+    n = ctypes.c_int()
+    err = _fn("gfdit_attention_splits")(b, sq, sk, h, d, dtype, device,
+                                        ctypes.byref(n))
+    if err != 0:
+        msg = _fn("gfdit_error_string")(err).decode()
+        raise RuntimeError(f"attention_splits: {msg} ({err})")
+    return n.value
+
+
+def attention_splits(b: int, sq: int, sk: int, h: int, d: int,
+                     dtype=torch.bfloat16, device: int = 0) -> int:
+    """The key pieces K2's (and K3's) ``dtype`` kernel splits a call of
+    ``b`` x ``sq`` queries over ``h`` heads and ``sk`` key positions into
+    on the card ``device``: 1 (no split) unless bf16 query tiles cannot
+    fill its SMs once.  The rule is the library's
+    (``gfdit_attention_splits``: the SM count, the tile grid and the key
+    tiles)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"attention: unsupported head_dim={d}")
+    return _splits(b, sq, sk, h, d, _DTYPES[dtype], device)
+
+
+def _split_scratch(q, b, sq, sk, h, d, dtype, dev):
+    """(scratch tensor or None, its floats, the route) of a card call:
+    the split pieces' fp32 partial outputs and (row max, row sum) pairs,
+    n b sq h (d + 2) floats, for a split bf16 call."""
+    if dtype != _DTYPES[torch.bfloat16]:
+        return None, 0, None
+    n = _splits(b, sq, sk, h, d, dtype, dev)
+    if n == 1:
+        return None, 0, "attention bf16"
+    floats = n * b * sq * h * (d + 2)
+    return (torch.empty(floats, dtype=torch.float32, device=q.device),
+            floats, "attention bf16 split")
+
+
 def _attention_fwd(q, k, v, causal: bool, want_lse: bool):
     if not (q.is_cuda or q.is_meta or _on_card(q, k, v)):
         out = ref.attention_ref(q, k, v, causal=causal)
@@ -330,9 +390,12 @@ def _attention_fwd(q, k, v, causal: bool, want_lse: bool):
     pq, pk, pv = q.data_ptr(), k.data_ptr(), v.data_ptr()
     _aligned(name, q=pq, k=pk, v=pv)
     dev = q.get_device()
+    scratch, floats, route = _split_scratch(q, b, sq, sk, h, d, dtype, dev)
     _launch(name, fn, pq, pk, pv, out.data_ptr(),
-            None if lse is None else lse.data_ptr(), b, sq, sk, h, kv, d,
-            int(causal), 1.0 / math.sqrt(d), dtype, dev, _stream(dev))
+            None if lse is None else lse.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), floats, b, sq,
+            sk, h, kv, d, int(causal), 1.0 / math.sqrt(d), dtype, dev,
+            _stream(dev), route=route)
     return out, lse
 
 
@@ -402,8 +465,10 @@ def splice_attention(q, k_stale, v_stale, k_fresh, v_fresh, *, offset: int):
 
     The kernel reads keys [0, offset) and [offset+L, Sk) from the stale
     snapshot and [offset, offset+L) from the fresh shard; the spliced
-    tensor never exists.  The CPU version materializes it.  No backward:
-    raises when autograd would differentiate through it."""
+    tensor never exists.  It is K2's kernel of the operands' dtype, split
+    keys included, walked over the three segments.  The CPU version
+    materializes the splice.  No backward: raises when autograd would
+    differentiate through it."""
     if isinstance(q, DTensor):
         qt, kt, _ = attention_rule(q, k_stale)
         return _per_rank(functools.partial(splice_attention, offset=offset),
@@ -442,8 +507,11 @@ def splice_attention(q, k_stale, v_stale, k_fresh, v_fresh, *, offset: int):
                 v_fresh=v_fresh.data_ptr())
     _aligned(name, **ptrs)
     dev = q.get_device()
-    _launch(name, fn, *ptrs.values(), out.data_ptr(), b, sq, sk, n, h, kv,
-            d, offset, 1.0 / math.sqrt(d), dtype, dev, _stream(dev))
+    scratch, floats, route = _split_scratch(q, b, sq, sk, h, d, dtype, dev)
+    _launch(name, fn, *ptrs.values(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), floats, b, sq,
+            sk, n, h, kv, d, offset, 1.0 / math.sqrt(d), dtype, dev,
+            _stream(dev), route=route)
     return out
 
 
@@ -828,7 +896,9 @@ def _occupancy(name: str, fn, *args, extra=()) -> tuple[int, int]:
 def attention_occupancy(head_dim: int, dtype=torch.float32,
                         device: int = 0) -> tuple[int, int]:
     """(resident blocks per SM, dynamic shared-memory bytes) of the
-    attention kernel at ``head_dim``, from the CUDA occupancy calculator."""
+    ``dtype`` attention kernel at ``head_dim`` (fp32: the CUDA-core
+    kernel; bf16: the tensor-core tile kernel), from the CUDA occupancy
+    calculator."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"attention: unsupported head_dim={head_dim}")
     return _occupancy("attention_occupancy",

@@ -67,6 +67,21 @@ ATTN_CASES = [
     (4, 1500, 1500, 16, 16, 64, False),
     (4, 4, 1500, 16, 16, 64, False),
     (4, 1, 1500, 16, 16, 64, False),
+    # a few queries over 1500 ragged keys, as above, at every head dim,
+    # under GQA and causal (Sq = Sk over one head): in bf16 the tile grid
+    # of these cannot fill the card's SMs, so the keys are split
+    # (SPLIT_CASES holds which); with 40 or 128 query heads it can, and
+    # the same shapes take the tile kernel alone
+    (1, 1, 1500, 8, 2, 64, False),
+    (1, 4, 1500, 8, 2, 128, False),
+    (2, 1, 1500, 4, 4, 112, False),
+    (1, 4, 1500, 2, 1, 256, False),
+    (1, 1, 1500, 4, 4, 16, False),
+    (1, 4, 1500, 4, 2, 32, False),
+    (1, 1500, 1500, 1, 1, 64, True),
+    (1, 520, 520, 2, 2, 112, True),
+    (4, 4, 1500, 40, 8, 64, False),
+    (2, 1, 1500, 128, 16, 64, False),
 ]
 ADALN_VARIANTS = {
     "mod_norm": ("shift", "scale"),
@@ -198,6 +213,89 @@ def test_cuda_adaln_kernel(cuda_device, variant, dtype, d, aligned):
     got = ops.fused_adaln(t["x"], ln=ln, **kw)
     assert ops.launches["fused_adaln"] == before + 1
     _close(got, ref.adaln_ref(t["x"], ln=ln, **kw), dtype)
+
+
+def _expect_split(b, sq, sk, h, d) -> bool:
+    """Whether K2's bf16 kernel should split the keys: its grid of
+    64-query tiles cannot fill the card's SMs once and the keys hold at
+    least two pieces of two tiles (64 keys, 32 at d = 256)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = -(-sq // 64) * b * h
+    return tiles < sms and -(-sk // (64 if d <= 128 else 32)) >= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal",
+                         [c for c in ATTN_CASES if c[2] >= 520])
+def test_cuda_attention_bf16_route(cuda_device, b, sq, sk, h, kv, d,
+                                   causal):
+    """Each long-key bf16 case takes the route its grid calls for (split
+    keys when the tile grid cannot fill the SMs, else the tile kernel
+    alone), counted in ``ops.kernel_launches``; the output and the
+    split path's log-sum-exp agree with the plain versions."""
+    rng = np.random.default_rng(sq + sk + h)
+    q = _card(rng, (b, sq, h, d), "bfloat16", cuda_device)
+    k, v = (_card(rng, (b, sk, kv, d), "bfloat16", cuda_device)
+            for _ in range(2))
+    split = _expect_split(b, sq, sk, h, d)
+    assert (ops.attention_splits(b, sq, sk, h, d) > 1) == split
+    assert ops.attention_splits(b, sq, sk, h, d, torch.float32) == 1
+    route = "attention bf16 split" if split else "attention bf16"
+    before = dict(ops.kernel_launches)
+    out, lse = ops.attention_lse(q, k, v, causal=causal)
+    after = dict(ops.kernel_launches)
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == route) for r in after}
+    _close(out, ref.attention_ref(q, k, v, causal=causal), "bfloat16")
+    assert _rel_l2(lse, ref.attention_lse_ref(q, k, causal=causal)) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", [
+    (4, 1, 1500, 16, 16, 64, False),      # split keys
+    (1, 1500, 1500, 1, 1, 64, True),      # split keys, causal
+    (1, 200, 300, 24, 24, 64, False),     # the tile kernel
+    (1, 70, 100, 2, 2, 256, False)])
+def test_cuda_attention_bf16_is_deterministic(cuda_device, b, sq, sk, h, kv,
+                                              d, causal):
+    """Two bf16 forward calls give the same bits, output and lse: the
+    split pieces are merged in a fixed order, with no atomics."""
+    rng = np.random.default_rng(12)
+    q = _card(rng, (b, sq, h, d), "bfloat16", cuda_device)
+    k, v = (_card(rng, (b, sk, kv, d), "bfloat16", cuda_device)
+            for _ in range(2))
+    first = ops.attention_lse(q, k, v, causal=causal)
+    second = ops.attention_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 112, 128])
+@pytest.mark.parametrize("sq,h,offset,sk,n", [
+    (100, 4, 77, 300, 100),    # fresh rows [77, 177): edges inside tiles
+    (300, 4, 130, 900, 300),   # [130, 430), the stale tail ragged
+    (4, 2, 701, 1500, 100),    # a few queries: split keys, edges inside
+    (1, 2, 0, 1500, 37),       # pieces and a tile
+])
+def test_cuda_splice_bf16_segment_edges(cuda_device, d, sq, h, offset, sk,
+                                        n):
+    """K3 in bf16 at segment edges inside a 64-key tile, on the tile
+    kernel and (a few queries over 1500 keys) on split keys."""
+    rng = np.random.default_rng(offset + d)
+    q = _card(rng, (1, sq, h, d), "bfloat16", cuda_device)
+    ks, vs = (_card(rng, (1, sk, 2, d), "bfloat16", cuda_device)
+              for _ in range(2))
+    kf, vf = (_card(rng, (1, n, 2, d), "bfloat16", cuda_device)
+              for _ in range(2))
+    split = _expect_split(1, sq, sk, h, d)
+    route = "attention bf16 split" if split else "attention bf16"
+    before = ops.kernel_launches[route]
+    got = ops.splice_attention(q, ks, vs, kf, vf, offset=offset)
+    assert ops.kernel_launches[route] == before + 1
+    _close(got, ref.splice_attention_ref(q, ks, vs, kf, vf, offset=offset),
+           "bfloat16")
 
 
 #: K2's backward: causal, GQA, cross (Sq != Sk), ragged against the
@@ -384,6 +482,34 @@ def test_cuda_attention_backward_fp32_runs_split_tf32(cuda_device):
                "attn_bwd_dq_mma_kernel")
     assert names and all(any(a in f for a in allowed) for f in names), names
     assert len(names) == 2 + 4 * len(ops.HEAD_DIMS), names
+
+
+@pytest.mark.cuda
+def test_cuda_attention_forward_bf16_runs_on_tensor_cores(cuda_device):
+    """K2's (and K3's) bf16 forward: one tensor-core tile kernel at every
+    head dim of ``ops.HEAD_DIMS``, each holding bf16 HMMA instructions,
+    and the split-key combine kernel; no CUDA-core bf16 forward is left
+    (``attn_kernel<__nv_bfloat16, D>``), and the fp32 forward kernel
+    ``attn_kernel<float, D>``, at every head dim, holds no HMMA."""
+    from repro_torch.kernels import build
+    build.load()
+    funcs = _sass_functions(build.library_path())
+    tiles = {f: body for f, body in funcs.items()
+             if f.startswith("_ZN5gfdit15attn_mma_kernelILi")}
+    dims = sorted(int(f.split("ILi")[1].split("E")[0]) for f in tiles)
+    assert dims == sorted(ops.HEAD_DIMS), sorted(tiles)
+    for f, body in tiles.items():
+        assert any("HMMA" in line and ".BF16" in line
+                   for line in body.splitlines()), f
+    assert [f for f in funcs
+            if f.startswith("_ZN5gfdit19attn_combine_kernel")], sorted(funcs)
+    assert not [f for f in funcs
+                if f.startswith("_ZN5gfdit11attn_kernelI13__nv_bfloat16")]
+    fp32 = {f: body for f, body in funcs.items()
+            if f.startswith("_ZN5gfdit11attn_kernelIfLi")}
+    assert len(fp32) == len(ops.HEAD_DIMS), sorted(fp32)
+    for f, body in fp32.items():
+        assert "HMMA" not in body, f
 
 
 @pytest.mark.cuda
