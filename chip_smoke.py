@@ -13,11 +13,11 @@ Phases, one line each (any failure raises and exits non-zero):
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: the CUDA kernels of ``src/repro_torch/csrc`` with nvcc, before
    any engine starts (a first-use build inside a rank thread would
-   outlast GFC's collective timeout); K2's bf16 forward kernels
-   (the tensor-core tile kernel at every head dim, the split-key
-   combine) and its backward kernels: registers, spills, shared memory
-   and blocks an SM (backward: fp32 at every head dim, bf16 at 64 and
-   128); K1's backward row kernel's registers and spills at
+   outlast GFC's collective timeout); K2's forward kernels (the
+   tensor-core tile kernel at every head dim in both dtypes, the
+   split-key combine) and its backward kernels: registers, spills,
+   shared memory and blocks an SM (backward: fp32 at every head dim,
+   bf16 at 64 and 128); K1's backward row kernel's registers and spills at
    DIT_IMAGE's width, every variant, with its plan and blocks an SM; the
    registers and spills of K4's forward and backward stage kernels at
    (p, n, chunk) = (64, 128, 128) and (64, 64, 128), and of K4's fp32
@@ -29,19 +29,24 @@ Phases, one line each (any failure raises and exits non-zero):
    (64, 64, 128); yi-6b's causal GQA forward for K2; whisper-medium's
    encoder self-attention over 1500 frames and its cross-attention of a
    4-token prefill and of a decode step to them, at batch 4, with the
-   bf16 kernel's occupancy and the key pieces it splits each case into),
-   fp32 and bf16 (each bound at its dtype's peak: bf16 at the tensor
-   cores' 989 TFLOP/s); the backward kernels of K2 (DIT_IMAGE's self and cross
-   attention at batch 2, yi-6b's causal GQA at 2 x 2048, whisper's
-   encoder self; on the tensor cores, bf16 products or fp32 ones as
-   three TF32 products, each with its three kernels' device time; fp32
-   with both bounds, split-TF32's and the CUDA cores') and K1 (every
+   kernel's occupancy and the key pieces it splits each case into), fp32
+   and bf16 (each bound at its dtype's peak: bf16 at the tensor cores'
+   989 TFLOP/s, fp32 as three TF32 products a product at their 494.7,
+   with the CUDA-core bound beside it); the backward kernels of K2
+   (DIT_IMAGE's self and cross attention at batch 2, yi-6b's causal GQA
+   at 2 x 2048, whisper's encoder self; on the tensor cores, bf16
+   products or fp32 ones as three TF32 products, each with its three
+   kernels' device time; fp32 with both bounds, split-TF32's and the
+   CUDA cores') and K1 (every
    variant at (2, 1024, 1536), each timed beside its bound and the
    library's backward, with its two kernels' device time), rel-L2 per
    output, and K2's forward with its log-sum-exp written; K1's forward
    gated residual beside ``residual + gate * x``; and K1-K3 at
    DIT_VIDEO's shapes in fp32 (K1 at D=3072, K2 self over 20,280 keys
-   and cross at head dim 128, K3 at the video hit), with kernel,
+   and cross at head dim 128, K3 at the video hit); K2 and K3 in fp32
+   at the 512 px request's SP-4 shard (self over 1024 keys, cross to 77
+   text tokens, the hit at three offsets), each timed on the route the
+   library takes and on the tile kernel alone; with kernel,
    plain-version and one-PyTorch-call times from CUDA events; K4's device
    time by stage kernel (``torch.profiler``) and each stage's occupancy;
    K4's backward at the mamba2-1.3b and zamba2-7b training shapes (2 x
@@ -212,12 +217,15 @@ The line before the last is the ``kernels`` JSON summary (K1-K3 carry
 their DIT_VIDEO case and its launches under ``video``, K2, K4 and K4's
 backward their LM cases under the model's name; the backward kernels'
 launches are the train phase's, K1's, K2's and K4's forward launches
-there ``train_launches``; K2's bf16 forward is listed by route,
-``attention bf16`` (the tensor-core tile kernel, timed at DIT_IMAGE's
-self-attention) and ``attention bf16 split`` (split keys and the combine,
-timed at whisper's decode step), launches from whisper's bf16 serve in
-the zoo phase, counted by ``ops.kernel_launches``; the script fails if
-any listed kernel was never launched);
+there ``train_launches``; K2's forward is listed by dtype and route,
+``attention fp32`` and ``attention bf16`` (the tensor-core tile kernel,
+timed at DIT_IMAGE's self-attention) and ``attention fp32 split`` and
+``attention bf16 split`` (split keys and the combine, timed at the 512
+px self shard in fp32, whisper's decode step in bf16 and fp32 beside
+it), counted by ``ops.kernel_launches``: fp32's routes in the serve,
+scenarios and video phases' DiT serving and whisper's fp32 prefill +
+decode in the zoo phase, bf16's from whisper's bf16 serve; the script
+fails if any listed kernel was never launched);
 the last line
 is ``{"ok": true, "device": {...}}``.  Exits 2 without CUDA.
 
@@ -236,9 +244,15 @@ run on the tree whose fp32 backward ran on the CUDA cores it records
 
     python3 chip_smoke.py --phase bench [--phase train ...]
 
-runs phases 1-2 and the named ones (zoo, train, train-cpu, gfc,
-dryrun, bench), in the order given, and prints neither the kernels line nor the
-last line.
+runs phases 1-2 and the named ones (serve, splits, scenarios, failure,
+video, zoo, train, train-cpu, gfc, dryrun, bench), in the order given,
+and prints neither the kernels line nor the last line.  ``splits`` (run
+by name only) times fp32 K2 and K3 at the main path's short query grids
+in 1 to 8 key pieces, each held to its plain version: the measurement
+behind the library's split rule.  ``failure`` (run by name only) serves
+the failure demo ten times as the scenarios phase does and prints, per
+wall attempt, how far the host kill landed from the edges of denoise
+step 3 (the scenarios phase prints the same for its one run).
 """
 from __future__ import annotations
 
@@ -247,7 +261,6 @@ import contextlib
 import dataclasses
 import gc
 import importlib.util
-import inspect
 import json
 import math
 import re
@@ -294,8 +307,8 @@ from repro_torch.training.data import TokenPipeline  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
 def _own_module(name: str, rel: str):
-    """A module of this script's own checkout, loaded by path: ``--src``
-    may name an older checkout that lacks it."""
+    """A module of this script's own checkout, loaded by path, so that a
+    ``--src`` run prices both trees with the same counts."""
     path = Path(__file__).resolve().parent / rel
     spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
@@ -409,7 +422,8 @@ CUDA_CORE_DIT_FP32 = dict(loss=2.3167552947998047, probes={
 FP32_PROBES = 8
 GRAD_CPU_BUDGET = 1e-4             # rel-L2 per gradient leaf, card vs CPU
 BWD_KERNELS = ("attention_bwd", "fused_adaln_bwd", "ssd_bwd")
-#: K2's bf16 forward routes (ops.kernel_launches)
+#: K2's forward routes (ops.kernel_launches) by dtype
+FP32_ROUTES = ("attention fp32", "attention fp32 split")
 BF16_ROUTES = ("attention bf16", "attention bf16 split")
 SOURCES = {
     "fused_adaln": ("src/repro_torch/csrc/adaln.cu",
@@ -418,9 +432,13 @@ SOURCES = {
                   "src/repro/kernels/flash_attention.py:82"),
     "splice_attention": ("src/repro_torch/csrc/attention.cu",
                          "src/repro/kernels/splice.py:78"),
-    # K2's (and K3's) bf16 forward on the tensor cores: the tile kernel
-    # alone, and split keys (the tile kernel over key pieces + the
+    # K2's (and K3's) forward on the tensor cores by dtype: the tile
+    # kernel alone, and split keys (the tile kernel over key pieces + the
     # combine); their launches are ops.kernel_launches' routes
+    "attention fp32": ("src/repro_torch/csrc/attention.cu",
+                       "src/repro/kernels/flash_attention.py:82"),
+    "attention fp32 split": ("src/repro_torch/csrc/attention.cu",
+                             "src/repro/kernels/flash_attention.py:82"),
     "attention bf16": ("src/repro_torch/csrc/attention.cu",
                        "src/repro/kernels/flash_attention.py:82"),
     "attention bf16 split": ("src/repro_torch/csrc/attention.cu",
@@ -567,11 +585,14 @@ def phase_device() -> str:
     return smi
 
 
-# the DiT path's instantiations (fp32; DIT_IMAGE's d_model 1536 and head
-# dim 64, DIT_VIDEO's 3072 and 128), by their mangled-name prefixes
-WATCHED = {"attn_kernel<float, 64>": "_ZN5gfdit11attn_kernelIfLi64E",
-           "attn_kernel<float, 112>": "_ZN5gfdit11attn_kernelIfLi112E",
-           "attn_kernel<float, 128>": "_ZN5gfdit11attn_kernelIfLi128E",
+# the fp32 serving paths' instantiations (DIT_IMAGE's d_model 1536 and
+# head dim 64, zamba2-7b's head dim 112, DIT_VIDEO's 3072 and 128), by
+# their mangled-name prefixes
+WATCHED = {"attn_mma_kernel<float, 64>": "_ZN5gfdit15attn_mma_kernelIfLi64E",
+           "attn_mma_kernel<float, 112>":
+               "_ZN5gfdit15attn_mma_kernelIfLi112E",
+           "attn_mma_kernel<float, 128>":
+               "_ZN5gfdit15attn_mma_kernelIfLi128E",
            "adaln_kernel<float, float4 x 12>":
                "_ZN5gfdit12adaln_kernelIfLi4ELi12E",
            "adaln_kernel<float, float4 x 24>":
@@ -602,7 +623,10 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     build.load()
     seconds = time.perf_counter() - t0
-    report = ptxas_report(build.build_info.get("ptxas", ""))
+    # a library built by an earlier process: its report beside it
+    log = build.library_path().with_suffix(".log")
+    report = ptxas_report(build.build_info.get("ptxas") or (
+        log.read_text() if log.exists() else ""))
     spills = sorted(f for f, r in report.items() if r["spill_bytes"])
     print(f"build: {seconds:.1f} s ({build.build_info.get('seconds', 0):.1f} s"
           f" nvcc), {len(report)} kernels, {len(spills)} spill (report in "
@@ -635,26 +659,26 @@ def phase_build() -> None:
 
 
 def _report_attention_fwd(report: dict) -> None:
-    """K2's bf16 forward kernels: the tensor-core tile kernel at every
-    head dim (registers and spill bytes from ptxas, shared bytes and
-    resident blocks an SM from the occupancy calculator) and the
-    split-key combine kernel (registers, spill bytes)."""
-    if not hasattr(ops, "attention_splits"):    # an older checkout
-        return
-    for d in ops.HEAD_DIMS:
-        blocks, smem = ops.attention_occupancy(d, torch.bfloat16)
-        r = next((r for f, r in report.items() if f.startswith(
-            f"_ZN5gfdit15attn_mma_kernelILi{d}E")), None)
-        regs = "?" if r is None else r["registers"]
-        spill = "?" if r is None else r["spill_bytes"]
-        print(f"  attn_mma_kernel<bf16, {d}>: {regs} registers, spill bytes "
-              f"{spill}, {smem / 1024:.2f} KiB shared, {blocks} blocks an "
-              f"SM", flush=True)
-    r = next((r for f, r in report.items()
-              if f.startswith("_ZN5gfdit19attn_combine_kernel")), None)
-    print(f"  attn_combine_kernel: {'?' if r is None else r['registers']} "
-          f"registers, spill bytes {'?' if r is None else r['spill_bytes']}",
-          flush=True)
+    """K2's forward kernels: the tensor-core tile kernel at every head
+    dim in both dtypes (registers and spill bytes from ptxas, shared
+    bytes and resident blocks an SM from the occupancy calculator) and
+    the split-key combine kernels (registers, spill bytes)."""
+    for dtype, code in ((torch.float32, "f"),
+                        (torch.bfloat16, "13__nv_bfloat16")):
+        for d in ops.HEAD_DIMS:
+            blocks, smem = ops.attention_occupancy(d, dtype)
+            r = next((r for f, r in report.items() if
+                      f.startswith(f"_ZN5gfdit15attn_mma_kernelI{code}Li{d}E")),
+                     None)
+            regs = "?" if r is None else r["registers"]
+            spill = "?" if r is None else r["spill_bytes"]
+            print(f"  attn_mma_kernel<{str(dtype)[6:]}, {d}>: {regs} "
+                  f"registers, spill bytes {spill}, {smem / 1024:.2f} KiB "
+                  f"shared, {blocks} blocks an SM", flush=True)
+    for f, r in sorted(report.items()):
+        if f.startswith("_ZN5gfdit19attn_combine_kernel"):
+            print(f"  {f}: {r['registers']} registers, spill bytes "
+                  f"{r['spill_bytes']}", flush=True)
 
 
 def _report_attention_bwd(report: dict) -> None:
@@ -662,23 +686,14 @@ def _report_attention_bwd(report: dict) -> None:
     bytes and resident blocks an SM (the occupancy calculator), for every
     fp32 (split-TF32) instantiation and for bf16 at the training path's
     head dims (64: the DiT, 128: yi-6b)."""
-    if not hasattr(ops, "attention_bwd_occupancy"):   # an older checkout
-        return
-    # an older checkout: bf16 kernels only, their names without the dtype
-    typed = "dtype" in inspect.signature(
-        ops.attention_bwd_occupancy).parameters
     kernels = ("attn_bwd_dkdv_mma_kernel", "attn_bwd_dq_mma_kernel")
     for dtype, code, dims in ((torch.float32, "f", ops.HEAD_DIMS),
                               (torch.bfloat16, "13__nv_bfloat16", (64, 128))):
-        if not typed and dtype == torch.float32:
-            continue
         for d in dims:
-            occ = (ops.attention_bwd_occupancy(d, dtype) if typed
-                   else ops.attention_bwd_occupancy(d))
+            occ = ops.attention_bwd_occupancy(d, dtype)
             parts = []
             for kernel, (blocks, smem) in zip(kernels, occ.values()):
-                prefix = (f"_ZN5gfdit{len(kernel)}{kernel}I"
-                          f"{code if typed else ''}Li{d}E")
+                prefix = f"_ZN5gfdit{len(kernel)}{kernel}I{code}Li{d}E"
                 r = next((r for f, r in report.items()
                           if f.startswith(prefix)), None)
                 regs = "?" if r is None else r["registers"]
@@ -696,25 +711,19 @@ ADALN_BWD_VARIANTS = {"ln": (1, 0, 0), "mod_norm": (1, 1, 0),
 
 def _report_adaln_bwd(report: dict) -> None:
     """K1's backward row kernel at DIT_IMAGE's width, every variant the
-    kernels phase times: registers and spill bytes (ptxas) and, where the
-    checkout has ``ops.adaln_bwd_plan``, its plan at the training shape
-    (2, 1024, 1536) with the resident blocks an SM (the occupancy
-    calculator).  An older checkout (``--src``) shows the instantiation it
-    launches at that width, by its template's integer arguments."""
+    kernels phase times: registers and spill bytes (ptxas) and its plan
+    (``ops.adaln_bwd_plan``) at the training shape (2, 1024, 1536) with
+    the resident blocks an SM (the occupancy calculator)."""
     pat = re.compile(r"_ZN5gfdit16adaln_bwd_kernelI(f|13__nv_bfloat16)"
                      r"((?:Li\d+E)+)Lb([01])ELb([01])ELb([01])E")
-    planned = hasattr(ops, "adaln_bwd_plan")
     d = DIT_IMAGE.d_model
     for dtype, code in ((torch.float32, "f"), (torch.bfloat16,
                                               "13__nv_bfloat16")):
         for vname, (ln, mod, gated) in ADALN_BWD_VARIANTS.items():
-            if planned:
-                plan = ops.adaln_bwd_plan(DIT_TRAIN_BATCH, 1024, d, ln=ln,
-                                          mod=mod, gated=gated, dtype=dtype)
-                v = 4 if dtype == torch.float32 else 8
-                want = (v, plan["vectors_a_lane"])
-            else:      # the older kernel: NJ = 16 columns a thread at D=1536
-                plan, want = None, (16,)
+            plan = ops.adaln_bwd_plan(DIT_TRAIN_BATCH, 1024, d, ln=ln,
+                                      mod=mod, gated=gated, dtype=dtype)
+            want = (4 if dtype == torch.float32 else 8,
+                    plan["vectors_a_lane"])
             hits = [(f, r) for f, r in report.items()
                     if (m := pat.match(f)) and m[1] == code
                     and tuple(int(i) for i in re.findall(r"\d+", m[2]))
@@ -722,8 +731,8 @@ def _report_adaln_bwd(report: dict) -> None:
                     == (ln, mod, gated)]
             regs = ", ".join(f"{r['registers']} registers, spill bytes "
                              f"{r['spill_bytes']}" for _, r in hits) or "?"
-            print(f"  adaln_bwd {str(dtype)[6:]} {vname} d={d}: {regs}"
-                  + ("" if plan is None else f"; plan {plan}"), flush=True)
+            print(f"  adaln_bwd {str(dtype)[6:]} {vname} d={d}: {regs}; "
+                  f"plan {plan}", flush=True)
 
 
 def _rand(shape, dtype, gen, scale=1.0):
@@ -796,6 +805,13 @@ def _check(label, kernel, plain, dtype, results, timing=None, budget=BUDGET,
                  "bound_by": b_by, "library_ms": lib_ms,
                  "library_call_ms": lib_cms, "case": label,
                  "dtype": str(dtype)[6:]}
+        cc = timing.get("cuda_core")
+        if cc is not None:    # fp32 attention: the same work, CUDA cores
+            cc_ms, cc_by = bound_ms(*cc)
+            entry["cuda_core_bound_ms"] = cc_ms
+            line += (f" 3xTF32, the kernel at {b_ms / ms:.3f} of it; "
+                     f"CUDA-core bound {cc_ms:.4f} ms ({cc_by}; "
+                     f"{cc_ms / ms:.3f})")
         results.setdefault("timed", []).append(entry)
         if timing.get("summary"):
             results[timing["summary"]] = entry
@@ -860,20 +876,17 @@ def phase_kernels() -> dict:
             ("causal", (1, 1024, heads, hd), (1, 1024, heads, hd), True),
             ("gqa H=24 KV=6", (1, 1000, heads, hd), (1, 1000, 6, hd), False),
         ]
-        if hasattr(ops, "attention_occupancy") and (
-                fp32 or hasattr(ops, "attention_splits")):
-            blocks, smem = ops.attention_occupancy(hd, dtype)
-            sms = torch.cuda.get_device_properties(0).multi_processor_count
-            bq = 64 if hd <= 128 or not fp32 else 32
-            grid = -(-1024 // bq) * heads
-            print(f"  attention{'' if fp32 else ' bf16'} occupancy d={hd}: "
-                  f"{grid} blocks of 128 threads at Sq=1024, {blocks} "
-                  f"resident per SM ({smem / 1024:.1f} KB shared memory "
-                  f"each), {sms} SMs: {grid / (blocks * sms):.2f} waves",
-                  flush=True)
-            results["attention_occupancy" + ("" if fp32 else " bf16")] = {
-                "blocks_per_sm": blocks, "smem_bytes": smem, "sms": sms,
-                "grid": grid}
+        blocks, smem = ops.attention_occupancy(hd, dtype)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        grid = -(-1024 // 64) * heads
+        print(f"  attention{'' if fp32 else ' bf16'} occupancy d={hd}: "
+              f"{grid} blocks of 128 threads at Sq=1024, {blocks} "
+              f"resident per SM ({smem / 1024:.1f} KB shared memory "
+              f"each), {sms} SMs: {grid / (blocks * sms):.2f} waves",
+              flush=True)
+        results["attention_occupancy" + ("" if fp32 else " bf16")] = {
+            "blocks_per_sm": blocks, "smem_bytes": smem, "sms": sms,
+            "grid": grid}
         for label, qs, ks, causal in cases:
             q, k, v = (_rand(s, dtype, gen) for s in (qs, ks, ks))
             b, sq, h, d = qs
@@ -890,6 +903,8 @@ def phase_kernels() -> dict:
                    lambda q=q, k=k, v=v, c=causal: ref.attention_ref(
                        q, k, v, causal=c),
                    dtype, results, timing)
+        if fp32:      # the fp32 tile route's summary
+            results[FP32_ROUTES[0]] = results["attention"]
         # K3: the §11 hit at SP-4 of a 4096-token request, first, a middle
         # and the last shard
         q = _rand((1, 1024, heads, hd), dtype, gen)
@@ -900,9 +915,8 @@ def phase_kernels() -> dict:
             if offset == 2048:
                 flops, nbytes = cost.splice_attention(1, 1024, 4096, heads,
                                                       heads, hd, es)
-                timing = {"bytes": nbytes, "flops": flops, "host_calls": 200,
-                          "flops_per_s": (FP32_FLOPS_PER_S if fp32
-                                          else BF16_FLOPS_PER_S)}
+                timing = {**_attn_bound(flops, nbytes, dtype),
+                          "host_calls": 200}
                 if fp32:
                     timing["summary"] = "splice_attention"
             _check(f"splice offset={offset} q(1,1024) stale(1,4096)",
@@ -911,6 +925,8 @@ def phase_kernels() -> dict:
                    lambda o=offset: ref.splice_attention_ref(
                        q, ks_, vs_, kf, vf, offset=o),
                    dtype, results, timing)
+        if fp32:
+            _check_dit_512(results, gen)
         _check_ssd(dtype, results)
         _check_ssd_bwd(dtype, results)
         _check_lm_attention(dtype, results, gen)
@@ -957,9 +973,6 @@ def _check_backward(dtype, results, gen) -> None:
     the plain backward reads those refs' o and lse, not the kernel's;
     then each backward call's three kernels are timed by the profiler.
     Also times that forward at the serving self shape."""
-    if not hasattr(ops, "attention_bwd"):     # an older checkout (--src)
-        print("  backward kernels: not in this checkout", flush=True)
-        return
     fp32 = dtype == torch.float32
     es = torch.finfo(dtype).bits // 8
     tag = "" if fp32 else " bf16"
@@ -1084,18 +1097,13 @@ def _check_lm_attention(dtype, results, gen) -> None:
               YI.num_kv_heads)]
     es = torch.finfo(dtype).bits // 8
     for model, (b, sq, h, d), kv in cases:
-        if d not in ops.HEAD_DIMS:     # an older checkout (--src)
-            print(f"  attention {model}: head dim {d} not built", flush=True)
-            continue
         q = _rand((b, sq, h, d), dtype, gen)
         k, v = (_rand((b, sq, kv, d), dtype, gen) for _ in range(2))
         flops, nbytes = cost.attention(b, sq, sq, h, kv, d, True, es)
         timing = {
-            "bytes": nbytes, "flops": flops,
-            "flops_per_s": (FP32_FLOPS_PER_S if dtype == torch.float32
-                            else BF16_FLOPS_PER_S),
-            "iters": 10, "replays": 5, "host_calls": 50,
-            "plain_iters": 3, "summary": f"{model} attention"
+            **_attn_bound(flops, nbytes, dtype), "iters": 10,
+            "replays": 5, "host_calls": 50, "plain_iters": 3,
+            "summary": f"{model} attention"
             + ("" if dtype == torch.float32 else " bf16"),
             "library": lambda q=q, k=k, v=v, g=h != kv:
                 F.scaled_dot_product_attention(
@@ -1130,21 +1138,22 @@ def _check_whisper_attention(dtype, results, gen) -> None:
         WHISPER.frontend_seq
     k, v = (_rand((b, f, h, d), dtype, gen) for _ in range(2))
     tag = "" if dtype == torch.float32 else " bf16"
-    if dtype == torch.bfloat16 and hasattr(ops, "attention_splits"):
-        blocks, smem = ops.attention_occupancy(d, dtype)
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        splits = {label: ops.attention_splits(b, sq, f, h, d) for label, sq
-                  in (("self", f), ("cross", ZOO_PROMPT), ("decode", 1))}
-        # the pieces' fp32 scratch, written once and read once: traffic
-        # beside the bound, not counted in the function's bytes
-        scratch = {label: 2 * 4 * n * b * sq * h * (d + 2) if n > 1 else 0
-                   for (label, n), sq in zip(splits.items(),
-                                             (f, ZOO_PROMPT, 1))}
-        print(f"  attention bf16 occupancy d={d}: {blocks} resident blocks "
-              f"per SM ({smem / 1024:.1f} KB shared memory each), {sms} SMs;"
-              f" whisper-medium key pieces (1: the tile kernel alone) "
-              f"{splits}, their scratch traffic in bytes {scratch}",
-              flush=True)
+    blocks, smem = ops.attention_occupancy(d, dtype)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = {label: ops.attention_splits(b, sq, f, h, d, dtype)
+              for label, sq in (("self", f), ("cross", ZOO_PROMPT),
+                                ("decode", 1))}
+    # the pieces' fp32 scratch, written once and read once: traffic
+    # beside the bound, not counted in the function's bytes
+    scratch = {label: 2 * 4 * n * b * sq * h * (d + 2) if n > 1 else 0
+               for (label, n), sq in zip(splits.items(),
+                                         (f, ZOO_PROMPT, 1))}
+    print(f"  attention {str(dtype)[6:]} occupancy d={d}: {blocks} "
+          f"resident blocks "
+          f"per SM ({smem / 1024:.1f} KB shared memory each), {sms} SMs;"
+          f" whisper-medium key pieces (1: the tile kernel alone) "
+          f"{splits}, their scratch traffic in bytes {scratch}",
+          flush=True)
     for label, sq in (("self", f), ("cross", ZOO_PROMPT), ("decode", 1)):
         q = _rand((b, sq, h, d), dtype, gen)
         _check(f"attention whisper-medium {label} q{(b, sq, h, d)} kv"
@@ -1152,22 +1161,137 @@ def _check_whisper_attention(dtype, results, gen) -> None:
                lambda q=q: ref.attention_ref(q, k, v), dtype, results,
                _attn_timing(q, k, v, sq, f, host_calls=200,
                             summary=f"whisper-medium {label}{tag} attention"))
-        if tag and label == "decode":   # the split path's summary
-            results["attention bf16 split"] = \
+        if label == "decode" and tag:   # bf16's split route's summary
+            results[BF16_ROUTES[1]] = \
                 results[f"whisper-medium {label}{tag} attention"]
+
+
+#: the 512 px request's latent tokens and their SP-4 shard: 4 x 24 query
+#: tiles, under the H100's 132 SMs
+DIT_512_TOKENS, DIT_512_SHARD = 1024, 256
+
+
+def _check_dit_512(results, gen) -> None:
+    """K2 and K3 in fp32 at the 512 px request's SP-4 shard, the serve
+    phase's most frequent calls: self-attention over the 1024 gathered
+    keys, cross-attention to 77 text tokens and the §11 hit at the first,
+    a middle and the last shard's offset.  Each is held to its plain
+    version, timed on the route the library takes (its key pieces in
+    the label) and on the tile kernel alone (one piece) beside it; the
+    self case is the ``attention fp32 split`` summary."""
+    dtype = torch.float32
+    heads, hd = DIT_IMAGE.num_heads, DIT_IMAGE.head_dim
+    n, shard = DIT_512_TOKENS, DIT_512_SHARD
+    q = _rand((1, shard, heads, hd), dtype, gen)
+    kv = {sk: tuple(_rand((1, sk, heads, hd), dtype, gen) for _ in range(2))
+          for sk in (n, 77)}
+    kf, vf = (_rand((1, shard, heads, hd), dtype, gen) for _ in range(2))
+    cases = [(label, sk,
+              lambda s=None, sk=sk: ops._attention_fwd(q, *kv[sk], False,
+                                                       False, s)[0],
+              lambda sk=sk: ref.attention_ref(q, *kv[sk]))
+             for label, sk in (("self", n), ("cross Lt=77", 77))]
+    cases += [(f"splice offset={o}", n,
+               lambda s=None, o=o: ops._splice_fwd(q, *kv[n], kf, vf, o, s),
+               lambda o=o: ref.splice_attention_ref(q, *kv[n], kf, vf,
+                                                    offset=o))
+              for o in (0, n // 2, n - shard)]
+    for label, sk, kernel, plain in cases:
+        pieces = ops.attention_splits(1, shard, sk, heads, hd, dtype)
+        if label.startswith("splice"):
+            timing = {**_attn_bound(*cost.splice_attention(
+                1, shard, sk, heads, heads, hd, 4), dtype), "host_calls": 200}
+        else:
+            timing = _attn_timing(q, *kv[sk], shard, sk, host_calls=200)
+        key = f"attention fp32 512px {label}"
+        _check(f"attention 512px SP-4 shard {label} q(1,{shard}) kv(1,{sk})"
+               f" in {pieces} key pieces", kernel, plain, dtype, results,
+               {**timing, "summary": key})
+        tile = device_ms(lambda: kernel(1))
+        results[key].update(pieces=pieces, tile_ms=tile,
+                            route=FP32_ROUTES[pieces > 1])
+        print(f"    tile kernel alone (1 piece) {tile:.4f} ms device",
+              flush=True)
+    if results["attention fp32 512px self"]["pieces"] == 1:
+        raise AssertionError("512 px self shard: the split-key summary "
+                             "took the tile route")
+    results[FP32_ROUTES[1]] = results["attention fp32 512px self"]
+
+
+def phase_splits(smi: str) -> None:
+    """fp32 K2 and K3 at the main path's short query grids in 1 to 8 key
+    pieces and in the library's count: device ms and a Python caller's
+    host µs a call, each count held to the plain version.  The crossover
+    is what ``attn_split_rule`` in ``csrc/attention.cu`` encodes."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    dtype = torch.float32
+    h, d = DIT_IMAGE.num_heads, DIT_IMAGE.head_dim
+    whisper = (ZOO_BATCH, WHISPER.num_heads, WHISPER.head_dim)
+    shard = DIT_512_SHARD
+    shapes = [   # label, (b, sq, h, d), keys, the hit's offset (or None)
+        ("dit 512px SP-4 self", (1, shard, h, d), DIT_512_TOKENS, None),
+        ("dit 512px SP-4 cross", (1, shard, h, d), 77, None),
+        ("dit 512px SP-4 hit", (1, shard, h, d), DIT_512_TOKENS,
+         DIT_512_TOKENS // 2),
+        ("dit 1024px SP-4 self", (1, 1024, h, d), 4096, None),
+        ("dit 128px SP-4 self", (1, 16, h, d), 64, None),
+        ("dit 128px SP-4 cross", (1, 16, h, d), 77, None),
+        ("dit 128px SP-1 self", (1, 64, h, d), 64, None),
+        ("text encoder", (1, 77, 4, 256), 77, None),
+        ("whisper cross prefill", (whisper[0], ZOO_PROMPT, *whisper[1:]),
+         WHISPER.frontend_seq, None),
+        ("whisper decode", (whisper[0], 1, *whisper[1:]),
+         WHISPER.frontend_seq, None),
+    ]
+    print(f"splits: fp32 K2/K3 by key pieces on {smi}", flush=True)
+    for label, (b, sq, hh, dd), sk, offset in shapes:
+        q = _rand((b, sq, hh, dd), dtype, gen)
+        k, v = (_rand((b, sk, hh, dd), dtype, gen) for _ in range(2))
+        if offset is None:
+            def run(n, q=q, k=k, v=v):
+                return ops._attention_fwd(q, k, v, False, False, n)[0]
+            want = ref.attention_ref(q, k, v)
+        else:
+            kf, vf = (_rand((b, sq, hh, dd), dtype, gen) for _ in range(2))
+
+            def run(n, q=q, k=k, v=v, kf=kf, vf=vf, o=offset):
+                return ops._splice_fwd(q, k, v, kf, vf, o, n)
+            want = ref.splice_attention_ref(q, k, v, kf, vf, offset=offset)
+        rule = ops.attention_splits(b, sq, sk, hh, dd, dtype)
+        ktiles = -(-sk // (64 if dd <= 32 else 32))   # fp32 key tiles
+        cells = []
+        for n in sorted(set(range(1, min(ktiles, 8) + 1)) | {rule}):
+            err = ((run(n) - want).abs().max()
+                   / want.abs().max().clamp_min(1e-30)).item()
+            if not err <= BUDGET[dtype]:
+                raise AssertionError(f"splits: {label} in {n} pieces "
+                                     f"{err:.2e} from its plain version")
+            cells.append(f"n={n} {device_ms(lambda n=n: run(n)):.4f} ms "
+                         f"{host_us(lambda n=n: run(n), 200):.1f} us")
+        print(f"  {label} q{(b, sq, hh, dd)} keys {sk}: library {rule} "
+              f"pieces; " + ", ".join(cells), flush=True)
+
+
+def _attn_bound(flops, nbytes, dtype) -> dict:
+    """The bound of an attention timing: bf16 at the tensor cores' bf16
+    peak; fp32 as the kernel computes it, three TF32 products for each
+    fp32 one at their TF32 peak, with the same work's CUDA-core bound
+    (``cuda_core``) printed beside it."""
+    if dtype == torch.bfloat16:
+        return dict(bytes=nbytes, flops=flops, flops_per_s=BF16_FLOPS_PER_S)
+    return dict(bytes=nbytes, flops=3 * flops, flops_per_s=TF32_FLOPS_PER_S,
+                cuda_core=(nbytes, flops))
 
 
 def _attn_timing(q, k, v, sq, sk, lse=False, **extra) -> dict:
     """Timing of an attention case: bytes and operations of the
-    function (the log-sum-exp written too with ``lse``), and SDPA (heads
-    first) on the same inputs as the library call; bf16 inputs are bound
-    by the bf16 peak."""
+    function (the log-sum-exp written too with ``lse``), bound as
+    :func:`_attn_bound` says, and SDPA (heads first) on the same inputs
+    as the library call."""
     b, _, h, d = q.shape
     flops, nbytes = cost.attention(b, sq, sk, h, k.shape[2], d, False,
                                    q.element_size(), lse)
-    return dict(bytes=nbytes, flops=flops,
-                flops_per_s=(BF16_FLOPS_PER_S if q.dtype == torch.bfloat16
-                             else FP32_FLOPS_PER_S),
+    return dict(**_attn_bound(flops, nbytes, q.dtype),
                 library=lambda: F.scaled_dot_product_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
                 **extra)
@@ -1290,9 +1414,7 @@ def _check_ssd(dtype, results) -> None:
     _, z_heads, _ = ssm.ssm_dims(ZAMBA)
     zamba = (LM_BATCH, LM_PROMPT, z_heads, ZAMBA.ssm.head_dim,
              ZAMBA.ssm.state_dim, ZAMBA.ssm.chunk)
-    cases = [(LM_BATCH, LM_PROMPT) + full]
-    if zamba[3:] in ops.SSD_SHAPES:    # not in an older checkout (--src)
-        cases.append(zamba)
+    cases = [(LM_BATCH, LM_PROMPT) + full, zamba]
     if dtype == torch.float32:
         cases += [(1, LM_PROMPT) + full, (LM_BATCH, LM_PROMPT + LM_DECODE)
                   + full, (2, 40, 16, 16, 16, 16)]
@@ -1331,14 +1453,9 @@ def _check_ssd(dtype, results) -> None:
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         occ = {}
         shapes = [("", LM_BATCH, full), ("", 1, full)]
-        if zamba in cases:
-            shapes.append(("zamba2 ", LM_BATCH, zamba[2:]))
+        shapes.append(("zamba2 ", LM_BATCH, zamba[2:]))
         for label, b, shape in shapes:
-            if hasattr(ops, "SSD_STAGES"):     # the chunk-parallel stages
-                stages = ops.ssd_occupancy(b, LM_PROMPT, *shape)
-            else:                              # one kernel per (b, h)
-                blocks, smem = ops.ssd_occupancy(*shape[1:])
-                stages = {"ssd_kernel": (blocks, smem, b * shape[0])}
+            stages = ops.ssd_occupancy(b, LM_PROMPT, *shape)
             for name, (blocks, smem, grid) in stages.items():
                 waves = grid / (blocks * sms)
                 occ[f"{label}b={b} {name}"] = {
@@ -1365,9 +1482,6 @@ def _check_ssd_bwd(dtype, results) -> None:
     their gradients written once); no single PyTorch call computes the
     SSD's gradient, so no library time.  Then each call's four stage
     kernels by the profiler, and in fp32 each stage's occupancy."""
-    if not hasattr(ops, "ssd_bwd"):       # an older checkout (--src)
-        print("  ssd_bwd: not in this checkout", flush=True)
-        return
     gen = torch.Generator(device="cuda").manual_seed(6)
     fp32 = dtype == torch.float32
     es = torch.finfo(dtype).bits // 8
@@ -1414,9 +1528,8 @@ def _check_ssd_bwd(dtype, results) -> None:
                    dtype, results, None, SSD_BWD_BUDGET, l2=True,
                    names=SSD_BWD_OUTPUTS)
             del ds
-        for name, (blocks, smem, grid, *threads) in ops.ssd_bwd_occupancy(
+        for name, (blocks, smem, grid, threads) in ops.ssd_bwd_occupancy(
                 b, l, h, p, n, c, dtype).items():
-            threads = threads[0] if threads else 256     # an older checkout
             waves = grid / (blocks * sms)
             results.setdefault("ssd_bwd_occupancy", {})[
                 f"{label}{tag} {name}"] = {
@@ -1478,12 +1591,25 @@ def serve_requests() -> list:
             make_request("img1024", 1024)]
 
 
+def _dit_counts() -> dict:
+    """K1-K3's launches since the last reset, with K2's and K3's fp32
+    launches by route."""
+    return {**{k: ops.launches[k] for k in DIT_KERNELS},
+            **{r: ops.kernel_launches[r] for r in FP32_ROUTES}}
+
+
 def phase_serve() -> dict:
     reqs = serve_requests()
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     run = _serve(DIT_IMAGE, FixedSP(4), reqs, cache_interval=2)
-    counts = {k: ops.launches[k] for k in DIT_KERNELS}
+    counts = _dit_counts()
+    # every fp32 K2 and K3 call on a tensor-core route of its own dtype
+    routed = sum(counts[r] for r in FP32_ROUTES)
+    if routed != counts["attention"] + counts["splice_attention"] or any(
+            ops.kernel_launches[r] for r in BF16_ROUTES):
+        raise AssertionError(f"serve: K2/K3 routes {ops.kernel_launches} "
+                             f"for launches {counts}")
     del run["engine"]
     for r in reqs:
         px = run["pixels"][r.id]
@@ -1497,7 +1623,7 @@ def phase_serve() -> dict:
     if not {"refresh", "hit"} <= set(run["modes"]):
         raise AssertionError(f"cache modes {run['modes']}: expected "
                              f"refresh and hit steps")
-    if min(counts.values()) <= 0:
+    if min(counts[k] for k in DIT_KERNELS) <= 0:
         raise AssertionError(f"a kernel never launched: {counts}")
     if any(ops.launches[k] for k in BWD_KERNELS):
         raise AssertionError(f"serve: a backward kernel launched: "
@@ -1649,6 +1775,7 @@ def phase_scenarios(smi: str) -> dict:
                     (ServingEngine, "shutdown", shutdown),
                     (checkpoint.CheckpointManager, "restore", restore)):
                 stack.enter_context(mock.patch.object(obj, name, value))
+            failure_legs = stack.enter_context(_failure_legs())
             # -- elastic: preempt, requeue, Reallocate at full width ------
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -1740,6 +1867,10 @@ def phase_scenarios(smi: str) -> dict:
                       f": " + ", ".join(f"{h / 2**20:.1f}"
                                         for h in held[n_held:]),
                       flush=True)
+                if name == "failure":
+                    for line, *_ in _failure_margins(failure_legs):
+                        print(f"scenarios: failure attempt: {line}",
+                              flush=True)
                 if not all(gates(r).values()) and "recovery" in r:
                     print(f"scenarios: {name} recovery events, wall "
                           f"{r['recovery']}, sim {r['sim']['recovery']}; "
@@ -1766,13 +1897,13 @@ def phase_scenarios(smi: str) -> dict:
                 "one track a rank": tracks == [f"rank{r}" for r in range(4)]})
     finally:
         gc.enable()
-    counts = {k: ops.launches[k] for k in DIT_KERNELS}
+    counts = _dit_counts()
     seconds = time.perf_counter() - t_phase
     print(f"scenarios: {seconds:.1f} s, {len(held)} engines; launches "
           f"{counts}; largest allocation left after a shutdown "
           f"{max(held) / 2**20:.2f} MiB (garbage collector off); on {smi}",
           flush=True)
-    if min(counts.values()) <= 0:
+    if min(counts[k] for k in DIT_KERNELS) <= 0:
         raise AssertionError(f"scenarios: a kernel never launched: {counts}")
     if max(held) > 0:
         raise AssertionError(f"scenarios: a dropped engine left "
@@ -1817,7 +1948,7 @@ def _video_serve(label, k, shape, *, cache_interval, setup=None) -> dict:
     ops.reset_launches()
     run = _serve(DIT_VIDEO, FixedSP(k), [req], cache_interval=cache_interval,
                  setup=setup)
-    run["counts"] = {name: ops.launches[name] for name in DIT_KERNELS}
+    run["counts"] = _dit_counts()
     run["peak"] = torch.cuda.max_memory_allocated() / 2**30
     px = run["pixels"][req.id]
     if run["metrics"]["completed"] != 1 or px is None or px.shape != want \
@@ -1858,6 +1989,110 @@ def pos_embedding_drift(n: int, d: int, device="cuda") -> None:
           flush=True)
 
 
+@contextlib.contextmanager
+def _failure_legs():
+    """Keeps each failure-demo attempt's sim leg, then its wall leg (not
+    the control leg), in the list it yields."""
+    from unittest import mock
+
+    from repro_torch.serving import failure_demo
+    legs = []
+    real_sim, real_wall = failure_demo.run_sim, failure_demo.run_wall
+
+    def run_sim(*args, **kw):
+        legs.append(real_sim(*args, **kw))
+        return legs[-1]
+
+    def run_wall(cfg, cost, reqs, t_fail=None, **kw):
+        out = real_wall(cfg, cost, reqs, t_fail, **kw)
+        if t_fail is not None:          # not the control leg
+            legs.append(out)
+        return out
+
+    with mock.patch.object(failure_demo, "run_sim", run_sim), \
+            mock.patch.object(failure_demo, "run_wall", run_wall):
+        yield legs
+
+
+def _failure_margins(legs) -> list:
+    """One line per attempt of ``_failure_legs``: the kill time, the
+    calibrated denoise period, how far the wall leg's step 3 started
+    behind the sim leg's, and the kill's distance from that step's start
+    and end (the gate's margins, half a step each; a negative one is a
+    miss).  Returns ``(line, after start, before end)`` tuples."""
+    def start(events, step):
+        return next((e["t"] for e in events if e["ev"] == "dispatch"
+                     and e["kind"] == "denoise" and e.get("step") == step),
+                    float("nan"))
+
+    out = []
+    for sim, wall in zip(legs[::2], legs[1::2]):
+        t_fail = next(e["t"] for e in sim["events"]
+                      if e["ev"] == "host_down")
+        s3 = start(sim["events"], 3)
+        period = s3 - start(sim["events"], 2)
+        w3 = start(wall["events"], 3)
+        after, before = t_fail - w3, w3 + period - t_fail
+        out.append((f"t_fail {t_fail:.4f} s, denoise period "
+                    f"{period * 1e3:.1f} ms, wall step 3 "
+                    f"{(w3 - s3) * 1e3:+.1f} ms behind the sim's, kill "
+                    f"{after * 1e3:.1f} ms after its start and "
+                    f"{before * 1e3:.1f} before its end, match "
+                    f"{wall['signature'] == sim['signature']}",
+                    after, before))
+    return out
+
+
+def phase_failure(smi: str, runs: int = 10) -> None:
+    """The failure demo ``runs`` times at DIT_IMAGE's full width and
+    depth, its DiT livened and the garbage collector off, as the
+    scenarios phase runs it, with ``_failure_margins`` for every
+    attempt.  Fails if a run used up its attempts."""
+    from unittest import mock
+
+    from repro_torch.serving import cache_demo, failure_demo
+    from repro_torch.serving import engine as engine_mod
+
+    class Livened(engine_mod.TorchDiTPipeline):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            cache_demo._liven(self)
+
+    margins, used, missed = [], [], []
+    gc.disable()
+    try:
+        with mock.patch.object(engine_mod, "TorchDiTPipeline", Livened), \
+                _failure_legs() as legs:
+            for i in range(runs):
+                legs.clear()
+                before = torch.cuda.memory_stats()
+                r = failure_demo.run_demo(DIT_IMAGE, device="cuda")
+                after = torch.cuda.memory_stats()
+                used.append(r["attempts"])
+                if not (r["trace_match"] and r["telemetry_match"]):
+                    missed.append(i)
+                for line, *m in _failure_margins(legs):
+                    margins.append(m)
+                    print(f"failure: run {i} {line}", flush=True)
+                # the caching allocator's cudaMalloc retries (each frees
+                # the cache and synchronizes) and cudaMalloc/cudaFree calls
+                print(f"failure: run {i} allocator: " + ", ".join(
+                    f"{k} +{after.get(k, 0) - before.get(k, 0)}"
+                    for k in ("num_alloc_retries", "num_device_alloc",
+                              "num_device_free"))
+                    + f", reserved {torch.cuda.memory_reserved() / 2**30:.1f}"
+                    f" GiB", flush=True)
+    finally:
+        gc.enable()
+    print(f"failure: {runs} runs, attempts {used}; closest margins "
+          f"{min(m[0] for m in margins) * 1e3:.1f} ms after step 3's "
+          f"start, {min(m[1] for m in margins) * 1e3:.1f} ms before its "
+          f"end; on {smi}", flush=True)
+    if missed:
+        raise AssertionError(f"failure: runs {missed} used up their "
+                             f"attempts")
+
+
 def phase_video(smi: str) -> dict:
     """The paper's video class on the card: DIT_VIDEO at full width and
     depth (30 layers, d_model 3072, 24 heads x 128, d_ff 12288, 7.39 B
@@ -1883,10 +2118,10 @@ def phase_video(smi: str) -> dict:
           f"{n_hit} tokens, {snap[n_s] / 1e9:.1f} GB at {n_s}; card free "
           f"{dev_free / 2**30:.2f} of {dev_total / 2**30:.2f} GiB; free -g:"
           f"\n{free}", flush=True)
-    totals = dict.fromkeys(DIT_KERNELS, 0)
+    totals = dict.fromkeys(DIT_KERNELS + FP32_ROUTES, 0)
 
     def add(run):
-        for name in DIT_KERNELS:
+        for name in totals:
             totals[name] += run["counts"][name]
 
     # (a) class S at SP-4, then SP-1 on the same weights
@@ -1922,8 +2157,8 @@ def phase_video(smi: str) -> dict:
     err, card = card_vs_cpu(DIT_VIDEO.reduced(),
                             video_request("video-cpu-check", (64, 64, 9),
                                           steps=3))
-    for name in DIT_KERNELS:
-        totals[name] += ops.launches[name]
+    for name, n in _dit_counts().items():
+        totals[name] += n
     print(f"video: DIT_VIDEO.reduced() 64x64x9f SP-2 cache_interval=2, "
           f"modes {card['modes']}, card (kernels) vs CPU (plain): pixel "
           f"rel-L2 {err:.2e} (budget {PIXEL_BUDGET:.0e})", flush=True)
@@ -1987,6 +2222,7 @@ def _lm_run(model, cfg, prompt, steps, dtype, feed=None, extra=(),
     sync = torch.cuda.synchronize if prompt.is_cuda else (lambda: None)
     sync()
     before = dict(ops.launches), dict(K2_SITES)
+    routes = dict(ops.kernel_launches)
     t0 = time.perf_counter()
     lg, cache = prefill(model, prompt, *extra, cache)
     sync()
@@ -2012,7 +2248,8 @@ def _lm_run(model, cfg, prompt, steps, dtype, feed=None, extra=(),
             "prefill_launches": diff(before[0], mid[0]),
             "decode_launches": diff(mid[0], after[0]),
             "prefill_sites": diff(before[1], mid[1]),
-            "decode_sites": diff(mid[1], after[1])}
+            "decode_sites": diff(mid[1], after[1]),
+            "routes": diff(routes, ops.kernel_launches)}
 
 
 def phase_lm(smi: str) -> dict:
@@ -2311,22 +2548,24 @@ def _whisper_k2(run) -> dict:
     return got
 
 
-def _whisper_routes(sites: dict, routes: dict) -> dict:
-    """The routes K2's bf16 kernel took in whisper's bf16 serve: each
-    site's launches on the route its shape calls for (the encoder's 1500
-    queries on the tile kernel; the cross-attention of the 4-token prompt
-    and of each decode step to the 1500 frames on split keys, where its
-    64 tiles cannot fill the SMs).  Fails on any other count."""
+def _whisper_routes(sites: dict, routes: dict, dtype) -> dict:
+    """The routes K2's ``dtype`` kernel took in a whisper prefill +
+    decode run: each site's launches on the route its shape calls for
+    (the encoder's 1500 queries on the tile kernel; the cross-attention
+    of the 4-token prompt and of each decode step to the 1500 frames on
+    split keys, where its 64 tiles cannot fill the SMs), none on the
+    other dtype's.  Fails on any other count."""
     b, h, d, f = ZOO_BATCH, WHISPER.num_heads, WHISPER.head_dim, \
         WHISPER.frontend_seq
-    want = dict.fromkeys(BF16_ROUTES, 0)
+    mine = FP32_ROUTES if dtype == torch.float32 else BF16_ROUTES
+    want = dict.fromkeys(routes, 0)
     for site, sq in (("self", f), ("cross", ZOO_PROMPT), ("decode", 1)):
-        split = ops.attention_splits(b, sq, f, h, d) > 1
-        want[BF16_ROUTES[split]] += sites[site]
+        split = ops.attention_splits(b, sq, f, h, d, dtype) > 1
+        want[mine[split]] += sites[site]
     if routes != want:
-        raise AssertionError(f"zoo: whisper bf16 routes {routes}, expected "
-                             f"{want}")
-    return routes
+        raise AssertionError(f"zoo: whisper {str(dtype)[6:]} routes "
+                             f"{routes}, expected {want}")
+    return {r: routes[r] for r in mine}
 
 
 def phase_zoo(smi: str) -> dict:
@@ -2357,17 +2596,20 @@ def phase_zoo(smi: str) -> dict:
           flush=True)
     with _k2_sites():
         run = _zoo_serve(model, cfg, prompt, (frames,))
-        routes = dict(getattr(ops, "kernel_launches", {}))
         others = {k: run["prefill_launches"][k] + run["decode_launches"][k]
                   for k in ops.launches if k != "attention"}
         if any(others.values()):
             raise AssertionError(f"zoo: whisper launched {others}")
-        whisper = {"bf16": _whisper_k2(run)}
-        if routes:
-            whisper["routes"] = _whisper_routes(whisper["bf16"], routes)
+        whisper = {"bf16": _whisper_k2(run), "routes": {}}
+        if run["routes"]:
+            whisper["routes"].update(_whisper_routes(
+                whisper["bf16"], run["routes"], torch.bfloat16))
         err, exact, fwd = _zoo_exact(model, cfg, prompt, run["fed"],
                                      (frames,))
         whisper["fp32"] = _whisper_k2(exact)
+        if FP32_ROUTES[0] in exact["routes"]:
+            whisper["routes"].update(_whisper_routes(
+                whisper["fp32"], exact["routes"], torch.float32))
     n = cfg.num_layers
     print(f"zoo: whisper-medium fp32 prefill + {LM_DECODE} decode steps vs "
           f"the teacher-forced forward (forward launches {fwd}): max |diff|"
@@ -2843,9 +3085,9 @@ def phase_train(smi: str) -> tuple[dict, dict]:
         raise AssertionError(f"train: mixtral dry run failed: {err[-2000:]}")
     _mixtral_peaks(json.loads(out.strip().splitlines()[-1]),
                    steps[MIXTRAL_TRAIN.name]["peak"], smi)
-    counts = {**ops.launches, **getattr(ops, "kernel_launches", {})}
+    counts = {**ops.launches, **ops.kernel_launches}
     if min(counts[k] for k in BWD_KERNELS + ("ssd",)) <= 0 or \
-            counts["splice_attention"] or counts.get("attention bf16") == 0:
+            counts["splice_attention"] or counts["attention bf16"] == 0:
         raise AssertionError(f"train: launches {counts}")
     print(f"train: {time.perf_counter() - t_phase:.1f} s; launches "
           f"{counts}", flush=True)
@@ -3737,7 +3979,9 @@ def phase_bench(smi: str) -> dict:
 
 
 #: the phases ``--phase`` runs after the device and build phases
-PHASES = {"zoo": phase_zoo, "train": phase_train,
+PHASES = {"serve": lambda smi: phase_serve(), "splits": phase_splits,
+          "scenarios": phase_scenarios, "failure": phase_failure,
+          "video": phase_video, "zoo": phase_zoo, "train": phase_train,
           "train-cpu": lambda smi: phase_train_cpu(),
           "gfc": phase_gfc, "dryrun": phase_dryrun, "bench": phase_bench}
 
@@ -3800,7 +4044,8 @@ def main() -> int:
     phase_dryrun(smi)
     bench = phase_bench(smi)
     counts.update({k: train[k] for k in BWD_KERNELS})
-    counts.update(whisper.get("routes", {}))
+    for route, n in whisper["routes"].items():   # whisper's, both dtypes
+        counts[route] = counts.get(route, 0) + n
     lm_launches = {"zamba2-7b attention": zamba["forward"]["attention"],
                    "zamba2-7b ssd": zamba["prefill"]["ssd"],
                    "zamba2-7b ssd_bwd":
@@ -3822,7 +4067,8 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "library_call_ms": r["library_call_ms"]})
-        if name in ("fused_adaln", "attention", "ssd") + BF16_ROUTES:
+        if name in ("fused_adaln", "attention", "ssd") + FP32_ROUTES + \
+                BF16_ROUTES:
             kernels[-1]["train_launches"] = train[name]   # the train phase's
         if name in ("attention", "attention_bwd"):   # a whisper train step's
             kernels[-1]["whisper-medium train_launches_a_step"] = \
@@ -3853,6 +4099,14 @@ def main() -> int:
         # the log-sum-exp written (launched in the train phase only)
         extra = {"fused_adaln": ["fused_adaln gated_residual",
                                  "fused_adaln gated_residual bf16"],
+                 # fp32 K2/K3 at the 512 px shard, by the route taken,
+                 # and whisper's decode step beside the split summary
+                 **{r: [k for k, v in results.items()
+                        if k.startswith("attention fp32 512px ")
+                        and v["route"] == r and v is not results[r]]
+                    + (["whisper-medium decode attention"]
+                       if r == FP32_ROUTES[1] else [])
+                    for r in FP32_ROUTES},
                  "attention": ["attention with lse"],
                  "attention_bwd": [k for k in results if k.startswith(
                      "attention_bwd ") and k != "attention_bwd dit self"],
@@ -3863,8 +4117,8 @@ def main() -> int:
             v = results[label]
             kernels[-1][label] = {k: v[k] for k in (
                 "case", "dtype", "max_abs_err", "ms", "call_ms", "host_us",
-                "plain_ms", "bound_ms", "bound_by", "library_ms")
-                if k in v}
+                "plain_ms", "bound_ms", "bound_by", "library_ms", "pieces",
+                "tile_ms") if k in v}
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels the main path never launched: {idle}")

@@ -158,48 +158,6 @@ struct BwdMmaShape {
   static constexpr size_t kSmemDq = sizeof(T) * (2 * BQ2 + 2 * BK2) * P;
 };
 
-// acc (16 x 8 NT) += A B over K = 8 KS in split-TF32: A is the KS
-// accumulator tiles c of the previous product (16 x 8 fp32 each), B's
-// 8 KS rows (k) of 8 NT columns (n) at `b`, row-major fp32 in shared
-// memory at pitch P.  The thread's C columns 2t and 2t + 1 serve as A's
-// k slots t and t + 4, so no shuffle is needed; B's rows are read in the
-// same order, row 2t into b0 and 2t + 1 into b1, by 32-bit loads.  With
-// P = 4 (mod 16) words, the rows 2t of one load lie 8 banks apart and the
-// 8 columns g fill them: no conflict.
-//
-// These products sum over the sequence (dV and dK over the GQA group's
-// queries, dQ over the keys): thousands of mma steps an element, so the
-// products of kSumSteps k steps go to a fresh accumulator, which the
-// CUDA cores add to `acc` (see kSumSteps in mma.cuh).
-template <int NT, int KS, int P>
-__device__ __forceinline__ void mma_ab(float (&acc)[NT][4],
-                                       const float (&c)[KS][4],
-                                       const float* b, int lane) {
-  static_assert(P % 16 == 4, "mma_ab: the pitch of conflict-free row pairs");
-  static_assert(KS % kSumSteps == 0, "mma_ab: k steps in whole sums");
-  const float* pb = b + 2 * (lane & 3) * P + (lane >> 2);
-#pragma unroll
-  for (int k0 = 0; k0 < KS; k0 += kSumSteps) {
-    unsigned ahi[kSumSteps][4], alo[kSumSteps][4];
-#pragma unroll
-    for (int j = 0; j < kSumSteps; ++j)
-      split_a(ahi[j], alo[j], c[k0 + j][0], c[k0 + j][2], c[k0 + j][1],
-              c[k0 + j][3]);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < kSumSteps; ++j) {
-        const float* row = pb + (k0 + j) * 8 * P + 8 * n;
-        mma_3xtf32(part, ahi[j], alo[j], split_tf32(row[0]),
-                   split_tf32(row[P]));
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
-    }
-  }
-}
-
 template <int NT>
 __device__ __forceinline__ void zero(float (&c)[NT][4]) {
 #pragma unroll

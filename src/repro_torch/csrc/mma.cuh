@@ -1,10 +1,11 @@
-// Tensor-core fragment helpers shared by csrc/attention.cu (K2's bf16
+// Tensor-core fragment helpers shared by csrc/attention.cu (K2's
 // forward), csrc/attention_bwd.cu and csrc/ssd_bwd.cu: ldmatrix (and
 // its .trans), mma.sync (m16n8k8 on TF32 operands, m16n8k16 on bf16),
 // the split of an fp32 operand into two TF32 ones, mma_abt, the product
-// A B^T of two row-major shared tiles, and mma_ab, the bf16 product A B
-// of register fragments and a row-major shared tile, with to_a_frags,
-// which rounds fp32 accumulators to bf16 A fragments.
+// A B^T of two row-major shared tiles, and mma_ab, the product A B of
+// register fragments and a row-major shared tile: bf16, with to_a_frags,
+// which rounds fp32 accumulators to bf16 A fragments, and fp32 in
+// split-TF32, whose A is the accumulator tiles of the previous product.
 //
 // Fragments of m16n8k8, g = lane / 4, t = lane % 4: a (16 x 8, row)
 // {(g, t), (g+8, t), (g, t+4), (g+8, t+4)}; b (8 x 8, col) {(k t, n g),
@@ -74,6 +75,13 @@ __device__ __forceinline__ void split_a(unsigned (&hi)[4], unsigned (&lo)[4],
   }
 }
 
+// An A fragment of fp32 words split in place: `a` keeps hi, `lo` gets lo.
+__device__ __forceinline__ void split_frag(unsigned (&a)[4],
+                                           unsigned (&lo)[4]) {
+  split_a(a, lo, __uint_as_float(a[0]), __uint_as_float(a[1]),
+          __uint_as_float(a[2]), __uint_as_float(a[3]));
+}
+
 // One fp32 product in split-TF32: c += a_lo b_hi + a_hi b_lo + a_hi b_hi,
 // the small terms first.
 __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
@@ -124,16 +132,15 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const T* a,
         mma_bf16(acc[2 * np + 1], af, bfr[2], bfr[3]);
       }
     } else {
-      unsigned ahi[4], alo[4];
-      split_a(ahi, alo, __uint_as_float(af[0]), __uint_as_float(af[1]),
-              __uint_as_float(af[2]), __uint_as_float(af[3]));
+      unsigned alo[4];
+      split_frag(af, alo);                 // af keeps the hi parts
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         unsigned bfr[4];
         ldsm4(bfr, pb + np * 16 * P + ks * 8);
-        mma_3xtf32(acc[2 * np], ahi, alo, split_tf32(__uint_as_float(bfr[0])),
+        mma_3xtf32(acc[2 * np], af, alo, split_tf32(__uint_as_float(bfr[0])),
                    split_tf32(__uint_as_float(bfr[1])));
-        mma_3xtf32(acc[2 * np + 1], ahi, alo,
+        mma_3xtf32(acc[2 * np + 1], af, alo,
                    split_tf32(__uint_as_float(bfr[2])),
                    split_tf32(__uint_as_float(bfr[3])));
       }
@@ -197,5 +204,47 @@ __device__ __forceinline__ void to_a_frags(unsigned (&a)[NT / 2][4],
 // 0.99 and 0.96 ms with 1, 2 and 4 k steps a sum, at ~1.6e-6 rel-L2
 // each).
 constexpr int kSumSteps = 4;
+
+// acc (16 x 8 NT) += A B over K = 8 KS in split-TF32: A is the KS
+// accumulator tiles c of the previous product (16 x 8 fp32 each), B's
+// 8 KS rows (k) of 8 NT columns (n) at `b`, row-major fp32 in shared
+// memory at pitch P.  The thread's C columns 2t and 2t + 1 serve as A's
+// k slots t and t + 4, so no shuffle is needed; B's rows are read in the
+// same order, row 2t into b0 and 2t + 1 into b1, by 32-bit loads.  With
+// P = 4 (mod 16) words, the rows 2t of one load lie 8 banks apart and the
+// 8 columns g fill them: no conflict.
+//
+// These products sum over the sequence (the forward's O and the
+// backward's dQ over the keys, dV and dK over the GQA group's queries):
+// thousands of mma steps an element, so the products of kSumSteps k
+// steps go to a fresh accumulator, which the CUDA cores add to `acc`.
+template <int NT, int KS, int P>
+__device__ __forceinline__ void mma_ab(float (&acc)[NT][4],
+                                       const float (&c)[KS][4],
+                                       const float* b, int lane) {
+  static_assert(P % 16 == 4, "mma_ab: the pitch of conflict-free row pairs");
+  static_assert(KS % kSumSteps == 0, "mma_ab: k steps in whole sums");
+  const float* pb = b + 2 * (lane & 3) * P + (lane >> 2);
+#pragma unroll
+  for (int k0 = 0; k0 < KS; k0 += kSumSteps) {
+    unsigned ahi[kSumSteps][4], alo[kSumSteps][4];
+#pragma unroll
+    for (int j = 0; j < kSumSteps; ++j)
+      split_a(ahi[j], alo[j], c[k0 + j][0], c[k0 + j][2], c[k0 + j][1],
+              c[k0 + j][3]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kSumSteps; ++j) {
+        const float* row = pb + (k0 + j) * 8 * P + 8 * n;
+        mma_3xtf32(part, ahi[j], alo[j], split_tf32(row[0]),
+                   split_tf32(row[P]));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+    }
+  }
+}
 
 }  // namespace gfdit

@@ -43,18 +43,18 @@ _SIGNATURES = {
     "gfdit_adaln_bwd_scratch": [_I] * 6,
     # B, n, d, ln, mod, gated, dtype, vec, device -> the plan (7 ints)
     "gfdit_adaln_bwd_plan": [_I] * 9 + [_IP],
-    # q, k, v, out, lse, scratch, scratch floats, B, Sq, Sk, H, KV, D,
-    # causal, sm_scale, dtype, device, stream
-    "gfdit_attention": [_P] * 6 + [ctypes.c_longlong] + [_I] * 7
+    # q, k, v, out, lse, scratch, scratch floats, splits, B, Sq, Sk, H, KV,
+    # D, causal, sm_scale, dtype, device, stream
+    "gfdit_attention": [_P] * 6 + [ctypes.c_longlong] + [_I] * 8
     + [_F, _I, _I, _P],
-    # B, Sq, Sk, H, D, dtype, device -> the bf16 kernel's key pieces
+    # B, Sq, Sk, H, D, dtype, device -> the kernel's key pieces
     "gfdit_attention_splits": [_I] * 7 + [_IP],
     # q, k, v, o, dout, lse, dq, dk, dv, delta, B, Sq, Sk, H, KV, D, causal,
     # sm_scale, dtype, device, stream
     "gfdit_attention_bwd": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P],
     # q, k_stale, v_stale, k_fresh, v_fresh, out, scratch, scratch floats,
-    # B, Sq, Sk, L, H, KV, D, offset, sm_scale, dtype, device, stream
-    "gfdit_splice_attention": [_P] * 7 + [ctypes.c_longlong] + [_I] * 8
+    # splits, B, Sq, Sk, L, H, KV, D, offset, sm_scale, dtype, device, stream
+    "gfdit_splice_attention": [_P] * 7 + [ctypes.c_longlong] + [_I] * 9
     + [_F, _I, _I, _P],
     # x, dt, A, B, C, y, state, scratch cum, states, cbt, ct, batch, L, H,
     # P, N, chunk, dtype, device, stream

@@ -40,7 +40,7 @@ operand reach the wrappers there, and neither launches anything:
   checks, returns empty ``meta`` outputs, allocates the card path's
   scratch on ``meta`` too (K4's forward scratch, its backward's work
   buffer, K2's backward's row sums), so that a trace's memory counts
-  it (not K2's and K3's bf16 split-key pieces, whose number follows the
+  it (not K2's and K3's split-key pieces, whose number follows the
   card's SM count: a few rows of floats a piece), and appends the
   kernel's operations and bytes (:mod:`repro_torch.kernels.cost`) to
   :data:`shape_only`.  A CPU or
@@ -90,11 +90,12 @@ _count_lock = threading.Lock()
 launches = {"fused_adaln": 0, "attention": 0, "splice_attention": 0,
             "ssd": 0, "attention_bwd": 0, "fused_adaln_bwd": 0,
             "ssd_bwd": 0}
-#: launches of K2's and K3's bf16 kernels by route, one a wrapper call
-#: (also counted under the wrapper's name in :data:`launches`): the
+#: launches of K2's and K3's kernels by dtype and route, one a wrapper
+#: call (also counted under the wrapper's name in :data:`launches`): the
 #: tensor-core tile kernel alone, or split keys (the tile kernel over its
 #: key pieces, then the combine kernel)
-kernel_launches = {"attention bf16": 0, "attention bf16 split": 0}
+kernel_launches = {"attention fp32": 0, "attention fp32 split": 0,
+                   "attention bf16": 0, "attention bf16 split": 0}
 #: the library's C entry points by name, bound on first use
 _fns: dict = {}
 #: (wrapper, operations, bytes) of every call the shape-only branch took
@@ -287,15 +288,17 @@ def attention(q, k, v, *, causal: bool = False):
     H % KV == 0; causal needs Sq == Sk.  Every operand 16-byte aligned.
     Returns (B, Sq, H, d).  Differentiable (see the module's note).
 
-    On the card, fp32 runs the CUDA-core kernel (fp32 arithmetic
-    throughout, within 1e-5 of the plain version) and bf16 the
-    tensor-core kernel (``mma.sync`` on bf16 operands, fp32 softmax and
-    accumulators, P rounded to bf16 before P V as FlashAttention-2
-    rounds it).  A bf16 grid of query tiles too small to fill the card's
-    SMs also splits the keys into pieces whose fp32 partial outputs a
-    second kernel merges by log-sum-exp (:func:`attention_splits` says
-    how many; the wrapper allocates their scratch).  Nothing falls back:
-    a CUDA operand launches a kernel or raises."""
+    On the card both dtypes run one tensor-core kernel (``mma.sync``,
+    fp32 softmax and accumulators): bf16 on bf16 operands, P rounded to
+    bf16 before P V as FlashAttention-2 rounds it; fp32 in split-TF32,
+    three TF32 products for each fp32 one with P kept in fp32, within
+    1e-5 of the plain version.  A grid of query tiles too small to fill
+    the card's SMs also splits the keys into pieces whose fp32 partial
+    outputs a second kernel merges by log-sum-exp
+    (:func:`attention_splits` says how many; the wrapper allocates their
+    scratch).  Each call counts under its route in
+    :data:`kernel_launches`.  Nothing falls back: a CUDA operand launches
+    the kernel or raises."""
     if isinstance(q, DTensor):
         qt, kt, _ = attention_rule(q, k)
         return _per_rank(functools.partial(attention, causal=causal),
@@ -345,7 +348,7 @@ def attention_splits(b: int, sq: int, sk: int, h: int, d: int,
                      dtype=torch.bfloat16, device: int = 0) -> int:
     """The key pieces K2's (and K3's) ``dtype`` kernel splits a call of
     ``b`` x ``sq`` queries over ``h`` heads and ``sk`` key positions into
-    on the card ``device``: 1 (no split) unless bf16 query tiles cannot
+    on the card ``device``: 1 (no split) unless the query tiles cannot
     fill its SMs once.  The rule is the library's
     (``gfdit_attention_splits``: the SM count, the tile grid and the key
     tiles)."""
@@ -354,21 +357,24 @@ def attention_splits(b: int, sq: int, sk: int, h: int, d: int,
     return _splits(b, sq, sk, h, d, _DTYPES[dtype], device)
 
 
-def _split_scratch(q, b, sq, sk, h, d, dtype, dev):
-    """(scratch tensor or None, its floats, the route) of a card call:
-    the split pieces' fp32 partial outputs and (row max, row sum) pairs,
-    n b sq h (d + 2) floats, for a split bf16 call."""
-    if dtype != _DTYPES[torch.bfloat16]:
-        return None, 0, None
-    n = _splits(b, sq, sk, h, d, dtype, dev)
+def _split_scratch(q, b, sq, sk, h, d, dtype, dev, splits=None):
+    """(scratch tensor or None, its floats, the key pieces, the route) of
+    a card call in ``splits`` pieces (None: :func:`attention_splits`'
+    count): the split pieces' fp32 partial outputs and (row max, row sum)
+    pairs, n b sq h (d + 2) floats, for a split call."""
+    route = "attention fp32" if dtype == _DTYPES[torch.float32] \
+        else "attention bf16"
+    n = _splits(b, sq, sk, h, d, dtype, dev) if splits is None else splits
     if n == 1:
-        return None, 0, "attention bf16"
+        return None, 0, n, route
     floats = n * b * sq * h * (d + 2)
     return (torch.empty(floats, dtype=torch.float32, device=q.device),
-            floats, "attention bf16 split")
+            floats, n, route + " split")
 
 
-def _attention_fwd(q, k, v, causal: bool, want_lse: bool):
+def _attention_fwd(q, k, v, causal: bool, want_lse: bool, splits=None):
+    """K2's forward, (out, lse or None); on the card in ``splits`` key
+    pieces (None: the library's count; a timing script passes others)."""
     if not (q.is_cuda or q.is_meta or _on_card(q, k, v)):
         out = ref.attention_ref(q, k, v, causal=causal)
         return out, (ref.attention_lse_ref(q, k, causal=causal)
@@ -390,11 +396,12 @@ def _attention_fwd(q, k, v, causal: bool, want_lse: bool):
     pq, pk, pv = q.data_ptr(), k.data_ptr(), v.data_ptr()
     _aligned(name, q=pq, k=pk, v=pv)
     dev = q.get_device()
-    scratch, floats, route = _split_scratch(q, b, sq, sk, h, d, dtype, dev)
+    scratch, floats, n, route = _split_scratch(q, b, sq, sk, h, d, dtype,
+                                               dev, splits)
     _launch(name, fn, pq, pk, pv, out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), floats, b, sq,
-            sk, h, kv, d, int(causal), 1.0 / math.sqrt(d), dtype, dev,
+            None if scratch is None else scratch.data_ptr(), floats, n, b,
+            sq, sk, h, kv, d, int(causal), 1.0 / math.sqrt(d), dtype, dev,
             _stream(dev), route=route)
     return out, lse
 
@@ -477,6 +484,12 @@ def splice_attention(q, k_stale, v_stale, k_fresh, v_fresh, *, offset: int):
     _refuse_grad("splice_attention", "the §11 hit path only serves, and "
                  "no training path reaches it", q, k_stale, v_stale, k_fresh,
                  v_fresh)
+    return _splice_fwd(q, k_stale, v_stale, k_fresh, v_fresh, offset)
+
+
+def _splice_fwd(q, k_stale, v_stale, k_fresh, v_fresh, offset, splits=None):
+    """K3's forward; on the card in ``splits`` key pieces, as
+    :func:`_attention_fwd`."""
     if not (q.is_cuda or q.is_meta or
             _on_card(q, k_stale, v_stale, k_fresh, v_fresh)):
         return ref.splice_attention_ref(q, k_stale, v_stale, k_fresh,
@@ -507,10 +520,11 @@ def splice_attention(q, k_stale, v_stale, k_fresh, v_fresh, *, offset: int):
                 v_fresh=v_fresh.data_ptr())
     _aligned(name, **ptrs)
     dev = q.get_device()
-    scratch, floats, route = _split_scratch(q, b, sq, sk, h, d, dtype, dev)
+    scratch, floats, pieces, route = _split_scratch(q, b, sq, sk, h, d,
+                                                    dtype, dev, splits)
     _launch(name, fn, *ptrs.values(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), floats, b, sq,
-            sk, n, h, kv, d, offset, 1.0 / math.sqrt(d), dtype, dev,
+            None if scratch is None else scratch.data_ptr(), floats, pieces,
+            b, sq, sk, n, h, kv, d, offset, 1.0 / math.sqrt(d), dtype, dev,
             _stream(dev), route=route)
     return out
 
@@ -896,9 +910,8 @@ def _occupancy(name: str, fn, *args, extra=()) -> tuple[int, int]:
 def attention_occupancy(head_dim: int, dtype=torch.float32,
                         device: int = 0) -> tuple[int, int]:
     """(resident blocks per SM, dynamic shared-memory bytes) of the
-    ``dtype`` attention kernel at ``head_dim`` (fp32: the CUDA-core
-    kernel; bf16: the tensor-core tile kernel), from the CUDA occupancy
-    calculator."""
+    ``dtype`` attention tile kernel at ``head_dim`` (both dtypes on the
+    tensor cores), from the CUDA occupancy calculator."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"attention: unsupported head_dim={head_dim}")
     return _occupancy("attention_occupancy",

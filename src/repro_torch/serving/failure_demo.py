@@ -102,15 +102,29 @@ def calibrate(cfg, device=None) -> CostModel:
     """Measure the cost of every cell the scenario dispatches (degree-2
     denoise, degree-1 encode/decode at 64 tokens) by serving the
     scripted scenario itself, failure-free: first pass warms up, second
-    pass measures (elastic_demo methodology)."""
+    pass measures (elastic_demo methodology).
+
+    The denoise cell is the median period between the measured pass's
+    consecutive denoise dispatches, not the online EMA of the steps'
+    durations: the EMA (weight 0.5) is mostly the last step or two, and
+    the period is what the wall leg's clock advances by a step (the
+    step plus the plane's completion-to-dispatch turn).  The kill lands
+    3.5 steps in, so the cell's error counts 3.5 times against a margin
+    of half a step."""
     cost = CostModel()
     for i, cal in enumerate((CostModel(), cost)):   # warm, measure
         eng = ServingEngine(cfg, FailureScriptPolicy(), TOPO, cost=cal,
                             device=device)
         eng.serve([_request(f"warm{i}")], timeout=240)
+        starts = [e["t"] for e in eng.cp.events
+                  if e["ev"] == "dispatch" and e["kind"] == "denoise"]
         eng.shutdown()
     cost.table.update(cost.calibration)
     cost.calibration.clear()        # the copied table is authoritative
+    periods = sorted(b - a for a, b in zip(starts, starts[1:]))
+    cost.table[CostModel._key("dit-image", "denoise", (RES // 16) ** 2,
+                              len(LAYOUT_A.ranks))] = \
+        periods[len(periods) // 2]
     return cost
 
 
@@ -188,21 +202,23 @@ def run_demo(cfg=None, retries: int = 2, device=None) -> dict:
 
     The wall leg's timing margins are half a denoise step; on a shared
     host a contention spike can exceed them, so a signature mismatch
-    re-serves the (cheap) wall leg against the same frozen calibration —
-    the claim under test is decision-trace identity given sane timing,
-    not immunity to infrastructure noise.  A run whose attempts are all
-    used up returns ``trace_match: False``."""
+    re-serves the (cheap) wall leg — the claim under test is
+    decision-trace identity given sane timing, not immunity to
+    infrastructure noise.  Every attempt calibrates anew and replays
+    its own sim leg on those costs: a host that slowed down (or sped
+    up) after one frozen calibration would miss every attempt together.
+    A run whose attempts are all used up returns ``trace_match:
+    False``."""
     if cfg is None:
         from repro_torch.configs.dit_models import DIT_IMAGE
         cfg = DIT_IMAGE.reduced()
     from repro_torch.core.telemetry import Telemetry
-    cost = calibrate(cfg, device)
-    frozen = CostModel(table=dict(cost.table))
-    t_fail = fail_time(frozen)
     reqs = [_request("victim")]
-    sim = run_sim(cfg, frozen, reqs, t_fail, telemetry=Telemetry())
     attempts = 0
     for attempts in range(1, retries + 2):
+        frozen = CostModel(table=dict(calibrate(cfg, device).table))
+        t_fail = fail_time(frozen)
+        sim = run_sim(cfg, frozen, reqs, t_fail, telemetry=Telemetry())
         # fresh instrument per attempt: a noise-perturbed leg must not
         # leave stale streams behind for the comparison
         wall = run_wall(cfg, frozen, reqs, t_fail, telemetry=Telemetry(),

@@ -68,10 +68,10 @@ ATTN_CASES = [
     (4, 4, 1500, 16, 16, 64, False),
     (4, 1, 1500, 16, 16, 64, False),
     # a few queries over 1500 ragged keys, as above, at every head dim,
-    # under GQA and causal (Sq = Sk over one head): in bf16 the tile grid
-    # of these cannot fill the card's SMs, so the keys are split
-    # (SPLIT_CASES holds which); with 40 or 128 query heads it can, and
-    # the same shapes take the tile kernel alone
+    # under GQA and causal (Sq = Sk over one head): the tile grid of these
+    # cannot fill the card's SMs, so the keys are split (_expect_split
+    # says which); with 40 or 128 query heads it can, and the same shapes
+    # take the tile kernel alone
     (1, 1, 1500, 8, 2, 64, False),
     (1, 4, 1500, 8, 2, 128, False),
     (2, 1, 1500, 4, 4, 112, False),
@@ -215,13 +215,22 @@ def test_cuda_adaln_kernel(cuda_device, variant, dtype, d, aligned):
     _close(got, ref.adaln_ref(t["x"], ln=ln, **kw), dtype)
 
 
-def _expect_split(b, sq, sk, h, d) -> bool:
-    """Whether K2's bf16 kernel should split the keys: its grid of
-    64-query tiles cannot fill the card's SMs once and the keys hold at
-    least two pieces of two tiles (64 keys, 32 at d = 256)."""
+def _expect_split(b, sq, sk, h, d, dtype="bfloat16") -> bool:
+    """Whether K2's ``dtype`` kernel should split the keys: its grid of
+    64-query tiles cannot fill the card's SMs once, and the keys (in
+    tiles of 64, 32 at bf16 d = 256 and fp32 d > 32) hold two pieces of
+    two tiles or more, for fp32 at d = 256 (one block an SM) only where
+    two pieces a tile fit the SMs; or, in fp32, three or more one-tile
+    pieces that each get an SM of their own."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     tiles = -(-sq // 64) * b * h
-    return tiles < sms and -(-sk // (64 if d <= 128 else 32)) >= 4
+    bf16 = dtype == "bfloat16"
+    ktiles = -(-sk // (64 if d <= (128 if bf16 else 32) else 32))
+    if tiles >= sms:
+        return False
+    if not bf16 and tiles * ktiles <= sms:
+        return ktiles >= 3
+    return ktiles >= 4 and (bf16 or d != 256 or 2 * tiles <= sms)
 
 
 @pytest.mark.cuda
@@ -239,7 +248,8 @@ def test_cuda_attention_bf16_route(cuda_device, b, sq, sk, h, kv, d,
             for _ in range(2))
     split = _expect_split(b, sq, sk, h, d)
     assert (ops.attention_splits(b, sq, sk, h, d) > 1) == split
-    assert ops.attention_splits(b, sq, sk, h, d, torch.float32) == 1
+    assert (ops.attention_splits(b, sq, sk, h, d, torch.float32) > 1) == \
+        _expect_split(b, sq, sk, h, d, "float32")
     route = "attention bf16 split" if split else "attention bf16"
     before = dict(ops.kernel_launches)
     out, lse = ops.attention_lse(q, k, v, causal=causal)
@@ -248,6 +258,123 @@ def test_cuda_attention_bf16_route(cuda_device, b, sq, sk, h, kv, d,
         r: int(r == route) for r in after}
     _close(out, ref.attention_ref(q, k, v, causal=causal), "bfloat16")
     assert _rel_l2(lse, ref.attention_lse_ref(q, k, causal=causal)) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", [
+    c for c in ATTN_CASES if c[2] >= 520] + [
+    (1, 77, 77, 4, 4, 256, False),     # the text encoder: 3 one-tile pieces
+    (2, 77, 130, 4, 2, 32, False),     # 64-key tiles, GQA
+    # DIT_IMAGE at a 512 px request's SP-4 shard: self over 1024 keys
+    # splits, cross to 77 text tokens (3 key tiles, pieces sharing SMs)
+    # does not; a 128 px shard's cross does (3 one-tile pieces), its self
+    # over 2 key tiles does not
+    (1, 256, 1024, 24, 24, 64, False),
+    (1, 256, 77, 24, 24, 64, False),
+    (1, 16, 77, 24, 24, 64, False),
+    (1, 16, 64, 24, 24, 64, False),
+])
+def test_cuda_attention_fp32_route(cuda_device, b, sq, sk, h, kv, d, causal):
+    """Each long-key fp32 case, and two short grids whose fp32 pieces are
+    one key tile, takes the split-TF32 kernel's route its grid calls for
+    (split keys when the tile grid cannot fill the SMs: whisper's
+    cross-attention of a prompt and of a decode step; else the tile
+    kernel alone), counted in ``ops.kernel_launches``; the output within
+    the fp32 budget and the log-sum-exp within 1e-6 of the plain
+    versions."""
+    rng = np.random.default_rng(sq + sk + h)
+    q = _card(rng, (b, sq, h, d), "float32", cuda_device)
+    k, v = (_card(rng, (b, sk, kv, d), "float32", cuda_device)
+            for _ in range(2))
+    split = _expect_split(b, sq, sk, h, d, "float32")
+    assert (ops.attention_splits(b, sq, sk, h, d, torch.float32) > 1) == split
+    route = "attention fp32 split" if split else "attention fp32"
+    before = dict(ops.kernel_launches)
+    out, lse = ops.attention_lse(q, k, v, causal=causal)
+    after = dict(ops.kernel_launches)
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == route) for r in after}
+    _close(out, ref.attention_ref(q, k, v, causal=causal), "float32")
+    assert _rel_l2(lse, ref.attention_lse_ref(q, k, causal=causal)) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,offset", [
+    (1, 256, 1024, 24, 24, 64, False, None),   # a 512 px SP-4 shard
+    (1, 256, 1024, 24, 24, 64, False, 512),    # its §11 hit
+    (2, 40, 300, 4, 2, 128, False, None),      # GQA, ragged keys
+    (1, 300, 300, 2, 2, 64, True, None)])      # causal
+def test_cuda_attention_any_split_count(cuda_device, dtype, b, sq, sk, h, kv,
+                                        d, causal, offset):
+    """K2 and K3 in 1 to 8 key pieces, as a caller passing its own count
+    (a timing script) runs them, each within the dtype's budget of the
+    plain version: the walk and the combine hold at every piece count,
+    not only at the library's."""
+    rng = np.random.default_rng(sq + sk)
+    q = _card(rng, (b, sq, h, d), dtype, cuda_device)
+    k, v = (_card(rng, (b, sk, kv, d), dtype, cuda_device) for _ in range(2))
+    if offset is None:
+        want = ref.attention_ref(q, k, v, causal=causal)
+    else:
+        kf, vf = (_card(rng, (b, sq, kv, d), dtype, cuda_device)
+                  for _ in range(2))
+        want = ref.splice_attention_ref(q, k, v, kf, vf, offset=offset)
+    for n in range(1, 9):
+        got = (ops._attention_fwd(q, k, v, causal, False, n)[0]
+               if offset is None else
+               ops._splice_fwd(q, k, v, kf, vf, offset, n))
+        _close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", [
+    (4, 1, 1500, 16, 16, 64, False),      # split keys
+    (1, 1500, 1500, 1, 1, 64, True),      # split keys, causal
+    (1, 200, 300, 24, 24, 64, False),     # the tile kernel
+    (1, 70, 100, 2, 2, 256, False)])
+def test_cuda_attention_fp32_is_deterministic(cuda_device, b, sq, sk, h, kv,
+                                              d, causal):
+    """Two fp32 forward calls give the same bits, output and lse: the
+    split pieces are merged in a fixed order, with no atomics."""
+    rng = np.random.default_rng(12)
+    q = _card(rng, (b, sq, h, d), "float32", cuda_device)
+    k, v = (_card(rng, (b, sk, kv, d), "float32", cuda_device)
+            for _ in range(2))
+    first = ops.attention_lse(q, k, v, causal=causal)
+    second = ops.attention_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,offset", [
+    (1, 256, 1024, 24, 24, 64, False, None),   # a 512 px SP-4 shard
+    (1, 256, 1024, 24, 24, 64, False, 512),    # its §11 hit
+    (2, 40, 300, 4, 2, 128, False, None),      # GQA, ragged keys
+    (1, 300, 300, 2, 2, 64, True, None)])      # causal
+def test_cuda_attention_any_split_count(cuda_device, dtype, b, sq, sk, h, kv,
+                                        d, causal, offset):
+    """K2 and K3 in 1 to 8 key pieces, as a caller passing its own count
+    (a timing script) runs them, each within the dtype's budget of the
+    plain version: the walk and the combine hold at every piece count,
+    not only at the library's."""
+    rng = np.random.default_rng(sq + sk)
+    q = _card(rng, (b, sq, h, d), dtype, cuda_device)
+    k, v = (_card(rng, (b, sk, kv, d), dtype, cuda_device) for _ in range(2))
+    if offset is None:
+        want = ref.attention_ref(q, k, v, causal=causal)
+    else:
+        kf, vf = (_card(rng, (b, sq, kv, d), dtype, cuda_device)
+                  for _ in range(2))
+        want = ref.splice_attention_ref(q, k, v, kf, vf, offset=offset)
+    for n in range(1, 9):
+        got = (ops._attention_fwd(q, k, v, causal, False, n)[0]
+               if offset is None else
+               ops._splice_fwd(q, k, v, kf, vf, offset, n))
+        _close(got, want, dtype)
 
 
 @pytest.mark.cuda
@@ -296,6 +423,36 @@ def test_cuda_splice_bf16_segment_edges(cuda_device, d, sq, h, offset, sk,
     assert ops.kernel_launches[route] == before + 1
     _close(got, ref.splice_attention_ref(q, ks, vs, kf, vf, offset=offset),
            "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64, 112, 128])
+@pytest.mark.parametrize("sq,h,offset,sk,n", [
+    (100, 4, 0, 300, 100),     # fresh rows first: [0, 100)
+    (100, 4, 77, 300, 100),    # [77, 177): edges inside tiles
+    (100, 4, 200, 300, 100),   # fresh rows last: [200, 300)
+    (300, 4, 130, 900, 300),   # [130, 430), the stale tail ragged
+    (4, 2, 701, 1500, 100),    # a few queries: split keys, edges inside
+    (1, 2, 0, 1500, 37),       # pieces and a tile
+])
+def test_cuda_splice_fp32_segment_edges(cuda_device, d, sq, h, offset, sk,
+                                        n):
+    """K3 in fp32 (split-TF32) with the fresh rows first, in the middle
+    and last, their edges inside a key tile, on the tile kernel and (a
+    few queries over 1500 keys) on split keys, each by its route."""
+    rng = np.random.default_rng(offset + d + 1)
+    q = _card(rng, (1, sq, h, d), "float32", cuda_device)
+    ks, vs = (_card(rng, (1, sk, 2, d), "float32", cuda_device)
+              for _ in range(2))
+    kf, vf = (_card(rng, (1, n, 2, d), "float32", cuda_device)
+              for _ in range(2))
+    split = _expect_split(1, sq, sk, h, d, "float32")
+    route = "attention fp32 split" if split else "attention fp32"
+    before = ops.kernel_launches[route]
+    got = ops.splice_attention(q, ks, vs, kf, vf, offset=offset)
+    assert ops.kernel_launches[route] == before + 1
+    _close(got, ref.splice_attention_ref(q, ks, vs, kf, vf, offset=offset),
+           "float32")
 
 
 #: K2's backward: causal, GQA, cross (Sq != Sk), ragged against the
@@ -484,32 +641,53 @@ def test_cuda_attention_backward_fp32_runs_split_tf32(cuda_device):
     assert len(names) == 2 + 4 * len(ops.HEAD_DIMS), names
 
 
+def _attention_forward_sass(code) -> tuple[dict, dict]:
+    """({mangled name: SASS} of K2's forward tile kernel of the dtype
+    whose mangled code is ``code``, at every head dim of
+    ``ops.HEAD_DIMS``, the same of every function of the library)."""
+    from repro_torch.kernels import build
+    build.load()
+    funcs = _sass_functions(build.library_path())
+    prefix = f"_ZN5gfdit15attn_mma_kernelI{code}Li"
+    tiles = {f: body for f, body in funcs.items() if f.startswith(prefix)}
+    dims = sorted(int(f[len(prefix):].split("E")[0]) for f in tiles)
+    assert dims == sorted(ops.HEAD_DIMS), sorted(tiles)
+    return tiles, funcs
+
+
 @pytest.mark.cuda
 def test_cuda_attention_forward_bf16_runs_on_tensor_cores(cuda_device):
     """K2's (and K3's) bf16 forward: one tensor-core tile kernel at every
     head dim of ``ops.HEAD_DIMS``, each holding bf16 HMMA instructions,
-    and the split-key combine kernel; no CUDA-core bf16 forward is left
-    (``attn_kernel<__nv_bfloat16, D>``), and the fp32 forward kernel
-    ``attn_kernel<float, D>``, at every head dim, holds no HMMA."""
-    from repro_torch.kernels import build
-    build.load()
-    funcs = _sass_functions(build.library_path())
-    tiles = {f: body for f, body in funcs.items()
-             if f.startswith("_ZN5gfdit15attn_mma_kernelILi")}
-    dims = sorted(int(f.split("ILi")[1].split("E")[0]) for f in tiles)
-    assert dims == sorted(ops.HEAD_DIMS), sorted(tiles)
+    and the split-key combine kernel; no CUDA-core forward is left
+    (``attn_kernel<T, D>``, of either dtype)."""
+    tiles, funcs = _attention_forward_sass(BWD_HMMA["bfloat16"][1])
     for f, body in tiles.items():
         assert any("HMMA" in line and ".BF16" in line
                    for line in body.splitlines()), f
     assert [f for f in funcs
             if f.startswith("_ZN5gfdit19attn_combine_kernel")], sorted(funcs)
-    assert not [f for f in funcs
-                if f.startswith("_ZN5gfdit11attn_kernelI13__nv_bfloat16")]
-    fp32 = {f: body for f, body in funcs.items()
-            if f.startswith("_ZN5gfdit11attn_kernelIfLi")}
-    assert len(fp32) == len(ops.HEAD_DIMS), sorted(fp32)
-    for f, body in fp32.items():
-        assert "HMMA" not in body, f
+    assert not [f for f in funcs if f.startswith("_ZN5gfdit11attn_kernel")]
+
+
+@pytest.mark.cuda
+def test_cuda_attention_forward_fp32_runs_split_tf32(cuda_device):
+    """K2's (and K3's) fp32 forward: the tile kernel at every head dim of
+    ``ops.HEAD_DIMS`` holds TF32 HMMA instructions, three to each fp32
+    product (a count divisible by 3) and no bf16 ones; a combine kernel
+    writes fp32, and no fp32 kernel on the CUDA cores is left
+    (``attn_kernel<float, D>``)."""
+    tiles, funcs = _attention_forward_sass(BWD_HMMA["float32"][1])
+    for f, body in tiles.items():
+        count = sum("HMMA" in line for line in body.splitlines())
+        assert count and count % 3 == 0, (f, count)
+        assert all(".TF32" in line for line in body.splitlines()
+                   if "HMMA" in line), f
+        assert "BF16" not in body, f
+    assert [f for f in funcs
+            if f.startswith("_ZN5gfdit19attn_combine_kernelIfE")], \
+        sorted(funcs)
+    assert not [f for f in funcs if f.startswith("_ZN5gfdit11attn_kernelIf")]
 
 
 @pytest.mark.cuda
