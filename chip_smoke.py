@@ -21,10 +21,15 @@ Phases, one line each (any failure raises and exits non-zero):
    DIT_IMAGE's width, every variant, with its plan and blocks an SM; the
    registers and spills of K4's forward and backward stage kernels at
    (p, n, chunk) = (64, 128, 128) and (64, 64, 128), and of K4's fp32
-   backward tensor-core kernels at every (p, n, chunk).
+   backward tensor-core kernels at every (p, n, chunk), and of K4's bf16
+   forward tensor-core stages at every (p, n, chunk), with the bf16
+   stages' threads, shared bytes and blocks an SM at mamba2-1.3b's and
+   zamba2-7b's prefill and training shapes.
 3. kernels: each kernel against its plain PyTorch version on the card at
    its path's full-width shapes (DIT_IMAGE for K1-K3, the mamba2-1.3b
-   prefill for K4, timed at batch 4 and 1; zamba2-7b's forward for K2
+   prefill for K4, timed at batch 4 and 1 in both dtypes, with the
+   CUDA-core and tensor-core bounds and the four-stage design's floor;
+   zamba2-7b's forward for K2
    causal at head dim 112 and its prefill for K4 at (p, n, chunk) =
    (64, 64, 128); yi-6b's causal GQA forward for K2; whisper-medium's
    encoder self-attention over 1500 frames and its cross-attention of a
@@ -51,9 +56,10 @@ Phases, one line each (any failure raises and exits non-zero):
    time by stage kernel (``torch.profiler``) and each stage's occupancy;
    K4's backward at the mamba2-1.3b and zamba2-7b training shapes (2 x
    2048 tokens), fp32 (split-TF32 on the tensor cores, within 2e-5) and
-   bf16 (the CUDA cores), rel-L2 per output (dx, ddt, dA, dB, dC, each
-   printed) against ``ref.ssd_bwd_ref``, timed as the other backward
-   kernels with its four stage kernels' device time and occupancy.
+   bf16 (bf16 products on the tensor cores, within 3e-2), rel-L2 per
+   output (dx, ddt, dA, dB, dC, each printed) against
+   ``ref.ssd_bwd_ref``, timed as the other backward kernels with its
+   four stage kernels' device time and occupancy.
 4. serve: ``ServingEngine(DIT_IMAGE, SP-4, cache_interval=2)`` at full
    width serves two 512 px and one 1024 px request; every request must
    finish with finite pixels, through K1-K3, with both §11 refresh and
@@ -82,8 +88,13 @@ Phases, one line each (any failure raises and exits non-zero):
 9. lm: mamba2-1.3b at full width (48 layers, d_model 2048, seeded random
    weights with Mamba2's published A/dt ranges) prefills 4 prompts of
    2048 tokens in bf16 and decodes 32 tokens greedily through the
-   serve-loop steps: finite logits, K4 once per layer per prefill; then
-   in fp32 prefill + decode reproduce the teacher-forced forward.
+   serve-loop steps: finite logits, K4 once per layer per prefill; the
+   same with the ``ssd_bf16`` variant (``dryrun.apply_variant``:
+   intra_dtype="bfloat16", K4 in bf16 on the tensor cores, counted by
+   dtype in ``ops.kernel_launches``) on the same weights, its prefill
+   tokens/s, decode ms a step and peak memory printed beside the
+   fp32-intra leg's; then in fp32 prefill + decode reproduce the
+   teacher-forced forward.
 10. lm-cpu: on mamba2-1.3b.reduced() the card (K4) and the CPU (the
    sequential plain version) give the same logits.
 11. hybrid: zamba2-7b at full width and depth (81 Mamba2 layers, d_model
@@ -92,7 +103,8 @@ Phases, one line each (any failure raises and exits non-zero):
    ranges, 27.0 GB in fp32) prefills 4 prompts of 2048 tokens in bf16
    and decodes 32 tokens greedily through the serve-loop steps: finite
    logits, K4 81 times a prefill and never in a decode step, no DiT
-   kernel; then in fp32 prefill + 32 teacher-forced decode steps
+   kernel; the same under ``ssd_bf16`` (K4 in bf16, 81 times a
+   prefill); then in fp32 prefill + 32 teacher-forced decode steps
    reproduce ``hybrid.forward`` over the 2080 tokens (K2 causal 13
    times at d=112, K4 81 times at the ragged l=2080).
 12. hybrid-cpu: zamba2-7b, yi-6b and gemma3-12b at ``.reduced()`` (the
@@ -134,6 +146,10 @@ Phases, one line each (any failure raises and exits non-zero):
    mamba2-1.3b at full width and depth (48 layers, 1.44 B parameters, A
    and dt in Mamba2's published ranges), 3 bf16 AdamW steps of 2 x 2048
    tokens from the TokenPipeline, K4 and its backward 48 times a step;
+   then the same steps under ``ssd_bf16`` from the same weights with a
+   fresh AdamW on the same batches: K4 and its backward in bf16 (the
+   ``_ssd_bwd_dtypes`` spy sees bfloat16), the same launches a step, its
+   losses within 3e-2 of the fp32-intra leg's;
    (d) zamba2-7b at full width, 12 of 81 layers (two groups of six and
    the shared block), the same, K4 and its backward 12 times a step and
    K2 causal forward and backward twice at d=112; (c) and (d) print the
@@ -224,8 +240,13 @@ timed at DIT_IMAGE's self-attention) and ``attention fp32 split`` and
 px self shard in fp32, whisper's decode step in bf16 and fp32 beside
 it), counted by ``ops.kernel_launches``: fp32's routes in the serve,
 scenarios and video phases' DiT serving and whisper's fp32 prefill +
-decode in the zoo phase, bf16's from whisper's bf16 serve; the script
-fails if any listed kernel was never launched);
+decode in the zoo phase, bf16's from whisper's bf16 serve; K4's
+forward and backward on bf16 operands are listed as ``ssd bf16`` and
+``ssd_bwd bf16`` (the tensor-core stage kernels, timed at mamba2-1.3b's
+prefill and training shapes), their launches those of the ``ssd_bf16``
+legs of the lm, hybrid and train phases, counted by dtype in
+``ops.kernel_launches``; the script fails if any listed kernel was
+never launched);
 the last line
 is ``{"ok": true, "device": {...}}``.  Exits 2 without CUDA.
 
@@ -245,11 +266,16 @@ run on the tree whose fp32 backward ran on the CUDA cores it records
     python3 chip_smoke.py --phase bench [--phase train ...]
 
 runs phases 1-2 and the named ones (serve, splits, scenarios, failure,
-video, zoo, train, train-cpu, gfc, dryrun, bench), in the order given,
+video, ssd, lm, hybrid, zoo, train, train-cpu, gfc, dryrun, bench), in
+the order given,
 and prints neither the kernels line nor the last line.  ``splits`` (run
 by name only) times fp32 K2 and K3 at the main path's short query grids
 in 1 to 8 key pieces, each held to its plain version: the measurement
-behind the library's split rule.  ``failure`` (run by name only) serves
+behind the library's split rule.  ``ssd`` (run by name only) runs the
+kernels phase's K4 forward and backward checks alone, both dtypes, and
+prints a digest of every fp32 output on fixed inputs, so that
+``--phase ssd --src DIR`` times another tree's K4 beside this one's and
+shows whether their fp32 bits agree.  ``failure`` (run by name only) serves
 the failure demo ten times as the scenarios phase does and prints, per
 wall attempt, how far the host kill landed from the edges of denoise
 step 3 (the scenarios phase prints the same for its one run).
@@ -297,6 +323,7 @@ from repro_torch.core.grouped import build_grouped_ops  # noqa: E402
 from repro_torch.core.scheduler import Decision, Policy  # noqa: E402
 from repro_torch.core.trajectory import ExecutionLayout, Request  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.models import dit, get_model, hybrid, layers, ssm  # noqa: E402
 from repro_torch.serving import serve_loop  # noqa: E402
@@ -444,6 +471,11 @@ SOURCES = {
     "attention bf16 split": ("src/repro_torch/csrc/attention.cu",
                              "src/repro/kernels/flash_attention.py:82"),
     "ssd": ("src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd.py:65"),
+    # K4's forward and backward on bf16 operands (intra_dtype="bfloat16",
+    # the ssd_bf16 legs): the tensor-core stage kernels, counted by dtype
+    # in ops.kernel_launches
+    "ssd bf16": ("src/repro_torch/csrc/ssd.cu",
+                 "src/repro/kernels/ssd.py:65"),
     # the backward kernels of K2, K1 and K4 (the TPU kernels have none)
     "attention_bwd": ("src/repro_torch/csrc/attention_bwd.cu",
                       "src/repro/kernels/flash_attention.py:82"),
@@ -451,6 +483,8 @@ SOURCES = {
                         "src/repro/kernels/adaln.py:66"),
     "ssd_bwd": ("src/repro_torch/csrc/ssd_bwd.cu",
                 "src/repro/kernels/ssd.py:65"),
+    "ssd_bwd bf16": ("src/repro_torch/csrc/ssd_bwd.cu",
+                     "src/repro/kernels/ssd.py:65"),
 }
 
 
@@ -643,19 +677,42 @@ def phase_build() -> None:
     _report_attention_fwd(report)
     _report_attention_bwd(report)
     _report_adaln_bwd(report)
-    for f in sorted(report):      # K4 at (64, 128, 128) and (64, 64, 128)
-        m = re.match(r"_ZN5gfdit(\d+)", f)       # and its backward; the
-        name = f[m.end():m.end() + int(m[1])] if m else f   # backward's
-        if name.endswith("_mma"):           # fp32 tensor-core kernels at
-            shape = tuple(int(v) for v in re.findall(r"Li(\d+)E", f))
-            print(f"  {name}<fp32, {shape}>: {report[f]}", flush=True)
-            continue                        # every (p, n, chunk)
-        for n in (128, 64):
-            if name.startswith("ssd") and f"Li{n}ELi128E" in f and (
-                    f"Li64ELi{n}ELi128E" in f
-                    or name in ("ssd_cb", "ssd_bwd_sum")):
-                print(f"  {name}<{'bf16' if 'bfloat' in f else 'fp32'}, "
-                      f"(64,) {n}, 128>: {report[f]}", flush=True)
+    _report_ssd(report)
+
+
+def _report_ssd(report: dict) -> None:
+    """K4's forward and backward stage kernels: registers and spill bytes
+    (ptxas) of the tensor-core kernels (``*_mma``: the bf16 forward's,
+    the backward's in both dtypes) at every (p, n, chunk) and of the
+    others at (64, 128, 128) and (64, 64, 128); then, at mamba2-1.3b's
+    and zamba2-7b's prefill and training shapes, the bf16 stages' threads,
+    shared bytes and blocks an SM (the occupancy calculator)."""
+    for f in sorted(report):
+        m = re.match(r"_ZN5gfdit(\d+)", f)
+        name = f[m.end():m.end() + int(m[1])] if m else f
+        if not name.startswith("ssd"):
+            continue
+        dt = "bf16" if "bfloat" in f else "fp32"
+        shape = tuple(int(v) for v in re.findall(r"Li(\d+)E", f))
+        if name.endswith("_mma") or any(
+                f"Li{n}ELi128E" in f and (f"Li64ELi{n}ELi128E" in f
+                                          or name in ("ssd_cb",
+                                                      "ssd_bwd_sum"))
+                for n in (128, 64)):
+            print(f"  {name}<{dt}, {shape}>: {report[f]}", flush=True)
+    for cfg in (MAMBA, ZAMBA):
+        _, h, _ = ssm.ssm_dims(cfg)
+        p, n, c = cfg.ssm.head_dim, cfg.ssm.state_dim, cfg.ssm.chunk
+        for what, occ in (
+                ("ssd", ops.ssd_occupancy(LM_BATCH, LM_PROMPT, h, p, n, c,
+                                          torch.bfloat16)),
+                ("ssd_bwd", ops.ssd_bwd_occupancy(
+                    YI_TRAIN_BATCH, YI_TRAIN_SEQ, h, p, n, c,
+                    torch.bfloat16))):
+            print(f"  {what} bf16 {cfg.name}: " + "; ".join(
+                f"{k} {v[3] if len(v) > 3 else 256} threads, "
+                f"{v[1] / 1024:.2f} KiB shared, {v[0]} blocks an SM"
+                for k, v in occ.items()), flush=True)
 
 
 def _report_attention_fwd(report: dict) -> None:
@@ -1399,73 +1456,101 @@ def kernel_split_ms(fn, label: str, family: str, calls: int = 10) -> dict:
     return out
 
 
+def _ssd_bounds(label, nbytes, flops, entry=None, floor_bytes=0) -> dict:
+    """K4's bounds beside each other: the CUDA cores' (fp32 at 67
+    TFLOP/s), the tensor cores' (fp32 as three TF32 products at 494.7,
+    bf16 at 989; ``flops`` already counts the three TF32 products for
+    fp32) and, with ``floor_bytes``, the four-stage design's floor: the
+    function's bytes plus the fp32 chunk states that stage 1 writes,
+    stage 2 reads and writes and stage 4 reads.  Printed with the
+    kernel's share of each when ``entry`` holds its time."""
+    out = {"cuda_core": bound_ms(nbytes, flops[0]),
+           "tensor_core": bound_ms(nbytes, flops[1], flops[2])}
+    if floor_bytes:
+        out["design_floor"] = ((nbytes + floor_bytes) / HBM_BYTES_PER_S
+                               * 1e3, "bytes")
+    line = "; ".join(f"{k} {v:.4f} ms ({by}" + (
+        f", the kernel at {v / entry['ms']:.3f} of it)" if entry else ")")
+        for k, (v, by) in out.items())
+    print(f"    {label} bounds: {line}", flush=True)
+    if entry is not None:
+        entry["bounds"] = {k: v for k, (v, _) in out.items()}
+    return out
+
+
 def _check_ssd(dtype, results) -> None:
     """K4 at the full-width mamba2-1.3b prefill (b=4, l=2048, h=64, p=64,
-    n=128, chunk=128), timed in fp32, and at zamba2-7b's (b=4, l=2048,
-    h=112, p=64, n=64, chunk=128), timed in fp32 and bf16 and held in
-    fp32 to the stage-wise twin too; in fp32 also at batch 1 (timed), a
-    ragged l (the forward's 2080) and the reduced model's (16, 16, 16)
-    with a ragged l; then the occupancy of each stage kernel."""
+    n=128, chunk=128) and at batch 1, and at zamba2-7b's (b=4, l=2048,
+    h=112, p=64, n=64, chunk=128), each timed with its stage kernels'
+    device time and printed with its CUDA-core and tensor-core bounds and
+    the four-stage design's floor; also at a ragged l (the forward's
+    2080) and the reduced model's (16, 16, 16) with a ragged l, and in
+    fp32 zamba2's held to the stage-wise twin too; then the occupancy of
+    each stage kernel (bf16: the tensor-core stages)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     _, heads, _ = ssm.ssm_dims(MAMBA)
     s = MAMBA.ssm
+    fp32 = dtype == torch.float32
     es = torch.finfo(dtype).bits // 8
+    tag = "" if fp32 else " bf16"
     full = (heads, s.head_dim, s.state_dim, s.chunk)
     _, z_heads, _ = ssm.ssm_dims(ZAMBA)
     zamba = (LM_BATCH, LM_PROMPT, z_heads, ZAMBA.ssm.head_dim,
              ZAMBA.ssm.state_dim, ZAMBA.ssm.chunk)
-    cases = [(LM_BATCH, LM_PROMPT) + full, zamba]
-    if dtype == torch.float32:
-        cases += [(1, LM_PROMPT) + full, (LM_BATCH, LM_PROMPT + LM_DECODE)
-                  + full, (2, 40, 16, 16, 16, 16)]
+    cases = [(LM_BATCH, LM_PROMPT) + full, zamba, (1, LM_PROMPT) + full,
+             (LM_BATCH, LM_PROMPT + LM_DECODE) + full,
+             (2, 40, 16, 16, 16, 16)]
     for i, case in enumerate(cases):
         b, l, h, p, n, c = case
         x, dt, A, B, C = ssd_inputs(b, l, h, p, n, dtype, gen)
         timing = None
-        if (l == LM_PROMPT and dtype == torch.float32) or case == zamba:
+        if l == LM_PROMPT:
             flops, nbytes = cost.ssd(b, l, h, p, n, c, es)
             timing = {
                 "bytes": nbytes, "flops": flops,
-                "flops_per_s": (BF16_FLOPS_PER_S if dtype == torch.bfloat16
-                                else FP32_FLOPS_PER_S),
-                "plain_iters": 3, "host_calls": 200}
-            if i == 0:
-                timing["summary"] = "ssd"
-            elif case == zamba and dtype == torch.float32:
-                timing["summary"] = "zamba2-7b ssd"
+                "flops_per_s": FP32_FLOPS_PER_S if fp32 else
+                BF16_FLOPS_PER_S, "plain_iters": 3, "host_calls": 200}
+            key = f"b={b}" if case != zamba else f"zamba2 b={b}"
+            timing["summary"] = {0: "ssd", 1: "zamba2-7b ssd"}.get(
+                i, f"ssd {key}") + tag
         args = (x, dt, A, B, C)
         _check(f"ssd b={b} l={l} h={h} (p, n, chunk)={(p, n, c)}",
                lambda a=args, c=c: ops.ssd(*a, chunk=c),
                lambda a=args: ref.ssd_ref(*a),
                dtype, results, timing, SSD_BUDGET)
-        if case == zamba and dtype == torch.float32:   # and stage-wise
+        if case == zamba and fp32:   # and stage-wise
             _check(f"ssd b={b} l={l} h={h} (p, n, chunk)={(p, n, c)} vs "
                    f"the stage-wise twin",
                    lambda a=args, c=c: ops.ssd(*a, chunk=c),
                    lambda a=args, c=c: ref.ssd_chunked_ref(*a, chunk=c),
                    dtype, results, None, SSD_BUDGET)
-        if timing is not None and dtype == torch.float32:
-            key = f"b={b}" if case != zamba else f"zamba2 b={b}"
-            results.setdefault("ssd_stages", {})[key] = kernel_split_ms(
-                lambda a=args, c=c: ops.ssd(*a, chunk=c), f"ssd {key}",
-                "ssd")
-    if dtype == torch.float32:
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        occ = {}
-        shapes = [("", LM_BATCH, full), ("", 1, full)]
-        shapes.append(("zamba2 ", LM_BATCH, zamba[2:]))
-        for label, b, shape in shapes:
-            stages = ops.ssd_occupancy(b, LM_PROMPT, *shape)
-            for name, (blocks, smem, grid) in stages.items():
-                waves = grid / (blocks * sms)
-                occ[f"{label}b={b} {name}"] = {
-                    "blocks_per_sm": blocks, "smem_bytes": smem, "sms": sms,
-                    "grid": grid, "waves": waves}
-                print(f"  ssd occupancy {label}b={b} {name}: {grid} blocks "
-                      f"of 256 threads, {blocks} resident per SM "
-                      f"({smem / 1024:.1f} KB shared memory each), {sms} "
-                      f"SMs: {waves:.2f} waves", flush=True)
-        results["ssd_occupancy"] = occ
+        if timing is not None:
+            states = 4 * b * -(-l // c) * h * n * p * 4
+            _ssd_bounds(f"ssd{tag} {key}", nbytes,
+                        (flops, (3 if fp32 else 1) * flops,
+                         TF32_FLOPS_PER_S if fp32 else BF16_FLOPS_PER_S),
+                        results[timing["summary"]], states)
+            results.setdefault("ssd_stages", {})[key + tag] = \
+                kernel_split_ms(lambda a=args, c=c: ops.ssd(*a, chunk=c),
+                                f"ssd{tag} {key}", "ssd")
+        del x, dt, A, B, C
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    occ = {}
+    shapes = [("", LM_BATCH, full), ("", 1, full)]
+    shapes.append(("zamba2 ", LM_BATCH, zamba[2:]))
+    for label, b, shape in shapes:
+        stages = ops.ssd_occupancy(b, LM_PROMPT, *shape, dtype=dtype)
+        for name, (blocks, smem, grid, *threads) in stages.items():
+            threads = threads[0] if threads else 256
+            waves = grid / (blocks * sms)
+            occ[f"{label}b={b} {name}"] = {
+                "blocks_per_sm": blocks, "smem_bytes": smem, "sms": sms,
+                "grid": grid, "threads": threads, "waves": waves}
+            print(f"  ssd{tag} occupancy {label}b={b} {name}: {grid} blocks "
+                  f"of {threads} threads, {blocks} resident per SM "
+                  f"({smem / 1024:.1f} KB shared memory each), {sms} "
+                  f"SMs: {waves:.2f} waves", flush=True)
+    results["ssd_occupancy" + tag] = occ
 
 
 def _check_ssd_bwd(dtype, results) -> None:
@@ -1473,7 +1558,7 @@ def _check_ssd_bwd(dtype, results) -> None:
     l=2048, h=64, p=64, n=128, chunk 128) and zamba2-7b's (h=112, n=64),
     each on the scratch of K4's forward on the same operands and without
     a final-state gradient (the training path drops the state), timed;
-    in fp32 also mamba2's with one, untimed.  rel-L2 per output (dx, ddt,
+    also mamba2's with one, untimed.  rel-L2 per output (dx, ddt,
     dA, dB, dC) against ``ref.ssd_bwd_ref`` within the SSD's budget; the
     bound is operations (``cost.ssd_bwd_flops``) at the card's peak for the
     operands' type (bf16: the bf16 tensor-core rate; fp32: three TF32
@@ -1481,7 +1566,7 @@ def _check_ssd_bwd(dtype, results) -> None:
     bound printed beside it) or bytes (x, dy, B, C, dt and A read once,
     their gradients written once); no single PyTorch call computes the
     SSD's gradient, so no library time.  Then each call's four stage
-    kernels by the profiler, and in fp32 each stage's occupancy."""
+    kernels by the profiler, and each stage's occupancy."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     fp32 = dtype == torch.float32
     es = torch.finfo(dtype).bits // 8
@@ -1509,17 +1594,11 @@ def _check_ssd_bwd(dtype, results) -> None:
                lambda: ref.ssd_bwd_ref(x, dt, A, B, C, dy, chunk=c),
                dtype, results, timing, SSD_BWD_BUDGET, l2=True,
                names=SSD_BWD_OUTPUTS)
-        if fp32:
-            entry = results[label]
-            cc_ms, cc_by = bound_ms(nbytes, flops)
-            print(f"    bounds: 3xTF32 {entry['bound_ms']:.4f} ms "
-                  f"({entry['bound_by']}; the kernel at "
-                  f"{entry['bound_ms'] / entry['ms']:.3f} of it), CUDA-core "
-                  f"fp32 {cc_ms:.4f} ms ({cc_by}; "
-                  f"{cc_ms / entry['ms']:.3f})", flush=True)
+        _ssd_bounds(label + tag, nbytes, (flops, passes * flops, peak),
+                    results[label + tag])
         results.setdefault("ssd_bwd_split", {})[label + tag] = \
             kernel_split_ms(kernel, label + tag, "ssd_bwd")
-        if fp32 and cfg is MAMBA:
+        if cfg is MAMBA:
             ds = torch.randn((b, h, p, n), generator=gen, device="cuda")
             _check(f"ssd_bwd {case} with a final-state gradient",
                    lambda: ops.ssd_bwd(x, dt, A, B, C, dy, ds, chunk=c,
@@ -1540,6 +1619,39 @@ def _check_ssd_bwd(dtype, results) -> None:
                   f"({smem / 1024:.1f} KB shared memory each), {sms} "
                   f"SMs: {waves:.2f} waves", flush=True)
         del x, dt, A, B, C, dy, scratch
+
+
+def phase_ssd(smi: str) -> dict:
+    """K4 alone (``--phase ssd``): the kernels phase's K4 forward and
+    backward checks in both dtypes (timed, by stage, with occupancy and
+    bounds), then a sha256 digest of every fp32 output (y, the final state
+    and the five gradients, with a final-state gradient) on fixed inputs
+    at mamba2-1.3b's and zamba2-7b's (p, n, chunk), b=2 and the ragged
+    l=2080: equal digests show that two trees' fp32 kernels compute the
+    same bits.  With ``--src``, another checkout's kernels."""
+    import hashlib
+    results: dict = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        _check_ssd(dtype, results)
+        _check_ssd_bwd(dtype, results)
+    digests = {}
+    for cfg in (MAMBA, ZAMBA):
+        _, h, _ = ssm.ssm_dims(cfg)
+        p, n, c = cfg.ssm.head_dim, cfg.ssm.state_dim, cfg.ssm.chunk
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        x, dt, A, B, C = ssd_inputs(2, LM_PROMPT + LM_DECODE, h, p, n,
+                                    torch.float32, gen)
+        dy = _rand(x.shape, torch.float32, gen)
+        ds = torch.randn((2, h, p, n), generator=gen, device="cuda")
+        y, state, scratch = ops.ssd_for_grad(x, dt, A, B, C, chunk=c)
+        grads = ops.ssd_bwd(x, dt, A, B, C, dy, ds, chunk=c,
+                            scratch=scratch)
+        digest = hashlib.sha256()
+        for t in (y, state) + tuple(grads):
+            digest.update(t.cpu().numpy().tobytes())
+        digests[cfg.name] = digest.hexdigest()
+    print(f"ssd: fp32 output digests {digests}; on {smi}", flush=True)
+    return {"timed": results["timed"], "digests": digests}
 
 
 def _serve(cfg, policy, reqs, *, cache_interval, device="cuda", setup=None,
@@ -2252,6 +2364,47 @@ def _lm_run(model, cfg, prompt, steps, dtype, feed=None, extra=(),
             "routes": diff(routes, ops.kernel_launches)}
 
 
+def _ssd_bf16_leg(model, cfg, prompt, phase: str, smi: str, base) -> dict:
+    """The serve path of ``cfg`` under ``dryrun.apply_variant(cfg,
+    "ssd_bf16")`` (intra_dtype="bfloat16", the JAX package's variant of
+    that name) on the same model: a warm-up, then a bf16 prefill of
+    ``prompt`` and LM_DECODE greedy decode steps.  K4 must launch once a
+    Mamba2 layer in the prefill, in bf16 only, and never in a decode
+    step; the logits finite.  Prints prefill tokens/s, decode ms a step,
+    peak memory, the launches and the prefill logits' rel-L2 from
+    ``base``'s (the fp32-intra leg's on the same weights and prompt).
+    Returns the prefill's launches, with K4's by dtype."""
+    vcfg = dryrun.apply_variant(cfg, "ssd_bf16")
+    _lm_run(model, vcfg, prompt, 1, torch.bfloat16)     # warm-up, uncounted
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    run = _lm_run(model, vcfg, prompt, LM_DECODE, torch.bfloat16)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pre, dec, routes = (run[k] for k in ("prefill_launches",
+                                         "decode_launches", "routes"))
+    logits = run["logits"]
+    if not torch.isfinite(logits).all() or logits.shape != (
+            LM_BATCH, LM_DECODE + 1, cfg.vocab_size):
+        raise AssertionError(f"{phase}: ssd_bf16 logits "
+                             f"{tuple(logits.shape)} not all finite")
+    if (pre["ssd"] != cfg.num_layers or dec["ssd"]
+            or routes["ssd bf16"] != cfg.num_layers or routes["ssd fp32"]):
+        raise AssertionError(f"{phase}: ssd_bf16 launches prefill {pre}, "
+                             f"decode {dec}, K4 by dtype {routes}")
+    drift = rel_l2(logits[:, 0].float().cpu(), base[:, 0].float().cpu())
+    t_prefill, t_decode = run["t_prefill"], run["t_decode"]
+    print(f"{phase}: {cfg.name} ssd_bf16 (intra_dtype bfloat16: K4 in "
+          f"bf16), bf16, batch {LM_BATCH}: prefill {LM_PROMPT} tokens "
+          f"{LM_BATCH * LM_PROMPT / t_prefill:.0f} tokens/s "
+          f"({t_prefill * 1e3:.1f} ms); decode {LM_DECODE} tokens "
+          f"{t_decode / LM_DECODE * 1e3:.2f} ms/step; peak mem {peak:.2f} "
+          f"GiB; launches prefill {pre}, K4 by dtype "
+          f"{ {k: v for k, v in routes.items() if k.startswith('ssd')} }; "
+          f"prefill logits vs the intra_dtype float32 leg's: rel-L2 "
+          f"{drift:.2e}; on {smi}", flush=True)
+    return {**pre, "ssd bf16": routes["ssd bf16"]}
+
+
 def phase_lm(smi: str) -> dict:
     """The Mamba2 serving path at full width through K4; returns the
     launch counts of its bf16 prefill + decode."""
@@ -2286,7 +2439,9 @@ def phase_lm(smi: str) -> dict:
           f"{t_decode / LM_DECODE * 1e3:.2f} ms/token (one step of "
           f"{LM_BATCH} sequences); peak mem {peak:.2f} GiB ({held:.2f} "
           f"held before the phase, {weights:.2f} of weights); launches "
-          f"{counts}; on {smi}", flush=True)
+          f"{counts}, K4 by dtype {run['routes']['ssd fp32']} fp32; on "
+          f"{smi}", flush=True)
+    variant = _ssd_bf16_leg(model, cfg, prompt, "lm", smi, logits)
 
     # fp32: prefill + decode (teacher-forced on the bf16 run's tokens)
     # against the forward over the same 2080 tokens
@@ -2310,7 +2465,8 @@ def phase_lm(smi: str) -> dict:
                              f"{launched} K4 launches")
     del model, got, want
     torch.cuda.empty_cache()
-    return {"ssd": counts["ssd"]}
+    return {"ssd": counts["ssd"] + variant["ssd"],
+            "ssd bf16": variant["ssd bf16"]}
 
 
 def phase_lm_cpu() -> None:
@@ -2388,6 +2544,7 @@ def phase_hybrid(smi: str) -> dict:
           f"{LM_BATCH} sequences); peak mem {peak:.2f} GiB ({held:.2f} held "
           f"before the phase, {weights:.2f} of fp32 weights); launches "
           f"prefill {pre}, decode {dec}; on {smi}", flush=True)
+    variant = _ssd_bf16_leg(model, cfg, prompt, "hybrid", smi, logits)
 
     # fp32: prefill + decode (teacher-forced on the bf16 run's tokens)
     # against the forward over the same 2080 tokens
@@ -2413,7 +2570,7 @@ def phase_hybrid(smi: str) -> dict:
     del model, got, want
     torch.cuda.empty_cache()
     print(f"hybrid: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {"prefill": pre, "forward": fwd}
+    return {"prefill": pre, "forward": fwd, "ssd_bf16": variant}
 
 
 def _reduced_card_vs_cpu(cfg, toks, n_prefill, mla_absorbed=False,
@@ -2933,7 +3090,10 @@ def _train_attention(cfg) -> int:
     return 0
 
 
-def _train_lm(smi: str, cfg, full: int) -> dict:
+SSD_ROUTES = ("ssd fp32", "ssd bf16", "ssd_bwd fp32", "ssd_bwd bf16")
+
+
+def _train_lm(smi: str, cfg, full: int, variant: str | None = None) -> dict:
     """(b)-(d), (f) and (g) of the train phase: the LM ``cfg`` (of
     ``full`` layers at full depth) at full width, bf16, AdamW at
     TRAIN_LR, YI_TRAIN_STEPS steps of YI_TRAIN_BATCH x YI_TRAIN_SEQ
@@ -2943,8 +3103,14 @@ def _train_lm(smi: str, cfg, full: int) -> dict:
     and its backward once a Mamba2 layer, and nothing else; the SSD
     families' losses must stay within LOSS_BUDGET of
     CUDA_CORE_SSD_LOSSES, and the dtype K4's backward ran at is printed.
-    Returns the launches a step, and (under "peak") the allocator's peak
-    over the steps less what was allocated before the model was built."""
+    With ``variant`` (``ssd_bf16``), a second leg trains the same model
+    from the same weights, with a fresh AdamW, on the same batches under
+    ``dryrun.apply_variant(cfg, variant)``: K4 and its backward in bf16
+    (the spy must see bfloat16), the same launches a step, its losses
+    finite and within LOSS_BUDGET of the first leg's.  Returns the
+    launches a step, and (under "peak") the allocator's peak over the
+    first leg's steps less what was allocated before the model was
+    built."""
     gc.collect()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -2953,33 +3119,11 @@ def _train_lm(smi: str, cfg, full: int) -> dict:
     if cfg.ssm is not None:
         ssm.init_published_a_dt(model)
     n_params = sum(p.numel() for p in model.parameters())
-    opt = optimizer.adamw_init(dict(model.named_parameters()))
-    step = train_loop.make_train_step(cfg, remat="none", lr=TRAIN_LR)
-    pipe = TokenPipeline(cfg, YI_TRAIN_BATCH, YI_TRAIN_SEQ, seed=0)
-    torch.cuda.reset_peak_memory_stats()
-    losses, walls, per_step, sites = [], [], [], []
-    with contextlib.ExitStack() as stack:
-        bwd_dtypes = stack.enter_context(_ssd_bwd_dtypes())
-        stack.enter_context(_k2_sites())
-        stack.callback(pipe.close)
-        for _ in range(YI_TRAIN_STEPS):
-            batch = {k: torch.from_numpy(v).cuda() for k, v in
-                     next(pipe).items()}
-            before = dict(ops.launches)
-            K2_SITES.update(dict.fromkeys(K2_SITES, 0))
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model, opt, m = step(model, opt, batch)
-            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-            walls.append(time.perf_counter() - t0)
-            per_step.append(_step_launches(before))
-            sites.append(dict(K2_SITES))
-            losses.append(loss)
-            if not (math.isfinite(loss) and math.isfinite(gnorm)):
-                raise AssertionError(f"train: {cfg.name} loss {loss}, "
-                                     f"grad_norm {gnorm}")
-    peak_bytes = torch.cuda.max_memory_allocated() - base
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    # the starting weights for the variant's leg, on the host, so that
+    # the first leg's peak is the step's own
+    start = None if variant is None else {
+        k: p.detach().to("cpu", copy=True)
+        for k, p in model.named_parameters()}
     attn = _train_attention(cfg)
     mamba = 0 if cfg.ssm is None else cfg.num_layers
     want = {"fused_adaln": 0, "attention": attn, "ssd": mamba,
@@ -2989,41 +3133,108 @@ def _train_lm(smi: str, cfg, full: int) -> dict:
     want_sites = ({"self": cfg.num_encoder_layers, "causal": cfg.num_layers,
                    "cross": cfg.num_layers} if cfg.family == "encdec" else
                   {"self": 0, "causal": attn, "cross": 0})
-    if any(p != want for p in per_step) or any(
-            k != want_sites for k in sites):
-        raise AssertionError(f"train: {cfg.name} launches a step "
-                             f"{per_step}, K2 by site {sites}, expected "
-                             f"{want}, {want_sites}")
     tokens = YI_TRAIN_BATCH * YI_TRAIN_SEQ
-    warm = min(walls[1:])
-    print(f"train: {cfg.name} full width, {cfg.num_layers} of {full} layers "
-          f"({n_params / 1e9:.3f} B parameters"
-          + ("" if cfg.ssm is None else ", A/dt in Mamba2's published ranges")
-          + f"), bf16, AdamW lr {TRAIN_LR:g}, {YI_TRAIN_BATCH} x "
-          f"{YI_TRAIN_SEQ} tokens"
-          + (f" + {cfg.frontend_seq} frames" if cfg.family == "encdec"
-             else "")
-          + f" from the TokenPipeline, {YI_TRAIN_STEPS} "
-          "steps: loss " + ", ".join(f"{v:.4f}" for v in losses)
-          + "; step wall " + ", ".join(f"{w * 1e3:.1f}" for w in walls)
-          + f" ms ({tokens / warm:.0f} tokens/s after the first); peak mem "
-          f"{peak:.2f} GiB ({peak_bytes / 2**30:.3f} GiB over what was "
-          f"allocated before the model); launches a step {per_step[-1]}, "
-          f"K2 by site {sites[-1]}; on {smi}", flush=True)
+
+    def leg(run_cfg, label: str) -> dict:
+        opt = optimizer.adamw_init(dict(model.named_parameters()))
+        step = train_loop.make_train_step(run_cfg, remat="none", lr=TRAIN_LR)
+        pipe = TokenPipeline(run_cfg, YI_TRAIN_BATCH, YI_TRAIN_SEQ, seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls, per_step, sites, routes = [], [], [], [], []
+        with contextlib.ExitStack() as stack:
+            bwd_dtypes = stack.enter_context(_ssd_bwd_dtypes())
+            stack.enter_context(_k2_sites())
+            stack.callback(pipe.close)
+            for _ in range(YI_TRAIN_STEPS):
+                batch = {k: torch.from_numpy(v).cuda() for k, v in
+                         next(pipe).items()}
+                before = dict(ops.launches)
+                routed = {k: ops.kernel_launches[k] for k in SSD_ROUTES}
+                K2_SITES.update(dict.fromkeys(K2_SITES, 0))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, opt, m = step(model, opt, batch)
+                loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+                walls.append(time.perf_counter() - t0)
+                per_step.append(_step_launches(before))
+                routes.append({k: ops.kernel_launches[k] - routed[k]
+                               for k in SSD_ROUTES})
+                sites.append(dict(K2_SITES))
+                losses.append(loss)
+                if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                    raise AssertionError(f"train: {label} loss {loss}, "
+                                         f"grad_norm {gnorm}")
+        peak_bytes = torch.cuda.max_memory_allocated() - base
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        intra = "" if run_cfg.ssm is None else run_cfg.ssm.intra_dtype
+        sd = {"float32": "fp32", "bfloat16": "bf16"}.get(intra)
+        want_routes = dict.fromkeys(SSD_ROUTES, 0)
+        if sd is not None and mamba:
+            want_routes.update({f"ssd {sd}": mamba, f"ssd_bwd {sd}": mamba})
+        if any(p != want for p in per_step) or any(
+                k != want_sites for k in sites) or any(
+                r != want_routes for r in routes):
+            raise AssertionError(f"train: {label} launches a step "
+                                 f"{per_step}, K2 by site {sites}, K4 by "
+                                 f"dtype {routes}, expected {want}, "
+                                 f"{want_sites}, {want_routes}")
+        warm = min(walls[1:])
+        print(f"train: {label} full width, {cfg.num_layers} of {full} "
+              f"layers ({n_params / 1e9:.3f} B parameters"
+              + ("" if cfg.ssm is None else
+                 f", A/dt in Mamba2's published ranges, intra_dtype {intra}")
+              + f"), bf16, AdamW lr {TRAIN_LR:g}, {YI_TRAIN_BATCH} x "
+              f"{YI_TRAIN_SEQ} tokens"
+              + (f" + {cfg.frontend_seq} frames" if cfg.family == "encdec"
+                 else "")
+              + f" from the TokenPipeline, {YI_TRAIN_STEPS} "
+              "steps: loss " + ", ".join(f"{v:.4f}" for v in losses)
+              + "; step wall " + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+              + f" ms ({tokens / warm:.0f} tokens/s after the first); peak "
+              f"mem {peak:.2f} GiB ({peak_bytes / 2**30:.3f} GiB over what "
+              f"was allocated before the model); launches a step "
+              f"{per_step[-1]}, K2 by site {sites[-1]}"
+              + (f", K4 by dtype {routes[-1]}; K4's backward ran in "
+                 f"{', '.join(sorted(bwd_dtypes))}" if mamba else "")
+              + f"; on {smi}", flush=True)
+        if mamba and bwd_dtypes != {str(run_cfg.ssm.intra_dtype)}:
+            raise AssertionError(f"train: {label} K4's backward ran in "
+                                 f"{bwd_dtypes}")
+        del opt
+        return {"losses": losses, "per_step": per_step[-1],
+                "routes": routes[-1], "peak": peak_bytes}
+
+    first = leg(cfg, cfg.name)
+    losses = first["losses"]
     recorded = CUDA_CORE_SSD_LOSSES.get(cfg.name)
     if recorded is not None:
         drift = max(abs(a - b) / b for a, b in zip(losses, recorded))
-        print(f"train: {cfg.name} K4's backward ran in "
-              f"{', '.join(sorted(bwd_dtypes))}; losses vs the CUDA-core "
-              f"backward's " + ", ".join(f"{v:.4f}" for v in recorded)
+        print(f"train: {cfg.name} losses vs the CUDA-core backward's "
+              + ", ".join(f"{v:.4f}" for v in recorded)
               + f": worst rel diff {drift:.2e} (budget {LOSS_BUDGET:.0e})",
               flush=True)
         if not drift <= LOSS_BUDGET:
             raise AssertionError(f"train: {cfg.name} losses {losses} drift "
                                  f"from {recorded}")
-    del model, opt
+    out = {**first["per_step"], **first["routes"], "peak": first["peak"]}
+    if variant is not None:
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(start[k])
+        del start
+        second = leg(dryrun.apply_variant(cfg, variant),
+                     f"{cfg.name} {variant}")
+        drift = max(abs(a - b) / b for a, b in zip(second["losses"], losses))
+        print(f"train: {cfg.name} {variant} losses vs the intra_dtype "
+              f"{cfg.ssm.intra_dtype} leg's on the same batches: worst rel "
+              f"diff {drift:.2e} (budget {LOSS_BUDGET:.0e})", flush=True)
+        if not drift <= LOSS_BUDGET:
+            raise AssertionError(f"train: {cfg.name} {variant} losses "
+                                 f"{second['losses']} drift from {losses}")
+        out[variant] = {**second["per_step"], **second["routes"]}
+    del model
     torch.cuda.empty_cache()
-    return {**per_step[-1], "peak": peak_bytes}
+    return out
 
 
 def _mixtral_peaks(predicted: dict, measured: int, smi: str) -> None:
@@ -3071,11 +3282,14 @@ def phase_train(smi: str) -> tuple[dict, dict]:
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         _train_dit(smi)
-        steps = {cfg.name: _train_lm(smi, cfg, full) for cfg, full in (
-            (YI_TRAIN, YI.num_layers), (MAMBA, MAMBA.num_layers),
-            (ZAMBA_TRAIN, ZAMBA.num_layers),
-            (WHISPER, WHISPER.num_layers),
-            (MIXTRAL_TRAIN, get_config("mixtral-8x7b").num_layers))}
+        steps = {cfg.name: _train_lm(smi, cfg, full, variant)
+                 for cfg, full, variant in (
+                     (YI_TRAIN, YI.num_layers, None),
+                     (MAMBA, MAMBA.num_layers, "ssd_bf16"),
+                     (ZAMBA_TRAIN, ZAMBA.num_layers, None),
+                     (WHISPER, WHISPER.num_layers, None),
+                     (MIXTRAL_TRAIN,
+                      get_config("mixtral-8x7b").num_layers, None))}
         out, err = peaks.communicate(timeout=DRYRUN_TIMEOUT)
     finally:
         if peaks.poll() is None:
@@ -3086,7 +3300,8 @@ def phase_train(smi: str) -> tuple[dict, dict]:
     _mixtral_peaks(json.loads(out.strip().splitlines()[-1]),
                    steps[MIXTRAL_TRAIN.name]["peak"], smi)
     counts = {**ops.launches, **ops.kernel_launches}
-    if min(counts[k] for k in BWD_KERNELS + ("ssd",)) <= 0 or \
+    if min(counts[k] for k in BWD_KERNELS + (
+            "ssd", "ssd bf16", "ssd_bwd bf16")) <= 0 or \
             counts["splice_attention"] or counts["attention bf16"] == 0:
         raise AssertionError(f"train: launches {counts}")
     print(f"train: {time.perf_counter() - t_phase:.1f} s; launches "
@@ -3981,7 +4196,9 @@ def phase_bench(smi: str) -> dict:
 #: the phases ``--phase`` runs after the device and build phases
 PHASES = {"serve": lambda smi: phase_serve(), "splits": phase_splits,
           "scenarios": phase_scenarios, "failure": phase_failure,
-          "video": phase_video, "zoo": phase_zoo, "train": phase_train,
+          "video": phase_video, "ssd": phase_ssd, "lm": phase_lm,
+          "hybrid": phase_hybrid,
+          "zoo": phase_zoo, "train": phase_train,
           "train-cpu": lambda smi: phase_train_cpu(),
           "gfc": phase_gfc, "dryrun": phase_dryrun, "bench": phase_bench}
 
@@ -4043,11 +4260,13 @@ def main() -> int:
     phase_gfc(smi)
     phase_dryrun(smi)
     bench = phase_bench(smi)
-    counts.update({k: train[k] for k in BWD_KERNELS})
+    counts.update({k: train[k] for k in BWD_KERNELS + ("ssd_bwd bf16",)})
+    counts["ssd bf16"] += zamba["ssd_bf16"]["ssd bf16"]
     for route, n in whisper["routes"].items():   # whisper's, both dtypes
         counts[route] = counts.get(route, 0) + n
     lm_launches = {"zamba2-7b attention": zamba["forward"]["attention"],
                    "zamba2-7b ssd": zamba["prefill"]["ssd"],
+                   "zamba2-7b ssd bf16": zamba["ssd_bf16"]["ssd bf16"],
                    "zamba2-7b ssd_bwd":
                        train_steps[ZAMBA_TRAIN.name]["ssd_bwd"],
                    "yi-6b attention": None}
@@ -4067,15 +4286,15 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "library_call_ms": r["library_call_ms"]})
-        if name in ("fused_adaln", "attention", "ssd") + FP32_ROUTES + \
-                BF16_ROUTES:
+        if name in ("fused_adaln", "attention", "ssd", "ssd bf16") + \
+                FP32_ROUTES + BF16_ROUTES:
             kernels[-1]["train_launches"] = train[name]   # the train phase's
         if name in ("attention", "attention_bwd"):   # a whisper train step's
             kernels[-1]["whisper-medium train_launches_a_step"] = \
                 train_steps[WHISPER.name][name]
         if name in bench:                            # the bench phase's
             kernels[-1]["bench_launches"] = bench[name]
-        if name in BWD_KERNELS:
+        if name in BWD_KERNELS + ("ssd_bwd bf16",):
             kernels[-1]["note"] = ("backward kernel; the TPU kernel it "
                                    "differentiates has none")
         # the same kernel at DIT_VIDEO's shape and at the decoder LMs'
@@ -4112,7 +4331,7 @@ def main() -> int:
                      "attention_bwd ") and k != "attention_bwd dit self"],
                  "fused_adaln_bwd": [k for k in results if k.startswith(
                      "fused_adaln_bwd ")],
-                 "ssd_bwd": ["ssd_bwd bf16", "zamba2-7b ssd_bwd bf16"]}
+                 "ssd": ["ssd b=1"], "ssd bf16": ["ssd b=1 bf16"]}
         for label in extra.get(name, ()):
             v = results[label]
             kernels[-1][label] = {k: v[k] for k in (

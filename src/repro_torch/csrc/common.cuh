@@ -16,6 +16,11 @@ namespace gfdit {
 
 constexpr int kMaxDevices = 64;
 
+template <typename V>
+constexpr V cmax(V a, V b) { return a > b ? a : b; }
+template <typename V>
+constexpr V cmin(V a, V b) { return a < b ? a : b; }
+
 // Makes `device` current; only a query when it already is (the wrappers
 // are called thousands of times a request).
 inline cudaError_t use_device(int device) {
@@ -88,6 +93,10 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+// Waits for all but the most recent cp.async group.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
 
 // 4 (or 2) consecutive elements of a shared row as floats
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -153,6 +162,28 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
     *reinterpret_cast<unsigned*>(p) = bf16x2_bits(v[0], v[1]);
   else
     *p = __float2bfloat16(v[0]);
+}
+
+// ROWS x COLS consecutive fp32 values at `src` (global memory) into a
+// ROWS x PITCH shared tile of bf16, rounded to nearest even; NTH threads
+// (threadIdx.x < NTH), one float4 each per NTH of them.  Every load of a
+// thread is issued before its first store, so they are in flight
+// together.  The caller synchronises before the tile is read.
+template <int ROWS, int COLS, int PITCH, int NTH>
+__device__ __forceinline__ void stage_rounded(__nv_bfloat16* dst,
+                                              const float* src) {
+  constexpr int Q = ROWS * COLS / 4, U = Q / NTH;
+  static_assert(COLS % 4 == 0 && Q % NTH == 0,
+                "stage_rounded: whole float4 units for every thread");
+  float4 v[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) v[u] = ld4(src + 4 * (threadIdx.x + u * NTH));
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int q = threadIdx.x + u * NTH;
+    const float f[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+    store_vec<4>(dst + (q / (COLS / 4)) * PITCH + 4 * (q % (COLS / 4)), f);
+  }
 }
 
 }  // namespace gfdit

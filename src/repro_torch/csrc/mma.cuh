@@ -1,11 +1,13 @@
 // Tensor-core fragment helpers shared by csrc/attention.cu (K2's
-// forward), csrc/attention_bwd.cu and csrc/ssd_bwd.cu: ldmatrix (and
-// its .trans), mma.sync (m16n8k8 on TF32 operands, m16n8k16 on bf16),
-// the split of an fp32 operand into two TF32 ones, mma_abt, the product
-// A B^T of two row-major shared tiles, and mma_ab, the product A B of
-// register fragments and a row-major shared tile: bf16, with to_a_frags,
-// which rounds fp32 accumulators to bf16 A fragments, and fp32 in
-// split-TF32, whose A is the accumulator tiles of the previous product.
+// forward), csrc/attention_bwd.cu, csrc/ssd.cu and csrc/ssd_bwd.cu:
+// ldmatrix (and its .trans), mma.sync (m16n8k8 on TF32 operands,
+// m16n8k16 on bf16), the split of an fp32 operand into two TF32 ones,
+// mma_abt, the product A B^T of two row-major shared tiles, and mma_ab,
+// the product A B of register fragments and a row-major shared tile:
+// bf16, with to_a_frags, which rounds fp32 accumulators to bf16 A
+// fragments, and fp32 in split-TF32, whose A is the accumulator tiles of
+// the previous product; and mma_atb_scaled (bf16), A^T diag(w) B of two
+// row-major shared tiles.
 //
 // Fragments of m16n8k8, g = lane / 4, t = lane % 4: a (16 x 8, row)
 // {(g, t), (g+8, t), (g, t+4), (g+8, t+4)}; b (8 x 8, col) {(k t, n g),
@@ -150,6 +152,15 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const T* a,
 
 using bf16 = __nv_bfloat16;
 
+// Two bf16 (low, high) times (w_lo, w_hi) in fp32, rounded to bf16.
+__device__ __forceinline__ unsigned scale_bf16x2(unsigned v, float w_lo,
+                                                 float w_hi) {
+  __nv_bfloat162 h;
+  memcpy(&h, &v, sizeof(h));
+  const float2 f = __bfloat1622float2(h);
+  return bf16x2_bits(f.x * w_lo, f.y * w_hi);
+}
+
 // ldmatrix with .trans (bf16 only): see ldsm4.
 __device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const bf16* p) {
   asm volatile(
@@ -178,6 +189,37 @@ __device__ __forceinline__ void mma_ab(float (&acc)[NT][4],
       mma_bf16(acc[2 * np], a[ks], bfr[0], bfr[1]);
       mma_bf16(acc[2 * np + 1], a[ks], bfr[2], bfr[3]);
     }
+}
+
+// acc (16 x 8 NT) += A^T diag(w) B over K = 16 KS: A's 16 KS rows (k) of
+// 16 columns (the product's rows m) at `a` and B's 16 KS rows of 8 NT
+// columns at `b`, both row-major bf16 in shared memory at pitches PA and
+// PB.  A is read by ldmatrix.trans, so its rows need no transposed copy;
+// each row k of A is scaled by w[k] (fp32, shared) in registers and
+// rounded to bf16 once, so a bf16 operand and an fp32 row weight enter
+// the product with one rounding.  The SSD's chunk states (K4's forward,
+// w = dt exp(cum_last - cum)) and its backward's state gradients
+// (w = exp(cum)) are this product.
+template <int NT, int KS, int PA, int PB>
+__device__ __forceinline__ void mma_atb_scaled(float (&acc)[NT][4],
+                                               const bf16* a, const float* w,
+                                               const bf16* b, int lane) {
+  const bf16* pa = a + ((lane & 7) + ((lane >> 4) << 3)) * PA +
+                   ((lane >> 3) & 1) * 8;
+  const int t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    unsigned af[1][4];
+    ldsm4_t(af[0], pa + ks * 16 * PA);
+    const float* wk = w + 16 * ks + t2;   // rows 2t, 2t + 1 (a0, a1) and
+    const float w0 = wk[0], w1 = wk[1];   // 2t + 8, 2t + 9 (a2, a3)
+    const float w8 = wk[8], w9 = wk[9];
+    af[0][0] = scale_bf16x2(af[0][0], w0, w1);
+    af[0][1] = scale_bf16x2(af[0][1], w0, w1);
+    af[0][2] = scale_bf16x2(af[0][2], w8, w9);
+    af[0][3] = scale_bf16x2(af[0][3], w8, w9);
+    mma_ab<NT, 1, PB>(acc, af, b + ks * 16 * PB, lane);
+  }
 }
 
 // The accumulators of 16 x 8 NT, rounded to bf16, as the A fragments of

@@ -14,13 +14,13 @@
 // + A da and dA = sum_{b, l} dt da (ref.ssd_bwd_ref writes each term
 // out).  The G of each chunk needs the chunks after it, so one call runs
 // four stage kernels in turn on the caller's stream, as the forward does:
-//   1. ssd_bwd_chunk_dstate, a block per (batch, chunk > 0, head):
+//   1. ssd_bwd_dstate_mma, a block per (batch, chunk > 0, head):
 //      Q_c = sum_i exp(cum_i) C_i (x) dy_i, (n x p), into scratch;
 //   2. ssd_bwd_state_pass, a block per (batch, head, n-row tile): walks
 //      the chunks backwards, G_{nc-1} = dstate^T (or 0), G_{c-1} =
 //      exp(cum_last_c) G_c + Q_c, overwriting Q_c with G_c; and the
 //      partial dot <S_in, G_c> of its rows for the dcum of cum_last;
-//   3. ssd_bwd_chunk, a block per (batch, chunk, head): every product
+//   3. ssd_bwd_chunk_mma, a block per (batch, chunk, head): every product
 //      of the chunk (below), dx, ddt (both paths), the head's own dB and
 //      dC rows into scratch, and its dA partial;
 //   4. ssd_bwd_sum: dB and dC summed over the heads, dA over (batch,
@@ -38,71 +38,74 @@
 // choice, re-running the forward's stages 1-3 here, costs ~4.5 GFLOP a
 // call and would put the forward's kernels in this file too.
 //
-// Bound on the card: operations.  The function needs, per (batch, chunk)
-// of c rows, the causal triangles of the dB and dC products once,
-// c(c+1)/2 n multiply-adds each (B and C have one group, so each head's
-// P can be summed over the heads first), and per head the triangles of
-// dy . xb and of the dxb product, c(c+1)/2 p each, and four c p n
-// products (Q, S_in^T dy: none in the first chunk; G B, G^T xb: none in
-// the last without dstate): 20.6 GFLOP at the mamba2-1.3b training shape
-// (b=2, l=2048, h=64, p=64, n=128, c=128; chip_smoke.ssd_bwd_flops).  On
-// an H100 SXM that is 0.125 ms for fp32 operands (three TF32 products for
-// each fp32 one at 495 TFLOP/s; 0.307 ms at the 67 TFLOP/s CUDA-core
-// rate), against 0.21 GB of operands and gradients (0.063 ms at 3.35
-// TB/s); bf16 operands are bound by their 0.107 GB (0.032 ms), the 989
-// TFLOP/s bf16 rate taking 0.021 ms.  The bf16 kernels do 41.9 GFLOP
-// there, 2.04x the need: dB and dC a head, and every product over whole
-// tiles, the masked triangle included; the fp32 ones 35.4 (below).
+// Bound on the card.  The function needs, per (batch, chunk) of c rows,
+// the causal triangles of the dB and dC products once, c(c+1)/2 n
+// multiply-adds each (B and C have one group, so each head's P can be
+// summed over the heads first), and per head the triangles of dy . xb and
+// of the dxb product, c(c+1)/2 p each, and four c p n products (Q, S_in^T
+// dy: none in the first chunk; G B, G^T xb: none in the last without
+// dstate): 20.6 GFLOP at the mamba2-1.3b training shape (b=2, l=2048,
+// h=64, p=64, n=128, c=128; kernels/cost.py ssd_bwd_flops).  On an H100
+// SXM that is 0.125 ms for fp32 operands (three TF32 products for each
+// fp32 one at 495 TFLOP/s; 0.307 ms at the 67 TFLOP/s CUDA-core rate),
+// against 0.21 GB of operands and gradients (0.063 ms at 3.35 TB/s);
+// bf16 operands are bound by their 0.107 GB (0.032 ms), the 989 TFLOP/s
+// bf16 rate taking 0.021 ms.
 //
-// Design.  Both dtypes keep the four stages and their scratch; stages 2
-// and 4 are the same kernels.  Stages 1 and 3 are two hand-written kernel
-// pairs, chosen by the operands' type:
-//
-// fp32 (every caller today: the ssm and hybrid families cast x, B and C
-// to config.ssm.intra_dtype, float32 by default, so their bf16 train
-// steps run this): ssd_bwd_dstate_mma and ssd_bwd_chunk_mma run every
-// product on the tensor cores as split-TF32 mma.sync m16n8k8, as K2's
-// fp32 backward (csrc/attention_bwd.cu; the fragment helpers are shared
-// in mma.cuh): each fp32 operand splits in registers into hi = tf32(x)
-// and lo = tf32(x - hi), and each product is three TF32 ones, a_lo b_hi
-// + a_hi b_lo + a_hi b_hi.  One TF32 product keeps ~5e-4 of an operand;
-// the budget is 2e-5 rel-L2 per output (chip_smoke.py), which one TF32
-// product fails by 5x on dA and 15x on the rest (tests/
-// test_torch_ssd_grads.py, in closed form).  Operands go to shared
-// memory as fp32 rows by 16-byte cp.async (rows past l zero-filled);
-// whatever is read as rows of the k axis uses ldmatrix (a row-major fp32
-// tile is the TF32 fragment: row lane/4, word lane%4) at a pitch of an
-// odd number of 16-byte units; whatever is read along the other axis
-// uses 32-bit loads at a pitch that puts the lanes' rows in distinct
-// banks: P + 8 = 8 (mod 32) words for rows t and t + 4, N + 4 or P + 4 =
-// 4 (mod 16) for rows 2t and 2t + 1.
+// Design.  One kernel set for both dtypes: stages 2 and 4 run on the CUDA
+// cores; stages 1 and 3 (ssd_bwd_dstate_mma, ssd_bwd_chunk_mma) are
+// templates over the operand type that run every product on the tensor
+// cores with one pass structure.  Their products go through mma.cuh's
+// helpers (shared with K2's backward, csrc/attention_bwd.cu, and K4's
+// forward), each of which takes either dtype:
+//   * fp32 (the default intra_dtype of the ssm and hybrid families):
+//     split-TF32 mma.sync m16n8k8: each fp32 operand splits in registers
+//     into hi = tf32(x) and lo = tf32(x - hi), and each product is three
+//     TF32 ones, a_lo b_hi + a_hi b_lo + a_hi b_hi.  One TF32 product
+//     keeps ~5e-4 of an operand; the budget is 2e-5 rel-L2 per output
+//     (chip_smoke.py), which one TF32 product fails by 5x on dA and 15x
+//     on the rest (tests/test_torch_ssd_grads.py, in closed form).
+//     Operands go to shared memory as fp32 rows by 16-byte cp.async (rows
+//     past l zero-filled); whatever is read as rows of the k axis uses
+//     ldmatrix (a row-major fp32 tile is the TF32 fragment: row lane/4,
+//     word lane%4) at a pitch of an odd number of 16-byte units; whatever
+//     is read along the other axis uses 32-bit loads at a pitch that puts
+//     the lanes' rows in distinct banks: P + 8 = 8 (mod 32) words for rows
+//     t and t + 4, N + 4 or P + 4 = 4 (mod 16) for rows 2t and 2t + 1.
+//   * bf16 (intra_dtype="bfloat16", the JAX package's ssd_bf16 variant):
+//     one mma.sync m16n8k16 on bf16 operands where fp32 takes three TF32
+//     ones, fp32 accumulators.  Every operand is read by ldmatrix (rows
+//     along k) or ldmatrix.trans (the other axis) at a pitch of 8 more
+//     elements.  dy and xb = x dt are staged as bf16 (xb rounded once,
+//     in place); G and S_in are rounded to bf16 as they are staged (plain
+//     loads; the fp32 scratch stays as it is); Q's A operand is C's rows
+//     scaled by exp(cum_i) in registers and rounded once; Z, P = L Z and
+//     M = (C B^T) L are rounded to bf16 A fragments (to_a_frags) where
+//     they enter a product, as K2's bf16 backward rounds P and dS.
+// The passes:
 //   * Stage 1, a block per (batch, chunk > 0, head), a warp per 16 rows
-//     of n (N / 16 warps): Q = (exp(cum) C)^T dy, A from C's rows t,
-//     t + 4 (32-bit loads), scaled by exp(cum) after its load, B = dy;
-//     the chunk in strips of 32 rows, double-buffered (the next strip's
-//     cp.async in flight during this one's products), each strip's 4 k
+//     of n (N / 16 warps): Q = (exp(cum) C)^T dy, B = dy; the chunk in
+//     strips of 32 rows, double-buffered (the next strip's cp.async in
+//     flight during this one's products); fp32 sums each strip's 4 k
 //     steps into a fresh accumulator that the CUDA cores add to the sum
 //     (kSumSteps, mma.cuh).
 //   * Stage 3, a block per (batch, chunk, head) of CH / 16 warps (256
 //     threads at chunk 128); warp w owns rows [16w, 16w + 16).  dy and xb
-//     = x dt stay in shared memory for the whole block, fp32 at pitch
-//     P + 4 (ldmatrix for either as A or as the "n" side of Z, 32-bit row
-//     pairs for dy as the B of M^T dy).  Three passes, each a product
-//     family with its accumulators in registers:
-//     1. rows j: Z_ji = xb_j . dy_i (A = xb, B^T = dy, both ldmatrix) for
-//        the tiles i >= j only; M_ij = (C B^T)_ij L_ij is built straight
-//        into A fragments from the forward's C B^T (read only where j <=
-//        i: the forward never writes the rest) and the masked decay;
-//        T = M Z gives dcum's row sums (quad shuffles) and column sums
-//        (shuffles over the 8 row groups, then the warps' partials
-//        through shared memory, in warp order); dxb += M^T dy, the
-//        accumulator layout's columns 2t, 2t + 1 serving as k slots t,
-//        t + 4 and dy read as row pairs; with G, first dxb = exp(cum_last
-//        - cum) (B G), A = B by ldmatrix from column tiles of 32, B = G
-//        rows t, t + 4.
-//     2. rows j: the head's dB = exp(cum_last - cum) (xb G^T) (G as
-//        ldmatrix rows) + P^T C, Z recomputed a tile at a time and P^T =
-//        L Z built into A fragments; C streamed in strips of 64 rows.
+//     stay in shared memory for the whole block.  Three passes, each a
+//     product family with its accumulators in registers:
+//     1. rows j: Z_ji = xb_j . dy_i (mma_abt) for the tiles i >= j only;
+//        M_ij = (C B^T)_ij L_ij is built in the accumulator layout from
+//        the forward's C B^T (read only where j <= i: the forward never
+//        writes the rest) and the masked decay; T = M Z gives dcum's row
+//        sums (quad shuffles) and column sums (shuffles over the 8 row
+//        groups, then the warps' partials through shared memory, in warp
+//        order); dxb += M^T dy (mma_acc_a: fp32 as two k steps whose
+//        accumulator columns 2t, 2t + 1 serve as k slots t, t + 4, dy read
+//        as row pairs; bf16 as one A fragment); with G, first dxb =
+//        exp(cum_last - cum) (B G), A = B from column tiles of 32.
+//     2. rows j: the head's dB = exp(cum_last - cum) (xb G^T) + P^T C, Z
+//        recomputed a tile at a time and P^T = L Z built as A; C streamed
+//        in strips of 64 rows.
 //     3. rows i: the head's dC = exp(cum) (dy S_in^T) + P B, Z^T = dy
 //        xb^T recomputed for this orientation; B streamed in strips.
 //        dcum's S_in term from C's rows in global memory.
@@ -111,42 +114,33 @@
 //     published dt and A: inf * 0 = NaN).  A 16 x 16 tile wholly above
 //     the diagonal is never computed; only the diagonal tiles are masked.
 //     The chunk's sums (K at most 128: 16 k steps) stay on the tensor
-//     cores.  Then the one-thread reverse cumulative sum as before.
-//   * Executed: 35.4 GFLOP of fp32 products (106 of TF32) at mamba2-
-//     1.3b's training shape, 1.72x the 20.6 needed (Z three times, dB and
+//     cores.  Then the one-thread reverse cumulative sum.
+//   * Executed: 35.4 GFLOP of products at mamba2-1.3b's training shape
+//     (106 of TF32 in fp32), 1.72x the 20.6 needed (Z three times, dB and
 //     dC a head, the diagonal tiles whole); zamba2-7b's (h = 112, n = 64)
-//     39.5 against 21.7 (1.82x).  Against the CUDA-core kernels' 41.9:
-//     the triangles above the diagonal are skipped.
-//   * Shared memory a block: 110 KiB at (64, 128, 128) (dy and xb 68 KiB,
-//     a 34 KiB tile buffer, 8 KiB of row vectors and column partials),
-//     103 KiB at (64, 64, 128); the launch bounds hold the registers to
-//     128 a thread, so 2 blocks (16 warps) fit an SM.  ptxas's registers
-//     and spills for every instantiation: chip_smoke.py's build phase.
+//     39.5 against 21.7 (1.82x).  The same in both dtypes: bf16 runs the
+//     fp32 kernels' tiles, a third of their tensor-core instructions.
+//   * Shared memory a block, at (64, 128, 128): fp32 110 KiB (dy and xb
+//     68 KiB, a 34 KiB tile buffer, 8 KiB of row vectors and column
+//     partials), bf16 62 KiB (dy and xb 36 KiB); 103 KiB and 58.5 KiB at
+//     (64, 64, 128); the launch bounds hold the registers to 128 a
+//     thread, so 2 blocks (16 warps) fit an SM.  ptxas's registers and
+//     spills for every instantiation: chip_smoke.py's build phase.
 //
-// bf16 (no caller yet): ssd_bwd_chunk_dstate and ssd_bwd_chunk, the first
-// CUDA-core kernels, unchanged: every stage a 256-thread block, a 16 x 16
-// thread grid; each product a register-blocked outer product over shared
-// memory (block_mma), whole tiles, the masked triangle included; stage 3
-// keeps dy, xb (c x (p+1)) and P^T (c x (c+1)) in shared memory and
-// streams every other operand in 32-row tiles: 165.5 KiB at (64, 128,
-// 128), one block an SM.  Its tensor-core version (m16n8k16) is queued.
-//
-// Both: dB and dC are written per head (b*nc*h*c*n floats each, 134 MB
-// at the training shape) and summed by stage 4 in head order.  A ragged
-// last chunk is masked as in the forward: rows past l load dt = x = B = C
-// = dy = 0 and are not written; the padded rows' dcum (cum_last's terms
-// among them) reaches the real rows through the reverse cumulative sum
-// over the whole chunk.
+// dB and dC are written per head (b*nc*h*c*n floats each, 134 MB at the
+// training shape) and summed by stage 4 in head order.  A ragged last
+// chunk is masked as in the forward: rows past l load dt = x = B = C = dy
+// = 0 and are not written; the padded rows' dcum (cum_last's terms among
+// them) reaches the real rows through the reverse cumulative sum over the
+// whole chunk.
 #include "mma.cuh"
 
 #include <type_traits>
 
 namespace gfdit {
 
-constexpr int kBwdThreads = 256;  // a 16 x 16 thread grid in every stage
+constexpr int kBwdThreads = 256;  // stages 2 and 4
 constexpr float kBwdMask = -1e30f;
-
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 template <int P, int N, int CH>
 struct SsdBwdShape {
@@ -154,57 +148,11 @@ struct SsdBwdShape {
                     N <= 128 && CH <= 128,
                 "ssd_bwd: p, n and chunk must be multiples of 16, p at most "
                 "64, n and chunk at most 128");
-  static constexpr int KT = CH < 32 ? CH : 32;  // rows of a tile over c
-  static constexpr int KE = P < 32 ? P : 32;    // ... over p
-  static constexpr int KN = N < 32 ? N : 32;    // ... over n
-  static constexpr int YP = P + 1;              // pitch of dy, xb rows
-  static constexpr int ZP = CH + 1;             // pitch of P^T rows
   // stage 2: n-rows of the state a block walks (4 floats a thread), and
   // the blocks (n-tiles) of one (batch, head)
   static constexpr int R2 = N < 4 * kBwdThreads / P ? N : 4 * kBwdThreads / P;
   static constexpr int NT2 = N / R2;
-  // stage 3's tile buffer, floats: the largest streamed tile(s)
-  static constexpr int BUF_A = CH * (KN + 1) + KN * P;  // B rows + G tile
-  static constexpr int BUF_B = CH * (KT + 1);           // M tile
-  static constexpr int BUF_C = N * (KE + 1);            // G or S_in tile
-  static constexpr int BUF_D = KT * N;                  // B or C rows
-  static constexpr int BUF = cmax(cmax(BUF_A, BUF_B), cmax(BUF_C, BUF_D));
-  // dynamic shared memory, bytes
-  static constexpr size_t kDstateSmem = sizeof(float) * (CH + KT * (N + P));
-  static constexpr size_t kChunkSmem =
-      sizeof(float) * (2 * CH * YP + CH * ZP + BUF + 7 * CH + 16 * CH);
 };
-
-// acc[a][e] += sum_{k < K} A(k, ty + 16a) * B(k, tx + 16e), the operands
-// in shared memory at A[k * a_k + r * a_r] and B[k * b_k + col * b_c].
-template <int TM, int TN>
-__device__ __forceinline__ void block_mma(float (&acc)[TM][TN],
-                                          const float* a, int a_k, int a_r,
-                                          const float* bm, int b_k, int b_c,
-                                          int K, int ty, int tx) {
-  const float* ar = a + ty * a_r;
-  const float* br = bm + tx * b_c;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float av[TM], bv[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) av[i] = ar[k * a_k + 16 * i * a_r];
-#pragma unroll
-    for (int e = 0; e < TN; ++e) bv[e] = br[k * b_k + 16 * e * b_c];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int e = 0; e < TN; ++e) acc[i][e] = fmaf(av[i], bv[e], acc[i][e]);
-  }
-}
-
-// the sum over the 16 tx lanes of a row (the same half-warp), in a fixed
-// order; every lane gets it
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 template <int TM, int TN>
 __device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
@@ -212,51 +160,6 @@ __device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int e = 0; e < TN; ++e) acc[i][e] = 0.f;
-}
-
-// Stage 1, bf16 (CUDA cores): Q_c = sum_i exp(cum_i) C_i (x) dy_i, (n x p),
-// chunks c > 0.
-template <typename T, int P, int N, int CH>
-__global__ void __launch_bounds__(kBwdThreads)
-    ssd_bwd_chunk_dstate(const T* __restrict__ dy, const T* __restrict__ Cm,
-                         const float* __restrict__ cum_in,
-                         float* __restrict__ g, int L, int H, int nc) {
-  using S = SsdBwdShape<P, N, CH>;
-  constexpr int KT = S::KT, TM = N / 16, TN = P / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ec = reinterpret_cast<float*>(smem_raw);  // exp(cum_i)
-  float* cs = ec + CH;                              // KT x N: C rows
-  float* ys = cs + KT * N;                          // KT x P: exp(cum) dy
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bch = blockIdx.x, h = bch % H, bc = bch / H;
-  const int c = bc % nc, b = bc / nc, l0 = c * CH;
-  if (c == 0) return;  // the gradient entering chunk 0 is not needed
-  for (int i = tid; i < CH; i += kBwdThreads)
-    ec[i] = expf(cum_in[(long long)bch * CH + i]);
-  float acc[TM][TN];
-  zero(acc);
-  for (int i0 = 0; i0 < CH; i0 += KT) {
-    __syncthreads();  // ec written; the previous tile consumed
-    for (int q = tid; q < KT * N; q += kBwdThreads) {
-      const int r = q / N, k = q % N, l = l0 + i0 + r;
-      cs[q] = l < L ? to_float(Cm[((long long)b * L + l) * N + k]) : 0.f;
-    }
-    for (int q = tid; q < KT * P; q += kBwdThreads) {
-      const int r = q / P, e = q % P, l = l0 + i0 + r;
-      ys[q] = l < L ? to_float(dy[(((long long)b * L + l) * H + h) * P + e]) *
-                          ec[i0 + r]
-                    : 0.f;
-    }
-    __syncthreads();
-    block_mma(acc, cs, N, 1, ys, P, 1, KT, ty, tx);
-  }
-  float* out = g + (long long)bch * N * P;
-#pragma unroll
-  for (int a = 0; a < TM; ++a)
-#pragma unroll
-    for (int e = 0; e < TN; ++e)
-      out[(ty + 16 * a) * P + tx + 16 * e] = acc[a][e];
 }
 
 // Stage 2: the reverse pass of state gradients across chunks, in place
@@ -317,340 +220,77 @@ __global__ void __launch_bounds__(kBwdThreads)
   }
 }
 
-// Stage 3, bf16 (CUDA cores): one (batch, chunk, head): dx, ddt, the
-// head's dB and dC rows (into scratch) and its dA partial.
+// ---------------------------------------------------------------------------
+// Stages 1 and 3 on the tensor cores, one template for both dtypes
+// ---------------------------------------------------------------------------
+
+// Tiles, warps and shared memory of stages 1 and 3; pitches in elements
+// of T.  fp32 (split-TF32): rows read by ldmatrix at an odd number of
+// 16-byte units, rows read as row pairs 2t, 2t + 1 at 4 (mod 16) words,
+// rows t, t + 4 at 8 (mod 32).  bf16 (m16n8k16): every row is read by
+// ldmatrix (or .trans), a whole number of 16-byte units at a pitch of 8
+// more elements, so the 8 rows of one matrix lie on distinct banks.
 template <typename T, int P, int N, int CH>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-    ssd_bwd_chunk(const T* __restrict__ x, const float* __restrict__ dt,
-                  const float* __restrict__ A, const T* __restrict__ Bm,
-                  const T* __restrict__ Cm, const T* __restrict__ dy,
-                  const float* __restrict__ cum_in,
-                  const float* __restrict__ s_in,
-                  const float* __restrict__ cbt, const float* __restrict__ g,
-                  const float* __restrict__ sg, T* __restrict__ dx,
-                  float* __restrict__ ddt, float* __restrict__ dbh,
-                  float* __restrict__ dch, float* __restrict__ dap, int L,
-                  int H, int nc, int has_dstate) {
-  using S = SsdBwdShape<P, N, CH>;
-  constexpr int KT = S::KT, KE = S::KE, KN = S::KN, YP = S::YP, ZP = S::ZP;
-  constexpr int TC = CH / 16, TP = P / 16, TNN = N / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ys = reinterpret_cast<float*>(smem_raw);  // CH x YP: dy
-  float* xs = ys + CH * YP;                        // CH x YP: xb = x dt
-  float* pz = xs + CH * YP;    // CH x ZP: pz[j][i] = P_ij = L_ij (dy_i . xb_j)
-  float* buf = pz + CH * ZP;   // streamed tiles
-  float* cum = buf + S::BUF;
-  float* ec = cum + CH;        // exp(cum_i)
-  float* ed = ec + CH;         // exp(cum_last - cum_j)
-  float* dts = ed + CH;
-  float* dcum = dts + CH;      // then da
-  float* ddts = dcum + CH;     // ddt through xb
-  float* wrow = ddts + CH;     // W_j
-  float* part = wrow + CH;     // 16 x CH: column partial sums
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bch = blockIdx.x, h = bch % H, bc = bch / H;
-  const int c = bc % nc, b = bc / nc, l0 = c * CH;
-  const bool has_g = c < nc - 1 || has_dstate;  // G of this chunk nonzero
-  const bool has_s = c > 0;                     // S_in nonzero
-  const float* gc = g + (long long)bch * N * P;
-  const float* sc = s_in + (long long)bch * N * P;
-  const float* cbc = cbt + (long long)bc * CH * CH;
-  auto row_of = [&](int l) { return (long long)b * L + l; };
-
-  for (int j = tid; j < CH; j += kBwdThreads) {
-    const int l = l0 + j;
-    cum[j] = cum_in[(long long)bch * CH + j];
-    dts[j] = l < L ? dt[row_of(l) * H + h] : 0.f;
-    wrow[j] = 0.f;
-  }
-  __syncthreads();
-  for (int j = tid; j < CH; j += kBwdThreads) {
-    ec[j] = expf(cum[j]);
-    ed[j] = expf(cum[CH - 1] - cum[j]);
-  }
-  for (int q = tid; q < CH * P; q += kBwdThreads) {
-    const int r = q / P, e = q % P, l = l0 + r;
-    const bool ok = l < L;
-    const long long off = (row_of(ok ? l : 0) * H + h) * P + e;
-    ys[r * YP + e] = ok ? to_float(dy[off]) : 0.f;
-    xs[r * YP + e] = ok ? to_float(x[off]) * dts[r] : 0.f;
-  }
-  __syncthreads();
-
-  // 1. Z[j][i] = xb_j . dy_i; P = L Z, T = (C B^T) P, dcum's intra terms:
-  //    +T_ij on cum_i (column sums), -T_ij on cum_j (row sums)
-  {
-    float z[TC][TC];
-    zero(z);
-    block_mma(z, xs, 1, YP, ys, 1, YP, P, ty, tx);
-    float rows[TC], cols[TC];
-#pragma unroll
-    for (int a = 0; a < TC; ++a) rows[a] = cols[a] = 0.f;
-#pragma unroll
-    for (int a = 0; a < TC; ++a) {
-      const int j = ty + 16 * a;
-#pragma unroll
-      for (int e = 0; e < TC; ++e) {
-        const int i = tx + 16 * e;
-        const bool low = i >= j;
-        const float pv = expf(low ? cum[i] - cum[j] : kBwdMask) * z[a][e];
-        // only C B^T's written tiles (j <= i) are read
-        const float t = low ? cbc[j * CH + i] * pv : 0.f;
-        pz[j * ZP + i] = pv;
-        rows[a] += t;
-        cols[e] += t;
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < TC; ++a) {
-      const float r = row_sum16(rows[a]);
-      if (tx == 0) dcum[ty + 16 * a] = -r;
-    }
-#pragma unroll
-    for (int e = 0; e < TC; ++e) part[ty * CH + tx + 16 * e] = cols[e];
-  }
-  __syncthreads();
-  for (int i = tid; i < CH; i += kBwdThreads) {
-    float s = 0.f;
-    for (int t = 0; t < 16; ++t) s += part[t * CH + i];
-    dcum[i] += s;
-  }
-
-  // 2. dxb_j = exp(cum_last - cum_j) G B_j + sum_{i>=j} M_ij dy_i with
-  //    M_ij = (C_i . B_j) L_ij; W_j = xb_j . (its first term); dx, ddt
-  {
-    float d[TC][TP];
-    zero(d);
-    if (has_g) {
-      float* bt = buf;                 // CH x (KN + 1): B rows, a k-tile
-      float* gt = buf + CH * (KN + 1); // KN x P: G rows
-      for (int k0 = 0; k0 < N; k0 += KN) {
-        __syncthreads();
-        for (int q = tid; q < CH * KN; q += kBwdThreads) {
-          const int j = q / KN, kk = q % KN, l = l0 + j;
-          bt[j * (KN + 1) + kk] =
-              l < L ? to_float(Bm[row_of(l) * N + k0 + kk]) : 0.f;
-        }
-        for (int q = tid; q < KN * P; q += kBwdThreads)
-          gt[q] = gc[(long long)k0 * P + q];
-        __syncthreads();
-        block_mma(d, bt, 1, KN + 1, gt, P, 1, KN, ty, tx);
-      }
-#pragma unroll
-      for (int a = 0; a < TC; ++a) {
-        const int j = ty + 16 * a;
-        float w = 0.f;
-#pragma unroll
-        for (int e = 0; e < TP; ++e) {
-          d[a][e] *= ed[j];
-          w = fmaf(xs[j * YP + tx + 16 * e], d[a][e], w);
-        }
-        w = row_sum16(w);
-        if (tx == 0) wrow[j] = w;
-      }
-    }
-    float* mt = buf;  // CH x (KT + 1): mt[j][ii] = M_{i0 + ii, j}
-    for (int i0 = 0; i0 < CH; i0 += KT) {
-      __syncthreads();
-      for (int q = tid; q < CH * KT; q += kBwdThreads) {
-        const int j = q / KT, ii = q % KT, i = i0 + ii;
-        const bool low = i >= j;
-        const float dec = expf(low ? cum[i] - cum[j] : kBwdMask);
-        mt[j * (KT + 1) + ii] = low ? cbc[j * CH + i] * dec : 0.f;
-      }
-      __syncthreads();
-      block_mma(d, mt, 1, KT + 1, ys + i0 * YP, YP, 1, KT, ty, tx);
-    }
-#pragma unroll
-    for (int a = 0; a < TC; ++a) {
-      const int j = ty + 16 * a, l = l0 + j;
-      float s = 0.f;
-      if (l < L) {
-        T* dxr = dx + (row_of(l) * H + h) * P;
-        const T* xr = x + (row_of(l) * H + h) * P;
-#pragma unroll
-        for (int e = 0; e < TP; ++e) {
-          const int col = tx + 16 * e;
-          dxr[col] = from_float<T>(d[a][e] * dts[j]);
-          s = fmaf(to_float(xr[col]), d[a][e], s);
-        }
-      }
-      s = row_sum16(s);
-      if (tx == 0) ddts[j] = s;
-    }
-  }
-
-  // 3. the head's dB_j = exp(cum_last - cum_j) G^T xb_j + sum_{i>=j}
-  //    P_ij C_i
-  {
-    float acc[TC][TNN];
-    zero(acc);
-    if (has_g) {
-      float* gt = buf;  // N x (KE + 1): G^T, an e-tile
-      for (int e0 = 0; e0 < P; e0 += KE) {
-        __syncthreads();
-        for (int q = tid; q < N * KE; q += kBwdThreads) {
-          const int k = q / KE, ee = q % KE;
-          gt[k * (KE + 1) + ee] = gc[(long long)k * P + e0 + ee];
-        }
-        __syncthreads();
-        block_mma(acc, xs + e0, 1, YP, gt, 1, KE + 1, KE, ty, tx);
-      }
-#pragma unroll
-      for (int a = 0; a < TC; ++a)
-#pragma unroll
-        for (int e = 0; e < TNN; ++e) acc[a][e] *= ed[ty + 16 * a];
-    }
-    float* cs = buf;  // KT x N: C rows
-    for (int i0 = 0; i0 < CH; i0 += KT) {
-      __syncthreads();
-      for (int q = tid; q < KT * N; q += kBwdThreads) {
-        const int r = q / N, k = q % N, l = l0 + i0 + r;
-        cs[q] = l < L ? to_float(Cm[row_of(l) * N + k]) : 0.f;
-      }
-      __syncthreads();
-      block_mma(acc, pz + i0, 1, ZP, cs, N, 1, KT, ty, tx);
-    }
-    float* out = dbh + (long long)bch * CH * N;
-#pragma unroll
-    for (int a = 0; a < TC; ++a)
-#pragma unroll
-      for (int e = 0; e < TNN; ++e)
-        out[(ty + 16 * a) * N + tx + 16 * e] = acc[a][e];
-  }
-
-  // 4. the head's dC_i = exp(cum_i) S_in^T dy_i + sum_{j<=i} P_ij B_j; the
-  //    first term's C_i . (it) is dcum's term exp(cum_i) dy_i . (S_in C_i)
-  {
-    float acc[TC][TNN];
-    zero(acc);
-    if (has_s) {
-      float* st = buf;  // N x (KE + 1): S_in (n x p), an e-tile
-      for (int e0 = 0; e0 < P; e0 += KE) {
-        __syncthreads();
-        for (int q = tid; q < N * KE; q += kBwdThreads) {
-          const int k = q / KE, ee = q % KE;
-          st[k * (KE + 1) + ee] = sc[(long long)k * P + e0 + ee];
-        }
-        __syncthreads();
-        block_mma(acc, ys + e0, 1, YP, st, 1, KE + 1, KE, ty, tx);
-      }
-#pragma unroll
-      for (int a = 0; a < TC; ++a) {
-        const int i = ty + 16 * a, l = l0 + i;
-        float s = 0.f;
-#pragma unroll
-        for (int e = 0; e < TNN; ++e) {
-          acc[a][e] *= ec[i];
-          if (l < L)
-            s = fmaf(to_float(Cm[row_of(l) * N + tx + 16 * e]), acc[a][e], s);
-        }
-        s = row_sum16(s);
-        if (tx == 0) dcum[i] += s;
-      }
-    }
-    float* bs = buf;  // KT x N: B rows
-    for (int j0 = 0; j0 < CH; j0 += KT) {
-      __syncthreads();
-      for (int q = tid; q < KT * N; q += kBwdThreads) {
-        const int r = q / N, k = q % N, l = l0 + j0 + r;
-        bs[q] = l < L ? to_float(Bm[row_of(l) * N + k]) : 0.f;
-      }
-      __syncthreads();
-      block_mma(acc, pz + j0 * ZP, ZP, 1, bs, N, 1, KT, ty, tx);
-    }
-    float* out = dch + (long long)bch * CH * N;
-#pragma unroll
-    for (int a = 0; a < TC; ++a)
-#pragma unroll
-      for (int e = 0; e < TNN; ++e)
-        out[(ty + 16 * a) * N + tx + 16 * e] = acc[a][e];
-  }
-  __syncthreads();  // dcum, wrow, ddts complete
-
-  // 5. cum_last's terms, da (dcum's reverse cumulative sum), ddt, the dA
-  //    partial: one thread, in row order
-  if (tid == 0) {
-    float extra = 0.f;
-    for (int j = 0; j < CH; ++j) extra += wrow[j];
-    if (has_s) {
-      const float* p = sg + ((long long)(b * H + h) * nc + c) * S::NT2;
-      float dot = 0.f;
-      for (int t = 0; t < S::NT2; ++t) dot += p[t];
-      extra = fmaf(expf(cum[CH - 1]), dot, extra);
-    }
-    float run = 0.f, da_sum = 0.f;
-    for (int j = CH - 1; j >= 0; --j) {
-      run += dcum[j] - wrow[j] + (j == CH - 1 ? extra : 0.f);
-      dcum[j] = run;
-      da_sum = fmaf(dts[j], run, da_sum);
-    }
-    dap[bch] = da_sum;
-  }
-  __syncthreads();
-  const float a_h = A[h];
-  for (int j = tid; j < CH; j += kBwdThreads) {
-    const int l = l0 + j;
-    if (l < L) ddt[row_of(l) * H + h] = fmaf(a_h, dcum[j], ddts[j]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// fp32: stages 1 and 3 in split-TF32 on the tensor cores
-// ---------------------------------------------------------------------------
-
-template <int P, int N, int CH>
 struct SsdBwdMma {
   static_assert(P % 16 == 0 && N % 16 == 0 && CH % 16 == 0 && P <= 64 &&
                     N <= 128 && CH <= 128,
                 "ssd_bwd: p, n and chunk must be multiples of 16, p at most "
                 "64, n and chunk at most 128");
+  static constexpr bool kFp32 = std::is_same_v<T, float>;
   static constexpr int W = CH / 16;              // stage 3: 16 rows a warp
   static constexpr int kThreads = 32 * W;
   static constexpr int WD = N / 16;              // stage 1: 16 n-rows a warp
   static constexpr int kDstateThreads = 32 * WD;
-  static constexpr int YP = P + 4;   // dy, xb, G, S_in rows: ldmatrix, and
-                                     // dy's row pairs
+  static constexpr int YP = kFp32 ? P + 4 : P + 8;  // dy, xb, G, S_in rows:
+                                     // ldmatrix, and fp32 dy's row pairs
   static constexpr int KT = CH < 64 ? CH : 64;   // rows of a B or C strip
   static constexpr int KN = N < 32 ? N : 32;     // B G: n columns a tile
-  static constexpr int SP = N + 4;   // B, C strip rows (row pairs 2t, 2t+1)
-  static constexpr int GP = P + 8;   // G rows read as rows t, t + 4
-  static constexpr int BP = KN + 4;  // B column tile rows (ldmatrix)
-    static constexpr int BUF = cmax(CH * BP + KN * GP, cmax(N * YP, KT * SP));
-  // dy, xb, the tile buffer, eight row vectors, T's column sums a warp
+  static constexpr int SP = kFp32 ? N + 4 : N + 8;  // B, C strip rows
+  static constexpr int GP = P + 8;   // G rows (fp32: rows t, t + 4)
+  static constexpr int BP = kFp32 ? KN + 4 : KN + 8;  // B column tile rows
+  static constexpr int BUF = cmax(CH * BP + KN * GP, cmax(N * YP, KT * SP));
+  // dy, xb and the tile buffer (T), eight row vectors and T's column sums
+  // a warp (fp32)
   static constexpr size_t kChunkSmem =
-      sizeof(float) * (2 * CH * YP + BUF + 8 * CH + W * CH);
-  // stage 1: C and dy strips of KD rows, read as rows t, t + 4; two of
-  // each (double-buffered) and exp(cum)
+      sizeof(T) * (2 * CH * YP + BUF) + sizeof(float) * (8 * CH + W * CH);
+  // stage 1: C and dy strips of KD rows, two of each (double-buffered),
+  // and exp(cum)
   static constexpr int KD = CH < 32 ? CH : 32;
   static constexpr int KS = KD / 8 < kSumSteps ? KD / 8 : kSumSteps;
   static constexpr int DCP = N + 8, DYP = P + 8;
   static constexpr size_t kDstateSmem =
-      sizeof(float) * (2 * KD * (DCP + DYP) + CH);
+      sizeof(T) * 2 * KD * (DCP + DYP) + sizeof(float) * CH;
   // two blocks an SM at (64, 128, 128): 128 registers a thread
   static constexpr int kMinBlocks = 2;
 };
 
-// Rows [l0, l0 + ROWS) of a row-strided fp32 matrix (row l at src + l *
-// stride, COLS floats from a 16-byte boundary) into a ROWS x PITCH shared
-// tile by 16-byte cp.async; rows at or past L are zero-filled.  The
-// caller commits and waits.
-template <int ROWS, int COLS, int PITCH, int NTH>
-__device__ __forceinline__ void stage_tile(float* dst,
-                                           const float* __restrict__ src,
+// Rows [l0, l0 + ROWS) of a row-strided matrix of T (row l at src + l *
+// stride, COLS elements from a 16-byte boundary) into a ROWS x PITCH
+// shared tile by 16-byte cp.async; rows at or past L are zero-filled.
+// The caller commits and waits.
+template <int ROWS, int COLS, int PITCH, int NTH, typename T>
+__device__ __forceinline__ void stage_tile(T* dst, const T* __restrict__ src,
                                            long long stride, int l0, int L) {
-  constexpr int CPR = COLS / 4;
+  constexpr int EPC = 16 / sizeof(T), CPR = COLS / EPC;
   for (int q = threadIdx.x; q < ROWS * CPR; q += NTH) {
-    const int r = q / CPR, c4 = 4 * (q % CPR), l = l0 + r;
-    cp_async16(dst + r * PITCH + c4, src + min(l, L - 1) * stride + c4,
+    const int r = q / CPR, c = EPC * (q % CPR), l = l0 + r;
+    cp_async16(dst + r * PITCH + c, src + min(l, L - 1) * stride + c,
                l < L);
   }
 }
 
-// Waits for all but the most recent cp.async group.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+// ROWS x COLS consecutive fp32 values (a state or state gradient's rows)
+// into a ROWS x PITCH shared tile of T: by cp.async for fp32, rounded to
+// bf16 by plain loads for bf16 (stage_rounded).  The caller commits and
+// waits.
+template <int ROWS, int COLS, int PITCH, int NTH, typename T>
+__device__ __forceinline__ void stage_state(T* dst,
+                                            const float* __restrict__ src) {
+  if constexpr (std::is_same_v<T, float>) {
+    stage_tile<ROWS, COLS, PITCH, NTH>(dst, src, COLS, 0, ROWS);
+  } else {
+    stage_rounded<ROWS, COLS, PITCH, NTH>(dst, src);
+  }
 }
 
 // The sum over the four lanes of a quad (one accumulator row), in a
@@ -690,32 +330,54 @@ __device__ __forceinline__ void mma_pairs(float (&acc)[NT][4], float a0,
                split_tf32(b[PB + 8 * n]));
 }
 
-// Stage 1, fp32: Q_c = sum_i exp(cum_i) C_i (x) dy_i, (n x p), chunks
-// c > 0; a warp a 16-row tile of n, every column.  The chunk in strips of
-// KD rows, double-buffered: the next strip's copy is in flight while this
-// one's products run.
-template <int P, int N, int CH>
-__global__ void __launch_bounds__(SsdBwdMma<P, N, CH>::kDstateThreads)
-    ssd_bwd_dstate_mma(const float* __restrict__ dy,
-                       const float* __restrict__ Cm,
+// acc (16 x 8 NT) += M R over the 16 columns of M, given in the
+// accumulator layout as two 16 x 8 tiles (m[0]: columns 0-7, m[1]:
+// 8-15), and R's 16 rows of 8 NT columns at `r`, row-major T at pitch PR;
+// called once a tile, as each is built.  fp32: tile `half` as one k step
+// of 8 in split-TF32 (mma_pairs); bf16: after the second, both rounded to
+// one A fragment (to_a_frags) for one m16n8k16 step (mma_ab).
+template <int NT, int PR, typename T>
+__device__ __forceinline__ void mma_acc_a(float (&acc)[NT][4],
+                                          const float (&m)[2][4], int half,
+                                          const T* r, int lane) {
+  if constexpr (std::is_same_v<T, float>) {
+    mma_pairs<NT, PR>(acc, m[half][0], m[half][1], m[half][2], m[half][3],
+                      r + (8 * half + 2 * (lane & 3)) * PR + (lane >> 2));
+  } else if (half == 1) {
+    unsigned a[1][4];
+    to_a_frags<2>(a, m);
+    mma_ab<NT, 1, PR>(acc, a, r, lane);
+  }
+}
+
+// Stage 1: Q_c = sum_i exp(cum_i) C_i (x) dy_i, (n x p), chunks c > 0; a
+// warp a 16-row tile of n, every column.  The chunk in strips of KD rows,
+// double-buffered: the next strip's copy is in flight while this one's
+// products run.  fp32: A = exp(cum) C^T from C's rows t, t + 4, split in
+// TF32, each strip's KS k steps into a fresh accumulator that the CUDA
+// cores add to acc; bf16: A = C's rows by ldmatrix.trans, each scaled by
+// exp(cum_i) in registers before it is rounded to bf16 (mma_atb_scaled).
+template <typename T, int P, int N, int CH>
+__global__ void __launch_bounds__(SsdBwdMma<T, P, N, CH>::kDstateThreads)
+    ssd_bwd_dstate_mma(const T* __restrict__ dy, const T* __restrict__ Cm,
                        const float* __restrict__ cum_in,
                        float* __restrict__ g, int L, int H, int nc) {
-  using S = SsdBwdMma<P, N, CH>;
-  constexpr int NTH = S::kDstateThreads, KD = S::KD, KS = S::KS;
+  using S = SsdBwdMma<T, P, N, CH>;
+  constexpr int NTH = S::kDstateThreads, KD = S::KD;
   constexpr int DCP = S::DCP, DYP = S::DYP, NTP = P / 8;
   constexpr int STRIP = KD * (DCP + DYP);  // C rows, then dy rows
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* strips = reinterpret_cast<float*>(smem_raw);  // 2 x STRIP
-  float* ec = strips + 2 * STRIP;                      // exp(cum_i)
+  T* strips = reinterpret_cast<T*>(smem_raw);                // 2 x STRIP
+  float* ec = reinterpret_cast<float*>(strips + 2 * STRIP);  // exp(cum_i)
 
   const int tid = threadIdx.x, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
   const int m0 = 16 * (tid >> 5);
   const int bch = blockIdx.x, h = bch % H, bc = bch / H;
   const int c = bc % nc, b = bc / nc, l0 = c * CH;
   if (c == 0) return;  // the gradient entering chunk 0 is not needed
-  const float* cb = Cm + (long long)b * L * N;
-  const float* dyh = dy + ((long long)b * L * H + h) * P;
-  auto stage = [&](float* at, int i0) {
+  const T* cb = Cm + (long long)b * L * N;
+  const T* dyh = dy + ((long long)b * L * H + h) * P;
+  auto stage = [&](T* at, int i0) {
     stage_tile<KD, N, DCP, NTH>(at, cb, N, l0 + i0, L);
     stage_tile<KD, P, DYP, NTH>(at + KD * DCP, dyh, (long long)H * P,
                                 l0 + i0, L);
@@ -734,35 +396,41 @@ __global__ void __launch_bounds__(SsdBwdMma<P, N, CH>::kDstateThreads)
       cp_async_wait_all();
     }
     __syncthreads();                  // ... for every thread; ec written
-    const float* cs = strips + q * STRIP;
-    const float* ys = cs + KD * DCP;
-    // A = exp(cum) C^T (n rows, k = i) from C's rows t, t + 4, scaled
-    // after the load (an A fragment serves every column tile); B = dy
-    // (k = i rows); KS k steps into a fresh accumulator, which the CUDA
-    // cores add to acc
+    const T* cs = strips + q * STRIP;
+    const T* ys = cs + KD * DCP;
+    if constexpr (S::kFp32) {
+      constexpr int KS = S::KS;
+      // A = exp(cum) C^T (n rows, k = i) from C's rows t, t + 4, scaled
+      // after the load (an A fragment serves every column tile); B = dy
+      // (k = i rows); KS k steps into a fresh accumulator, which the CUDA
+      // cores add to acc
 #pragma unroll
-    for (int k0 = 0; k0 < KD; k0 += 8 * KS) {
-      unsigned ahi[KS][4], alo[KS][4];
-#pragma unroll
-      for (int j = 0; j < KS; ++j) {
-        const int r = k0 + 8 * j + tq;
-        const float* ca = cs + r * DCP + m0 + gq;
-        const float e0 = ec[i0 + r], e4 = ec[i0 + r + 4];
-        split_a(ahi[j], alo[j], ca[0] * e0, ca[8] * e0, ca[4 * DCP] * e4,
-                ca[4 * DCP + 8] * e4);
-      }
-#pragma unroll
-      for (int n = 0; n < NTP; ++n) {
-        float part[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k0 = 0; k0 < KD; k0 += 8 * KS) {
+        unsigned ahi[KS][4], alo[KS][4];
 #pragma unroll
         for (int j = 0; j < KS; ++j) {
-          const float* yb = ys + (k0 + 8 * j + tq) * DYP + 8 * n + gq;
-          mma_3xtf32(part, ahi[j], alo[j], split_tf32(yb[0]),
-                     split_tf32(yb[4 * DYP]));
+          const int r = k0 + 8 * j + tq;
+          const float* ca = cs + r * DCP + m0 + gq;
+          const float e0 = ec[i0 + r], e4 = ec[i0 + r + 4];
+          split_a(ahi[j], alo[j], ca[0] * e0, ca[8] * e0, ca[4 * DCP] * e4,
+                  ca[4 * DCP + 8] * e4);
         }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+        for (int n = 0; n < NTP; ++n) {
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int j = 0; j < KS; ++j) {
+            const float* yb = ys + (k0 + 8 * j + tq) * DYP + 8 * n + gq;
+            mma_3xtf32(part, ahi[j], alo[j], split_tf32(yb[0]),
+                       split_tf32(yb[4 * DYP]));
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+        }
       }
+    } else {
+      mma_atb_scaled<NTP, KD / 16, DCP, DYP>(acc, cs + m0, ec + i0, ys,
+                                             lane);
     }
     __syncthreads();                  // the strip consumed: its buffer is
   }                                   // the one after next's
@@ -774,35 +442,38 @@ __global__ void __launch_bounds__(SsdBwdMma<P, N, CH>::kDstateThreads)
   }
 }
 
-// Stage 3, fp32: one (batch, chunk, head): dx, ddt, the head's dB and dC
-// rows (into scratch) and its dA partial.  Warp w owns rows [16w, 16w +
-// 16) of the chunk: as j in the dxb and dB products, as i in dC's.
-template <int P, int N, int CH>
-__global__ void __launch_bounds__(SsdBwdMma<P, N, CH>::kThreads,
-                                  SsdBwdMma<P, N, CH>::kMinBlocks)
-    ssd_bwd_chunk_mma(const float* __restrict__ x,
+// Stage 3: one (batch, chunk, head): dx, ddt, the head's dB and dC rows
+// (into scratch) and its dA partial.  Warp w owns rows [16w, 16w + 16) of
+// the chunk: as j in the dxb and dB products, as i in dC's.  Every
+// product goes through mma_abt (T's products of two row-major tiles),
+// mma_acc_a (an accumulator tile as A) or, for B G, the dtype's own
+// fragments; the pass structure is the same for both dtypes.
+template <typename T, int P, int N, int CH>
+__global__ void __launch_bounds__(SsdBwdMma<T, P, N, CH>::kThreads,
+                                  SsdBwdMma<T, P, N, CH>::kMinBlocks)
+    ssd_bwd_chunk_mma(const T* __restrict__ x,
                       const float* __restrict__ dt,
                       const float* __restrict__ A,
-                      const float* __restrict__ Bm,
-                      const float* __restrict__ Cm,
-                      const float* __restrict__ dy,
+                      const T* __restrict__ Bm,
+                      const T* __restrict__ Cm,
+                      const T* __restrict__ dy,
                       const float* __restrict__ cum_in,
                       const float* __restrict__ s_in,
                       const float* __restrict__ cbt,
                       const float* __restrict__ g,
-                      const float* __restrict__ sg, float* __restrict__ dx,
+                      const float* __restrict__ sg, T* __restrict__ dx,
                       float* __restrict__ ddt, float* __restrict__ dbh,
                       float* __restrict__ dch, float* __restrict__ dap, int L,
                       int H, int nc, int has_dstate) {
-  using S = SsdBwdMma<P, N, CH>;
+  using S = SsdBwdMma<T, P, N, CH>;
   constexpr int NTH = S::kThreads, YP = S::YP, KT = S::KT, KN = S::KN;
   constexpr int SP = S::SP, GP = S::GP, BP = S::BP;
   constexpr int NTP = P / 8, NTN = N / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ys = reinterpret_cast<float*>(smem_raw);  // CH x YP: dy
-  float* xs = ys + CH * YP;                        // CH x YP: xb = x dt
-  float* buf = xs + CH * YP;                       // streamed tiles
-  float* cum = buf + S::BUF;
+  T* ys = reinterpret_cast<T*>(smem_raw);  // CH x YP: dy
+  T* xs = ys + CH * YP;                    // CH x YP: xb = x dt
+  T* buf = xs + CH * YP;                   // streamed tiles
+  float* cum = reinterpret_cast<float*>(buf + S::BUF);
   float* ec = cum + CH;     // exp(cum_i)
   float* ed = ec + CH;      // exp(cum_last - cum_j)
   float* dts = ed + CH;
@@ -825,8 +496,8 @@ __global__ void __launch_bounds__(SsdBwdMma<P, N, CH>::kThreads,
   const float* cbc = cbt + (long long)bc * CH * CH;
   const long long xstride = (long long)H * P;   // x, dy: row l
   const long long xoff = ((long long)b * L * H + h) * P;
-  const float* Bb = Bm + (long long)b * L * N;
-  const float* Cb = Cm + (long long)b * L * N;
+  const T* Bb = Bm + (long long)b * L * N;
+  const T* Cb = Cm + (long long)b * L * N;
 
   stage_tile<CH, P, YP, NTH>(ys, dy + xoff, xstride, l0, L);
   stage_tile<CH, P, YP, NTH>(xs, x + xoff, xstride, l0, L);
@@ -843,7 +514,11 @@ __global__ void __launch_bounds__(SsdBwdMma<P, N, CH>::kThreads,
     ec[j] = expf(cum[j]);
     ed[j] = expf(cum[CH - 1] - cum[j]);
   }
-  for (int q = tid; q < CH * P; q += NTH) xs[(q / P) * YP + q % P] *= dts[q / P];
+  // xb = x dt in place (bf16: rounded once, as it is staged)
+  for (int q = tid; q < CH * P; q += NTH) {
+    T* v = xs + (q / P) * YP + q % P;
+    *v = from_float<T>(to_float(*v) * dts[q / P]);
+  }
   __syncthreads();
 
   // 1. dxb_j = exp(cum_last - cum_j) (B G)_j + sum_{i>=j} M_ij dy_i with
@@ -854,24 +529,34 @@ __global__ void __launch_bounds__(SsdBwdMma<P, N, CH>::kThreads,
     float d[NTP][4];
     zero(d);
     if (has_g) {
-      float* bt = buf;               // CH x BP: B's columns k0.. a row
-      float* gt = buf + CH * BP;     // KN x GP: G's rows k0..
+      T* bt = buf;                   // CH x BP: B's columns k0.. a row
+      T* gt = buf + CH * BP;         // KN x GP: G's rows k0..
       for (int k0 = 0; k0 < N; k0 += KN) {
         __syncthreads();             // the previous tile consumed
         stage_tile<CH, KN, BP, NTH>(bt, Bb + k0, N, l0, L);
-        stage_tile<KN, P, GP, NTH>(gt, gc + (long long)k0 * P, P, 0, KN);
+        stage_state<KN, P, GP, NTH>(gt, gc + (long long)k0 * P);
         cp_async_commit();
         cp_async_wait_all();
         __syncthreads();
+        if constexpr (S::kFp32) {
 #pragma unroll
-        for (int ks = 0; ks < KN; ks += 8) {
-          unsigned ahi[4], alo[4];
-          frag_a<BP>(ahi, alo, bt + r0 * BP, ks, lane);
-          const float* gr = gt + (ks + tq) * GP + gq;
+          for (int ks = 0; ks < KN; ks += 8) {
+            unsigned ahi[4], alo[4];
+            frag_a<BP>(ahi, alo, bt + r0 * BP, ks, lane);
+            const float* gr = gt + (ks + tq) * GP + gq;
 #pragma unroll
-          for (int n = 0; n < NTP; ++n)
-            mma_3xtf32(d[n], ahi, alo, split_tf32(gr[8 * n]),
-                       split_tf32(gr[4 * GP + 8 * n]));
+            for (int n = 0; n < NTP; ++n)
+              mma_3xtf32(d[n], ahi, alo, split_tf32(gr[8 * n]),
+                         split_tf32(gr[4 * GP + 8 * n]));
+          }
+        } else {
+          const T* ba = bt + (r0 + (lane & 15)) * BP + (lane >> 4) * 8;
+#pragma unroll
+          for (int ks = 0; ks < KN; ks += 16) {
+            unsigned af[1][4];
+            ldsm4(af[0], ba + ks);
+            mma_ab<NTP, 1, GP>(d, af, gt + ks * GP, lane);
+          }
         }
       }
       const float ea = ed[ra], eb = ed[rb];
@@ -883,10 +568,10 @@ __global__ void __launch_bounds__(SsdBwdMma<P, N, CH>::kThreads,
         d[n][1] *= ea;
         d[n][2] *= eb;
         d[n][3] *= eb;
-        wa = fmaf(xs[ra * YP + col], d[n][0], wa);
-        wa = fmaf(xs[ra * YP + col + 1], d[n][1], wa);
-        wb = fmaf(xs[rb * YP + col], d[n][2], wb);
-        wb = fmaf(xs[rb * YP + col + 1], d[n][3], wb);
+        wa = fmaf(to_float(xs[ra * YP + col]), d[n][0], wa);
+        wa = fmaf(to_float(xs[ra * YP + col + 1]), d[n][1], wa);
+        wb = fmaf(to_float(xs[rb * YP + col]), d[n][2], wb);
+        wb = fmaf(to_float(xs[rb * YP + col + 1]), d[n][3], wb);
       }
       wa = quad_sum(wa);
       wb = quad_sum(wb);
@@ -901,19 +586,21 @@ __global__ void __launch_bounds__(SsdBwdMma<P, N, CH>::kThreads,
       zero(z);
       mma_abt<2, P, YP>(z, xs + r0 * YP, ys + i0 * YP, lane);
       const bool diag = i0 == r0;
+      float m[2][4];                         // M_ji in z's layout
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int i = i0 + 8 * half + 2 * tq;  // columns i, i + 1
-        float m[4];                            // (ra, i), (ra, i+1), (rb, ..)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
+        for (int e = 0; e < 4; ++e) {        // (ra, i), (ra, i+1), (rb, ..)
           const int j = e < 2 ? ra : rb, ii = i + (e & 1);
           const bool low = !diag || ii >= j;   // C B^T written only there
           const float dec = expf(low ? cum[ii] - cum[j] : kBwdMask);
-          m[e] = low ? cbc[j * CH + ii] * dec : 0.f;
+          m[half][e] = low ? cbc[j * CH + ii] * dec : 0.f;
         }
-        const float t0 = m[0] * z[half][0], t1 = m[1] * z[half][1];
-        const float t2 = m[2] * z[half][2], t3 = m[3] * z[half][3];
+        const float t0 = m[half][0] * z[half][0];
+        const float t1 = m[half][1] * z[half][1];
+        const float t2 = m[half][2] * z[half][2];
+        const float t3 = m[half][3] * z[half][3];
         ta += t0 + t1;
         tb += t2 + t3;
         float c0 = t0 + t2, c1 = t1 + t3;      // over the 8 row groups
@@ -926,16 +613,16 @@ __global__ void __launch_bounds__(SsdBwdMma<P, N, CH>::kThreads,
           colp[warp * CH + i] = c0;
           colp[warp * CH + i + 1] = c1;
         }
-        mma_pairs<NTP, YP>(d, m[0], m[1], m[2], m[3], ys + i * YP + gq);
+        mma_acc_a<NTP, YP>(d, m, half, ys + i0 * YP, lane);
       }
     }
     ta = quad_sum(ta);
     tb = quad_sum(tb);
     float sa = 0.f, sb = 0.f;        // x . dxb
-    const float* xa = x + xoff + la * xstride;
-    const float* xb_ = x + xoff + lb * xstride;
-    float* dxa = dx + xoff + la * xstride;
-    float* dxb_ = dx + xoff + lb * xstride;
+    const T* xa = x + xoff + la * xstride;
+    const T* xb_ = x + xoff + lb * xstride;
+    T* dxa = dx + xoff + la * xstride;
+    T* dxb_ = dx + xoff + lb * xstride;
 #pragma unroll
     for (int n = 0; n < NTP; ++n) {
       const int col = 8 * n + 2 * tq;
@@ -971,7 +658,7 @@ __global__ void __launch_bounds__(SsdBwdMma<P, N, CH>::kThreads,
     zero(e);
     if (has_g) {
       __syncthreads();               // phase 1's tiles consumed
-      stage_tile<N, P, YP, NTH>(buf, gc, P, 0, N);
+      stage_state<N, P, YP, NTH>(buf, gc);
       cp_async_commit();
       cp_async_wait_all();
       __syncthreads();
@@ -996,18 +683,18 @@ __global__ void __launch_bounds__(SsdBwdMma<P, N, CH>::kThreads,
         zero(z);
         mma_abt<2, P, YP>(z, xs + r0 * YP, ys + i0 * YP, lane);
         const bool diag = i0 == r0;
+        float pv[2][4];
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int i = i0 + 8 * half + 2 * tq;
-          float pv[4];
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const int j = q < 2 ? ra : rb, ii = i + (q & 1);
             const bool low = !diag || ii >= j;
-            pv[q] = expf(low ? cum[ii] - cum[j] : kBwdMask) * z[half][q];
+            pv[half][q] = expf(low ? cum[ii] - cum[j] : kBwdMask) *
+                          z[half][q];
           }
-          mma_pairs<NTN, SP>(e, pv[0], pv[1], pv[2], pv[3],
-                             buf + (i - s0) * SP + gq);
+          mma_acc_a<NTN, SP>(e, pv, half, buf + (i0 - s0) * SP, lane);
         }
       }
     }
@@ -1027,7 +714,7 @@ __global__ void __launch_bounds__(SsdBwdMma<P, N, CH>::kThreads,
     zero(f);
     if (has_s) {
       __syncthreads();               // the last strip consumed
-      stage_tile<N, P, YP, NTH>(buf, sc, P, 0, N);
+      stage_state<N, P, YP, NTH>(buf, sc);
       cp_async_commit();
       cp_async_wait_all();
       __syncthreads();
@@ -1070,18 +757,18 @@ __global__ void __launch_bounds__(SsdBwdMma<P, N, CH>::kThreads,
         zero(z);
         mma_abt<2, P, YP>(z, ys + r0 * YP, xs + j0 * YP, lane);
         const bool diag = j0 == r0;
+        float pv[2][4];
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int j = j0 + 8 * half + 2 * tq;
-          float pv[4];
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const int i = q < 2 ? ra : rb, jj = j + (q & 1);
             const bool low = !diag || jj <= i;
-            pv[q] = expf(low ? cum[i] - cum[jj] : kBwdMask) * z[half][q];
+            pv[half][q] = expf(low ? cum[i] - cum[jj] : kBwdMask) *
+                          z[half][q];
           }
-          mma_pairs<NTN, SP>(f, pv[0], pv[1], pv[2], pv[3],
-                             buf + (j - s0) * SP + gq);
+          mma_acc_a<NTN, SP>(f, pv, half, buf + (j0 - s0) * SP, lane);
         }
       }
     }
@@ -1204,47 +891,26 @@ cudaError_t launch_ssd_bwd(const void* x, const void* dt, const void* A,
               *sp = static_cast<const float*>(s_in);
   float *gp = part[0], *sgp = part[1], *dbhp = part[2], *dchp = part[3],
         *dapp = part[4];
-  if constexpr (std::is_same_v<T, float>) {  // the tensor cores
-    using M = SsdBwdMma<P, N, CH>;
-    if ((err = allow_smem_once<ssd_bwd_dstate_mma<P, N, CH>>(
-             M::kDstateSmem, device)) != cudaSuccess ||
-        (err = allow_smem_once<ssd_bwd_chunk_mma<P, N, CH>>(
-             M::kChunkSmem, device)) != cudaSuccess)
-      return err;
-    ssd_bwd_dstate_mma<P, N, CH><<<batch * nc * H, M::kDstateThreads,
-                                   M::kDstateSmem, stream>>>(
-        dyp, cp, cump, gp, L, H, nc);
-  } else {                                   // the CUDA cores
-    if ((err = allow_smem_once<ssd_bwd_chunk_dstate<T, P, N, CH>>(
-             S::kDstateSmem, device)) != cudaSuccess ||
-        (err = allow_smem_once<ssd_bwd_chunk<T, P, N, CH>>(
-             S::kChunkSmem, device)) != cudaSuccess)
-      return err;
-    ssd_bwd_chunk_dstate<T, P, N, CH><<<batch * nc * H, kBwdThreads,
-                                        S::kDstateSmem, stream>>>(
-        dyp, cp, cump, gp, L, H, nc);
-  }
+  using M = SsdBwdMma<T, P, N, CH>;
+  if ((err = allow_smem_once<ssd_bwd_dstate_mma<T, P, N, CH>>(
+           M::kDstateSmem, device)) != cudaSuccess ||
+      (err = allow_smem_once<ssd_bwd_chunk_mma<T, P, N, CH>>(
+           M::kChunkSmem, device)) != cudaSuccess)
+    return err;
+  ssd_bwd_dstate_mma<T, P, N, CH><<<batch * nc * H, M::kDstateThreads,
+                                    M::kDstateSmem, stream>>>(
+      dyp, cp, cump, gp, L, H, nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   ssd_bwd_state_pass<P, N, CH><<<dim3(batch * H, S::NT2), kBwdThreads, 0,
                                  stream>>>(
       cump, sp, static_cast<const float*>(dstate), gp, sgp, H, nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if constexpr (std::is_same_v<T, float>) {
-    using M = SsdBwdMma<P, N, CH>;
-    ssd_bwd_chunk_mma<P, N, CH><<<batch * nc * H, M::kThreads, M::kChunkSmem,
-                                  stream>>>(
-        xp, static_cast<const float*>(dt), static_cast<const float*>(A), bp,
-        cp, dyp, cump, sp, static_cast<const float*>(cbt), gp, sgp,
-        static_cast<float*>(dx), static_cast<float*>(ddt), dbhp, dchp, dapp,
-        L, H, nc, dstate != nullptr);
-  } else {
-    ssd_bwd_chunk<T, P, N, CH><<<batch * nc * H, kBwdThreads, S::kChunkSmem,
-                                 stream>>>(
-        xp, static_cast<const float*>(dt), static_cast<const float*>(A), bp,
-        cp, dyp, cump, sp, static_cast<const float*>(cbt), gp, sgp,
-        static_cast<T*>(dx), static_cast<float*>(ddt), dbhp, dchp, dapp, L,
-        H, nc, dstate != nullptr);
-  }
+  ssd_bwd_chunk_mma<T, P, N, CH><<<batch * nc * H, M::kThreads,
+                                   M::kChunkSmem, stream>>>(
+      xp, static_cast<const float*>(dt), static_cast<const float*>(A), bp,
+      cp, dyp, cump, sp, static_cast<const float*>(cbt), gp, sgp,
+      static_cast<T*>(dx), static_cast<float*>(ddt), dbhp, dchp, dapp, L, H,
+      nc, dstate != nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long elems = (long long)batch * L * N;
   ssd_bwd_sum<T, N, CH><<<dim3((elems + kBwdThreads - 1) / kBwdThreads, 3),
@@ -1303,22 +969,16 @@ cudaError_t occupancy_ssd_bwd(int stage, int batch, int L, int H, int device,
                               int* blocks_per_sm, int* smem_bytes, int* grid,
                               int* threads) {
   using S = SsdBwdShape<P, N, CH>;
-  using M = SsdBwdMma<P, N, CH>;
-  constexpr bool kMma = std::is_same_v<T, float>;
+  using M = SsdBwdMma<T, P, N, CH>;
   const int nc = (L + CH - 1) / CH;
   *threads = kBwdThreads;
   switch (stage) {
     case 0:  // the chunk-0 blocks return at once
       *grid = batch * nc * H;
-      if constexpr (kMma) {
-        *threads = M::kDstateThreads;
-        return occupancy_of<ssd_bwd_dstate_mma<P, N, CH>>(
-            M::kDstateSmem, M::kDstateThreads, device, blocks_per_sm,
-            smem_bytes);
-      } else {
-        return occupancy_of<ssd_bwd_chunk_dstate<T, P, N, CH>>(
-            S::kDstateSmem, kBwdThreads, device, blocks_per_sm, smem_bytes);
-      }
+      *threads = M::kDstateThreads;
+      return occupancy_of<ssd_bwd_dstate_mma<T, P, N, CH>>(
+          M::kDstateSmem, M::kDstateThreads, device, blocks_per_sm,
+          smem_bytes);
     case 1:
       *grid = batch * H * S::NT2;
       *smem_bytes = static_cast<int>(sizeof(float) * kBwdThreads / 32);
@@ -1326,14 +986,9 @@ cudaError_t occupancy_ssd_bwd(int stage, int batch, int L, int H, int device,
           blocks_per_sm, ssd_bwd_state_pass<P, N, CH>, kBwdThreads, 0);
     case 2:
       *grid = batch * nc * H;
-      if constexpr (kMma) {
-        *threads = M::kThreads;
-        return occupancy_of<ssd_bwd_chunk_mma<P, N, CH>>(
-            M::kChunkSmem, M::kThreads, device, blocks_per_sm, smem_bytes);
-      } else {
-        return occupancy_of<ssd_bwd_chunk<T, P, N, CH>>(
-            S::kChunkSmem, kBwdThreads, device, blocks_per_sm, smem_bytes);
-      }
+      *threads = M::kThreads;
+      return occupancy_of<ssd_bwd_chunk_mma<T, P, N, CH>>(
+          M::kChunkSmem, M::kThreads, device, blocks_per_sm, smem_bytes);
     case 3:
       *grid = static_cast<int>(2 * (((long long)batch * L * N + kBwdThreads -
                                      1) / kBwdThreads) + 1);
@@ -1408,11 +1063,10 @@ extern "C" int gfdit_ssd_bwd(const void* x, const void* dt, const void* A,
 }
 
 // Occupancy of one stage kernel of the (P, N, chunk) instantiation (0
-// the chunk states Q, 1 ssd_bwd_state_pass, 2 the chunk kernel, 3
-// ssd_bwd_sum; stages 0 and 2 run ssd_bwd_dstate_mma and
-// ssd_bwd_chunk_mma in fp32, ssd_bwd_chunk_dstate and ssd_bwd_chunk in
-// bf16) at (batch, L, H): resident blocks per SM, shared-memory bytes a
-// block, the launch's grid and its threads a block.
+// ssd_bwd_dstate_mma, the chunk states Q; 1 ssd_bwd_state_pass; 2
+// ssd_bwd_chunk_mma; 3 ssd_bwd_sum) at (batch, L, H): resident blocks per
+// SM, shared-memory bytes a block, the launch's grid and its threads a
+// block.
 extern "C" int gfdit_ssd_bwd_occupancy(int stage, int batch, int L, int H,
                                        int P, int N, int chunk, int dtype,
                                        int device, int* blocks_per_sm,

@@ -60,15 +60,14 @@ _SIGNATURES = {
     # P, N, chunk, dtype, device, stream
     "gfdit_ssd": [_P] * 11 + [_I] * 8 + [_P],
     # stage, batch, L, H, P, N, chunk, dtype, device -> blocks per SM,
-    # shared memory bytes, grid
-    "gfdit_ssd_occupancy": [_I] * 9 + [_IP, _IP, _IP],
+    # shared memory bytes, grid, threads a block
+    "gfdit_ssd_occupancy": [_I] * 9 + [_IP] * 4,
     # x, dt, A, B, C, dy, dstate, cum, s_in, cbt, dx, ddt, dA, dB, dC,
     # work, work floats, batch, L, H, P, N, chunk, dtype, device, stream
     "gfdit_ssd_bwd": [_P] * 16 + [ctypes.c_longlong] + [_I] * 8 + [_P],
     # batch, L, H, P, N, chunk -> floats of the backward's own scratch
     "gfdit_ssd_bwd_scratch": [_I] * 6,
-    # as gfdit_ssd_occupancy, for the backward's four stage kernels, and
-    # their threads a block
+    # as gfdit_ssd_occupancy, for the backward's four stage kernels
     "gfdit_ssd_bwd_occupancy": [_I] * 9 + [_IP] * 4,
     # D, dtype, device -> blocks per SM, shared memory bytes
     "gfdit_attention_occupancy": [_I] * 3 + [_IP, _IP],

@@ -78,12 +78,19 @@ MAX_ADALN_DIM = 4096
 #: (head_dim p, state n, chunk) the SSD kernel is instantiated for
 SSD_SHAPES = ((64, 128, 128), (16, 16, 16), (16, 16, 32), (32, 16, 64),
               (64, 32, 128), (64, 64, 128))
-#: the stage kernels one SSD call launches, in order
-SSD_STAGES = ("ssd_chunk_state", "ssd_state_pass", "ssd_cb", "ssd_chunk_scan")
-#: the stage kernels one SSD backward call launches, in order
-SSD_BWD_STAGES = ("ssd_bwd_chunk_dstate", "ssd_bwd_state_pass",
-                  "ssd_bwd_chunk", "ssd_bwd_sum")
+#: the stage kernels one SSD call launches, in order, by operand dtype:
+#: fp32 on the CUDA cores, bf16 on the tensor cores (stage 2 is shared)
+SSD_STAGES = {
+    torch.float32: ("ssd_chunk_state", "ssd_state_pass", "ssd_cb",
+                    "ssd_chunk_scan"),
+    torch.bfloat16: ("ssd_chunk_state_mma", "ssd_state_pass", "ssd_cb_mma",
+                     "ssd_chunk_scan_mma")}
+#: the stage kernels one SSD backward call launches, in order (one
+#: template for both dtypes: split-TF32 in fp32, bf16 products in bf16)
+SSD_BWD_STAGES = ("ssd_bwd_dstate_mma", "ssd_bwd_state_pass",
+                  "ssd_bwd_chunk_mma", "ssd_bwd_sum")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 
 _count_lock = threading.Lock()
 #: kernel launches per wrapper since the last :func:`reset_launches`
@@ -93,9 +100,12 @@ launches = {"fused_adaln": 0, "attention": 0, "splice_attention": 0,
 #: launches of K2's and K3's kernels by dtype and route, one a wrapper
 #: call (also counted under the wrapper's name in :data:`launches`): the
 #: tensor-core tile kernel alone, or split keys (the tile kernel over its
-#: key pieces, then the combine kernel)
+#: key pieces, then the combine kernel); and of K4's forward and backward
+#: by dtype (fp32 and bf16 run different stage kernels)
 kernel_launches = {"attention fp32": 0, "attention fp32 split": 0,
-                   "attention bf16": 0, "attention bf16 split": 0}
+                   "attention bf16": 0, "attention bf16 split": 0,
+                   "ssd fp32": 0, "ssd bf16": 0, "ssd_bwd fp32": 0,
+                   "ssd_bwd bf16": 0}
 #: the library's C entry points by name, bound on first use
 _fns: dict = {}
 #: (wrapper, operations, bytes) of every call the shape-only branch took
@@ -708,8 +718,12 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
     The kernels mask a ragged last chunk, so ``l`` need not be a multiple
     of ``chunk``; the CPU version is the sequential recurrence.  On the
     card one call runs the four stage kernels of ``csrc/ssd.cu``
-    (:data:`SSD_STAGES`) and counts one launch; their scratch is
-    allocated here (``ref.ssd_chunked_ref`` computes the same stages).
+    (:data:`SSD_STAGES`: fp32 on the CUDA cores; bf16 with the chunk
+    states, C B^T and the chunk scan on the tensor cores, the scores and
+    decays, the carried state and the decay-weighted B rows rounded to
+    bf16 where they enter a product) and counts one launch, also under
+    its dtype in :data:`kernel_launches`; their scratch is allocated here
+    (``ref.ssd_chunked_ref`` computes the same stages).
     Differentiable (see the module's note): the backward is
     :func:`ssd_bwd`, which reads the forward's scratch."""
     if isinstance(x, DTensor):
@@ -800,7 +814,7 @@ def _ssd_fwd(x, dt, A, B, C, chunk: int):
     _launch(name, fn, ptrs["x"], dt.data_ptr(), A.data_ptr(), ptrs["B"],
             ptrs["C"], y.data_ptr(), state.data_ptr(),
             *_parts(scratch, sizes), b, l, h, p, n, chunk, dtype, dev,
-            _stream(dev))
+            _stream(dev), route=f"ssd {_DTYPE_NAMES[x.dtype]}")
     return y, state, scratch
 
 
@@ -815,9 +829,11 @@ def ssd_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 128,
     runs the four stage kernels of
     ``csrc/ssd_bwd.cu`` (:data:`SSD_BWD_STAGES`: the per-chunk state
     gradients, their reverse pass across chunks, a chunk kernel per
-    (batch, chunk, head) and the sums over heads; fp32 runs the products
-    of the first and third in split-TF32 on the tensor cores, bf16 on the
-    CUDA cores) and counts one launch; their scratch is allocated here by
+    (batch, chunk, head) and the sums over heads; the first and third run
+    their products on the tensor cores, fp32 in split-TF32, bf16 as bf16
+    products with Z, P, the masked decays, xb, G and S_in rounded to bf16
+    where they enter one) and counts one launch, also under its dtype in
+    :data:`kernel_launches`; their scratch is allocated here by
     the kernel's own rule (``gfdit_ssd_bwd_scratch``;
     :func:`ssd_bwd_scratch` is its Python twin).  x, B, C and dy
     16-byte aligned.  Deterministic: no atomics.  The CPU version is
@@ -864,7 +880,8 @@ def ssd_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 128,
             None if dstate is None else dstate.data_ptr(), cum, s_in, cbt,
             dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
             dC.data_ptr(), work.data_ptr(), floats, b, l, h, p, n, chunk,
-            dtype, dev, _stream(dev))
+            dtype, dev, _stream(dev),
+            route=f"ssd_bwd {_DTYPE_NAMES[x.dtype]}")
     return dx, ddt, dA, dB, dC
 
 
@@ -935,28 +952,29 @@ def attention_bwd_occupancy(head_dim: int, dtype=torch.float32,
 def ssd_occupancy(b: int, l: int, h: int, p: int, n: int, chunk: int,
                   dtype=torch.float32, device: int = 0) -> dict:
     """Per stage kernel of one :func:`ssd` call at ``(b, l, h, p, n,
-    chunk)``: ``{name: (resident blocks per SM, shared-memory bytes a
-    block, grid)}``, from the CUDA occupancy calculator; every block has
-    256 threads."""
+    chunk)`` in ``dtype`` (:data:`SSD_STAGES`): ``{name: (resident blocks
+    per SM, shared-memory bytes a block, grid, threads a block)}``, from
+    the CUDA occupancy calculator."""
     if (p, n, chunk) not in SSD_SHAPES:
         raise ValueError(f"ssd: unsupported (p, n, chunk)={(p, n, chunk)}")
     fn = _fn("gfdit_ssd_occupancy")
     out = {}
-    for stage, name in enumerate(SSD_STAGES):
-        grid = ctypes.c_int()
+    for stage, name in enumerate(SSD_STAGES[dtype]):
+        grid, threads = ctypes.c_int(), ctypes.c_int()
         blocks, smem = _occupancy("ssd_occupancy", fn, stage, b, l, h, p,
                                   n, chunk, _DTYPES[dtype], device,
-                                  extra=(ctypes.byref(grid),))
-        out[name] = (blocks, smem, grid.value)
+                                  extra=(ctypes.byref(grid),
+                                         ctypes.byref(threads)))
+        out[name] = (blocks, smem, grid.value, threads.value)
     return out
 
 
 def ssd_bwd_occupancy(b: int, l: int, h: int, p: int, n: int, chunk: int,
                       dtype=torch.float32, device: int = 0) -> dict:
     """As :func:`ssd_occupancy`, for the stage kernels of one
-    :func:`ssd_bwd` call (:data:`SSD_BWD_STAGES`; in fp32 the first and
-    third are the tensor-core kernels), each with its threads a block:
-    ``{name: (blocks per SM, shared bytes, grid, threads)}``."""
+    :func:`ssd_bwd` call (:data:`SSD_BWD_STAGES`; the first and third are
+    the tensor-core kernels): ``{name: (blocks per SM, shared bytes,
+    grid, threads)}``."""
     if (p, n, chunk) not in SSD_SHAPES:
         raise ValueError(f"ssd_bwd: unsupported (p, n, chunk)="
                          f"{(p, n, chunk)}")

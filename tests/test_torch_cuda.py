@@ -1244,6 +1244,68 @@ def test_cuda_ssd_bwd_is_deterministic(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+def test_cuda_ssd_bf16_forward_is_deterministic(cuda_device):
+    """The bf16 forward's tensor-core stages: two calls on the same
+    inputs agree bit for bit (y and the final state), at mamba2-1.3b's
+    (p, n, chunk) with a ragged l."""
+    rng = np.random.default_rng(10)
+    x, dt, A, B, C = _ssd_inputs(rng, 2, 300, 4, 64, 128, "bfloat16",
+                                 cuda_device)
+    first = ops.ssd(x, dt, A, B, C, chunk=128)
+    second = ops.ssd(x, dt, A, B, C, chunk=128)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_counts_its_dtype(cuda_device, dtype):
+    """K4's forward and backward count each call under their dtype in
+    ``ops.kernel_launches`` (fp32 and bf16 run different stage
+    kernels), and nothing else there."""
+    rng = np.random.default_rng(11)
+    x, dt, A, B, C = _ssd_inputs(rng, 1, 40, 2, 16, 16, dtype, cuda_device)
+    tag = {"float32": "fp32", "bfloat16": "bf16"}[dtype]
+    before = dict(ops.kernel_launches)
+    _, _, scratch = ops.ssd_for_grad(x, dt, A, B, C, chunk=16)
+    ops.ssd_bwd(x, dt, A, B, C, torch.ones_like(x), chunk=16,
+                scratch=scratch)
+    after = dict(ops.kernel_launches)
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r in (f"ssd {tag}", f"ssd_bwd {tag}")) for r in after}
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_bf16_runs_on_tensor_cores(cuda_device):
+    """K4's bf16 forward stages 1, 3 and 4 and its backward's stages 1
+    and 3 hold bf16 HMMA (tensor core) instructions at every (p, n,
+    chunk) of ``ops.SSD_SHAPES``; the fp32 backward's hold TF32 ones;
+    no bf16 instance of the CUDA-core forward stages is left, and no
+    CUDA-core backward kernel at all."""
+    from repro_torch.kernels import build
+    build.load()
+    funcs = _sass_functions(build.library_path())
+    kernels = {"ssd_chunk_state_mma": ("13__nv_bfloat16",),
+               "ssd_cb_mma": ("13__nv_bfloat16",),
+               "ssd_chunk_scan_mma": ("13__nv_bfloat16",),
+               "ssd_bwd_dstate_mma": ("13__nv_bfloat16", "f"),
+               "ssd_bwd_chunk_mma": ("13__nv_bfloat16", "f")}
+    for kernel, codes in kernels.items():
+        for code in codes:
+            operand = BWD_HMMA["bfloat16" if code != "f" else "float32"][0]
+            mine = {f: body for f, body in funcs.items()
+                    if f"{len(kernel)}{kernel}I{code}Li" in f}
+            assert len(mine) == len(ops.SSD_SHAPES), (kernel, sorted(mine))
+            for f, body in mine.items():
+                assert any("HMMA" in line and operand in line
+                           for line in body.splitlines()), (f, operand)
+    for kernel in ("ssd_chunk_state", "ssd_cb", "ssd_chunk_scan"):
+        assert not [f for f in funcs
+                    if f"{len(kernel)}{kernel}I13__nv_bfloat16" in f], kernel
+    assert not [f for f in funcs if "ssd_bwd_chunkI" in f
+                or "ssd_bwd_chunk_dstate" in f]
+
+
+@pytest.mark.cuda
 def test_cuda_ssd_bwd_needs_the_forwards_scratch(cuda_device, monkeypatch):
     rng = np.random.default_rng(4)
     x, dt, A, B, C = _ssd_inputs(rng, 1, 32, 2, 16, 16, "float32",
