@@ -19,16 +19,15 @@ Phases, one line each (any failure raises and exits non-zero):
    shared memory and blocks an SM (backward: fp32 at every head dim,
    bf16 at 64 and 128); K1's backward row kernel's registers and spills at
    DIT_IMAGE's width, every variant, with its plan and blocks an SM; the
-   registers and spills of K4's forward and backward stage kernels at
-   (p, n, chunk) = (64, 128, 128) and (64, 64, 128), and of K4's fp32
-   backward tensor-core kernels at every (p, n, chunk), and of K4's bf16
-   forward tensor-core stages at every (p, n, chunk), with the bf16
-   stages' threads, shared bytes and blocks an SM at mamba2-1.3b's and
-   zamba2-7b's prefill and training shapes.
+   registers and spills of K4's forward and backward tensor-core stage
+   kernels at every (p, n, chunk) in both dtypes and of their other
+   stages at (p, n, chunk) = (64, 128, 128) and (64, 64, 128), with
+   every stage's threads, shared bytes and blocks an SM in both dtypes at
+   mamba2-1.3b's and zamba2-7b's prefill and training shapes.
 3. kernels: each kernel against its plain PyTorch version on the card at
    its path's full-width shapes (DIT_IMAGE for K1-K3, the mamba2-1.3b
    prefill for K4, timed at batch 4 and 1 in both dtypes, with the
-   CUDA-core and tensor-core bounds and the four-stage design's floor;
+   tensor-core and CUDA-core bounds and the four-stage design's floor;
    zamba2-7b's forward for K2
    causal at head dim 112 and its prefill for K4 at (p, n, chunk) =
    (64, 64, 128); yi-6b's causal GQA forward for K2; whisper-medium's
@@ -273,9 +272,11 @@ by name only) times fp32 K2 and K3 at the main path's short query grids
 in 1 to 8 key pieces, each held to its plain version: the measurement
 behind the library's split rule.  ``ssd`` (run by name only) runs the
 kernels phase's K4 forward and backward checks alone, both dtypes, and
-prints a digest of every fp32 output on fixed inputs, so that
-``--phase ssd --src DIR`` times another tree's K4 beside this one's and
-shows whether their fp32 bits agree.  ``failure`` (run by name only) serves
+prints, per dtype, a digest of the forward's outputs (y, the final
+state) and one of the backward's five gradients on a scratch built by
+the plain version, on fixed inputs, so that ``--phase ssd --src DIR``
+times another tree's K4 beside this one's and shows which of the four
+digests two trees share.  ``failure`` (run by name only) serves
 the failure demo ten times as the scenarios phase does and prints, per
 wall attempt, how far the host kill landed from the edges of denoise
 step 3 (the scenarios phase prints the same for its one run).
@@ -682,11 +683,11 @@ def phase_build() -> None:
 
 def _report_ssd(report: dict) -> None:
     """K4's forward and backward stage kernels: registers and spill bytes
-    (ptxas) of the tensor-core kernels (``*_mma``: the bf16 forward's,
-    the backward's in both dtypes) at every (p, n, chunk) and of the
-    others at (64, 128, 128) and (64, 64, 128); then, at mamba2-1.3b's
-    and zamba2-7b's prefill and training shapes, the bf16 stages' threads,
-    shared bytes and blocks an SM (the occupancy calculator)."""
+    (ptxas) of the tensor-core kernels (``*_mma``, both dtypes) at every
+    (p, n, chunk) and of the others at (64, 128, 128) and (64, 64, 128);
+    then, at mamba2-1.3b's and zamba2-7b's prefill and training shapes,
+    every stage's threads, shared bytes and blocks an SM in both dtypes
+    (the occupancy calculator)."""
     for f in sorted(report):
         m = re.match(r"_ZN5gfdit(\d+)", f)
         name = f[m.end():m.end() + int(m[1])] if m else f
@@ -696,23 +697,22 @@ def _report_ssd(report: dict) -> None:
         shape = tuple(int(v) for v in re.findall(r"Li(\d+)E", f))
         if name.endswith("_mma") or any(
                 f"Li{n}ELi128E" in f and (f"Li64ELi{n}ELi128E" in f
-                                          or name in ("ssd_cb",
-                                                      "ssd_bwd_sum"))
+                                          or name == "ssd_bwd_sum")
                 for n in (128, 64)):
             print(f"  {name}<{dt}, {shape}>: {report[f]}", flush=True)
     for cfg in (MAMBA, ZAMBA):
         _, h, _ = ssm.ssm_dims(cfg)
         p, n, c = cfg.ssm.head_dim, cfg.ssm.state_dim, cfg.ssm.chunk
-        for what, occ in (
-                ("ssd", ops.ssd_occupancy(LM_BATCH, LM_PROMPT, h, p, n, c,
-                                          torch.bfloat16)),
-                ("ssd_bwd", ops.ssd_bwd_occupancy(
-                    YI_TRAIN_BATCH, YI_TRAIN_SEQ, h, p, n, c,
-                    torch.bfloat16))):
-            print(f"  {what} bf16 {cfg.name}: " + "; ".join(
-                f"{k} {v[3] if len(v) > 3 else 256} threads, "
-                f"{v[1] / 1024:.2f} KiB shared, {v[0]} blocks an SM"
-                for k, v in occ.items()), flush=True)
+        for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            for what, occ in (
+                    ("ssd", ops.ssd_occupancy(LM_BATCH, LM_PROMPT, h, p, n,
+                                              c, dtype)),
+                    ("ssd_bwd", ops.ssd_bwd_occupancy(
+                        YI_TRAIN_BATCH, YI_TRAIN_SEQ, h, p, n, c, dtype))):
+                print(f"  {what} {tag} {cfg.name}: " + "; ".join(
+                    f"{k} {v[3] if len(v) > 3 else 256} threads, "
+                    f"{v[1] / 1024:.2f} KiB shared, {v[0]} blocks an SM"
+                    for k, v in occ.items()), flush=True)
 
 
 def _report_attention_fwd(report: dict) -> None:
@@ -1486,7 +1486,9 @@ def _check_ssd(dtype, results) -> None:
     the four-stage design's floor; also at a ragged l (the forward's
     2080) and the reduced model's (16, 16, 16) with a ragged l, and in
     fp32 zamba2's held to the stage-wise twin too; then the occupancy of
-    each stage kernel (bf16: the tensor-core stages)."""
+    each stage kernel.  The bound in the kernels line is the tensor
+    cores' (fp32: three TF32 products for each fp32 one), the CUDA
+    cores' printed beside it."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     _, heads, _ = ssm.ssm_dims(MAMBA)
     s = MAMBA.ssm
@@ -1507,9 +1509,11 @@ def _check_ssd(dtype, results) -> None:
         if l == LM_PROMPT:
             flops, nbytes = cost.ssd(b, l, h, p, n, c, es)
             timing = {
-                "bytes": nbytes, "flops": flops,
-                "flops_per_s": FP32_FLOPS_PER_S if fp32 else
+                "bytes": nbytes, "flops": (3 if fp32 else 1) * flops,
+                "flops_per_s": TF32_FLOPS_PER_S if fp32 else
                 BF16_FLOPS_PER_S, "plain_iters": 3, "host_calls": 200}
+            if fp32:   # the same work on the CUDA cores, printed beside
+                timing["cuda_core"] = (nbytes, flops)
             key = f"b={b}" if case != zamba else f"zamba2 b={b}"
             timing["summary"] = {0: "ssd", 1: "zamba2-7b ssd"}.get(
                 i, f"ssd {key}") + tag
@@ -1621,36 +1625,72 @@ def _check_ssd_bwd(dtype, results) -> None:
         del x, dt, A, B, C, dy, scratch
 
 
+def _plain_ssd_scratch(x, dt, A, B, C, chunk: int):
+    """K4's forward scratch as the plain version computes it, on x's
+    device, laid out as ``ops.ssd_for_grad``'s (the parts the backward
+    reads: cum, the chunk states' slots holding S_in, C B^T in the (j, i)
+    layout with zeros above the diagonal; any other part zero)."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    _, _, Bc, Cc, _, cum, s_in, _ = ref._ssd_chunks(x, dt, A, B, C, (),
+                                                   chunk)
+    sizes = ops._ssd_scratch_sizes(b, l, h, p, n, chunk)
+    scratch = torch.zeros(sum(sizes), dtype=torch.float32, device=x.device)
+    parts = scratch.split(sizes)
+    parts[0].copy_(cum.reshape(-1))
+    parts[1].copy_(s_in.transpose(-1, -2).reshape(-1))     # (n x p) slots
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc).tril()      # j <= i
+    parts[2].copy_(cb.transpose(-1, -2).reshape(-1))
+    return scratch
+
+
 def phase_ssd(smi: str) -> dict:
     """K4 alone (``--phase ssd``): the kernels phase's K4 forward and
     backward checks in both dtypes (timed, by stage, with occupancy and
-    bounds), then a sha256 digest of every fp32 output (y, the final state
-    and the five gradients, with a final-state gradient) on fixed inputs
-    at mamba2-1.3b's and zamba2-7b's (p, n, chunk), b=2 and the ragged
-    l=2080: equal digests show that two trees' fp32 kernels compute the
-    same bits.  With ``--src``, another checkout's kernels."""
+    bounds), then, per dtype, on fixed inputs at mamba2-1.3b's and
+    zamba2-7b's (p, n, chunk), b=2 and the ragged l=2080, a sha256 digest
+    of the forward's outputs (y and the final state, held to the plain
+    version within the SSD's budget) and one of the backward's five
+    gradients (with a final-state gradient) on a scratch the plain version
+    built (``_plain_ssd_scratch``), so that the backward's digest does not
+    follow the forward's bits.  Equal digests show that two trees' kernels
+    compute the same bits.  With ``--src``, another checkout's
+    kernels."""
     import hashlib
     results: dict = {}
     for dtype in (torch.float32, torch.bfloat16):
         _check_ssd(dtype, results)
         _check_ssd_bwd(dtype, results)
+
+    def digest(tensors) -> str:
+        d = hashlib.sha256()
+        for t in tensors:   # bf16 widened exactly to fp32
+            d.update(t.float().cpu().numpy().tobytes())
+        return d.hexdigest()
     digests = {}
-    for cfg in (MAMBA, ZAMBA):
-        _, h, _ = ssm.ssm_dims(cfg)
-        p, n, c = cfg.ssm.head_dim, cfg.ssm.state_dim, cfg.ssm.chunk
-        gen = torch.Generator(device="cuda").manual_seed(21)
-        x, dt, A, B, C = ssd_inputs(2, LM_PROMPT + LM_DECODE, h, p, n,
-                                    torch.float32, gen)
-        dy = _rand(x.shape, torch.float32, gen)
-        ds = torch.randn((2, h, p, n), generator=gen, device="cuda")
-        y, state, scratch = ops.ssd_for_grad(x, dt, A, B, C, chunk=c)
-        grads = ops.ssd_bwd(x, dt, A, B, C, dy, ds, chunk=c,
-                            scratch=scratch)
-        digest = hashlib.sha256()
-        for t in (y, state) + tuple(grads):
-            digest.update(t.cpu().numpy().tobytes())
-        digests[cfg.name] = digest.hexdigest()
-    print(f"ssd: fp32 output digests {digests}; on {smi}", flush=True)
+    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        for cfg in (MAMBA, ZAMBA):
+            _, h, _ = ssm.ssm_dims(cfg)
+            p, n, c = cfg.ssm.head_dim, cfg.ssm.state_dim, cfg.ssm.chunk
+            gen = torch.Generator(device="cuda").manual_seed(21)
+            x, dt, A, B, C = ssd_inputs(2, LM_PROMPT + LM_DECODE, h, p, n,
+                                        dtype, gen)
+            dy = _rand(x.shape, dtype, gen)
+            ds = torch.randn((2, h, p, n), generator=gen, device="cuda")
+            args = (x, dt, A, B, C)
+            _check(f"ssd digest inputs {cfg.name} b=2 l={x.shape[1]}",
+                   lambda a=args, c=c: ops.ssd(*a, chunk=c),
+                   lambda a=args: ref.ssd_ref(*a), dtype, results, None,
+                   SSD_BUDGET)
+            digests[f"{cfg.name} {tag} forward"] = digest(
+                ops.ssd(*args, chunk=c))
+            grads = ops.ssd_bwd(*args, dy, ds, chunk=c,
+                                scratch=_plain_ssd_scratch(*args, c))
+            digests[f"{cfg.name} {tag} backward"] = digest(grads)
+            del x, dt, A, B, C, dy, ds, args, grads
+    for key, value in digests.items():
+        print(f"ssd: digest {key} {value}", flush=True)
+    print(f"ssd: digests on {smi}", flush=True)
     return {"timed": results["timed"], "digests": digests}
 
 

@@ -11,6 +11,7 @@
 
 #include <atomic>
 #include <cstring>
+#include <type_traits>
 
 namespace gfdit {
 
@@ -183,6 +184,35 @@ __device__ __forceinline__ void stage_rounded(__nv_bfloat16* dst,
     const int q = threadIdx.x + u * NTH;
     const float f[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
     store_vec<4>(dst + (q / (COLS / 4)) * PITCH + 4 * (q % (COLS / 4)), f);
+  }
+}
+
+// Rows [l0, l0 + ROWS) of a row-strided matrix of T (row l at src + l *
+// stride, COLS elements from a 16-byte boundary) into a ROWS x PITCH
+// shared tile by 16-byte cp.async; rows at or past L are zero-filled.
+// The caller commits and waits.
+template <int ROWS, int COLS, int PITCH, int NTH, typename T>
+__device__ __forceinline__ void stage_tile(T* dst, const T* __restrict__ src,
+                                           long long stride, int l0, int L) {
+  constexpr int EPC = 16 / sizeof(T), CPR = COLS / EPC;
+  for (int q = threadIdx.x; q < ROWS * CPR; q += NTH) {
+    const int r = q / CPR, c = EPC * (q % CPR), l = l0 + r;
+    cp_async16(dst + r * PITCH + c, src + min(l, L - 1) * stride + c,
+               l < L);
+  }
+}
+
+// ROWS x COLS consecutive fp32 values (a state or state gradient's rows)
+// into a ROWS x PITCH shared tile of T: by cp.async for fp32, rounded to
+// bf16 by plain loads for bf16 (stage_rounded).  The caller commits and
+// waits.
+template <int ROWS, int COLS, int PITCH, int NTH, typename T>
+__device__ __forceinline__ void stage_state(T* dst,
+                                            const float* __restrict__ src) {
+  if constexpr (std::is_same_v<T, float>) {
+    stage_tile<ROWS, COLS, PITCH, NTH>(dst, src, COLS, 0, ROWS);
+  } else {
+    stage_rounded<ROWS, COLS, PITCH, NTH>(dst, src);
   }
 }
 

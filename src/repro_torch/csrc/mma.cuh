@@ -6,8 +6,10 @@
 // the product A B of register fragments and a row-major shared tile:
 // bf16, with to_a_frags, which rounds fp32 accumulators to bf16 A
 // fragments, and fp32 in split-TF32, whose A is the accumulator tiles of
-// the previous product; and mma_atb_scaled (bf16), A^T diag(w) B of two
-// row-major shared tiles.
+// the previous product; frag_a, mma_pairs and mma_acc_a, whose A is an
+// fp32 tile split after its load or accumulator values built in
+// registers (K4's forward and backward); and mma_atb_scaled, A^T diag(w)
+// B of two row-major shared tiles, in both dtypes.
 //
 // Fragments of m16n8k8, g = lane / 4, t = lane % 4: a (16 x 8, row)
 // {(g, t), (g+8, t), (g, t+4), (g+8, t+4)}; b (8 x 8, col) {(k t, n g),
@@ -191,37 +193,6 @@ __device__ __forceinline__ void mma_ab(float (&acc)[NT][4],
     }
 }
 
-// acc (16 x 8 NT) += A^T diag(w) B over K = 16 KS: A's 16 KS rows (k) of
-// 16 columns (the product's rows m) at `a` and B's 16 KS rows of 8 NT
-// columns at `b`, both row-major bf16 in shared memory at pitches PA and
-// PB.  A is read by ldmatrix.trans, so its rows need no transposed copy;
-// each row k of A is scaled by w[k] (fp32, shared) in registers and
-// rounded to bf16 once, so a bf16 operand and an fp32 row weight enter
-// the product with one rounding.  The SSD's chunk states (K4's forward,
-// w = dt exp(cum_last - cum)) and its backward's state gradients
-// (w = exp(cum)) are this product.
-template <int NT, int KS, int PA, int PB>
-__device__ __forceinline__ void mma_atb_scaled(float (&acc)[NT][4],
-                                               const bf16* a, const float* w,
-                                               const bf16* b, int lane) {
-  const bf16* pa = a + ((lane & 7) + ((lane >> 4) << 3)) * PA +
-                   ((lane >> 3) & 1) * 8;
-  const int t2 = 2 * (lane & 3);
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    unsigned af[1][4];
-    ldsm4_t(af[0], pa + ks * 16 * PA);
-    const float* wk = w + 16 * ks + t2;   // rows 2t, 2t + 1 (a0, a1) and
-    const float w0 = wk[0], w1 = wk[1];   // 2t + 8, 2t + 9 (a2, a3)
-    const float w8 = wk[8], w9 = wk[9];
-    af[0][0] = scale_bf16x2(af[0][0], w0, w1);
-    af[0][1] = scale_bf16x2(af[0][1], w0, w1);
-    af[0][2] = scale_bf16x2(af[0][2], w8, w9);
-    af[0][3] = scale_bf16x2(af[0][3], w8, w9);
-    mma_ab<NT, 1, PB>(acc, af, b + ks * 16 * PB, lane);
-  }
-}
-
 // The accumulators of 16 x 8 NT, rounded to bf16, as the A fragments of
 // a product over K = 8 NT: tiles 2m and 2m + 1 make k step m.
 template <int NT>
@@ -285,6 +256,123 @@ __device__ __forceinline__ void mma_ab(float (&acc)[NT][4],
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+    }
+  }
+}
+
+// The A fragment (16 x 8) at k columns k0.. of the 16 rows at `a`, a
+// row-major fp32 shared tile at pitch PA, by ldmatrix, split.
+template <int PA>
+__device__ __forceinline__ void frag_a(unsigned (&hi)[4], unsigned (&lo)[4],
+                                       const float* a, int k0, int lane) {
+  unsigned r[4];
+  ldsm4(r, a + (lane & 15) * PA + (lane >> 4) * 4 + k0);
+  split_a(hi, lo, __uint_as_float(r[0]), __uint_as_float(r[1]),
+          __uint_as_float(r[2]), __uint_as_float(r[3]));
+}
+
+// acc (16 x 8 NT) += A B over one k step of 8, A given as the values of
+// the accumulator layout (rows g, g + 8; columns 2t, 2t + 1 serve as k
+// slots t, t + 4) and B's rows k0 + 2t (b0) and k0 + 2t + 1 (b1) at `b`
+// (already at row k0, column g), row-major fp32 at pitch PB.  With PB =
+// 4 (mod 16) words the rows 2t lie 8 banks apart and the 8 columns g fill
+// them: no conflict.
+template <int NT, int PB>
+__device__ __forceinline__ void mma_pairs(float (&acc)[NT][4], float a0,
+                                          float a1, float a2, float a3,
+                                          const float* b) {
+  static_assert(PB % 16 == 4, "mma_pairs: the pitch of row pairs");
+  unsigned ahi[4], alo[4];
+  split_a(ahi, alo, a0, a2, a1, a3);
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    mma_3xtf32(acc[n], ahi, alo, split_tf32(b[8 * n]),
+               split_tf32(b[PB + 8 * n]));
+}
+
+// acc (16 x 8 NT) += M R over the 16 columns of M, given in the
+// accumulator layout as two 16 x 8 tiles (m[0]: columns 0-7, m[1]:
+// 8-15), and R's 16 rows of 8 NT columns at `r`, row-major T at pitch PR;
+// called once a tile, as each is built.  fp32: tile `half` as one k step
+// of 8 in split-TF32 (mma_pairs); bf16: after the second, both rounded to
+// one A fragment (to_a_frags) for one m16n8k16 step (mma_ab).
+template <int NT, int PR, typename T>
+__device__ __forceinline__ void mma_acc_a(float (&acc)[NT][4],
+                                          const float (&m)[2][4], int half,
+                                          const T* r, int lane) {
+  if constexpr (std::is_same_v<T, float>) {
+    mma_pairs<NT, PR>(acc, m[half][0], m[half][1], m[half][2], m[half][3],
+                      r + (8 * half + 2 * (lane & 3)) * PR + (lane >> 2));
+  } else if (half == 1) {
+    unsigned a[1][4];
+    to_a_frags<2>(a, m);
+    mma_ab<NT, 1, PR>(acc, a, r, lane);
+  }
+}
+
+// acc (16 x 8 NT) += A^T diag(w) B over K rows (k): A's K rows of 16
+// columns (the product's rows m) at `a` and B's K rows of 8 NT columns at
+// `b`, both row-major T in shared memory at pitches PA and PB.  Row k of
+// A is scaled by w[k] (fp32, shared) in registers, so A needs no scaled
+// or transposed copy.  The SSD's chunk states (K4's forward, w = dt
+// exp(cum_last - cum)) and its backward's state gradients (w = exp(cum))
+// are this product.
+//   * bf16: A by ldmatrix.trans, each row scaled and rounded to bf16
+//     once, so a bf16 operand and an fp32 row weight enter the product
+//     with one rounding; one m16n8k16 step a 16 rows (mma_ab).
+//   * fp32: A from its rows t and t + 4 (PA = 8 (mod 32) words: the 8
+//     columns g of the 4 rows t fill the banks), scaled after the load,
+//     then split; B's rows t, t + 4 likewise (PB).  Split-TF32 m16n8k8,
+//     the products of KS k steps into a fresh accumulator that the CUDA
+//     cores add to acc (kSumSteps, or the k steps there are).
+template <int NT, int K, int PA, int PB, typename T>
+__device__ __forceinline__ void mma_atb_scaled(float (&acc)[NT][4],
+                                               const T* a, const float* w,
+                                               const T* b, int lane) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    const bf16* pa = a + ((lane & 7) + ((lane >> 4) << 3)) * PA +
+                     ((lane >> 3) & 1) * 8;
+    const int t2 = 2 * (lane & 3);
+#pragma unroll
+    for (int ks = 0; ks < K / 16; ++ks) {
+      unsigned af[1][4];
+      ldsm4_t(af[0], pa + ks * 16 * PA);
+      const float* wk = w + 16 * ks + t2;   // rows 2t, 2t + 1 (a0, a1) and
+      const float w0 = wk[0], w1 = wk[1];   // 2t + 8, 2t + 9 (a2, a3)
+      const float w8 = wk[8], w9 = wk[9];
+      af[0][0] = scale_bf16x2(af[0][0], w0, w1);
+      af[0][1] = scale_bf16x2(af[0][1], w0, w1);
+      af[0][2] = scale_bf16x2(af[0][2], w8, w9);
+      af[0][3] = scale_bf16x2(af[0][3], w8, w9);
+      mma_ab<NT, 1, PB>(acc, af, b + ks * 16 * PB, lane);
+    }
+  } else {
+    constexpr int KS = K / 8 < kSumSteps ? K / 8 : kSumSteps;
+    static_assert(K % (8 * KS) == 0, "mma_atb_scaled: k steps in whole sums");
+    const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+    for (int k0 = 0; k0 < K; k0 += 8 * KS) {
+      unsigned ahi[KS][4], alo[KS][4];
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        const int r = k0 + 8 * j + tq;
+        const float* ca = a + r * PA + gq;
+        const float e0 = w[r], e4 = w[r + 4];
+        split_a(ahi[j], alo[j], ca[0] * e0, ca[8] * e0, ca[4 * PA] * e4,
+                ca[4 * PA + 8] * e4);
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < KS; ++j) {
+          const float* yb = b + (k0 + 8 * j + tq) * PB + 8 * n + gq;
+          mma_3xtf32(part, ahi[j], alo[j], split_tf32(yb[0]),
+                     split_tf32(yb[4 * PB]));
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+      }
     }
   }
 }

@@ -256,42 +256,12 @@ struct SsdBwdMma {
   // stage 1: C and dy strips of KD rows, two of each (double-buffered),
   // and exp(cum)
   static constexpr int KD = CH < 32 ? CH : 32;
-  static constexpr int KS = KD / 8 < kSumSteps ? KD / 8 : kSumSteps;
   static constexpr int DCP = N + 8, DYP = P + 8;
   static constexpr size_t kDstateSmem =
       sizeof(T) * 2 * KD * (DCP + DYP) + sizeof(float) * CH;
   // two blocks an SM at (64, 128, 128): 128 registers a thread
   static constexpr int kMinBlocks = 2;
 };
-
-// Rows [l0, l0 + ROWS) of a row-strided matrix of T (row l at src + l *
-// stride, COLS elements from a 16-byte boundary) into a ROWS x PITCH
-// shared tile by 16-byte cp.async; rows at or past L are zero-filled.
-// The caller commits and waits.
-template <int ROWS, int COLS, int PITCH, int NTH, typename T>
-__device__ __forceinline__ void stage_tile(T* dst, const T* __restrict__ src,
-                                           long long stride, int l0, int L) {
-  constexpr int EPC = 16 / sizeof(T), CPR = COLS / EPC;
-  for (int q = threadIdx.x; q < ROWS * CPR; q += NTH) {
-    const int r = q / CPR, c = EPC * (q % CPR), l = l0 + r;
-    cp_async16(dst + r * PITCH + c, src + min(l, L - 1) * stride + c,
-               l < L);
-  }
-}
-
-// ROWS x COLS consecutive fp32 values (a state or state gradient's rows)
-// into a ROWS x PITCH shared tile of T: by cp.async for fp32, rounded to
-// bf16 by plain loads for bf16 (stage_rounded).  The caller commits and
-// waits.
-template <int ROWS, int COLS, int PITCH, int NTH, typename T>
-__device__ __forceinline__ void stage_state(T* dst,
-                                            const float* __restrict__ src) {
-  if constexpr (std::is_same_v<T, float>) {
-    stage_tile<ROWS, COLS, PITCH, NTH>(dst, src, COLS, 0, ROWS);
-  } else {
-    stage_rounded<ROWS, COLS, PITCH, NTH>(dst, src);
-  }
-}
 
 // The sum over the four lanes of a quad (one accumulator row), in a
 // fixed order; every lane gets it
@@ -300,63 +270,14 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// The A fragment (16 x 8) at k columns k0.. of the 16 rows at `a`, a
-// row-major fp32 shared tile at pitch PA, by ldmatrix, split.
-template <int PA>
-__device__ __forceinline__ void frag_a(unsigned (&hi)[4], unsigned (&lo)[4],
-                                       const float* a, int k0, int lane) {
-  unsigned r[4];
-  ldsm4(r, a + (lane & 15) * PA + (lane >> 4) * 4 + k0);
-  split_a(hi, lo, __uint_as_float(r[0]), __uint_as_float(r[1]),
-          __uint_as_float(r[2]), __uint_as_float(r[3]));
-}
-
-// acc (16 x 8 NT) += A B over one k step of 8, A given as the values of
-// the accumulator layout (rows g, g + 8; columns 2t, 2t + 1 serve as k
-// slots t, t + 4) and B's rows k0 + 2t (b0) and k0 + 2t + 1 (b1) at `b`
-// (already at row k0, column g), row-major fp32 at pitch PB.  With PB =
-// 4 (mod 16) words the rows 2t lie 8 banks apart and the 8 columns g fill
-// them: no conflict.
-template <int NT, int PB>
-__device__ __forceinline__ void mma_pairs(float (&acc)[NT][4], float a0,
-                                          float a1, float a2, float a3,
-                                          const float* b) {
-  static_assert(PB % 16 == 4, "mma_pairs: the pitch of row pairs");
-  unsigned ahi[4], alo[4];
-  split_a(ahi, alo, a0, a2, a1, a3);
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-    mma_3xtf32(acc[n], ahi, alo, split_tf32(b[8 * n]),
-               split_tf32(b[PB + 8 * n]));
-}
-
-// acc (16 x 8 NT) += M R over the 16 columns of M, given in the
-// accumulator layout as two 16 x 8 tiles (m[0]: columns 0-7, m[1]:
-// 8-15), and R's 16 rows of 8 NT columns at `r`, row-major T at pitch PR;
-// called once a tile, as each is built.  fp32: tile `half` as one k step
-// of 8 in split-TF32 (mma_pairs); bf16: after the second, both rounded to
-// one A fragment (to_a_frags) for one m16n8k16 step (mma_ab).
-template <int NT, int PR, typename T>
-__device__ __forceinline__ void mma_acc_a(float (&acc)[NT][4],
-                                          const float (&m)[2][4], int half,
-                                          const T* r, int lane) {
-  if constexpr (std::is_same_v<T, float>) {
-    mma_pairs<NT, PR>(acc, m[half][0], m[half][1], m[half][2], m[half][3],
-                      r + (8 * half + 2 * (lane & 3)) * PR + (lane >> 2));
-  } else if (half == 1) {
-    unsigned a[1][4];
-    to_a_frags<2>(a, m);
-    mma_ab<NT, 1, PR>(acc, a, r, lane);
-  }
-}
-
 // Stage 1: Q_c = sum_i exp(cum_i) C_i (x) dy_i, (n x p), chunks c > 0; a
 // warp a 16-row tile of n, every column.  The chunk in strips of KD rows,
 // double-buffered: the next strip's copy is in flight while this one's
-// products run.  fp32: A = exp(cum) C^T from C's rows t, t + 4, split in
-// TF32, each strip's KS k steps into a fresh accumulator that the CUDA
-// cores add to acc; bf16: A = C's rows by ldmatrix.trans, each scaled by
-// exp(cum_i) in registers before it is rounded to bf16 (mma_atb_scaled).
+// products run.  A = exp(cum) C^T by mma_atb_scaled (mma.cuh), which K4's
+// forward shares: fp32 from C's rows t, t + 4, split in TF32, each strip's
+// k steps into a fresh accumulator that the CUDA cores add to acc; bf16
+// C's rows by ldmatrix.trans, each scaled by exp(cum_i) in registers
+// before it is rounded to bf16.
 template <typename T, int P, int N, int CH>
 __global__ void __launch_bounds__(SsdBwdMma<T, P, N, CH>::kDstateThreads)
     ssd_bwd_dstate_mma(const T* __restrict__ dy, const T* __restrict__ Cm,
@@ -397,41 +318,9 @@ __global__ void __launch_bounds__(SsdBwdMma<T, P, N, CH>::kDstateThreads)
     }
     __syncthreads();                  // ... for every thread; ec written
     const T* cs = strips + q * STRIP;
-    const T* ys = cs + KD * DCP;
-    if constexpr (S::kFp32) {
-      constexpr int KS = S::KS;
-      // A = exp(cum) C^T (n rows, k = i) from C's rows t, t + 4, scaled
-      // after the load (an A fragment serves every column tile); B = dy
-      // (k = i rows); KS k steps into a fresh accumulator, which the CUDA
-      // cores add to acc
-#pragma unroll
-      for (int k0 = 0; k0 < KD; k0 += 8 * KS) {
-        unsigned ahi[KS][4], alo[KS][4];
-#pragma unroll
-        for (int j = 0; j < KS; ++j) {
-          const int r = k0 + 8 * j + tq;
-          const float* ca = cs + r * DCP + m0 + gq;
-          const float e0 = ec[i0 + r], e4 = ec[i0 + r + 4];
-          split_a(ahi[j], alo[j], ca[0] * e0, ca[8] * e0, ca[4 * DCP] * e4,
-                  ca[4 * DCP + 8] * e4);
-        }
-#pragma unroll
-        for (int n = 0; n < NTP; ++n) {
-          float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int j = 0; j < KS; ++j) {
-            const float* yb = ys + (k0 + 8 * j + tq) * DYP + 8 * n + gq;
-            mma_3xtf32(part, ahi[j], alo[j], split_tf32(yb[0]),
-                       split_tf32(yb[4 * DYP]));
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
-        }
-      }
-    } else {
-      mma_atb_scaled<NTP, KD / 16, DCP, DYP>(acc, cs + m0, ec + i0, ys,
-                                             lane);
-    }
+    // A = exp(cum) C^T (n rows, k = i) from C's rows, B = dy (k = i rows)
+    mma_atb_scaled<NTP, KD, DCP, DYP>(acc, cs + m0, ec + i0, cs + KD * DCP,
+                                      lane);
     __syncthreads();                  // the strip consumed: its buffer is
   }                                   // the one after next's
   float* out = g + (long long)bch * N * P + (m0 + gq) * P + 2 * tq;

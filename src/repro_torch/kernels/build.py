@@ -56,9 +56,9 @@ _SIGNATURES = {
     # splits, B, Sq, Sk, L, H, KV, D, offset, sm_scale, dtype, device, stream
     "gfdit_splice_attention": [_P] * 7 + [ctypes.c_longlong] + [_I] * 9
     + [_F, _I, _I, _P],
-    # x, dt, A, B, C, y, state, scratch cum, states, cbt, ct, batch, L, H,
-    # P, N, chunk, dtype, device, stream
-    "gfdit_ssd": [_P] * 11 + [_I] * 8 + [_P],
+    # x, dt, A, B, C, y, state, scratch cum, states, cbt, batch, L, H, P,
+    # N, chunk, dtype, device, stream
+    "gfdit_ssd": [_P] * 10 + [_I] * 8 + [_P],
     # stage, batch, L, H, P, N, chunk, dtype, device -> blocks per SM,
     # shared memory bytes, grid, threads a block
     "gfdit_ssd_occupancy": [_I] * 9 + [_IP] * 4,

@@ -78,13 +78,10 @@ MAX_ADALN_DIM = 4096
 #: (head_dim p, state n, chunk) the SSD kernel is instantiated for
 SSD_SHAPES = ((64, 128, 128), (16, 16, 16), (16, 16, 32), (32, 16, 64),
               (64, 32, 128), (64, 64, 128))
-#: the stage kernels one SSD call launches, in order, by operand dtype:
-#: fp32 on the CUDA cores, bf16 on the tensor cores (stage 2 is shared)
-SSD_STAGES = {
-    torch.float32: ("ssd_chunk_state", "ssd_state_pass", "ssd_cb",
-                    "ssd_chunk_scan"),
-    torch.bfloat16: ("ssd_chunk_state_mma", "ssd_state_pass", "ssd_cb_mma",
-                     "ssd_chunk_scan_mma")}
+#: the stage kernels one SSD call launches, in order (one template for
+#: both dtypes: split-TF32 in fp32, bf16 products in bf16; stage 2 fp32)
+SSD_STAGES = ("ssd_chunk_state_mma", "ssd_state_pass", "ssd_cb_mma",
+              "ssd_chunk_scan_mma")
 #: the stage kernels one SSD backward call launches, in order (one
 #: template for both dtypes: split-TF32 in fp32, bf16 products in bf16)
 SSD_BWD_STAGES = ("ssd_bwd_dstate_mma", "ssd_bwd_state_pass",
@@ -101,7 +98,8 @@ launches = {"fused_adaln": 0, "attention": 0, "splice_attention": 0,
 #: call (also counted under the wrapper's name in :data:`launches`): the
 #: tensor-core tile kernel alone, or split keys (the tile kernel over its
 #: key pieces, then the combine kernel); and of K4's forward and backward
-#: by dtype (fp32 and bf16 run different stage kernels)
+#: by dtype (fp32 and bf16 run different instances of their stage
+#: kernels)
 kernel_launches = {"attention fp32": 0, "attention fp32 split": 0,
                    "attention bf16": 0, "attention bf16 split": 0,
                    "ssd fp32": 0, "ssd bf16": 0, "ssd_bwd fp32": 0,
@@ -718,12 +716,12 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
     The kernels mask a ragged last chunk, so ``l`` need not be a multiple
     of ``chunk``; the CPU version is the sequential recurrence.  On the
     card one call runs the four stage kernels of ``csrc/ssd.cu``
-    (:data:`SSD_STAGES`: fp32 on the CUDA cores; bf16 with the chunk
-    states, C B^T and the chunk scan on the tensor cores, the scores and
-    decays, the carried state and the decay-weighted B rows rounded to
-    bf16 where they enter a product) and counts one launch, also under
-    its dtype in :data:`kernel_launches`; their scratch is allocated here
-    (``ref.ssd_chunked_ref`` computes the same stages).
+    (:data:`SSD_STAGES`: the chunk states, C B^T and the chunk scan on the
+    tensor cores, fp32 as three TF32 products for each fp32 one, bf16 with
+    the scores and decays, the carried state and the decay-weighted B rows
+    rounded to bf16 where they enter a product) and counts one launch,
+    also under its dtype in :data:`kernel_launches`; their scratch is
+    allocated here (``ref.ssd_chunked_ref`` computes the same stages).
     Differentiable (see the module's note): the backward is
     :func:`ssd_bwd`, which reads the forward's scratch."""
     if isinstance(x, DTensor):
@@ -738,19 +736,18 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
 def ssd_for_grad(x, dt, A, B, C, *, chunk: int = 128):
     """K4's forward as the autograd path runs it: (y, final_state,
     scratch), the scratch the fp32 tensor that :func:`ssd_bwd` reads on
-    the card (cum, the chunk states overwritten with S_in, C B^T, C^T),
-    None on the CPU.  Local tensors only: a scratch is one rank's."""
+    the card (cum, the chunk states overwritten with S_in, C B^T in the
+    (j, i) layout), None on the CPU.  Local tensors only: a scratch is one
+    rank's."""
     return _ssd_fwd(x, dt, A, B, C, chunk)
 
 
 def _ssd_scratch_sizes(b, l, h, p, n, chunk):
     """Floats of the forward's scratch parts: cum (b, nc, h, chunk), chunk
-    states (b, nc, h, n, p), C B^T (b, nc, chunk, chunk), C^T (b, nc, n,
-    chunk); every size a multiple of 16 floats, so each part is 16-byte
-    aligned."""
+    states (b, nc, h, n, p), C B^T (b, nc, chunk, chunk); every size a
+    multiple of 16 floats, so each part is 16-byte aligned."""
     bnc = b * -(-l // chunk)
-    return (bnc * h * chunk, bnc * h * n * p, bnc * chunk * chunk,
-            bnc * n * chunk)
+    return bnc * h * chunk, bnc * h * n * p, bnc * chunk * chunk
 
 
 def ssd_bwd_scratch(b: int, l: int, h: int, p: int, n: int,
@@ -873,7 +870,7 @@ def ssd_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 128,
         return dx, ddt, dA, dB, dC
     _aligned(name, x=x.data_ptr(), B=B.data_ptr(), C=C.data_ptr(),
              dy=dy.data_ptr())
-    cum, s_in, cbt, _ = _parts(scratch, sizes)
+    cum, s_in, cbt = _parts(scratch, sizes)
     dev = x.get_device()
     _launch(name, _fn("gfdit_ssd_bwd"), x.data_ptr(), dt.data_ptr(),
             A.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
@@ -952,14 +949,14 @@ def attention_bwd_occupancy(head_dim: int, dtype=torch.float32,
 def ssd_occupancy(b: int, l: int, h: int, p: int, n: int, chunk: int,
                   dtype=torch.float32, device: int = 0) -> dict:
     """Per stage kernel of one :func:`ssd` call at ``(b, l, h, p, n,
-    chunk)`` in ``dtype`` (:data:`SSD_STAGES`): ``{name: (resident blocks
-    per SM, shared-memory bytes a block, grid, threads a block)}``, from
-    the CUDA occupancy calculator."""
+    chunk)`` in ``dtype`` (:data:`SSD_STAGES`, the instances of that
+    dtype): ``{name: (resident blocks per SM, shared-memory bytes a block,
+    grid, threads a block)}``, from the CUDA occupancy calculator."""
     if (p, n, chunk) not in SSD_SHAPES:
         raise ValueError(f"ssd: unsupported (p, n, chunk)={(p, n, chunk)}")
     fn = _fn("gfdit_ssd_occupancy")
     out = {}
-    for stage, name in enumerate(SSD_STAGES[dtype]):
+    for stage, name in enumerate(SSD_STAGES):
         grid, threads = ctypes.c_int(), ctypes.c_int()
         blocks, smem = _occupancy("ssd_occupancy", fn, stage, b, l, h, p,
                                   n, chunk, _DTYPES[dtype], device,

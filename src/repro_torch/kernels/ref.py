@@ -214,15 +214,15 @@ def ssd_chunked_ref(x, dt, A, B, C, *, chunk: int):
     into ``nc`` chunks of ``chunk`` rows, the last zero-filled past ``l``
     as the kernel's masked loads do (dt = x = B = C = 0 leaves ``cum``
     and the state as they are), and the stage kernels' steps run in turn:
-      1. ssd_chunk_state: ``cum``, the in-chunk cumulative sum of dt*A,
+      1. ssd_chunk_state_mma: ``cum``, the in-chunk cumulative sum of dt*A,
          and the chunk-local state
          S_c = sum_j exp(cum_last - cum_j) (x_j dt_j) (x) B_j;
       2. ssd_state_pass: S_in[0] = 0, S_in[c+1] = exp(cum_last_c) S_in[c]
          + S_c, the last of which is the final state;
-      3. ssd_cb: C B^T once per (batch, chunk), shared by every head;
-      4. ssd_chunk_scan: y_i = sum_{j<=i} CB_ij exp(cum_i - cum_j) dt_j x_j
-         + exp(cum_i) (C_i . S_in), the decay masked to -1e30 before the
-         exp.
+      3. ssd_cb_mma: C B^T once per (batch, chunk), shared by every head;
+      4. ssd_chunk_scan_mma: y_i = sum_{j<=i} CB_ij exp(cum_i - cum_j)
+         dt_j x_j + exp(cum_i) (C_i . S_in), the decay masked to -1e30
+         before the exp.
     Nothing on the serving path calls this: it documents the kernel's
     algorithm and is a test oracle for it.
     """

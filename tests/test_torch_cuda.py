@@ -1257,6 +1257,30 @@ def test_cuda_ssd_bf16_forward_is_deterministic(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_ssd_fp32_forward_is_deterministic(cuda_device):
+    """The fp32 forward's split-TF32 stages: two calls on the same inputs
+    agree bit for bit (y, the final state and the scratch the backward
+    reads), at mamba2-1.3b's (p, n, chunk) with a ragged l; the remat
+    check of ``chip_smoke.py`` rests on it."""
+    rng = np.random.default_rng(13)
+    x, dt, A, B, C = _ssd_inputs(rng, 2, 300, 4, 64, 128, "float32",
+                                 cuda_device)
+    y0, s0, scratch0 = ops.ssd_for_grad(x, dt, A, B, C, chunk=128)
+    y1, s1, scratch1 = ops.ssd_for_grad(x, dt, A, B, C, chunk=128)
+    assert torch.equal(y0, y1) and torch.equal(s0, s1)
+    # the scratch's written parts: cum, the chunk states (S_in; chunk 0's
+    # slot holds its own chunk state) and C B^T's (j, i) entries with j <=
+    # i (the tiles above the diagonal are never written)
+    sizes = ops._ssd_scratch_sizes(2, 300, 4, 64, 128, 128)
+    (c0, st0, cb0), (c1, st1, cb1) = (t.split(sizes)
+                                      for t in (scratch0, scratch1))
+    assert torch.equal(c0, c1) and torch.equal(st0, st1)
+    low = torch.ones(128, 128, dtype=torch.bool, device=cuda_device).triu()
+    assert torch.equal(cb0.view(2, 3, 128, 128)[..., low],
+                       cb1.view(2, 3, 128, 128)[..., low])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_ssd_counts_its_dtype(cuda_device, dtype):
     """K4's forward and backward count each call under their dtype in
@@ -1303,6 +1327,32 @@ def test_cuda_ssd_bf16_runs_on_tensor_cores(cuda_device):
                     if f"{len(kernel)}{kernel}I13__nv_bfloat16" in f], kernel
     assert not [f for f in funcs if "ssd_bwd_chunkI" in f
                 or "ssd_bwd_chunk_dstate" in f]
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_fp32_runs_split_tf32(cuda_device):
+    """K4's fp32 forward: the float instances of stages 1, 3 and 4
+    (``ssd_chunk_state_mma``, ``ssd_cb_mma``, ``ssd_chunk_scan_mma``) at
+    every (p, n, chunk) of ``ops.SSD_SHAPES`` hold TF32 HMMA instructions,
+    three to each fp32 product (a count divisible by 3), and no bf16 ones;
+    no CUDA-core forward stage (``ssd_chunk_state``, ``ssd_cb``,
+    ``ssd_chunk_scan``) of either dtype is left in the library."""
+    from repro_torch.kernels import build
+    build.load()
+    funcs = _sass_functions(build.library_path())
+    for kernel in ("ssd_chunk_state_mma", "ssd_cb_mma", "ssd_chunk_scan_mma"):
+        mine = {f: body for f, body in funcs.items()
+                if f"{len(kernel)}{kernel}IfLi" in f}
+        assert len(mine) == len(ops.SSD_SHAPES), (kernel, sorted(mine))
+        for f, body in mine.items():
+            count = sum("HMMA" in line for line in body.splitlines())
+            assert count and count % 3 == 0, (f, count)
+            assert all(".TF32" in line for line in body.splitlines()
+                       if "HMMA" in line), f
+            assert "BF16" not in body, f
+    for kernel in ("ssd_chunk_state", "ssd_cb", "ssd_chunk_scan"):
+        assert not [f for f in funcs if f"{len(kernel)}{kernel}I" in f], \
+            kernel
 
 
 @pytest.mark.cuda

@@ -174,13 +174,15 @@ def test_ssd_without_grad_builds_no_graph():
     assert ops.ssd(xg, dt, A, B, C, chunk=16)[0].grad_fn is not None
 
 
-def _ssd_bwd_rounded(x, dt, A, B, C, dy, dstate, chunk, product):
+def _ssd_bwd_rounded(x, dt, A, B, C, dy, dstate, chunk, product, fwd=None):
     """``ref.ssd_bwd_ref``'s gradients with each product that the fp32
     kernels run on the tensor cores done by ``product(eq, a, b)``, on the
     operands they split: stage 1's (exp(cum) C)^T dy; stage 3's Z = dy
     xb^T, M^T dy (M = (C B^T) L), B G, P^T C, xb G^T, P B and dy S_in^T,
     P = L Z.  The state pass, the exps and the row sums stay fp32, as on
-    the CUDA cores."""
+    the CUDA cores.  ``fwd``: the (S_in (b, nc, h, p, n), C B^T (b, nc,
+    i, j)) of a forward to read, as the kernels read the forward's
+    scratch; else the fp32 ones."""
     b, l, h, p = x.shape
     n = B.shape[-1]
     xc, dtc, Bc, Cc, (dyc,), cum, s_in, _ = ref._ssd_chunks(
@@ -199,6 +201,8 @@ def _ssd_bwd_rounded(x, dt, A, B, C, dy, dstate, chunk, product):
     seg = cum[..., :, None] - cum[..., None, :]               # (b,nc,h,i,j)
     decay = torch.exp(torch.where(causal, seg, torch.full_like(seg, -1e30)))
     cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)              # the forward's
+    if fwd is not None:
+        s_in, cb = fwd
     pm = decay * product("bcihp,bcjhp->bchij", dyc, xb)
     m = cb[:, :, None] * decay
     dxb_state = ed.transpose(2, 3)[..., None] * product(
