@@ -33,6 +33,8 @@ import math
 import time
 from typing import Optional
 
+from repro_torch.core.telemetry import PLANE
+
 
 class Clock:
     """Timebase + event-wait strategy for one :class:`EventLoop`."""
@@ -104,6 +106,16 @@ class WallClock(Clock):
         return []
 
 
+def _cause(plane, c) -> dict:
+    """What a completion's plane spans serve: its task or pack id,
+    dispatch seq and request ids (read before the plane applies it)."""
+    pack = plane.packs.get(c.task_id)
+    tids = pack["members"] if pack is not None else (c.task_id,)
+    return {"task": c.task_id, "seq": c.seq,
+            "reqs": tuple(plane.running[t][0].request_id for t in tids
+                          if t in plane.running)}
+
+
 class EventLoop:
     """The single serving loop shared by simulator and thread runtime."""
 
@@ -119,13 +131,25 @@ class EventLoop:
         # iterations than the virtual clock jumps — so they live in the
         # counter stream, never in the identity projection
         tel = getattr(plane, "telemetry", None)
+        # the plane's host spans (wait, apply, schedule), wall clock only;
+        # a schedule span is kept when a completion led to it or it
+        # applied an action, and names the last completion applied
+        spans = None if tel is None or clock.virtual else tel
+        cause = None
         for _ in range(max_events):
             plane.now = max(plane.now, clock.now())
             if plane.now >= until:
                 break
             plane.release_arrivals()
             plane.release_failures()
+            if spans is not None:
+                t_sched, n = time.monotonic(), len(plane.events)
             plane.schedule_point()
+            if spans is not None:
+                if cause is not None or len(plane.events) > n:
+                    spans.span(PLANE, t_sched, time.monotonic(), "schedule",
+                               0, cause)
+                cause = None
             if plane.quiescent():
                 break                   # nothing running, nothing arriving
             # wait no further than the next timed event — an arrival OR a
@@ -138,6 +162,19 @@ class EventLoop:
                 tel.counter("loop_iterations")
                 if completions:
                     tel.counter("completions", len(completions))
+            if spans is not None:
+                t_take = time.monotonic()
             for c in completions:
+                if spans is not None:
+                    # the completion's post to this take (finish_time is
+                    # on the backend's clock, which the engine anchors at
+                    # this clock's t0)
+                    cause = _cause(plane, c)
+                    spans.span(PLANE, clock.t0 + c.finish_time, t_take,
+                               "wait", 0, cause)
+                    t_apply = time.monotonic()
                 plane.on_completion(c)
+                if spans is not None:
+                    spans.span(PLANE, t_apply, time.monotonic(), "apply", 0,
+                               cause)
         return plane

@@ -21,8 +21,20 @@ from repro_torch.core.gfc import CollectiveTimeout, GroupFreeComm
 from repro_torch.core.migration import (execute_migration, layout_moved,
                                   plan_migration)
 from repro_torch.core.scheduler import Completion
+from repro_torch.core.telemetry import PLANE
 from repro_torch.core.trajectory import (ExecutionLayout, RequestGraph,
                                    TrajectoryTask)
+
+
+@dataclass
+class _TaskJob:
+    """One rank's share of a solo dispatch."""
+    task: TrajectoryTask
+    layout: Any
+    graph: RequestGraph
+    t_dispatch: float
+    desc: Any
+    seq: int
 
 
 @dataclass
@@ -35,15 +47,28 @@ class _PackJob:
     desc: Any
 
 
+def _cause(job) -> dict:
+    """What a job's host spans serve: its task or pack id, dispatch seq
+    and request ids."""
+    if isinstance(job, _PackJob):
+        return {"task": job.pack_id, "seq": 0,
+                "reqs": tuple(g.request.id for _, g in job.members)}
+    return {"task": job.task.id, "seq": job.seq,
+            "reqs": (job.graph.request.id,)}
+
+
 class ThreadBackend:
     """One worker thread per rank + a completion queue.
 
     ``adapter`` must provide
-        execute(task, layout, rank, comm, graph) -> None
+        execute(task, layout, rank, comm, graph, desc)
     which runs this rank's share of the task (GFC rendezvous inside) and,
     on the leader rank, installs output artifact data — and, for step
     packing, ``execute_packed(members, layout, rank, comm, desc)`` which
-    runs the stacked batch as ONE model call.
+    runs the stacked batch as ONE model call.  Either may return the
+    host phases of its call (an object whose ``spans()`` lists ``(op,
+    start, end, bytes)``) or None; with telemetry attached the backend
+    records them as spans under the call.
     """
 
     def __init__(self, adapter, num_ranks: int,
@@ -72,6 +97,10 @@ class ThreadBackend:
     def attach(self, plane):
         self.plane = plane
 
+    def _telemetry(self):
+        plane = getattr(self, "plane", None)
+        return getattr(plane, "telemetry", None)
+
     # ------------------------------------------------------------------
     def _worker(self, rank: int):
         while not self._stop:
@@ -79,29 +108,37 @@ class ThreadBackend:
                 job = self._queues[rank].get(timeout=0.01)
             except queue.Empty:
                 continue
+            tel = self._telemetry()
+            t_take = time.monotonic() if tel is not None else 0.0
             if isinstance(job, _PackJob):
-                self._run_pack(rank, job)
-                continue
-            task, layout, graph, t_dispatch, desc, seq = job
-            err, failed = None, ()
-            try:
-                self.adapter.execute(task, layout, rank, self.comm, graph,
-                                     desc)
-            except CollectiveTimeout as e:
-                failed = tuple(e.missing_ranks) or (rank,)
-                self.timeouts.append(
-                    f"rank {rank} task {task.id}: missing {failed}: {e}")
-            except Exception as e:   # noqa: BLE001
-                err = f"{type(e).__name__}: {e}"
-                self.errors.append(f"rank {rank} task {task.id}: {err}\n"
-                                   + traceback.format_exc())
-            self._finish(task.id, seq, layout, t_dispatch, err, failed)
+                phases, t_post = self._run_pack(rank, job)
+            else:
+                phases, t_post = self._run_task(rank, job)
+            if tel is not None:
+                self._record_call(tel, rank, job, t_take, t_post, phases)
+
+    def _run_task(self, rank: int, job: _TaskJob):
+        task, layout = job.task, job.layout
+        err, failed, phases = None, (), None
+        try:
+            phases = self.adapter.execute(task, layout, rank, self.comm,
+                                          job.graph, job.desc)
+        except CollectiveTimeout as e:
+            failed = tuple(e.missing_ranks) or (rank,)
+            self.timeouts.append(
+                f"rank {rank} task {task.id}: missing {failed}: {e}")
+        except Exception as e:   # noqa: BLE001
+            err = f"{type(e).__name__}: {e}"
+            self.errors.append(f"rank {rank} task {task.id}: {err}\n"
+                               + traceback.format_exc())
+        return phases, self._finish(task.id, job.seq, layout,
+                                    job.t_dispatch, err, failed)
 
     def _run_pack(self, rank: int, job: _PackJob):
-        err, failed = None, ()
+        err, failed, phases = None, (), None
         try:
-            self.adapter.execute_packed(job.members, job.layout, rank,
-                                        self.comm, job.desc)
+            phases = self.adapter.execute_packed(job.members, job.layout,
+                                                 rank, self.comm, job.desc)
         except CollectiveTimeout as e:
             failed = tuple(e.missing_ranks) or (rank,)
             self.timeouts.append(
@@ -111,16 +148,35 @@ class ThreadBackend:
             self.errors.append(f"rank {rank} pack {job.pack_id}: {err}\n"
                                + traceback.format_exc())
         # pack ids are fresh per dispatch, so the pending key needs no seq
-        self._finish(job.pack_id, 0, job.layout, job.t_dispatch, err, failed)
+        return phases, self._finish(job.pack_id, 0, job.layout,
+                                    job.t_dispatch, err, failed)
+
+    def _record_call(self, tel, rank: int, job, t_take: float,
+                     t_post: Optional[float], phases):
+        """The rank's host spans of one job: ``pickup`` from the plane's
+        queue put to the take, ``call`` from the take to the completion's
+        post, and the phases the adapter returned (an adapter that
+        returns None gives the call no children)."""
+        cause = _cause(job)
+        t_end = time.monotonic() if t_post is None else t_post + self.t0
+        tel.span(rank, job.t_dispatch + self.t0, t_take, "pickup", 0, cause)
+        tel.span(rank, t_take, t_end, "call", 0, cause)
+        for op, t0, t1, size in (phases.spans() if phases is not None
+                                 else ()):
+            tel.span(rank, t0, t1, op, size, cause)
 
     def _finish(self, key_id: str, seq: int, layout, t_dispatch: float,
-                err: Optional[str], failed: tuple = ()):
+                err: Optional[str], failed: tuple = ()) -> Optional[float]:
+        """Count this rank's end of a dispatch and post the completion
+        once it is due; returns the time of the post (of the count where
+        this rank posts nothing) on the backend's clock, None for a
+        superseded dispatch."""
         with self._lock:
             # keyed by (task, dispatch seq): a preempted task may be
             # redispatched while the superseded dispatch still drains
             st = self._pending.get((key_id, seq))
             if st is None:
-                return              # late arrival after early emission
+                return None         # late arrival after early emission
             st["done"] += 1
             if err:
                 st["err"] = err
@@ -148,6 +204,7 @@ class ThreadBackend:
                     key_id, now, now - t_dispatch,
                     failed_ranks=tuple(sorted(st.get("failed", ()))),
                     seq=seq))
+            return now
 
     # ------------------------------------------------------------------
     def _prepare_task(self, task: TrajectoryTask, layout: ExecutionLayout,
@@ -158,8 +215,7 @@ class ThreadBackend:
         cache's plane-stamped effects (DESIGN.md §11) — migrate the warm
         snapshot on a same-degree layout change, or re-home/allocate the
         snapshot slots a refresh gather will fill."""
-        tel = getattr(self.plane, "telemetry", None) \
-            if hasattr(self, "plane") else None
+        tel = self._telemetry()
         for aid in task.inputs:
             art = graph.artifacts[aid]
             if art.data is not None and \
@@ -195,6 +251,8 @@ class ThreadBackend:
 
     def dispatch(self, task: TrajectoryTask, layout: ExecutionLayout,
                  graph: RequestGraph, now: float):
+        tel = self._telemetry()
+        t_enter = time.monotonic() if tel is not None else 0.0
         if not hasattr(self, "t0"):
             self.t0 = time.monotonic()
         self._prepare_task(task, layout, graph)
@@ -209,9 +267,12 @@ class ThreadBackend:
         with self._lock:
             self._pending[(task.id, seq)] = {"done": 0}
         t_dispatch = time.monotonic() - self.t0
+        job = _TaskJob(task, layout, graph, t_dispatch, desc, seq)
         for r in layout.ranks:
-            self._queues[r].put((task, layout, graph, t_dispatch, desc,
-                                 seq))
+            self._queues[r].put(job)
+        if tel is not None:
+            tel.span(PLANE, t_enter, time.monotonic(), "dispatch", 0,
+                     _cause(job))
 
     # ------------------------------------------------------------------
     def dispatch_pack(self, pack_id: str, members, layout: ExecutionLayout,
@@ -220,6 +281,8 @@ class ThreadBackend:
         rank of the shared layout; the adapter runs them as one stacked
         model call and the single completion (keyed by ``pack_id``) fans
         out in the control plane (DESIGN.md §9)."""
+        tel = self._telemetry()
+        t_enter = time.monotonic() if tel is not None else 0.0
         if not hasattr(self, "t0"):
             self.t0 = time.monotonic()
         for task, graph in members:
@@ -232,6 +295,9 @@ class ThreadBackend:
         job = _PackJob(pack_id, list(members), layout, t_dispatch, desc)
         for r in layout.ranks:
             self._queues[r].put(job)
+        if tel is not None:
+            tel.span(PLANE, t_enter, time.monotonic(), "dispatch", 0,
+                     _cause(job))
 
     # ------------------------------------------------------------------
     def peek(self) -> Optional[float]:

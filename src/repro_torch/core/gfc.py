@@ -163,9 +163,8 @@ class GroupFreeComm:
         self._epoch: dict[tuple[int, int], int] = {}
         self._gids = itertools.count()
         self.violations: list[str] = []
-        self.stats = {"registrations": 0, "collectives": 0,
-                      "bytes_staged": 0, "reg_seconds": 0.0,
-                      "hierarchical": 0}
+        # host-spanning collectives run two-stage (DESIGN.md §10)
+        self.stats = {"hierarchical": 0}
         # telemetry plane (DESIGN.md §15): set by the serving engine (or
         # a benchmark) to collect per-registration latency samples and
         # the wall collective-overlay spans.  Instruments only APPEND to
@@ -177,13 +176,11 @@ class GroupFreeComm:
     # group registration: METADATA ONLY (the paper's ~60 us operation)
     # ------------------------------------------------------------------
     def register_group(self, ranks: tuple[int, ...]) -> GroupDescriptor:
-        t0 = time.perf_counter()
+        tel = self.telemetry
+        t0 = time.perf_counter() if tel is not None else 0.0
         desc = GroupDescriptor(gid=next(self._gids), ranks=tuple(ranks))
-        self.stats["registrations"] += 1
-        dt = time.perf_counter() - t0
-        self.stats["reg_seconds"] += dt
-        if self.telemetry is not None:
-            self.telemetry.gfc_register(dt)
+        if tel is not None:
+            tel.gfc_register(time.perf_counter() - t0)
         return desc
 
     def register_shape(self, ranks: tuple[int, ...],
@@ -263,7 +260,6 @@ class GroupFreeComm:
             if p == rank:
                 continue
             self._observe((p, rank), slots_used[p], tau)
-        self.stats["collectives"] += 1
         return epoch
 
     # ------------------------------------------------------------------
@@ -273,8 +269,6 @@ class GroupFreeComm:
         chunks = self._chunk(payload)
         with self._cv:
             self._stage[(desc.gid, epoch, rank)] = payload
-            if hasattr(payload, "nbytes"):
-                self.stats["bytes_staged"] += payload.nbytes
             self._cv.notify_all()
         return chunks
 

@@ -14,7 +14,14 @@ backend — and derives every observability product the runtime offers:
 * **cost-model accuracy** — a predicted-vs-observed stream per
   shape-keyed cost cell with a rolling relative error;
 * **GFC formation counters** — per-registration latency samples and a
-  setup-latency histogram (the paper's ~60 µs group-setup claim).
+  setup-latency histogram (the paper's ~60 µs group-setup claim);
+* **host spans of the wall path** — the overlay stream: GFC collectives
+  and migrations, each rank's phases of a pipeline call (``pickup``,
+  ``call`` and its children ``inputs``, ``forward``, ``sync``,
+  ``writeback``) and the plane's hand-off (``wait``, ``apply``,
+  ``schedule``, ``dispatch``, under :data:`PLANE`), each naming the
+  dispatch it serves, so one request's spans share its id.  Recorded
+  on the wall clock only: the simulator writes none of them.
 
 Two contracts govern everything here (DESIGN.md §15):
 
@@ -89,6 +96,9 @@ RANK_STATES = ("idle", "busy", "migrating", "collective", "dead")
 #: keys dropped from the identity projection (see module docstring)
 _VOLATILE_KEYS = frozenset({"t", "task", "metrics", "lost"})
 
+#: the overlay's key for the control plane's own spans (it is no rank)
+PLANE = -1
+
 #: log2-spaced GFC setup-latency histogram bucket upper bounds (µs)
 GFC_BUCKETS_US = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 4096,
                   float("inf"))
@@ -140,7 +150,11 @@ class Telemetry:
         self.cost_cells: dict[str, dict] = {}
         self.counters: dict[str, int] = {}
         self.gfc_register_s: list[float] = []    # worker-thread appends
-        self.overlay: dict[int, list] = {}       # r -> [(t, dur, op, size)]
+        # host spans of the wall path, appended by the rank threads and
+        # the plane (key PLANE): r -> [(t, dur, op, size, cause)], cause
+        # None or {"task": task or pack id, "seq": dispatch seq, "reqs":
+        # request ids}
+        self.overlay: dict[int, list] = {}
         # §16 streaming: sinks + sampling governor + alert stream
         self.sampling = sampling
         self._sampled = sampling is not None and not sampling.full
@@ -398,20 +412,24 @@ class Telemetry:
                            "s": seconds}, True)
 
     def span(self, rank: int, t_start: float, t_end: float, op: str,
-             size: int = 0):
-        """Wall-only overlay: a collective / p2p / migration interval in
-        absolute monotonic time (re-anchored to ``t0`` when set)."""
+             size: int = 0, cause: Optional[dict] = None):
+        """Wall-only overlay: a host interval in absolute monotonic time
+        (re-anchored to ``t0`` when set) on a rank or on :data:`PLANE`;
+        ``size`` is the bytes it moved, ``cause`` the dispatch it serves
+        (``task``, ``seq``, ``reqs``)."""
         base = self.t0 or 0.0
         kept = True
         if self._sampled:
             kept = self.sampling.keep({"kind": "span", "rank": rank})
         if kept:
             self.overlay.setdefault(rank, []).append(
-                (t_start - base, t_end - t_start, op, size))
+                (t_start - base, t_end - t_start, op, size, cause))
         if self.sinks:
-            self._fan_out({"kind": "span", "t": t_start - base,
-                           "rank": rank, "dur": t_end - t_start,
-                           "op": op, "size": size}, kept)
+            rec = {"kind": "span", "t": t_start - base, "rank": rank,
+                   "dur": t_end - t_start, "op": op, "size": size}
+            if cause is not None:
+                rec.update(cause)
+            self._fan_out(rec, kept)
 
     # ------------------------------------------------------------------
     # products
@@ -545,9 +563,11 @@ class Telemetry:
     # ------------------------------------------------------------------
     def perfetto(self, path=None) -> dict:
         """Chrome/Perfetto ``trace.json``: pid = host, tid = rank, X
-        slices for busy/dead rank intervals plus the wall collective
-        overlay; the control plane gets its own process with one thread
-        per request (lifecycle spans) and instant decision events."""
+        slices for busy/dead rank intervals plus the wall overlay (the
+        rank's host phases as slices under the rank); the control plane
+        gets its own process, with its hand-off spans on thread 0, one
+        thread per request (lifecycle spans) and instant decision
+        events."""
         topo = self.topology
         host_of = topo.host_of if topo is not None else (lambda r: 0)
         events: list[dict] = []
@@ -585,13 +605,15 @@ class Telemetry:
                                "dur": max(us(t_next) - us(t), 0.0),
                                "name": name, "cat": state,
                                "args": dict(info)})
-        for r, spans in self.overlay.items():
-            for t, dur, op, size in spans:
-                events.append({"ph": "X", "pid": host_of(r), "tid": r,
-                               "ts": us(t), "dur": us(dur), "name": op,
-                               "cat": "collective",
-                               "args": {"size": size}})
         cp_pid = hosts[-1] + 1
+        for r, spans in self.overlay.items():
+            pid, tid = (cp_pid, 0) if r == PLANE else (host_of(r), r)
+            for t, dur, op, size, cause in spans:
+                events.append({"ph": "X", "pid": pid, "tid": tid,
+                               "ts": us(t), "dur": us(dur), "name": op,
+                               "cat": ("collective" if cause is None else
+                                       "plane" if r == PLANE else "host"),
+                               "args": {"size": size, **(cause or {})}})
         events.append({"ph": "M", "pid": cp_pid, "tid": 0,
                        "name": "process_name",
                        "args": {"name": "control-plane"}})

@@ -10,6 +10,7 @@ every K/V gather goes device -> numpy -> ``comm.all_gather`` -> device.
 from __future__ import annotations
 
 import hashlib
+import time
 
 import numpy as np
 import torch
@@ -35,6 +36,32 @@ def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+class CallPhases:
+    """Where the host's time in one pipeline call went, for telemetry:
+    the bounds of its phases in ``time.monotonic``, in order, and the
+    bytes each moved.  ``inputs``: host artifacts (and the timestep and
+    prompt tokens) to the device; ``forward``: the enqueue of the model;
+    ``sync``: the blocking copies of the outputs to the host;
+    ``writeback``: the artifact writes (for an encode also the noise
+    draw and the initial latent)."""
+
+    OPS = ("inputs", "forward", "sync", "writeback")
+    __slots__ = ("marks", "sizes")
+
+    def __init__(self):
+        self.marks = [time.monotonic()]
+        self.sizes: list[int] = []
+
+    def end(self, nbytes: int = 0):
+        """Close the phase in progress; it moved ``nbytes``."""
+        self.marks.append(time.monotonic())
+        self.sizes.append(nbytes)
+
+    def spans(self) -> list[tuple]:
+        """[(op, start, end, bytes)] of the closed phases."""
+        return list(zip(self.OPS, self.marks, self.marks[1:], self.sizes))
+
+
 class TorchDiTPipeline:
     """Executable DiT pipeline; weights drawn from ``seed`` on ``device``."""
 
@@ -51,6 +78,9 @@ class TorchDiTPipeline:
         self.text_encoder = text_encoder.TextEncoder(
             self.txt_cfg, generator=gen, device=self.device)
         self.vae = vae.VAE(cfg, hidden=32, generator=gen, device=self.device)
+        # set by the serving engine: with telemetry attached, a call
+        # returns its CallPhases for the executor to record
+        self.telemetry = None
 
     def _tensor(self, a):
         """A host artifact on the device; float64 (the initial latent is
@@ -80,16 +110,21 @@ class TorchDiTPipeline:
     def execute(self, task: TrajectoryTask, layout: ExecutionLayout,
                 rank: int, comm: GroupFreeComm, graph: RequestGraph,
                 desc: GroupDescriptor):
+        """Run this rank's share of ``task``; returns its CallPhases
+        with telemetry attached (none closed on a rank with no share),
+        else None."""
+        ph = CallPhases() if self.telemetry is not None else None
         if task.kind == "encode":
             if rank == layout.ranks[0]:
-                self._encode(task, layout, graph)
+                self._encode(task, layout, graph, ph)
         elif task.kind == "denoise":
-            self._denoise(task, layout, rank, comm, graph, desc)
+            self._denoise(task, layout, rank, comm, graph, desc, ph)
         elif task.kind == "decode":
             if rank == layout.ranks[0]:
-                self._decode(task, layout, graph)
+                self._decode(task, layout, graph, ph)
         else:
             raise ValueError(task.kind)
+        return ph
 
     # ------------------------------------------------------------------
     def _gather_fn(self, comm, desc, rank, on_gather=None):
@@ -119,7 +154,9 @@ class TorchDiTPipeline:
         """Step packing (DESIGN.md §9): run this rank's share of N
         batch-compatible denoise tasks as ONE batched forward, with one
         set of GFC collectives over the stacked tensors; each member's
-        Euler update then uses its own sigma pair."""
+        Euler update then uses its own sigma pair.  Returns the call's
+        CallPhases with telemetry attached, else None."""
+        ph = CallPhases() if self.telemetry is not None else None
         xs, txts, t_steps, sig_pairs = [], [], [], []
         for task, graph in members:
             req = graph.request
@@ -163,36 +200,53 @@ class TorchDiTPipeline:
 
         x = torch.stack([self._tensor(s) for s in xs])     # (B, N_loc, pd)
         txt = torch.stack([self._tensor(s) for s in txts])  # (B, Lt, cond)
+        if ph is not None:
+            ph.end(sum(np.asarray(a).nbytes for a in xs + txts) + t.nbytes)
         v = dit.forward_sp_tokens(
             self.dit, x, t, txt, self.cfg, pos_offset=off,
             n_total=n_total, kv_gather=kv_gather)
-        for i, (task, graph) in enumerate(members):
-            s_now, s_next = sig_pairs[i]
-            new_x = schedule.flow_step(x[i], v[i], s_now, s_next)
+        new_xs = [schedule.flow_step(x[i], v[i], s_now, s_next)
+                  for i, (s_now, s_next) in enumerate(sig_pairs)]
+        if ph is not None:
+            ph.end()
+        outs = [_host(new_x) for new_x in new_xs]
+        if ph is not None:
+            ph.end(sum(o.nbytes for o in outs))
+        for (task, graph), out, (_, s_next) in zip(members, outs,
+                                                   sig_pairs):
             out_art = graph.artifacts[task.outputs[0]]
-            out_art.data[rank]["latent"] = _host(new_x)
+            out_art.data[rank]["latent"] = out
             out_art.data[rank]["sigma"] = np.float32(s_next)
+        if ph is not None:
+            ph.end()
+        return ph
 
     # ------------------------------------------------------------------
-    def _encode(self, task, layout, graph):
+    def _encode(self, task, layout, graph, ph=None):
         req = graph.request
         toks = self._prompt_tokens(req).to(self.device)
-        embeds = text_encoder.encode(self.text_encoder, toks, self.txt_cfg,
-                                     dtype=torch.float32)[0]  # (Lt, cond)
-        txt_art = graph.artifacts[task.outputs[0]]
-        # replicated field: every rank of this layout holds a copy (a
-        # same-layout successor consumes without migration)
-        for r in layout.ranks:
-            txt_art.data[r]["embeds"] = _host(embeds)
+        if ph is not None:
+            ph.end(toks.nbytes)
+        fields = {"embeds": text_encoder.encode(
+            self.text_encoder, toks, self.txt_cfg,
+            dtype=torch.float32)[0]}                          # (Lt, cond)
         if req.guidance is not None:
             # classifier-free guidance (DESIGN.md §14): the uncond branch
             # conditions on the null prompt (all-zero tokens)
-            emb_u = text_encoder.encode(self.text_encoder,
-                                        torch.zeros_like(toks),
-                                        self.txt_cfg,
-                                        dtype=torch.float32)[0]
-            for r in layout.ranks:
-                txt_art.data[r]["embeds_uncond"] = _host(emb_u)
+            fields["embeds_uncond"] = text_encoder.encode(
+                self.text_encoder, torch.zeros_like(toks), self.txt_cfg,
+                dtype=torch.float32)[0]
+        if ph is not None:
+            ph.end()
+        # replicated fields: every rank of this layout holds a copy (a
+        # same-layout successor consumes without migration)
+        copies = {(r, k): _host(e) for k, e in fields.items()
+                  for r in layout.ranks}
+        if ph is not None:
+            ph.end(sum(c.nbytes for c in copies.values()))
+        txt_art = graph.artifacts[task.outputs[0]]
+        for (r, k), c in copies.items():
+            txt_art.data[r][k] = c
 
         # initial noisy latent (latent preparation is part of encode stage)
         lat_art = graph.artifacts[task.outputs[1]]
@@ -205,18 +259,22 @@ class TorchDiTPipeline:
             off, size = view.slices[r]
             lat_art.data[r]["latent"] = full[off:off + size]
             lat_art.data[r]["sigma"] = np.float32(sigmas[0])
+        if ph is not None:
+            ph.end()
 
     # ------------------------------------------------------------------
-    def _denoise(self, task, layout, rank, comm, graph, desc):
+    def _denoise(self, task, layout, rank, comm, graph, desc, ph=None):
         req = graph.request
         if req.guidance is not None:
             return self._denoise_guided(task, layout, rank, comm, graph,
-                                        desc)
+                                        desc, ph)
         txt_art = graph.artifacts[task.inputs[0]]
         lat_art = graph.artifacts[task.inputs[1]]
         out_art = graph.artifacts[task.outputs[0]]
-        txt = txt_art.data[rank]["embeds"]
-        x_shard = self._tensor(lat_art.data[rank]["latent"])   # (N_loc, pd)
+        txt_np = txt_art.data[rank]["embeds"]
+        x_np = lat_art.data[rank]["latent"]
+        txt = self._tensor(txt_np)
+        x_shard = self._tensor(x_np)                            # (N_loc, pd)
         spec = lat_art.fields["latent"]
         view = field_view(spec, layout)
         off, _ = view.slices[rank]
@@ -249,16 +307,27 @@ class TorchDiTPipeline:
         else:
             kv_gather = self._hit_fn(
                 [graph.artifacts[stamp["art"]].data[rank]], off)
+        if ph is not None:
+            ph.end(np.asarray(x_np).nbytes + np.asarray(txt_np).nbytes
+                   + t.nbytes)
 
         v_shard = dit.forward_sp_tokens(
-            self.dit, x_shard[None], t, self._tensor(txt)[None], self.cfg,
+            self.dit, x_shard[None], t, txt[None], self.cfg,
             pos_offset=off, n_total=n_total, kv_gather=kv_gather)[0]
         new_x = schedule.flow_step(x_shard, v_shard, sigma_now, sigma_next)
-        out_art.data[rank]["latent"] = _host(new_x)
+        if ph is not None:
+            ph.end()
+        out = _host(new_x)
+        if ph is not None:
+            ph.end(out.nbytes)
+        out_art.data[rank]["latent"] = out
         out_art.data[rank]["sigma"] = np.float32(sigma_next)
+        if ph is not None:
+            ph.end()
 
     # ------------------------------------------------------------------
-    def _denoise_guided(self, task, layout, rank, comm, graph, desc):
+    def _denoise_guided(self, task, layout, rank, comm, graph, desc,
+                        ph=None):
         """Classifier-free guidance denoise (DESIGN.md §14).
 
         ``cfg == 1``: ONE batched forward with rows [cond, uncond] on the
@@ -272,9 +341,10 @@ class TorchDiTPipeline:
         txt_art = graph.artifacts[task.inputs[0]]
         lat_art = graph.artifacts[task.inputs[1]]
         out_art = graph.artifacts[task.outputs[0]]
-        txt_c = self._tensor(txt_art.data[rank]["embeds"])
-        txt_u = self._tensor(txt_art.data[rank]["embeds_uncond"])
-        x_shard = self._tensor(lat_art.data[rank]["latent"])  # (N_loc, pd)
+        arrays = [txt_art.data[rank]["embeds"],
+                  txt_art.data[rank]["embeds_uncond"],
+                  lat_art.data[rank]["latent"]]
+        txt_c, txt_u, x_shard = (self._tensor(a) for a in arrays)
         spec = lat_art.fields["latent"]
         view = field_view(spec, layout)
         off, _ = view.slices[rank]
@@ -286,6 +356,12 @@ class TorchDiTPipeline:
         sigma_next = float(sigmas[step + 1]) if step + 1 < req.steps \
             else 0.0
         ts = schedule.timestep_of_sigma(sigma_now)
+        # a timestep a row: cfg == 1 batches [cond, uncond], cfg >= 2
+        # runs this rank's branch alone
+        t = torch.tensor([ts, ts] if layout.cfg == 1 else [ts],
+                         dtype=torch.float32, device=self.device)
+        if ph is not None:
+            ph.end(sum(np.asarray(a).nbytes for a in arrays) + t.nbytes)
 
         if layout.cfg == 1:
             if layout.degree == 1:
@@ -295,8 +371,6 @@ class TorchDiTPipeline:
                 kv_gather = self._gather_fn(comm, desc, rank)
             x = torch.stack([x_shard, x_shard])
             txt = torch.stack([txt_c, txt_u])
-            t = torch.tensor([ts, ts], dtype=torch.float32,
-                             device=self.device)
             v = dit.forward_sp_tokens(
                 self.dit, x, t, txt, self.cfg, pos_offset=off,
                 n_total=n_total, kv_gather=kv_gather)
@@ -312,7 +386,6 @@ class TorchDiTPipeline:
             else:
                 kv_gather = self._gather_fn(comm, branch, rank)
             txt = txt_c if b == 0 else txt_u
-            t = torch.tensor([ts], dtype=torch.float32, device=self.device)
             v_mine = dit.forward_sp_tokens(
                 self.dit, x_shard[None], t, txt[None], self.cfg,
                 pos_offset=off, n_total=n_total, kv_gather=kv_gather)[0]
@@ -323,11 +396,18 @@ class TorchDiTPipeline:
             v_c, v_u = self._tensor(both[0]), self._tensor(both[1])
         merged = v_u + g * (v_c - v_u)
         new_x = schedule.flow_step(x_shard, merged, sigma_now, sigma_next)
-        out_art.data[rank]["latent"] = _host(new_x)
+        if ph is not None:
+            ph.end()
+        out = _host(new_x)
+        if ph is not None:
+            ph.end(out.nbytes)
+        out_art.data[rank]["latent"] = out
         out_art.data[rank]["sigma"] = np.float32(sigma_next)
+        if ph is not None:
+            ph.end()
 
     # ------------------------------------------------------------------
-    def _decode(self, task, layout, graph):
+    def _decode(self, task, layout, graph, ph=None):
         lat_art = graph.artifacts[task.inputs[0]]
         out_art = graph.artifacts[task.outputs[0]]
         leader = layout.ranks[0]
@@ -347,10 +427,20 @@ class TorchDiTPipeline:
             tokens = lat_art.data[leader]["latent"]           # (N, pd) full
         f, h, w, c = task.meta.get("latent_shape") or \
             self._infer_latent_shape(graph)
-        lat = dit.unpatchify(self._tensor(tokens)[None],
-                             (1, f, h, w, c), self.cfg.dit.patch_size)
+        x = self._tensor(tokens)
+        if ph is not None:
+            ph.end(np.asarray(tokens).nbytes)
+        lat = dit.unpatchify(x[None], (1, f, h, w, c),
+                             self.cfg.dit.patch_size)
         pixels = vae.decode(self.vae, lat, self.cfg)[0]
-        out_art.data[leader]["pixels"] = _host(pixels)
+        if ph is not None:
+            ph.end()
+        out = _host(pixels)
+        if ph is not None:
+            ph.end(out.nbytes)
+        out_art.data[leader]["pixels"] = out
+        if ph is not None:
+            ph.end()
 
     def _infer_latent_shape(self, graph):
         req = graph.request

@@ -48,10 +48,6 @@ class ServingEngine:
         self.topology = topo
         self.pipeline = TorchDiTPipeline(cfg, seed=seed, device=device)
         self.comm = GroupFreeComm(topo.num_ranks, topology=topo)
-        # telemetry plane (DESIGN.md §15): one instance observes the
-        # whole stack — control plane decisions/timelines, GFC
-        # registration latency, and the worker collective overlay
-        self.comm.telemetry = telemetry
         self.backend = ThreadBackend(self.pipeline, topo.num_ranks,
                                      comm=self.comm)
         self.cp = ControlPlane(topo, policy, cost or CostModel(),
@@ -60,8 +56,19 @@ class ServingEngine:
                                injector=injector,
                                snapshot_interval=snapshot_interval,
                                snapshot_dir=snapshot_dir,
-                               failure_recovery=failure_recovery,
-                               telemetry=telemetry)
+                               failure_recovery=failure_recovery)
+        self.attach_telemetry(telemetry)
+
+    def attach_telemetry(self, telemetry) -> None:
+        """Observe the serves from now on with ``telemetry`` (DESIGN.md
+        §15; None: observe nothing).  One instance observes the whole
+        stack: the control plane's decisions and timelines, GFC's
+        registrations and collectives, and the host spans of the rank
+        threads, the pipeline's phases and the event loop."""
+        self.cp.telemetry = self.cp.cache.telemetry = telemetry
+        self.comm.telemetry = self.pipeline.telemetry = telemetry
+        if telemetry is not None:
+            telemetry.attach(self.cp.num_ranks, self.cp.topology)
 
     # ------------------------------------------------------------------
     def serve(self, requests: list[Request], *, time_scale: float = 1.0,
