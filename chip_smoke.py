@@ -58,11 +58,24 @@ Phases, one line each (any failure raises and exits non-zero):
    bf16 (bf16 products on the tensor cores, within 3e-2), rel-L2 per
    output (dx, ddt, dA, dB, dC, each printed) against
    ``ref.ssd_bwd_ref``, timed as the other backward kernels with its
-   four stage kernels' device time and occupancy.
+   four stage kernels' device time and occupancy; the fp32 products'
+   split-TF32 GEMM (``ops.linear``, ``csrc/gemm.cu``) at video-l's three
+   product shapes and image-interactive's two, each within 1e-5 rel-L2 of
+   the fp32 and the fp64 product, timed beside its bound at 165 TFLOP/s
+   (three TF32 products a product) and ``torch.matmul``'s fp32 (cuBLAS,
+   which the port no longer calls there), the host cost of a product on
+   either route, then the products of one denoise call of each benchmark
+   cell's configuration (full width and depth) at each of its request
+   classes' tokens by route: the kernel's launches and the fp32 products
+   left to cuBLAS by reason, each equal to what the product rule gives
+   the call's product shapes.  ``--phase gemm`` runs these alone.
 4. serve: ``ServingEngine(DIT_IMAGE, SP-4, cache_interval=2)`` at full
    width serves two 512 px and one 1024 px request; every request must
    finish with finite pixels, through K1-K3, with both §11 refresh and
-   hit steps.
+   hit steps; the fp32 products by route (the GEMM's launches and those
+   left to cuBLAS by reason) must equal what the product rule gives the
+   shapes of every DiT and text-encoder call the serve made, with the
+   GEMM launched (the video phase's full-width serves are held the same).
 5. sp: one 512 px request at SP1 and SP4 (cache_interval=1) agree.
 6. cpu: on DIT_IMAGE.reduced() the card (kernels) and the CPU (plain
    versions) give the same pixels.
@@ -284,6 +297,7 @@ step 3 (the scenarios phase prints the same for its one run).
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -295,6 +309,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -326,7 +341,8 @@ from repro_torch.core.trajectory import ExecutionLayout, Request  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
-from repro_torch.models import dit, get_model, hybrid, layers, ssm  # noqa: E402
+from repro_torch.models import (dit, get_model, hybrid, layers, ssm,  # noqa: E402
+                                text_encoder)
 from repro_torch.serving import serve_loop  # noqa: E402
 from repro_torch.sharding import SERVE_RULES, activation_sharding  # noqa: E402
 from repro_torch.training import (compression, fault_tolerance,  # noqa: E402
@@ -383,6 +399,15 @@ EXACT_PROMPT = {"mixtral-8x7b": 1000, "deepseek-v2-236b": 600}
 ZOO_LOGIT_BUDGET = 5e-4            # of the largest |logit|, fp32 decode
 MLA_BUDGET = 1e-5                  # absorbed vs naive decode, fp32
 DIT_KERNELS = ("fused_adaln", "attention", "splice_attention")
+# the fp32 products' GEMM at the benchmark cells' product shapes (m, n, k):
+# video-l's (18,480 tokens; q/k/v/o and cross q/o, the SwiGLU's gate and
+# up, its down) and image-interactive's at 512 px (q/k/v/o, gate and up)
+GEMM_SHAPES = {"video q/k/v/o": (18480, 3072, 3072),
+               "video gate/up": (18480, 14336, 3072),
+               "video down": (18480, 3072, 14336),
+               "image q/k/v/o": (1024, 1536, 1536),
+               "image gate/up": (1024, 8960, 1536)}
+TEXT_TOKENS = 77
 # the video phase: the paper's class S (480x832, 49 frames: 13 latent
 # frames, 20,280 tokens) and leg (b)'s 17 frames (5 latent frames, 7,800
 # tokens), both at 2 denoise steps
@@ -486,6 +511,8 @@ SOURCES = {
                 "src/repro/kernels/ssd.py:65"),
     "ssd_bwd bf16": ("src/repro_torch/csrc/ssd_bwd.cu",
                      "src/repro/kernels/ssd.py:65"),
+    # the fp32 products (the TPU package has no product kernel: XLA's)
+    "linear": ("src/repro_torch/csrc/gemm.cu", "none: XLA's dot"),
 }
 
 
@@ -679,6 +706,25 @@ def phase_build() -> None:
     _report_attention_bwd(report)
     _report_adaln_bwd(report)
     _report_ssd(report)
+    _report_gemm(report, build.build_info.get("ptxas") or (
+        log.read_text() if log.exists() else ""))
+
+
+def _report_gemm(report: dict, log: str) -> None:
+    """The GEMM kernel at each tile height: registers and spill bytes
+    (ptxas); and every warning ptxas gave on ``gemm.cu`` (a serialized
+    wgmma among them)."""
+    for rows in ops.GEMM_TILE_ROWS:
+        r = next((r for f, r in report.items()
+                  if f"gemm_3xtf32_kernelILi{rows}E" in f), None)
+        print(f"  gemm_3xtf32_kernel<{rows}>: "
+              f"{'?' if r is None else r['registers']} registers, spill "
+              f"bytes {'?' if r is None else r['spill_bytes']}", flush=True)
+    section = log.split("== gemm.cu", 1)[-1].split("\n== ", 1)[0] \
+        if "== gemm.cu" in log else ""
+    for line in section.splitlines():
+        if "arning" in line:
+            print(f"  gemm.cu ptxas: {line.strip()}", flush=True)
 
 
 def _report_ssd(report: dict) -> None:
@@ -990,7 +1036,231 @@ def phase_kernels() -> dict:
         _check_whisper_attention(dtype, results, gen)
         _check_backward(dtype, results, gen)
     _check_video(results, gen)
+    _check_gemm(results)
+    _gemm_counts()
     return results
+
+
+def _check_gemm(results) -> None:
+    """``ops.linear`` at GEMM_SHAPES against the fp32 product (cuBLAS,
+    rel-L2 within 1e-5) and the fp64 one, timed beside its bound at 165
+    TFLOP/s (the TF32 rate over three products) and ``torch.matmul``'s
+    fp32, with the CUDA-core bound beside it."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for rows in ops.GEMM_TILE_ROWS:
+        blocks, smem = ops.gemm_occupancy(rows)
+        print(f"  gemm_3xtf32_kernel<{rows}>: {smem / 1024:.2f} KiB shared, "
+              f"{blocks} blocks an SM", flush=True)
+    for label, (m, n, k) in GEMM_SHAPES.items():
+        x = _rand((m, k), torch.float32, gen)
+        w = _rand((k, n), torch.float32, gen, k ** -0.5)
+        flops, nbytes = cost.gemm(m, n, k)
+        rows = ops.gemm_tile_rows(m, n, sms)
+        big = m > 4096       # video: ~20-60 ms a call, 1-4 GB an output
+        timing = {"bytes": nbytes, "flops": flops,
+                  "flops_per_s": TF32_FLOPS_PER_S / 3,
+                  "cuda_core": (nbytes, flops),
+                  "library": lambda x=x, w=w: torch.matmul(x, w),
+                  "iters": 3 if big else 20, "replays": 3 if big else 10,
+                  "plain_iters": 3 if big else 20,
+                  "host_calls": 10 if big else 200,
+                  "summary": {"image q/k/v/o": "linear",
+                              "video q/k/v/o": "video linear"}.get(
+                                  label, f"linear {label}")}
+        _check(f"gemm {label} ({m}x{k} @ {k}x{n}, {rows}-row tiles)",
+               lambda x=x, w=w: ops.linear(x, w),
+               lambda x=x, w=w: ref.linear_ref(x, w), torch.float32,
+               results, timing, l2=True)
+        exact = x.double() @ w.double()
+        err = ((ops.linear(x, w).double() - exact).norm()
+               / exact.norm()).item()
+        lib = ((torch.matmul(x, w).double() - exact).norm()
+               / exact.norm()).item()
+        print(f"    against fp64: kernel rel-L2 {err:.2e}, cuBLAS fp32 "
+              f"{lib:.2e}", flush=True)
+        if not err <= BUDGET[torch.float32]:
+            raise AssertionError(f"gemm {label}: {err:.2e} from fp64")
+        del x, w, exact
+        torch.cuda.empty_cache()
+    _product_host_us(gen)
+
+
+def _product_host_us(gen) -> None:
+    """Host microseconds a call at image-interactive's q/k/v/o shape of
+    ``sharding.ctx.product`` (the rule, then ``ops.linear``), of the rule
+    and of ``ops.linear`` alone, and of ``x @ w`` (cuBLAS), and what the
+    difference comes to over the products of one 512 px denoise call."""
+    from repro_torch.sharding.ctx import product
+    m, n, k = GEMM_SHAPES["image q/k/v/o"]
+    x = _rand((1, m, k), torch.float32, gen)
+    w = _rand((k, n), torch.float32, gen, k ** -0.5)
+    us = {"product": host_us(lambda: product(x, w), 200),
+          "route": host_us(lambda: ops.product_route(x, w), 1000),
+          "linear": host_us(lambda: ops.linear(x, w), 200),
+          "x @ w": host_us(lambda: x @ w, 200)}
+    layers_ = json.loads((Path(__file__).resolve().parent / "perfbench"
+                          / "configs" / "wan2.1-t2v-1.3b.json").read_text())[
+        "model"]["num_layers"]
+    calls = 12 * layers_ + 6        # dit.forward_sp_tokens' products
+    print(f"  host us a call at {m}x{k} @ {k}x{n}: "
+          + ", ".join(f"{name} {t:.1f}" for name, t in us.items())
+          + f"; over one denoise call's {calls} products: "
+          f"at most {(us['product'] - us['x @ w']) * calls / 1e3:.2f} ms "
+          f"more host time than x @ w", flush=True)
+
+
+def _dit_call_products(model, tok_shard, txt_embeds) -> list:
+    """(m, k, n) of every product of one ``dit.forward_sp_tokens`` call,
+    from the model's weights and the call's operands: the patch
+    embedding, the timestep MLP and the text projection; per layer the
+    modulation, q, k, v, o, cross q, k, v and o, gate, up and down; the
+    final modulation and the output head."""
+    b, n = tok_shard.shape[:2]
+    rows, text = b * n, b * txt_embeds.shape[1]
+
+    def kn(w, lead=1):
+        return math.prod(w.shape[:lead]), math.prod(w.shape[lead:])
+    out = [(rows, *kn(model.x_embed)), (b, *kn(model.t_mlp1)),
+           (b, *kn(model.t_mlp2)), (text, *kn(model.txt_proj))]
+    for blk in model.blocks:
+        a, c, mlp = blk.attn, blk.cross, blk.mlp
+        out += [(b, *kn(blk.ada_w))]
+        out += [(rows, *kn(w)) for w in (a.wq, a.wk, a.wv, c.wq)]
+        out += [(text, *kn(c.wk)), (text, *kn(c.wv))]
+        out += [(rows, *kn(w, 2)) for w in (a.wo, c.wo)]
+        out += [(rows, *kn(w)) for w in (mlp.w_gate, mlp.w_up, mlp.w_down)]
+    return out + [(b, *kn(model.final_ada_w)), (rows, *kn(model.final_out))]
+
+
+def _encoder_call_products(model, tokens) -> list:
+    """(m, k, n) of every product of one ``text_encoder.encode`` call:
+    per layer q, k, v, o, gate, up and down over the prompt's tokens."""
+    rows = tokens.numel()
+    out = []
+    for blk in model.blocks:
+        a, mlp = blk.attn, blk.mlp
+        out += [(rows, *kn) for kn in (
+            (a.wq.shape[0], math.prod(a.wq.shape[1:])),
+            (a.wk.shape[0], math.prod(a.wk.shape[1:])),
+            (a.wv.shape[0], math.prod(a.wv.shape[1:])),
+            (math.prod(a.wo.shape[:2]), a.wo.shape[2]),
+            tuple(mlp.w_gate.shape), tuple(mlp.w_up.shape),
+            tuple(mlp.w_down.shape))]
+    return out
+
+
+@contextlib.contextmanager
+def _expected_products():
+    """While open, tallies the route the product rule gives each product
+    of every fp32 ``dit.forward_sp_tokens`` and ``text_encoder.encode``
+    call on the card, from the weights and the call's operands (not from
+    what ``sharding.ctx.product`` saw): yields a Counter of routes, to
+    hold the counters (:func:`_products_seen`) to."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want, lock = collections.Counter(), threading.Lock()
+    forward, encode = dit.forward_sp_tokens, text_encoder.encode
+
+    def tally(shapes):
+        routes = collections.Counter(
+            ops.gemm_route(torch.float32, "cuda", x_shape=(m, k),
+                           w_shape=(k, n), sms=sms) for m, k, n in shapes)
+        with lock:
+            want.update(routes)
+
+    def counted_forward(model, tok_shard, t, txt_embeds, *args, **kw):
+        if tok_shard.is_cuda and kw.get("dtype",
+                                        torch.float32) == torch.float32:
+            tally(_dit_call_products(model, tok_shard, txt_embeds))
+        return forward(model, tok_shard, t, txt_embeds, *args, **kw)
+
+    def counted_encode(model, tokens, cfg, dtype=torch.bfloat16):
+        if tokens.is_cuda and dtype == torch.float32:
+            tally(_encoder_call_products(model, tokens))
+        return encode(model, tokens, cfg, dtype=dtype)
+
+    dit.forward_sp_tokens, text_encoder.encode = counted_forward, \
+        counted_encode
+    try:
+        yield want
+    finally:
+        dit.forward_sp_tokens, text_encoder.encode = forward, encode
+
+
+def _products_seen() -> dict:
+    """The fp32 products on the card since the last reset, by route: the
+    GEMM's launches and those left to cuBLAS by reason."""
+    return {"gemm": ops.kernel_launches["gemm fp32"],
+            **ops.library_products}
+
+
+def _check_products(label: str, want) -> dict:
+    """Holds the products seen since the last reset to ``want`` (from
+    :func:`_expected_products`): every product of the DiT and its text
+    encoder counted, each on the route the rule gives its shape, the
+    GEMM launched at least once, one launch a ``linear`` call."""
+    seen = _products_seen()
+    expected = {r: want.get(r, 0) for r in seen}
+    if seen != expected or seen["gemm"] <= 0 or \
+            ops.launches["linear"] != seen["gemm"] or \
+            set(want) - set(seen):
+        raise AssertionError(f"{label}: fp32 products by route {seen} "
+                             f"(linear {ops.launches['linear']}), expected "
+                             f"{dict(want)}")
+    return seen
+
+
+def _gemm_counts() -> dict:
+    """One denoise call (``dit.forward_sp_tokens``, one rank) of each
+    benchmark cell's configuration at full width and depth, as the
+    benchmark builds it (``perfbench.harness.port_config``), at the tokens
+    of each request class of the cell's traffic: the GEMM's launches and
+    the fp32 products left to cuBLAS by reason, printed and held to the
+    rule (:func:`_check_products`); the output finite."""
+    from perfbench import spec, traffic
+    from perfbench.harness import port_config
+    root = Path(__file__).resolve().parent
+    out = {}
+    for work in json.loads((root / "BENCHMARK.json").read_text())[
+            "workloads"]:
+        cell = spec.load(root, work["name"])
+        cfg, m = port_config(cell.config), cell.config["model"]
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        model = dit.init(cfg, generator=gen, device="cuda")
+        dc = cfg.dit
+        patch = dc.patch_size ** 2 * dc.in_channels
+        txt = torch.randn((1, TEXT_TOKENS, dc.cond_dim), generator=gen,
+                          device="cuda")
+        t = torch.full((1,), 500.0, device="cuda")
+        for tokens in sorted({traffic.token_count(m, c["height"], c["width"],
+                                                  c["frames"])
+                              for c in cell.mix["classes"].values()}):
+            toks = torch.randn((1, tokens, patch), generator=gen,
+                               device="cuda")
+            ops.reset_launches()
+            with _expected_products() as want, torch.inference_mode():
+                y = dit.forward_sp_tokens(
+                    model, toks, t, txt, cfg, pos_offset=0, n_total=tokens,
+                    kv_gather=lambda k, v, i: (k, v))
+            torch.cuda.synchronize()
+            label = (f"{cell.name}: one denoise call of {cell.config_name} "
+                     f"({cfg.num_layers} layers, d_model {cfg.d_model}) at "
+                     f"{tokens} tokens")
+            print(f"  gemm counts, {label}: {_products_seen()}", flush=True)
+            out[f"{cell.name} {tokens}"] = _check_products(label, want)
+            if not torch.isfinite(y).all():
+                raise AssertionError(f"{label}: output not finite")
+            del toks, y
+        del model, txt
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_gemm(smi: str) -> None:
+    """The kernels phase's GEMM checks alone (``--phase gemm``)."""
+    print(f"gemm: on {smi}", flush=True)
+    _check_gemm({})
+    _gemm_counts()
 
 
 def _sdpa_backward(q, k, v, do, causal):
@@ -1744,9 +2014,9 @@ def serve_requests() -> list:
 
 
 def _dit_counts() -> dict:
-    """K1-K3's launches since the last reset, with K2's and K3's fp32
-    launches by route."""
-    return {**{k: ops.launches[k] for k in DIT_KERNELS},
+    """K1-K3's and the GEMM's launches since the last reset, with K2's
+    and K3's fp32 launches by route."""
+    return {**{k: ops.launches[k] for k in DIT_KERNELS + ("linear",)},
             **{r: ops.kernel_launches[r] for r in FP32_ROUTES}}
 
 
@@ -1754,8 +2024,10 @@ def phase_serve() -> dict:
     reqs = serve_requests()
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    run = _serve(DIT_IMAGE, FixedSP(4), reqs, cache_interval=2)
+    with _expected_products() as want:
+        run = _serve(DIT_IMAGE, FixedSP(4), reqs, cache_interval=2)
     counts = _dit_counts()
+    products = _check_products("serve", want)
     # every fp32 K2 and K3 call on a tensor-core route of its own dtype
     routed = sum(counts[r] for r in FP32_ROUTES)
     if routed != counts["attention"] + counts["splice_attention"] or any(
@@ -1786,7 +2058,8 @@ def phase_serve() -> dict:
           f"{len(reqs)} done; latency {lat}; wall {run['wall']:.2f} s; "
           f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"cache {run['modes'].count('refresh')} refresh / "
-          f"{run['modes'].count('hit')} hit; launches {counts}", flush=True)
+          f"{run['modes'].count('hit')} hit; launches {counts}; fp32 "
+          f"products by route {products}", flush=True)
     return counts
 
 
@@ -2098,9 +2371,11 @@ def _video_serve(label, k, shape, *, cache_interval, setup=None) -> dict:
     want = dit.latent_shape(DIT_VIDEO, *shape)[:1] + shape[:2] + (3,)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    run = _serve(DIT_VIDEO, FixedSP(k), [req], cache_interval=cache_interval,
-                 setup=setup)
+    with _expected_products() as routes:
+        run = _serve(DIT_VIDEO, FixedSP(k), [req],
+                     cache_interval=cache_interval, setup=setup)
     run["counts"] = _dit_counts()
+    run["products"] = _check_products(f"video {label} SP-{k}", routes)
     run["peak"] = torch.cuda.max_memory_allocated() / 2**30
     px = run["pixels"][req.id]
     if run["metrics"]["completed"] != 1 or px is None or px.shape != want \
@@ -2118,7 +2393,8 @@ def _video_serve(label, k, shape, *, cache_interval, setup=None) -> dict:
           f"s; encode {walls['encode']:.2f} s, denoise {walls['denoise']:.2f}"
           f" s ({walls['denoise'] / VIDEO_STEPS:.2f} s a step), decode "
           f"{walls['decode']:.2f} s; peak mem {run['peak']:.2f} GiB; cache "
-          f"{run['modes']}; launches {run['counts']}", flush=True)
+          f"{run['modes']}; launches {run['counts']}; fp32 products by "
+          f"route {run['products']}", flush=True)
     return run
 
 
@@ -2270,7 +2546,7 @@ def phase_video(smi: str) -> dict:
           f"{n_hit} tokens, {snap[n_s] / 1e9:.1f} GB at {n_s}; card free "
           f"{dev_free / 2**30:.2f} of {dev_total / 2**30:.2f} GiB; free -g:"
           f"\n{free}", flush=True)
-    totals = dict.fromkeys(DIT_KERNELS + FP32_ROUTES, 0)
+    totals = dict.fromkeys(DIT_KERNELS + FP32_ROUTES + ("linear",), 0)
 
     def add(run):
         for name in totals:
@@ -2751,7 +3027,9 @@ def _whisper_routes(sites: dict, routes: dict, dtype) -> dict:
     (the encoder's 1500 queries on the tile kernel; the cross-attention
     of the 4-token prompt and of each decode step to the 1500 frames on
     split keys, where its 64 tiles cannot fill the SMs), none on the
-    other dtype's.  Fails on any other count."""
+    other dtype's.  Fails on any other count.  (The fp32 products'
+    GEMM launches, also in ``ops.kernel_launches``, are not K2's.)"""
+    routes = {k: v for k, v in routes.items() if k != "gemm fp32"}
     b, h, d, f = ZOO_BATCH, WHISPER.num_heads, WHISPER.head_dim, \
         WHISPER.frontend_seq
     mine = FP32_ROUTES if dtype == torch.float32 else BF16_ROUTES
@@ -2820,7 +3098,8 @@ def phase_zoo(smi: str) -> dict:
     del model, frames, run, exact
     torch.cuda.empty_cache()
 
-    # -- mixtral-8x7b and deepseek-v2-236b: no kernel on the path -----------
+    # -- mixtral-8x7b and deepseek-v2-236b: no kernel on the path but the
+    # fp32 products' GEMM -------------------------------------------------
     for cfg, batch in ((MIXTRAL, LM_BATCH), (DEEPSEEK, 1)):
         t0 = time.perf_counter()
         model, n_params, gib = _zoo_model(cfg)
@@ -2836,7 +3115,7 @@ def phase_zoo(smi: str) -> dict:
         # first serve's tokens
         short, feed = prompt[:1, :EXACT_PROMPT[cfg.name]], None
         tokens = (short.shape[1] + LM_DECODE) * cfg.moe.top_k
-        errs, steps, launched = {}, {}, 0
+        errs, steps, launched, products = {}, {}, 0, 0
         for absorbed in ((False, True) if cfg.mla is not None else (False,)):
             run = _zoo_serve(model, cfg, prompt, mla_absorbed=absorbed)
             if any(run["prefill_launches"].values()) or any(
@@ -2846,12 +3125,15 @@ def phase_zoo(smi: str) -> dict:
             errs[absorbed], exact, _ = _zoo_exact(
                 model, cfg, short, feed, mla_absorbed=absorbed)
             steps[absorbed] = exact["logits"]
-            launched += sum(ops.launches.values())
+            launched += sum(n for k, n in ops.launches.items()
+                            if k != "linear")
+            products += ops.launches["linear"]
             del run, exact
         line = (f"zoo: {cfg.name} fp32 prefill {short.shape[1]} + "
                 f"{LM_DECODE} decode steps vs the teacher-forced forward "
                 f"({tokens} routed copies <= 4096: exact capacity; "
-                f"{launched} kernel launches): max |diff| / max |logit| "
+                f"{launched} kernel launches, {products} fp32 products on "
+                f"the GEMM): max |diff| / max |logit| "
                 + ", ".join(f"{'absorbed' if a else 'naive'} {e:.2e}"
                             for a, e in errs.items())
                 + f" (budget {ZOO_LOGIT_BUDGET:.0e})")
@@ -4240,7 +4522,8 @@ PHASES = {"serve": lambda smi: phase_serve(), "splits": phase_splits,
           "hybrid": phase_hybrid,
           "zoo": phase_zoo, "train": phase_train,
           "train-cpu": lambda smi: phase_train_cpu(),
-          "gfc": phase_gfc, "dryrun": phase_dryrun, "bench": phase_bench}
+          "gfc": phase_gfc, "dryrun": phase_dryrun, "bench": phase_bench,
+          "gemm": phase_gemm}
 
 
 def main() -> int:

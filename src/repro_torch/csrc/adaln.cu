@@ -580,16 +580,6 @@ __global__ void __launch_bounds__(32 * kBwdColGroups)
   }
 }
 
-inline int sm_count(int device) {
-  static std::atomic<int> cached[kMaxDevices];
-  if (device < 0 || device >= kMaxDevices) return 0;
-  int v = cached[device].load(std::memory_order_relaxed);
-  if (v == 0 && cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount,
-                                       device) == cudaSuccess)
-    cached[device].store(v, std::memory_order_relaxed);
-  return v;
-}
-
 // The row rule: rows a block, so that the B * chunks blocks come to
 // kBwdBlocksPerSm an SM (fewer when the batch rows hold fewer tokens).
 // It depends on (B, n) and the card alone, so the wrapper can size the

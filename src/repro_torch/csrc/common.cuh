@@ -31,6 +31,17 @@ inline cudaError_t use_device(int device) {
   return cudaSetDevice(device);
 }
 
+// The SM count of `device`, asked once (0 if it cannot be had).
+inline int sm_count(int device) {
+  static std::atomic<int> cached[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return 0;
+  int v = cached[device].load(std::memory_order_relaxed);
+  if (v == 0 && cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount,
+                                       device) == cudaSuccess)
+    cached[device].store(v, std::memory_order_relaxed);
+  return v;
+}
+
 // Raises Kernel's dynamic shared-memory limit to `bytes` once per device,
 // so launches do not pay for the call and none is made while a CUDA graph
 // is being captured.  `device` must be current.

@@ -74,6 +74,10 @@ _SIGNATURES = {
     # D, dtype, which (0 dK/dV, 1 dQ), device -> blocks per SM, shared
     # memory bytes
     "gfdit_attention_bwd_occupancy": [_I] * 4 + [_IP, _IP],
+    # x, w, y, M, N, K, tile rows, device, stream
+    "gfdit_gemm": [_P] * 3 + [_I] * 5 + [_P],
+    # tile rows, device -> blocks per SM, shared memory bytes
+    "gfdit_gemm_occupancy": [_I] * 2 + [_IP, _IP],
 }
 
 _RESTYPES = {"gfdit_adaln_bwd_scratch": ctypes.c_longlong,

@@ -15,6 +15,12 @@ another checkout.
 from __future__ import annotations
 
 
+def gemm(m: int, n: int, k: int) -> tuple[int, int]:
+    """The fp32 product y (m, n) = x (m, k) @ w (k, n): 2 k operations an
+    output; x and w read, y written (fp32)."""
+    return 2 * m * n * k, 4 * (m * k + k * n + m * n)
+
+
 def _pairs(sq: int, sk: int, causal: bool) -> int:
     """(query, key) pairs one head scores: the lower triangle when
     causal (Sq == Sk), else all of them."""

@@ -10,6 +10,13 @@ nothing is padded: the kernels mask ragged sequence edges themselves.
 Each launch adds one to :data:`launches` under the wrapper's name, so a
 run can show that its path went through the kernels.
 
+Products.  :func:`linear` is the fp32 product ``x @ w`` on the tensor
+cores in split-TF32 (``csrc/gemm.cu``).  The models reach it through
+``sharding.ctx.product``, which asks :func:`product_route` where each
+product runs: the kernel for the fp32 token-row products on the card,
+cuBLAS for the rest, each fp32 one on the card counted by its reason in
+:data:`library_products`.
+
 Gradients.  ``attention``, ``fused_adaln`` and ``ssd`` are
 differentiable: when grad mode is on and an operand requires grad they
 run through a ``torch.autograd.Function`` whose backward is K2's, K1's or
@@ -89,11 +96,19 @@ SSD_BWD_STAGES = ("ssd_bwd_dstate_mma", "ssd_bwd_state_pass",
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 
+#: the tile rows the GEMM kernel (``csrc/gemm.cu``) is instantiated for,
+#: the first preferred on a tie; a tile is that many rows of x by
+#: GEMM_TILE_COLS output columns
+GEMM_TILE_ROWS = (128, 96)
+GEMM_TILE_COLS = 128
+#: why :func:`product_route` left an fp32 product on the card to cuBLAS
+LIBRARY_REASONS = ("rows", "grad", "dtensor", "align", "experts")
+
 _count_lock = threading.Lock()
 #: kernel launches per wrapper since the last :func:`reset_launches`
 launches = {"fused_adaln": 0, "attention": 0, "splice_attention": 0,
             "ssd": 0, "attention_bwd": 0, "fused_adaln_bwd": 0,
-            "ssd_bwd": 0}
+            "ssd_bwd": 0, "linear": 0}
 #: launches of K2's and K3's kernels by dtype and route, one a wrapper
 #: call (also counted under the wrapper's name in :data:`launches`): the
 #: tensor-core tile kernel alone, or split keys (the tile kernel over its
@@ -103,7 +118,10 @@ launches = {"fused_adaln": 0, "attention": 0, "splice_attention": 0,
 kernel_launches = {"attention fp32": 0, "attention fp32 split": 0,
                    "attention bf16": 0, "attention bf16 split": 0,
                    "ssd fp32": 0, "ssd bf16": 0, "ssd_bwd fp32": 0,
-                   "ssd_bwd bf16": 0}
+                   "ssd_bwd bf16": 0, "gemm fp32": 0}
+#: fp32 products on the card that :func:`product_route` left to cuBLAS
+#: since the last reset, by reason (:data:`LIBRARY_REASONS`)
+library_products = dict.fromkeys(LIBRARY_REASONS, 0)
 #: the library's C entry points by name, bound on first use
 _fns: dict = {}
 #: (wrapper, operations, bytes) of every call the shape-only branch took
@@ -113,10 +131,9 @@ shape_only: list = []
 
 def reset_launches() -> None:
     with _count_lock:
-        for name in launches:
-            launches[name] = 0
-        for name in kernel_launches:
-            kernel_launches[name] = 0
+        for counts in (launches, kernel_launches, library_products):
+            for name in counts:
+                counts[name] = 0
 
 
 @dataclasses.dataclass
@@ -912,6 +929,139 @@ class _SSD(torch.autograd.Function):
                          scratch=scratch), None)
 
 
+def gemm_tiles(m: int, n: int, rows: int) -> int:
+    """Output tiles of an ``m`` x ``n`` product in tiles of ``rows`` rows
+    by :data:`GEMM_TILE_COLS` columns."""
+    return -(-m // rows) * -(-n // GEMM_TILE_COLS)
+
+
+def gemm_route(dtype, device: str, *, x_shape: tuple, w_shape: tuple,
+               sms: int, dtensor: bool = False, grad: bool = False,
+               contiguous: bool = True, aligned: bool = True) -> str:
+    """The product rule, a pure function of what the operands of ``x @
+    w`` show: their common ``dtype`` (None if they differ) and ``device``
+    type, their shapes, the card's ``sms``, whether either is a
+    ``DTensor``, whether autograd will differentiate the product, whether
+    both are contiguous and 16-byte aligned.  ``"gemm"`` for
+    :func:`linear`'s kernel (fp32 on the card, a 2-d weight, no gradient,
+    K and N multiples of 4, contiguous and aligned, at least 64 rows and
+    64 output columns whose tiles fill at least half the SMs); one of
+    :data:`LIBRARY_REASONS` for an fp32 product on the card left to
+    cuBLAS (``"dtensor"``: a sharded operand; ``"experts"``: a 3-d
+    weight; ``"grad"``: a gradient wanted; ``"align"``: rows or addresses
+    off 16 bytes, which the kernel's loads cannot take; ``"rows"``: too
+    few rows or output columns to fill half the card even in the smallest
+    tiles, where cuBLAS's small tiles and split K are the faster: the 77
+    text tokens' products, a 64-column output head, batch rows);
+    ``"other"`` for the rest (the CPU, ``meta``, another dtype, shapes
+    ``x @ w`` refuses), which the rule does not count.  The SMs are the
+    last question: at ``sms=0`` the rule answers as on any card, except
+    that a product it sends to the kernel may still be ``"rows"``."""
+    if device != "cuda" or dtype != torch.float32:
+        return "other"
+    if dtensor:
+        return "dtensor"
+    if len(w_shape) != 2:
+        return "experts"
+    if grad:
+        return "grad"
+    k, n = w_shape
+    if not x_shape or x_shape[-1] != k:
+        return "other"
+    if k % 4 or n % 4 or not (contiguous and aligned):
+        return "align"
+    m = math.prod(x_shape) // k if k else 0
+    if n < 64 or m < 64 or \
+            2 * gemm_tiles(m, n, min(GEMM_TILE_ROWS)) < sms:
+        return "rows"
+    return "gemm"
+
+
+def product_route(x, w) -> str:
+    """:func:`gemm_route` of the operands of ``x @ w``; the card's SM
+    count is read only for a product that could take the kernel."""
+    dtype = x.dtype if x.dtype == w.dtype else None
+    if not (x.is_cuda and dtype == torch.float32):   # the CPU tests' path
+        return "other"
+    if isinstance(x, DTensor) or isinstance(w, DTensor):
+        return gemm_route(dtype, "cuda", x_shape=(), w_shape=(), sms=0,
+                          dtensor=True)
+    facts = dict(
+        x_shape=x.shape, w_shape=w.shape,
+        grad=torch.is_grad_enabled() and (x.requires_grad
+                                          or w.requires_grad),
+        contiguous=x.is_contiguous() and w.is_contiguous(),
+        aligned=not (x.data_ptr() % 16 or w.data_ptr() % 16))
+    route = gemm_route(dtype, "cuda", sms=0, **facts)
+    if route != "gemm":
+        return route
+    return gemm_route(dtype, "cuda", sms=_sm_count(x.get_device()), **facts)
+
+
+def count_library(route: str) -> None:
+    """Counts a product :func:`product_route` left to cuBLAS under its
+    reason (:data:`library_products`); other routes count nothing."""
+    if route in library_products:
+        with _count_lock:
+            library_products[route] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_tile_rows(m: int, n: int, sms: int) -> int:
+    """The tile rows (:data:`GEMM_TILE_ROWS`) of :func:`linear`'s kernel
+    for an ``m`` x ``n`` output on a card of ``sms`` SMs: the one whose
+    waves of tiles cost least, a wave costing its tile rows plus 32 (the
+    per-tile work that does not shrink with the rows); the first on a
+    tie.  A fixed function of the shape: nothing is tuned at run time."""
+    def waves_cost(rows):
+        return -(-gemm_tiles(m, n, rows) // sms) * (rows + 32)
+    return min(GEMM_TILE_ROWS, key=waves_cost)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def linear(x, w):
+    """``x (..., K) @ w (K, N)`` -> (..., N), fp32.  On the card one
+    launch of ``csrc/gemm.cu``'s split-TF32 kernel (three TF32 products
+    for each fp32 one on the tensor cores, fresh accumulators summed on
+    the CUDA cores every 32 k; within 1e-5 rel-L2 of the fp32 product)
+    in tiles of :func:`gemm_tile_rows` rows, counted under ``"gemm
+    fp32"`` in :data:`kernel_launches`; both operands fp32, contiguous
+    and 16-byte aligned, K and N multiples of 4, else it raises (nothing
+    is copied).  No backward: raises when autograd would differentiate
+    through it (:func:`product_route` sends such products to cuBLAS).
+    The CPU version is ``ref.linear_ref``."""
+    if not (x.is_cuda or _on_card(x, w)):
+        return ref.linear_ref(x, w)
+    name = "linear"
+    _refuse_grad(name, "the rule routes products that want a gradient "
+                 "to cuBLAS", x, w)
+    if w.dim() != 2 or x.dim() == 0 or x.shape[-1] != w.shape[0]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} @ w {tuple(w.shape)}: "
+                         f"expected x (..., K) and w (K, N)")
+    k, n = w.shape
+    _check(name, x, ("x", x, x.shape), ("w", w, w.shape))
+    if x.dtype != torch.float32:
+        raise ValueError(f"{name}: the kernel takes float32, got {x.dtype}")
+    if k % 4 or n % 4:
+        raise ValueError(f"{name}: K={k} and N={n} must be multiples of 4 "
+                         f"(the kernel moves rows in 16-byte pieces)")
+    pointers = dict(x=x.data_ptr(), w=w.data_ptr())
+    _aligned(name, **pointers)
+    m = x.numel() // k
+    y = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    dev = x.get_device()
+    _launch(name, _fn("gfdit_gemm"), pointers["x"], pointers["w"],
+            y.data_ptr(), m, n, k, gemm_tile_rows(m, n, _sm_count(dev)), dev,
+            _stream(dev), route="gemm fp32")
+    return y
+
+
 def _occupancy(name: str, fn, *args, extra=()) -> tuple[int, int]:
     blocks, smem = ctypes.c_int(), ctypes.c_int()
     err = fn(*args, ctypes.byref(blocks), ctypes.byref(smem), *extra)
@@ -985,3 +1135,14 @@ def ssd_bwd_occupancy(b: int, l: int, h: int, p: int, n: int, chunk: int,
                                          ctypes.byref(threads)))
         out[name] = (blocks, smem, grid.value, threads.value)
     return out
+
+
+def gemm_occupancy(rows: int, device: int = 0) -> tuple[int, int]:
+    """(resident blocks per SM, dynamic shared-memory bytes) of
+    :func:`linear`'s kernel with tiles of ``rows`` rows, from the CUDA
+    occupancy calculator."""
+    if rows not in GEMM_TILE_ROWS:
+        raise ValueError(f"linear: no kernel with {rows}-row tiles "
+                         f"({GEMM_TILE_ROWS})")
+    return _occupancy("gemm_occupancy", _fn("gfdit_gemm_occupancy"), rows,
+                      device)

@@ -17,6 +17,11 @@ from __future__ import annotations
 import torch
 
 
+def linear_ref(x, w):
+    """``x @ w``: x (..., K) and w (K, N) -> (..., N)."""
+    return x @ w
+
+
 def _scores(q, k, causal: bool):
     """fp32 scores q.k^T / sqrt(d), (B, H, Sq, Sk), with k's heads
     repeated over their GQA group and the causal mask filled with -1e30."""

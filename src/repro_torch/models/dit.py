@@ -29,6 +29,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.layers import pspec, pzeros, resolve_device
 from repro_torch.sharding import constrain
+from repro_torch.sharding.ctx import product
 
 # ---------------------------------------------------------------------------
 # Embeddings
@@ -81,8 +82,9 @@ def _gated_residual(residual, gate, branch):
 
 
 def _split_mods(c, w, b, n: int):
-    """silu(c) @ w + b split into ``n`` contiguous (B, D) pieces."""
-    mods = F.silu(c) @ w.to(c.dtype) + b.to(c.dtype)
+    """silu(c) @ w + b split into ``n`` contiguous (B, D) pieces (a
+    product of batch rows, which the product rule leaves to cuBLAS)."""
+    mods = product(F.silu(c), w.to(c.dtype)) + b.to(c.dtype)
     return [m.contiguous() for m in mods.chunk(n, dim=-1)]
 
 
@@ -256,16 +258,20 @@ def forward_sp_tokens(model: DiT, tok_shard, t, txt_embeds, cfg: ModelConfig,
     attends over without materializing the spliced K/V.
 
     Returns the velocity prediction for the local token shard
-    (B, N_local, patch_dim).
+    (B, N_local, patch_dim).  Every product goes through
+    ``sharding.ctx.product``: in fp32 on the card the token rows' (the
+    patch embedding, q/k/v/o, cross q/o and the text's k/v, the MLP, the
+    text projection and the output head) run the split-TF32 kernel, the
+    timestep MLP's and the modulations' batch rows cuBLAS.
     """
-    x = tok_shard.to(dtype) @ model.x_embed.to(dtype)
+    x = product(tok_shard.to(dtype), model.x_embed.to(dtype))
     pe = _sincos(n_total, model.pos_freqs).to(dtype)
     x = x + pe[pos_offset:pos_offset + x.shape[1]][None]
 
     t_emb = timestep_embedding(t, 256)
-    c = t_emb @ model.t_mlp1.to(dtype)
-    c = F.silu(c) @ model.t_mlp2.to(dtype)
-    txt = txt_embeds.to(dtype) @ model.txt_proj.to(dtype)
+    c = product(t_emb, model.t_mlp1.to(dtype))
+    c = product(F.silu(c), model.t_mlp2.to(dtype))
+    txt = product(txt_embeds.to(dtype), model.txt_proj.to(dtype))
     c = c + txt.mean(dim=1)
 
     for i, blk in enumerate(model.blocks):
@@ -293,4 +299,4 @@ def forward_sp_tokens(model: DiT, tok_shard, t, txt_embeds, cfg: ModelConfig,
 
     sh, sc = _split_mods(c, model.final_ada_w, model.final_ada_b, 2)
     x = _mod_norm(x, sh, sc)
-    return x @ model.final_out.to(dtype)
+    return product(x, model.final_out.to(dtype))

@@ -11,7 +11,9 @@ local tensors (each rank's own shard), so a plain tensor comes back
 unchanged under a context too.
 
 :func:`product` and :func:`index_write` are the model code's ``x @ w``
-and ``dst[key] = value``: on plain tensors exactly those; on
+and ``dst[key] = value``: on plain tensors exactly those (an fp32 product
+on the card through ``ops.linear``'s kernel where ``ops.product_route``
+sends it); on
 ``DTensor`` operands (the dry run's) they run each rank's local tensors
 under XLA's partitioning of a product and of a scatter, where DTensor's
 own would choose op by op (torch 2.11 also refuses to flatten a sharded
@@ -140,7 +142,15 @@ def expert_product_rule(x: DTensor, w: DTensor) -> tuple:
 def product(x, w):
     """``x @ w`` for a 2-d ``w``, or per expert for a 3-d one (``x (...,
     E, n, d)``); for ``DTensor`` operands by :func:`product_rule` or
-    :func:`expert_product_rule`, on each rank's local tensors."""
+    :func:`expert_product_rule`, on each rank's local tensors.  An fp32
+    token-row product on the card runs the split-TF32 kernel
+    (``ops.linear``), as ``ops.product_route`` decides from the operands;
+    any other product is cuBLAS's, the fp32 ones on the card counted by
+    the rule's reason."""
+    route = ops.product_route(x, w)
+    if route == "gemm":
+        return ops.linear(x, w)
+    ops.count_library(route)
     if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
         return x @ w
     rule = product_rule if w.ndim == 2 else expert_product_rule
@@ -342,3 +352,7 @@ def split_ready(t, dim: int, first: int):
     if isinstance(t, DTensor):
         t = _whole(settled(t), dim, first)
     return t
+
+
+# last: ops imports this module's per_rank and placements_of, defined above
+from repro_torch.kernels import ops  # noqa: E402

@@ -1779,3 +1779,118 @@ def test_cuda_resilient_trainer_restart_is_bitwise(cuda_device, tmp_path):
         assert torch.equal(p1[name], p2[name]), name
         assert torch.equal(o1.m[name], o2.m[name]), name
         assert torch.equal(o1.v[name], o2.v[name]), name
+
+
+# The fp32 products' split-TF32 GEMM (ops.linear, csrc/gemm.cu) at the
+# benchmark cells' shapes, (m, n, k): image-interactive's (1024 and 4096
+# tokens: q/k/v/o, gate and up, down, the patch embedding, the output
+# head), the text's 77 tokens (text projection, cross k/v), video-l's
+# 18,480 tokens (the K = 14,336 down product among them: its 5,376 TF32
+# products an output would drift under the tensor cores' truncating sum
+# if the kernel did not add its fresh accumulators on the CUDA cores),
+# and ragged edges against every tile dimension.
+GEMM_CASES = [
+    (1024, 1536, 1536), (1024, 8960, 1536), (1024, 1536, 8960),
+    (1024, 1536, 64), (1024, 64, 1536), (4096, 1536, 1536),
+    (77, 1536, 1024), (77, 3072, 3072), (18480, 3072, 3072),
+    (18480, 14336, 3072), (18480, 3072, 14336), (18480, 3072, 192),
+    (18480, 192, 3072), (130, 196, 100), (1, 64, 64), (77, 64, 192),
+]
+
+
+def _gemm_operands(m, n, k, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=device)
+    w = torch.randn((k, n), generator=g, device=device) * k ** -0.5
+    return x, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, n, k", GEMM_CASES)
+def test_cuda_gemm_against_fp64(cuda_device, m, n, k):
+    """Within 1e-5 rel-L2 of the fp64 product, the budget of every fp32
+    card case, every output finite."""
+    x, w = _gemm_operands(m, n, k, cuda_device)
+    y = ops.linear(x, w)
+    torch.cuda.synchronize()
+    exact = x.double() @ w.double()
+    err = ((y.double() - exact).norm() / exact.norm()).item()
+    assert y.shape == (m, n) and torch.isfinite(y).all()
+    assert err <= TOL["float32"], err
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_leading_dims_and_counts(cuda_device):
+    """x (B, S, K) gives (B, S, N); each call is one launch, counted under
+    the wrapper and the kernel."""
+    x, w = _gemm_operands(2 * 300, 256, 512, cuda_device, seed=1)
+    ops.reset_launches()
+    y = ops.linear(x.view(2, 300, 512), w)
+    y2 = ops.linear(x, w)
+    torch.cuda.synchronize()
+    assert y.shape == (2, 300, 256)
+    assert torch.equal(y.view(600, 256), y2)
+    assert ops.launches["linear"] == ops.kernel_launches["gemm fp32"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_refuses_what_it_does_not_take(cuda_device):
+    """A misaligned or non-contiguous operand, K or N off a multiple of 4,
+    or bf16 raises: nothing is copied, nothing falls back."""
+    x, w = _gemm_operands(128, 128, 128, cuda_device)
+    buf = torch.zeros(128 * 128 + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.linear(buf[1:].view(128, 128), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.linear(x, w.t())
+    with pytest.raises(ValueError, match="multiples of 4"):
+        ops.linear(x[:, :126].contiguous(), w[:126].contiguous())
+    with pytest.raises(ValueError, match="float32"):
+        ops.linear(x.bfloat16(), w.bfloat16())
+
+
+@pytest.mark.cuda
+def test_cuda_products_by_route(cuda_device):
+    """``sharding.ctx.product`` on the card: an fp32 token-row product
+    whose tiles fill the card launches the kernel; one that wants a
+    gradient, one of batch rows and a transposed weight stay cuBLAS's,
+    bit for bit, each counted by its reason; bf16 is neither launched nor
+    counted."""
+    from repro_torch.sharding.ctx import product
+    x, w = _gemm_operands(1024, 1536, 64, cuda_device, seed=2)
+    ops.reset_launches()
+    y = product(x.view(1, 1024, 64), w)
+    assert ops.kernel_launches["gemm fp32"] == 1
+    wg = w.clone().requires_grad_(True)
+    assert torch.equal(product(x, wg), x @ wg)
+    assert torch.equal(product(x[:8], w), x[:8] @ w)
+    wt = w.t().contiguous().t()
+    assert torch.equal(product(x, wt), x @ wt)
+    assert torch.equal(product(x.bfloat16(), w.bfloat16()),
+                       x.bfloat16() @ w.bfloat16())
+    assert ops.kernel_launches["gemm fp32"] == 1
+    assert ops.library_products == {"rows": 1, "grad": 1, "dtensor": 0,
+                                    "align": 1, "experts": 0}
+    exact = x.double() @ w.double()
+    assert ((y.view(1024, 1536).double() - exact).norm()
+            / exact.norm()).item() <= TOL["float32"]
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_runs_split_tf32(cuda_device):
+    """The GEMM at every tile height holds TF32 tensor-core instructions
+    (wgmma: HGMMA) in a count divisible by 3, three to each fp32 product,
+    and no bf16 ones."""
+    from repro_torch.kernels import build
+    build.load()
+    funcs = _sass_functions(build.library_path())
+    found = {rows: body for rows in ops.GEMM_TILE_ROWS
+             for f, body in funcs.items()
+             if f"gemm_3xtf32_kernelILi{rows}E" in f}
+    assert sorted(found) == sorted(ops.GEMM_TILE_ROWS), sorted(funcs)
+    for rows, body in found.items():
+        mma = [line for line in body.splitlines()
+               if "GMMA" in line or "HMMA" in line]
+        assert mma and len(mma) % 3 == 0, (rows, len(mma))
+        assert all("TF32" in line for line in mma), rows
+        assert "BF16" not in body, rows
